@@ -1,0 +1,58 @@
+"""PointNet++ SSG segmentation in PyTorch (counterpart of
+pointcloud_bridge_tpu/models/pointnet2.py::PointNet2SSG)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .common import FeaturePropagation, SegHead, SetAbstraction
+
+
+class PointNet2SSG(SegHead):
+    """PointNet++ SSG semantic segmentation (reference model.py:12-56).
+
+    forward(xyz [B, N, 3], features [B, N, in_features] or None) -> logits
+    [B, N, num_classes], float32. SA levels (npoint, radius, nsample, mlp):
+    (1024, 0.1, 32, (64, 64, 128)), (256, 0.2, 32, (128, 128, 256)),
+    (64, 0.4, 32, (256, 256, 512)); FP widths (256, 256), (256, 128),
+    (128, 128, 128); head 128. ``sa_npoints`` shrinks the SA levels for
+    tests. The head's layers sit at the top of the state_dict (conv1, bn1,
+    conv2) as in the reference, so the model extends SegHead.
+
+    On CUDA the model expects full float32 matmuls: set
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` and
+    ``torch.backends.cudnn.allow_tf32 = False`` (``run_block_inference``
+    does so). TF32 keeps about three decimal digits, too few for the 2e-4
+    band the port is held to against the JAX package.
+    """
+
+    def __init__(
+        self,
+        num_classes: int = 5,
+        sa_npoints: tuple = (1024, 256, 64),
+        dropout_rate: float = 0.5,
+        in_features: int = 3,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(128, num_classes, 128, dropout_rate, generator)
+        n1, n2, n3 = sa_npoints
+        g = generator
+        self.sa1 = SetAbstraction(n1, 0.1, 32, 3 + in_features, (64, 64, 128), g)
+        self.sa2 = SetAbstraction(n2, 0.2, 32, 3 + 128, (128, 128, 256), g)
+        self.sa3 = SetAbstraction(n3, 0.4, 32, 3 + 256, (256, 256, 512), g)
+        self.fp3 = FeaturePropagation(256 + 512, (256, 256), g)
+        self.fp2 = FeaturePropagation(128 + 256, (256, 128), g)
+        self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+
+    def forward(
+        self, xyz: torch.Tensor, features: Optional[torch.Tensor]
+    ) -> torch.Tensor:
+        l1_xyz, l1 = self.sa1(xyz, features)
+        l2_xyz, l2 = self.sa2(l1_xyz, l1)
+        l3_xyz, l3 = self.sa3(l2_xyz, l2)
+        l2 = self.fp3(l2_xyz, l3_xyz, l2, l3)
+        l1 = self.fp2(l1_xyz, l2_xyz, l1, l2)
+        l0 = self.fp1(xyz, l1_xyz, None, l1)
+        return super().forward(l0)

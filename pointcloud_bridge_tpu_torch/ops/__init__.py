@@ -1,0 +1,22 @@
+"""Point-cloud ops of the PyTorch port, channel-last like the JAX package.
+
+Each op that the JAX package runs as a Pallas kernel has a hand-written CUDA
+kernel here (csrc/) and a plain PyTorch version beside it in the same
+module: a CPU tensor takes the plain version, a CUDA tensor the kernel.
+"""
+
+from .core import index_points, pairwise_sq_dist, square_distance
+from .grouping import group_points, query_ball_point, sample_and_group
+from .interpolate import three_nn_interpolate
+from .sampling import farthest_point_sample
+
+__all__ = [
+    "farthest_point_sample",
+    "group_points",
+    "index_points",
+    "pairwise_sq_dist",
+    "query_ball_point",
+    "sample_and_group",
+    "square_distance",
+    "three_nn_interpolate",
+]

@@ -1,0 +1,190 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+The ``.cu`` files in the repository are the only source of truth. On first
+use, ``nvcc`` compiles all of them into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), named by a hash of
+the sources and the flags, under ``build/pointcloud_bridge_tpu_torch/`` at
+the repository root; a later call with unchanged sources loads the same
+file. The library is loaded with ``ctypes``.
+
+Each kernel is a :class:`Kernel`: its C entry point, its argument types, and
+a launch counter that goes up by one for every successful launch, so that a
+run can show which kernels the main path went through. The wrappers in the
+``ops`` modules check their tensors and call :meth:`Kernel.launch` with
+raw pointers and PyTorch's current stream.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+_REPO = _PKG.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _REPO / "build" / "pointcloud_bridge_tpu_torch"
+
+# -fmad=false: no FMA contraction anywhere, so distances round exactly as in
+# the reference's separate multiply and add (common.cuh spells it out too).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One C entry point of the library, with its launch counter."""
+
+    name: str
+    symbol: str
+    argtypes: tuple
+    source: str  # path in the repository
+    replaces: str  # file:line of the Pallas kernel it ports
+    launches: int = 0
+
+    def launch(self, *args) -> None:
+        """Call the entry point; raise if it returns a CUDA error."""
+        lib = library()
+        err = getattr(lib, self.symbol)(*args)
+        if err != 0:
+            msg = lib.pcb_error_string(err).decode()
+            raise RuntimeError(f"{self.name} kernel: CUDA error {err}: {msg}")
+        self.launches += 1
+
+
+FPS = Kernel(
+    "fps", "pcb_fps",
+    # xyz, start, out, B, N, npoint, device, stream
+    (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/fps.cu",
+    "pointcloud_bridge_tpu/ops/pallas_kernels/fps.py:137",
+)
+BALL_QUERY = Kernel(
+    "ball_query", "pcb_ball_query",
+    # xyz, centers, out, B, N, S, K, r2, device, stream
+    (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/ballq.cu",
+    "pointcloud_bridge_tpu/ops/pallas_kernels/ballq.py:85",
+)
+GROUP = Kernel(
+    "group", "pcb_group",
+    # xyz, centers, idx, feats, out, B, N, S, K, C, device, stream
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/group.cu",
+    "pointcloud_bridge_tpu/ops/pallas_kernels/gather3.py:57",
+)
+INTERPOLATE = Kernel(
+    "interpolate", "pcb_interpolate",
+    # dst, src, feats, out, B, N, S, D, k, device, stream
+    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/interp.cu",
+    "pointcloud_bridge_tpu/ops/pallas_kernels/interp3.py:53",
+)
+KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless a library for these sources exists.
+
+    The ptxas report (registers, shared memory, spills of every kernel) is
+    kept beside the library as ``<name>.log``. A failed build raises with
+    nvcc's output.
+    """
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        )
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent build leaves one whole file
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's signature."""
+    lib = ctypes.CDLL(str(build()))
+    for k in KERNELS:
+        fn = getattr(lib, k.symbol)
+        fn.argtypes = list(k.argtypes)
+        fn.restype = ctypes.c_int
+    lib.pcb_error_string.argtypes = [ctypes.c_int]
+    lib.pcb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 ndim: int) -> None:
+    """Raise unless t is a contiguous CUDA tensor of dtype and rank ndim."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_args(t: torch.Tensor) -> tuple:
+    """(device index, current stream handle) for a launch on t's device."""
+    dev = t.device.index
+    return dev, torch.cuda.current_stream(dev).cuda_stream

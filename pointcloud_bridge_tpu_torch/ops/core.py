@@ -1,0 +1,46 @@
+"""Core dense ops: batched gather and pairwise squared distances.
+
+Counterpart of pointcloud_bridge_tpu/ops/core.py. The 3-channel grouped
+gather that the JAX package runs as a Pallas kernel is fused into
+``group_points`` here (ops/grouping.py, kernel csrc/group.cu).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched gather: out[b, ...] = points[b, clamp(idx[b, ...], 0, N-1)].
+
+    points [B, N, C], idx integer [B, ...] -> [B, *idx.shape[1:], C]. The
+    clamp is the reference's (ops/core.py:83-105): a ball-query miss is
+    index N and reads point N-1.
+    """
+    b, n, c = points.shape
+    flat = idx.reshape(b, -1).clamp(0, n - 1).long()
+    out = torch.gather(points, 1, flat.unsqueeze(-1).expand(-1, -1, c))
+    return out.reshape(*idx.shape, c)
+
+
+def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, M, 3] x [B, N, 3] -> [B, M, N] squared distances in the direct
+    form the kernels use: (dx*dx + dy*dy) + dz*dz, each step its own
+    elementwise op so that the rounding is the same on every device. (A
+    ``.sum(-1)`` over the coordinates leaves the order to the backend.)"""
+    d = [a[..., i].unsqueeze(2) - b[..., i].unsqueeze(1) for i in range(3)]
+    return (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distance in the reference's expanded form
+    -2*src@dst^T + |src|^2 + |dst|^2 (ops/core.py:58-80), kept for API
+    parity. The ops of the slice use ``pairwise_sq_dist`` instead: the
+    expansion cancels and can move a point across a radius or a tie.
+
+    src [B, N, C], dst [B, M, C] -> [B, N, M].
+    """
+    cross = torch.einsum("bnc,bmc->bnm", src, dst)
+    s2 = (src * src).sum(-1).unsqueeze(2)
+    d2 = (dst * dst).sum(-1).unsqueeze(1)
+    return -2.0 * cross + s2 + d2
