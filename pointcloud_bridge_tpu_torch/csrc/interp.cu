@@ -2,7 +2,7 @@
 //
 // Replaces: pointcloud_bridge_tpu/ops/pallas_kernels/interp3.py,
 // _interp_kernel with _blend_tile (called by _interp_call; entry
-// interpolate_pallas). The backward (_interp_bwd_kernel) is not ported yet.
+// interpolate_pallas). The backward (_interp_bwd_kernel) is interp_bwd.cu.
 //
 // Semantics (pointnet2_utils.py:171-211): for each destination point, the k
 // nearest sources by squared distance, picked as an iterative first-min
@@ -25,6 +25,10 @@
 // blends its 256 rows with the channel as the fastest index, so feature
 // loads and output stores coalesce. The one-hot [TQ, S] x [S, D] product of
 // the Pallas kernel was a TPU artefact and has no counterpart.
+//
+// When a backward will follow, the kernel also writes each query's selected
+// indices and normalised weights ([B, N, k] int32 and float32), so that the
+// backward is one scatter pass instead of a second neighbour search.
 #include <climits>
 
 #include "common.cuh"
@@ -38,7 +42,9 @@ template <int K>
 __global__ void interp_kernel(const float* __restrict__ dst,
                               const float* __restrict__ src,
                               const float* __restrict__ feats,
-                              float* __restrict__ out, int n, int s, int d) {
+                              float* __restrict__ out,
+                              int* __restrict__ idx_out,
+                              float* __restrict__ w_out, int n, int s, int d) {
   __shared__ float sx[kTile], sy[kTile], sz[kTile];
   __shared__ int sel_idx[kQueries][K];
   __shared__ float sel_w[kQueries][K];
@@ -110,6 +116,14 @@ __global__ void interp_kernel(const float* __restrict__ dst,
       // only a NaN coordinate leaves a slot unfilled; keep the read in bounds
       sel_idx[threadIdx.x][t] = bi[t] == INT_MAX ? 0 : bi[t];
     }
+    if (idx_out != nullptr) {
+      const size_t row = ((size_t)b * n + q) * K;
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        idx_out[row + t] = sel_idx[threadIdx.x][t];
+        w_out[row + t] = sel_w[threadIdx.x][t];
+      }
+    }
   }
   __syncthreads();
 
@@ -131,25 +145,29 @@ __global__ void interp_kernel(const float* __restrict__ dst,
 
 template <int K>
 void launch_interp(const float* dst, const float* src, const float* feats,
-                   float* out, int b, int n, int s, int d, cudaStream_t st) {
+                   float* out, int* idx_out, float* w_out, int b, int n, int s,
+                   int d, cudaStream_t st) {
   const dim3 grid((n + kQueries - 1) / kQueries, b);
-  interp_kernel<K><<<grid, kQueries, 0, st>>>(dst, src, feats, out, n, s, d);
+  interp_kernel<K><<<grid, kQueries, 0, st>>>(dst, src, feats, out, idx_out,
+                                              w_out, n, s, d);
 }
 
 }  // namespace
 
-// 1 <= k <= min(4, s), checked by the wrapper.
+// 1 <= k <= min(4, s), checked by the wrapper. idx_out and w_out are both
+// null (no backward to follow) or both [B, N, k].
 PCB_API int pcb_interpolate(const float* dst, const float* src,
-                            const float* feats, float* out, int b, int n,
-                            int s, int d, int k, int device, void* stream) {
+                            const float* feats, float* out, int* idx_out,
+                            float* w_out, int b, int n, int s, int d, int k,
+                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   switch (k) {
-    case 1: launch_interp<1>(dst, src, feats, out, b, n, s, d, st); break;
-    case 2: launch_interp<2>(dst, src, feats, out, b, n, s, d, st); break;
-    case 3: launch_interp<3>(dst, src, feats, out, b, n, s, d, st); break;
-    case 4: launch_interp<4>(dst, src, feats, out, b, n, s, d, st); break;
+    case 1: launch_interp<1>(dst, src, feats, out, idx_out, w_out, b, n, s, d, st); break;
+    case 2: launch_interp<2>(dst, src, feats, out, idx_out, w_out, b, n, s, d, st); break;
+    case 3: launch_interp<3>(dst, src, feats, out, idx_out, w_out, b, n, s, d, st); break;
+    case 4: launch_interp<4>(dst, src, feats, out, idx_out, w_out, b, n, s, d, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

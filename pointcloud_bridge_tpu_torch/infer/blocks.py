@@ -52,7 +52,7 @@ def run_block_inference(
         if starts[-1] + bsz < nb_total:
             starts.append(nb_total - bsz)  # overlapping tail batch
         outs = []
-        with torch.no_grad():
+        with torch.inference_mode():
             for s in starts:
                 xyz = torch.from_numpy(
                     np.ascontiguousarray(dataset.points[s : s + bsz], np.float32)

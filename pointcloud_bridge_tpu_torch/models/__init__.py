@@ -1,6 +1,8 @@
 """Models of the PyTorch port."""
 
 from .common import (
+    BatchNorm,
+    Dropout,
     FeaturePropagation,
     PointConv,
     SegHead,
@@ -11,6 +13,8 @@ from .pointnet2 import PointNet2SSG
 from .registry import MODEL_REGISTRY, get_model
 
 __all__ = [
+    "BatchNorm",
+    "Dropout",
     "FeaturePropagation",
     "MODEL_REGISTRY",
     "PointConv",

@@ -13,8 +13,10 @@ flat, a set-abstraction or feature-propagation layer *is* a SharedMLP with
 its sampling and grouping added, and a segmentation model *is* a SegHead
 with its encoder and decoder added.
 
-BatchNorm: momentum 0.1 and eps 1e-5, which is flax's momentum 0.9 and eps
-1e-5 as the JAX package sets them.
+BatchNorm has flax's semantics (:class:`BatchNorm`): momentum 0.1 and eps
+1e-5, which is flax's momentum 0.9 and eps 1e-5 as the JAX package sets
+them, and the running variance takes the biased batch variance. Dropout
+draws from a ``torch.Generator`` that the trainer sets (:class:`Dropout`).
 """
 
 from __future__ import annotations
@@ -55,9 +57,71 @@ class PointConv(nn.Module):
         return F.linear(x, self.weight.flatten(1), self.bias)
 
 
-def batch_norm_last(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """Apply a BatchNorm over the last axis of a channel-last tensor."""
-    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+class BatchNorm(nn.Module):
+    """BatchNorm over the last axis of a channel-last tensor, with the
+    semantics of flax's ``nn.BatchNorm`` as the JAX package uses it
+    (models/common.py:52-57).
+
+    Train mode normalises with the biased batch statistics over every axis
+    but the channels and updates ``running_mean``/``running_var`` as
+    ``(1 - momentum) * running + momentum * batch`` with the *biased* batch
+    variance (torch's ``BatchNorm1d`` takes the unbiased one, n/(n-1)).
+    Eval mode normalises with the running statistics. The parameter and
+    buffer names are ``BatchNorm1d``'s, so state_dicts and the weight
+    conversions carry over unchanged.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x2 = x.reshape(-1, x.shape[-1])
+        if not self.training:
+            out = F.batch_norm(x2, self.running_mean, self.running_var,
+                               self.weight, self.bias, False, 0.0, self.eps)
+            return out.reshape(x.shape)
+        # F.batch_norm updates the running statistics from the ones it
+        # computes anyway (no second pass over x), but with the unbiased
+        # variance: rv = (1-m) old + m var n/(n-1). The biased update is
+        # (1-m) old + m var = old (1-m)/n + rv (1 - 1/n). rv goes to a copy,
+        # which autograd saves: the buffer itself is then updated in place.
+        n, m = x2.shape[0], self.momentum
+        rv = self.running_var.clone()
+        out = F.batch_norm(x2, self.running_mean, rv, self.weight, self.bias,
+                           True, m, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - m) / n).add_(rv, alpha=1.0 - 1.0 / n)
+            self.num_batches_tracked.add_(1)
+        return out.reshape(x.shape)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout as flax's ``nn.Dropout``: in train mode keep each
+    element with probability 1 - p and divide the kept ones by 1 - p.
+    The keep mask draws from ``generator`` (a ``torch.Generator`` on the
+    input's device, which the trainer seeds), or from torch's default
+    generator when it is None."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        return x * keep / (1.0 - self.p)
 
 
 class SharedMLP(nn.Module):
@@ -72,12 +136,12 @@ class SharedMLP(nn.Module):
         self.mlp_bns = nn.ModuleList()
         for w in widths:
             self.mlp_convs.append(PointConv(in_ch, w, kdims, generator))
-            self.mlp_bns.append(nn.BatchNorm1d(w, eps=1e-5, momentum=0.1))
+            self.mlp_bns.append(BatchNorm(w))
             in_ch = w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            x = F.relu(batch_norm_last(bn, conv(x)))
+            x = F.relu(bn(conv(x)))
         return x
 
 
@@ -140,10 +204,10 @@ class SegHead(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.conv1 = PointConv(in_ch, hidden, 1, generator)
-        self.bn1 = nn.BatchNorm1d(hidden, eps=1e-5, momentum=0.1)
-        self.drop1 = nn.Dropout(dropout)
+        self.bn1 = BatchNorm(hidden)
+        self.drop1 = Dropout(dropout)
         self.conv2 = PointConv(hidden, num_classes, 1, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(batch_norm_last(self.bn1, self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x)))
         return self.conv2(self.drop1(x))

@@ -92,12 +92,26 @@ GROUP = Kernel(
 )
 INTERPOLATE = Kernel(
     "interpolate", "pcb_interpolate",
-    # dst, src, feats, out, B, N, S, D, k, device, stream
-    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # dst, src, feats, out, idx_out, w_out, B, N, S, D, k, device, stream
+    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/interp.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/interp3.py:53",
 )
-KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE)
+GROUP_BWD = Kernel(
+    "group_bwd", "pcb_group_backward",
+    # g, idx, out, B, N, S, K, width, c0, c1, device, stream
+    (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/group_bwd.cu",
+    "pointcloud_bridge_tpu/ops/core.py:44",
+)
+INTERP_BWD = Kernel(
+    "interp_bwd", "pcb_interpolate_backward",
+    # g, idx, w, df, B, N, S, D, k, device, stream
+    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/interp_bwd.cu",
+    "pointcloud_bridge_tpu/ops/pallas_kernels/interp3.py:115",
+)
+KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD)
 
 
 def reset_launch_counts() -> None:

@@ -3,7 +3,9 @@
 Only the exact semantics are ported: there is no ``approx`` and no
 ``recall_target``. A CPU tensor goes to the plain PyTorch version, a CUDA
 tensor to the kernel (csrc/ballq.cu, csrc/group.cu); both give the same
-result bit for bit.
+result bit for bit. ``group_points`` is the autograd Function
+:class:`GroupPoints` on both devices; its backward is a scatter-add, the
+kernel csrc/group_bwd.cu on the card.
 """
 
 from __future__ import annotations
@@ -90,10 +92,45 @@ def group_points(
 
     xyz [B, N, 3], new_xyz [B, S, 3], idx [B, S, K] int32 (clamped to N-1),
     features [B, N, C] or None -> [B, S, K, 3] or [B, S, K, 3 + C].
+    Differentiable in xyz, new_xyz and features.
     """
-    if xyz.device.type == "cpu":
-        return group_plain(xyz, new_xyz, idx, features)
-    return group_cuda(xyz, new_xyz, idx, features)
+    return GroupPoints.apply(xyz, new_xyz, idx, features)
+
+
+class GroupPoints(torch.autograd.Function):
+    """group_points with its backward: the feature and xyz gradients are a
+    scatter-add of the grouped gradient over the clamped indices (repeats
+    add up), and dnew_xyz = -sum over the K slots of the xyz channels."""
+
+    @staticmethod
+    def forward(ctx, xyz, new_xyz, idx, features):
+        ctx.save_for_backward(idx)
+        ctx.n = xyz.shape[1]
+        if xyz.device.type == "cpu":
+            return group_plain(xyz, new_xyz, idx, features)
+        return group_cuda(xyz, new_xyz, idx, features)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        need_xyz, need_new, _, need_feats = ctx.needs_input_grad
+        width = g.shape[-1]
+        # one scatter covers the contiguous channel range that is needed
+        c0 = 0 if need_xyz else 3
+        c1 = width if need_feats else 3
+        dxyz = dnew = dfeats = None
+        if c0 < c1:
+            if g.device.type == "cpu":
+                d = group_backward_plain(g, idx, ctx.n, c0, c1)
+            else:
+                d = group_backward_cuda(g.contiguous(), idx, ctx.n, c0, c1)
+            if need_xyz:
+                dxyz = d[..., :3]
+            if need_feats:
+                dfeats = d[..., 3 - c0:]
+        if need_new:
+            dnew = -g[..., :3].sum(dim=2)
+        return dxyz, dnew, None, dfeats
 
 
 def group_plain(xyz, new_xyz, idx, features=None) -> torch.Tensor:
@@ -129,6 +166,44 @@ def group_cuda(xyz, new_xyz, idx, features=None) -> torch.Tensor:
         xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
         features.data_ptr() if features is not None else None,
         out.data_ptr(), b, n, s, k, c, *_kernels.stream_args(xyz),
+    )
+    return out
+
+
+def group_backward_plain(
+    g: torch.Tensor, idx: torch.Tensor, n: int, c0: int, c1: int
+) -> torch.Tensor:
+    """Plain scatter-add: g [B, S, K, W], idx [B, S, K] -> [B, N, c1 - c0],
+    the sum of g[..., c0:c1] over the slots whose clamped index is each
+    point. Channels 0-2 of g are xyz, 3.. the features."""
+    b, s, k, _ = g.shape
+    flat = idx.reshape(b, s * k, 1).clamp(0, n - 1).long()
+    src = g[..., c0:c1].reshape(b, s * k, c1 - c0)
+    out = torch.zeros((b, n, c1 - c0), dtype=g.dtype, device=g.device)
+    return out.scatter_add_(1, flat.expand_as(src), src)
+
+
+def group_backward_cuda(
+    g: torch.Tensor, idx: torch.Tensor, n: int, c0: int, c1: int
+) -> torch.Tensor:
+    """Group-backward kernel wrapper: one launch (csrc/group_bwd.cu)."""
+    _kernels.check_tensor("g", g, torch.float32, 4)
+    _kernels.check_tensor("idx", idx, torch.int32, 3)
+    b, s, k, width = g.shape
+    if idx.shape != (b, s, k) or not 0 <= c0 < c1 <= width or n < 1:
+        raise ValueError(
+            f"group backward: bad shapes g {tuple(g.shape)}, idx {tuple(idx.shape)}, "
+            f"channels [{c0}, {c1}), N={n}"
+        )
+    out = torch.empty((b, n, c1 - c0), dtype=torch.float32, device=g.device)
+    total = b * s * k * (c1 - c0)
+    if total >= 2**30 or out.numel() >= 2**31:
+        raise ValueError(f"group backward kernel takes < 2^30 elements, got {total}")
+    if total == 0:
+        return out.zero_()
+    _kernels.GROUP_BWD.launch(
+        g.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, s, k, width, c0, c1,
+        *_kernels.stream_args(g),
     )
     return out
 

@@ -24,6 +24,17 @@ def confusion_matrix(
     return counts.reshape(num_classes, num_classes)
 
 
+def masked_confusion_matrix(
+    preds: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, num_classes: int
+) -> torch.Tensor:
+    """Confusion matrix counting only mask==True points (padded batches):
+    masked-out points go to an extra bin that is dropped."""
+    flat = labels.reshape(-1).long() * num_classes + preds.reshape(-1).long()
+    flat = torch.where(mask.reshape(-1), flat, num_classes * num_classes)
+    counts = torch.bincount(flat, minlength=num_classes * num_classes + 1)
+    return counts[:-1].reshape(num_classes, num_classes)
+
+
 def metrics_from_confusion(cm) -> Dict[str, object]:
     """The inference.py:814-855 metric suite from a [C, C] confusion matrix
     (numpy array or tensor)."""

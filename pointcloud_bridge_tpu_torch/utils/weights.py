@@ -1,4 +1,6 @@
-"""JAX package variables -> the port's state_dict.
+"""JAX package variables -> the port's state_dict, and back
+(``state_dict_to_flax``, which maps gradients and trained weights onto the
+JAX trees leaf by leaf).
 
 Takes ``{"params": ..., "batch_stats": ...}`` of the JAX PointNet2SSG as
 nested dicts of numpy arrays (``jax.device_get`` of the flax variables) and
@@ -64,3 +66,33 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             sd[f"{tp}.weight"] = kernel.T.reshape(kernel.shape[::-1] + trailing)
             sd[f"{tp}.bias"] = _leaf(params, fp + ("bias",))
     return {k: torch.tensor(v) for k, v in sd.items()}  # copies
+
+
+def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``flax_to_state_dict``: a PointNet2SSG state_dict, or
+    any part of one (a dict of gradients holds only weights and biases) ->
+    ``{"params": ..., "batch_stats": ...}`` nested dicts of float32 numpy
+    arrays, with the leaves that ``sd`` has."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+
+    def put(tree: Dict[str, Any], path: Tuple[str, ...], v: torch.Tensor) -> None:
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = v.detach().cpu().numpy().astype(np.float32)
+
+    names = {"weight": "scale", "bias": "bias"}
+    for tp, fp, kind in pointnet2_ssg_rules():
+        if kind == "bn":
+            for key, leaf in names.items():
+                if f"{tp}.{key}" in sd:
+                    put(out["params"], fp + (leaf,), sd[f"{tp}.{key}"])
+            for key, leaf in (("running_mean", "mean"), ("running_var", "var")):
+                if f"{tp}.{key}" in sd:
+                    put(out["batch_stats"], fp + (leaf,), sd[f"{tp}.{key}"])
+        else:
+            if f"{tp}.weight" in sd:
+                w = sd[f"{tp}.weight"]
+                put(out["params"], fp + ("kernel",), w.reshape(w.shape[0], w.shape[1]).T)
+            if f"{tp}.bias" in sd:
+                put(out["params"], fp + ("bias",), sd[f"{tp}.bias"])
+    return out

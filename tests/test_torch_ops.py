@@ -10,6 +10,8 @@ interpolation agrees with the interpret-mode kernel to 1e-5 (both compute
 the direct-form distances; the blend sums in another order).
 """
 
+import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from pointcloud_bridge_tpu.ops.pallas_kernels.ballq import ball_query_pallas
 from pointcloud_bridge_tpu.ops.pallas_kernels.interp3 import interpolate_pallas
 from pointcloud_bridge_tpu.ops.sampling import _fps_jnp
 from pointcloud_bridge_tpu_torch import ops
+from pointcloud_bridge_tpu_torch.models import BatchNorm
 from pointcloud_bridge_tpu_torch.ops import grouping, interpolate, sampling
 
 
@@ -221,6 +224,177 @@ def test_interpolate_few_sources_matches_jax(rng, s, k):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+# ------------------------------------------------------------- backwards
+
+
+@pytest.mark.parametrize(
+    "n,s,d,k",
+    [
+        (128, 32, 64, 3),
+        (96, 40, 24, 4),
+        (50, 1, 8, 3),  # one source: the features broadcast
+        (60, 2, 8, 3),  # k > S: blend over both sources
+    ],
+)
+def test_interpolate_backward_matches_pallas_vjp(rng, n, s, d, k):
+    """d(sum(sin(out)))/dfeats: the port's Interpolate Function and
+    interpolate_backward_plain against jax.grad through the Pallas kernel's
+    custom VJP (interpret mode) within 1e-5, and through the JAX exact CPU
+    path."""
+    dst = rng.uniform(size=(2, n, 3)).astype(np.float32)
+    src = rng.uniform(size=(2, s, 3)).astype(np.float32)
+    f = rng.normal(size=(2, s, d)).astype(np.float32)
+    jd, js, jf = jnp.asarray(dst), jnp.asarray(src), jnp.asarray(f)
+    want = np.asarray(jax.grad(
+        lambda f: jnp.sum(jnp.sin(interpolate_pallas(jd, js, f, k, True)))
+    )(jf))
+    exact = np.asarray(jax.grad(
+        lambda f: jnp.sum(jnp.sin(j_three_nn_interpolate(jd, js, f, k=k, approx=False)))
+    )(jf))
+    tf = _t(f).requires_grad_(True)
+    out = ops.three_nn_interpolate(_t(dst), _t(src), tf, k=k)
+    g = torch.cos(out.detach())
+    out.backward(g)
+    np.testing.assert_allclose(tf.grad.numpy(), want, rtol=1e-5, atol=1e-5)
+    # the exact path weighs by expanded-form distances (-2ab + a^2 + b^2):
+    # tests/test_pallas_kernels.py holds the Pallas VJP to it at this band
+    np.testing.assert_allclose(tf.grad.numpy(), exact, rtol=1e-3, atol=5e-5)
+    if s > 1:  # the plain backward on the saved selection
+        _, idx, w = interpolate.interpolate_plain(_t(dst), _t(src), _t(f), min(k, s), True)
+        plain = interpolate.interpolate_backward_plain(g, idx, w, s)
+        np.testing.assert_allclose(plain.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def _jax_group_grads(xyz, new_xyz, idx, feats, g):
+    def f(x, c, fe):
+        return jnp.sum(jgrouping.group_points(x, c, jnp.asarray(idx), fe) * g)
+
+    return [np.asarray(a) for a in jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(xyz), jnp.asarray(new_xyz), jnp.asarray(feats))]
+
+
+def test_group_backward_matches_jax_with_empty_balls_and_repeats(rng):
+    """Gradients to xyz, new_xyz and features against jax.grad of the JAX
+    group_points: empty-ball slots (index N) send theirs to N-1, and a
+    repeated first hit adds once per slot."""
+    b, n, s, k, c = 2, 64, 16, 8, 5
+    xyz = rng.uniform(size=(b, n, 3)).astype(np.float32)
+    new_xyz = rng.uniform(size=(b, s, 3)).astype(np.float32)
+    feats = rng.normal(size=(b, n, c)).astype(np.float32)
+    idx = rng.integers(0, n, size=(b, s, k)).astype(np.int32)
+    idx[:, 0] = n  # empty balls
+    idx[:, 1, 2:] = idx[:, 1, :1]  # a sparse ball: its first hit repeated
+    g = rng.normal(size=(b, s, k, 3 + c)).astype(np.float32)
+    want = _jax_group_grads(xyz, new_xyz, idx, feats, g)
+    tx, tc, tf = (_t(a).requires_grad_(True) for a in (xyz, new_xyz, feats))
+    out = ops.group_points(tx, tc, _t(idx), tf)
+    assert type(out.grad_fn).__name__ == "GroupPointsBackward"
+    out.backward(_t(g))
+    for got, w in zip((tx.grad, tc.grad, tf.grad), want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-6, atol=1e-6)
+    assert np.abs(want[2][:, n - 1]).sum() > 0  # the empty balls' share
+    plain = grouping.group_backward_plain(_t(g), _t(idx), n, 0, 3 + c)
+    np.testing.assert_allclose(plain[..., :3].numpy(), want[0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(plain[..., 3:].numpy(), want[2], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("need", ["features", "xyz", "none"])
+def test_group_backward_scatters_only_what_is_needed(rng, need):
+    """The feature-only case (every SA level past the first) scatters the
+    feature channels alone; xyz alone scatters 3 channels; nothing needed,
+    nothing scattered."""
+    b, n, s, k, c = 1, 20, 6, 4, 3
+    xyz = _t(rng.uniform(size=(b, n, 3)).astype(np.float32))
+    feats = _t(rng.normal(size=(b, n, c)).astype(np.float32))
+    idx = _t(rng.integers(0, n + 1, size=(b, s, k)).astype(np.int32))
+    xyz.requires_grad_(need == "xyz")
+    feats.requires_grad_(need == "features")
+    calls = []
+    real = grouping.group_backward_plain
+
+    def spy(g, idx, n, c0, c1):
+        calls.append((c0, c1))
+        return real(g, idx, n, c0, c1)
+
+    grouping.group_backward_plain = spy
+    try:
+        out = ops.group_points(xyz, xyz[:, :s].detach(), idx, feats)
+        if need == "none":
+            assert out.grad_fn is None
+            return
+        out.sum().backward()
+    finally:
+        grouping.group_backward_plain = real
+    assert calls == [(3, 3 + c)] if need == "features" else calls == [(0, 3)]
+
+
+def test_interpolate_keeps_its_selection_only_for_a_backward(rng):
+    dst = _t(rng.uniform(size=(1, 30, 3)).astype(np.float32))
+    src = _t(rng.uniform(size=(1, 10, 3)).astype(np.float32))
+    f = _t(rng.normal(size=(1, 10, 4)).astype(np.float32)).requires_grad_(True)
+    kept = []
+    real = interpolate.interpolate_plain
+
+    def spy(*args):
+        kept.append(args[-1])
+        return real(*args)
+
+    interpolate.interpolate_plain = spy
+    try:
+        out = ops.three_nn_interpolate(dst, src, f)
+        assert type(out.grad_fn).__name__ == "InterpolateBackward"
+        with torch.inference_mode():
+            assert ops.three_nn_interpolate(dst, src, f).grad_fn is None
+        with torch.no_grad():
+            ops.three_nn_interpolate(dst, src, f)
+    finally:
+        interpolate.interpolate_plain = real
+    assert kept == [True, False, False]
+
+
+def test_batch_norm_matches_flax_with_biased_running_variance(rng):
+    """n=4 rows: the unbiased variance would be 4/3 of the biased one, so
+    the running variance tells the two apart."""
+    x = rng.normal(size=(4, 6)).astype(np.float32) * 3 + 1
+    g = rng.normal(size=(4, 6)).astype(np.float32)
+    mean0 = (0.1 * rng.normal(size=6)).astype(np.float32)
+    var0 = (0.5 + rng.uniform(size=6)).astype(np.float32)
+    scale = (0.5 + rng.uniform(size=6)).astype(np.float32)
+    bias = (0.1 * rng.normal(size=6)).astype(np.float32)
+    fbn = nn.BatchNorm(use_running_average=False, momentum=0.9)
+    variables = {"params": {"scale": scale, "bias": bias},
+                 "batch_stats": {"mean": mean0, "var": var0}}
+
+    def f(params, x):
+        y, mut = fbn.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                           x, mutable=["batch_stats"])
+        return jnp.sum(y * g), (y, mut["batch_stats"])
+
+    (_, (y, stats)), (dparams, dx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        variables["params"], jnp.asarray(x))
+    bn = BatchNorm(6)
+    with torch.no_grad():
+        bn.weight.copy_(_t(scale))
+        bn.bias.copy_(_t(bias))
+        bn.running_mean.copy_(_t(mean0))
+        bn.running_var.copy_(_t(var0))
+    tx = _t(x).requires_grad_(True)
+    out = bn(tx)
+    out.backward(_t(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(y), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(stats["mean"]), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(stats["var"]), rtol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(dx), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(bn.weight.grad.numpy(), np.asarray(dparams["scale"]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.bias.grad.numpy(), np.asarray(dparams["bias"]), rtol=1e-5, atol=1e-5)
+    unbiased = 0.9 * var0 + 0.1 * x.var(0, ddof=1)
+    assert not np.allclose(bn.running_var.numpy(), unbiased, rtol=1e-3)
+    bn.eval()
+    with torch.no_grad():  # eval mode normalises with the running statistics
+        want = (x - bn.running_mean.numpy()) / np.sqrt(bn.running_var.numpy() + 1e-5) * scale + bias
+        np.testing.assert_allclose(bn(_t(x)).numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------ the kernel wrappers
 
 
@@ -239,6 +413,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
         grouping.group_cuda(xyz, xyz[:, :4].contiguous(), idx, f)
     with pytest.raises(ValueError, match="CUDA"):
         interpolate.interpolate_cuda(xyz, xyz[:, :8].contiguous(), f[:, :8].contiguous(), 3)
+    g = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        grouping.group_backward_cuda(g, idx, 32, 3, 8)
+    w = torch.zeros((1, 32, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        interpolate.interpolate_backward_cuda(f, w.int(), w, 8)
 
 
 def test_ops_refuse_other_dtypes(rng):
