@@ -11,10 +11,16 @@ any failure raises and exits non-zero:
 1. require CUDA, print the card (nvidia-smi name and power limit), turn
    TF32 off for matmuls and cuDNN;
 2. build the CUDA kernels from csrc/ (timed, with the ptxas report);
-3. hold each kernel against its plain PyTorch version on the card at the
-   PointNet++ SSG shapes (B=4, 4096 points): FPS, ball query and group
-   bit-identical, interpolation within 1e-5; median times of both from
-   CUDA events;
+3. hold each kernel against its plain PyTorch version on the card at every
+   shape that the PointNet++ SSG forward and the BriStruNet forward give it
+   (B=4, 4096 points; BriStruNet: FPS 4096->1024->512->128, ball query and
+   group at K=16 and K=32 over two radii a level with 3, 256 and 512 feature
+   channels, interpolation at k=4, the exact k-NN kernel at its three
+   shapes): FPS, ball query, group and k-NN bit-identical, interpolation
+   within 1e-5; median times of both from CUDA events, summed a path,
+   beside the least time the card could take (bytes over 3.35 TB/s or
+   operations over 67 TFLOP/s float32, whichever is larger) and, where one
+   PyTorch call computes the same function, that call's time;
 3b. the backward kernels against their plain versions at the SSG train
    shapes (B=4): group backward (sa2, sa3) and interpolation backward (fp3,
    fp2, fp1, on the selection the forward kernel saved), within 1e-5 of
@@ -37,17 +43,38 @@ any failure raises and exits non-zero:
    reset just before and read just after; finite losses, best_model and
    latest_checkpoint written, a reload of latest_checkpoint gives the
    trained model's eval logits exactly; steady-state train step at batch
-   16 (ms, points/s) and peak device memory.
+   16 (ms, points/s) and peak device memory;
+8. the BriStruNet forward at full width, B=4 x 4096, random weights and
+   BatchNorm statistics, on the card against the CPU (plain versions):
+   logits within 2e-4; exactly 3 FPS, 6 ball-query, 6 group, 3
+   interpolation and 3 k-NN launches and no backward kernel; forward time,
+   points/s, and device time by kernel family from one torch.profiler run;
+9. serve through the inference CLI (infer_cli.main) from checkpoints:
+   BriStruNet in ``blocks`` mode (once in a fresh interpreter, the cold
+   start; then in this one a first call and a warm one with the launch
+   counters reset just before and read just after) and in ``scene``
+   mode (2 votes a scene, counters likewise), and PointNet++ SSG in
+   ``blocks`` mode from the checkpoint phase 7 trained; wall and points/s,
+   the CSVs and the printed metric lines checked; one scene once more
+   through whole_scene_vote_predict for the split of its phase timings.
 
-The line before the last is the per-kernel JSON summary (launches: serve
-for the forward kernels, training for the backward ones); the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the per-kernel JSON summary. A kernel's row
+holds one path's numbers together: ``launches`` of one BriStruNet forward at
+B=4 (phase 8; of one SSG train step, phase 6, for the backward kernels)
+beside ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over
+exactly those launches' shapes (phase 3); ``paths`` has the same for the SSG
+forward, and ``launches_by_path`` the counts of the serves and the training
+run through the CLIs. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import importlib.util
+import io
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -58,14 +85,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pointcloud_bridge_tpu_torch import losses, train_cli
+from pointcloud_bridge_tpu_torch import infer_cli, losses, train_cli
 from pointcloud_bridge_tpu_torch.config import LossConfig
-from pointcloud_bridge_tpu_torch.data import (
-    BlockDataset,
-    toy_bridge_scene,
-    write_las,
-)
-from pointcloud_bridge_tpu_torch.infer import run_block_inference
+from pointcloud_bridge_tpu_torch.data import BlockDataset, scene_labelweights, write_las
+from pointcloud_bridge_tpu_torch.data.dataset import _load_scene
+from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
+from pointcloud_bridge_tpu_torch.infer import run_block_inference, whole_scene_vote_predict
 from pointcloud_bridge_tpu_torch.models import BatchNorm, get_model
 from pointcloud_bridge_tpu_torch.ops import (
     _kernels,
@@ -74,7 +99,7 @@ from pointcloud_bridge_tpu_torch.ops import (
     sampling,
 )
 from pointcloud_bridge_tpu_torch.train import make_optimizer, make_train_step
-from pointcloud_bridge_tpu_torch.utils.checkpoint import restore_checkpoint
+from pointcloud_bridge_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -87,6 +112,14 @@ INTERP_TOL = 1e-5
 BWD_TOL = 1e-5  # of max|plain|: float atomics add in another order
 FORWARD_KERNELS = ("fps", "ball_query", "group", "interpolate")
 BACKWARD_KERNELS = ("group_bwd", "interp_bwd")
+# launches of one BriStruNet forward: an FPS a level, two radii a level, an
+# interpolation a decoder level, a k-NN in bri_enc, geometric2 and geometric3
+BRISTRUNET_LAUNCHES = {"fps": 3, "ball_query": 6, "group": 6, "interpolate": 3, "knn": 3,
+                       "group_bwd": 0, "interp_bwd": 0}
+# the card's peaks for the bound: HBM3 bytes/s and float32 FLOP/s outside the
+# tensor cores (NVIDIA H100 SXM data sheet, at the full 700 W)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = 67e12
 
 
 def nvidia_smi() -> str:
@@ -118,47 +151,95 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+SSG, BRISTRUNET, TRAIN = "ssg_forward", "bristrunet_forward", "ssg_train_step"
+SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")
+
+
 class Results:
-    """Per-kernel comparison results; 'on path' cases add to the totals."""
+    """Per-kernel comparison results. A case at a shape that a path gives
+    the kernel is timed and adds to that path's sums, so a path's sums are
+    over exactly the launches of one forward (or one train step) at B=4."""
 
     def __init__(self):
-        self.err = {k.name: 0.0 for k in _kernels.KERNELS}
-        self.ms = {k.name: 0.0 for k in _kernels.KERNELS}
-        self.plain_ms = {k.name: 0.0 for k in _kernels.KERNELS}
+        names = [k.name for k in _kernels.KERNELS]
+        self.err = dict.fromkeys(names, 0.0)
+        self.sums = {path: {name: dict.fromkeys(SUMS, 0.0) | {"library_ms": None, "cases": 0}
+                            for name in names} for path in (SSG, BRISTRUNET, TRAIN)}
 
-    def check(self, name, label, kernel_fn, plain_fn, exact, on_path, scaled=False):
+    def check(self, name, label, kernel_fn, plain_fn, exact, paths=(), scaled=False,
+              work=None, library_fn=None):
         """exact: bit-identical; else within INTERP_TOL (rtol and atol), or
-        with scaled=True within BWD_TOL * max|plain|."""
+        with scaled=True within BWD_TOL * max|plain|. The functions return a
+        tensor or a tuple of tensors. ``paths`` names the paths that give
+        the kernel this shape; such a case is timed and needs ``work`` =
+        (bytes, operations) of the function on these inputs: each input read
+        once, each output written once, and the arithmetic the function
+        needs on this data. ``library_fn`` is the one PyTorch call that
+        computes the same function, timed beside the kernel."""
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(
-                f"{name} {label}: {tuple(got.shape)} {got.dtype} vs "
-                f"{tuple(want.shape)} {want.dtype}"
-            )
-        err = max_abs_err(got, want)
-        if exact:
-            ok = torch.equal(got, want)
-        elif scaled:
-            ok = err <= BWD_TOL * want.abs().max().item()
-        else:
-            ok = torch.allclose(got, want, rtol=INTERP_TOL, atol=INTERP_TOL)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err, ok = 0.0, len(got) == len(want)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(
+                    f"{name} {label}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}"
+                )
+            e = max_abs_err(g, w)
+            err = max(err, e)
+            if exact:
+                ok &= torch.equal(g, w)
+            elif scaled:
+                ok &= e <= BWD_TOL * w.abs().max().item()
+            else:
+                ok &= torch.allclose(g, w, rtol=INTERP_TOL, atol=INTERP_TOL)
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees, max |err| {err}")
         self.err[name] = max(self.err[name], err)
         line = f"{name:12s} {label:34s} max|err| {err:.3g}"
-        if on_path:
-            k_ms = time_ms(kernel_fn)
-            p_ms = time_ms(plain_fn)
-            self.ms[name] += k_ms
-            self.plain_ms[name] += p_ms
-            line += f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+        if paths:
+            bytes_ms = work[0] / PEAK_BYTES_S * 1e3
+            ops_ms = work[1] / PEAK_FLOPS * 1e3
+            case = {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+                    "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
+            line += (f"  kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f} ms  bound "
+                     f"{case['bound_ms']:.5f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+            l_ms = None
+            if library_fn is not None:
+                l_ms = time_ms(library_fn)
+                line += f"  library {l_ms:.4f} ms"
+            for path in paths:
+                total = self.sums[path][name]
+                total["cases"] += 1
+                for key in SUMS:
+                    total[key] += case[key]
+                if l_ms is not None:
+                    total["library_ms"] = (total["library_ms"] or 0.0) + l_ms
+            line += "  [" + ", ".join(paths) + "]"
         print(line, flush=True)
+
+    def row(self, name: str, path: str, launches: int) -> dict:
+        """The numbers of one kernel on one path, as the summary prints
+        them; the path must have given the kernel a case a launch."""
+        total = self.sums[path][name]
+        if total["cases"] != launches:
+            raise AssertionError(f"{name} on {path}: {launches} launches a pass, but "
+                                 f"{total['cases']} shapes were held against the plain version")
+        return {"launches": launches, "ms": total["ms"], "plain_ms": total["plain_ms"],
+                "bound_ms": total["bound_ms"],
+                "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
+                "library_ms": total["library_ms"]}
 
 
 def compare_kernels(dev: torch.device) -> Results:
-    """Phase 3: each kernel against its plain version at the SSG shapes."""
+    """Phase 3: each kernel against its plain version at the shapes that
+    the SSG forward and the BriStruNet forward give it (B=4)."""
     rng = np.random.default_rng(SEED)
 
     def cloud(n):
@@ -170,63 +251,132 @@ def compare_kernels(dev: torch.device) -> Results:
     res = Results()
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
 
-    # K1 FPS: the three SA levels, a [B] start, duplicated points (ties)
-    for n, npoint in ((4096, 1024), (1024, 256), (256, 64)):
+    # K1 FPS: the SA levels of both models (the first is the same shape in
+    # both), a [B] start, duplicated points (ties)
+    for n, npoint, paths in ((4096, 1024, (SSG, BRISTRUNET)), (1024, 256, (SSG,)),
+                             (256, 64, (SSG,)), (1024, 512, (BRISTRUNET,)),
+                             (512, 128, (BRISTRUNET,))):
         xyz = cloud(n)
+        # a step is a distance (8 flops), a min and a compare of each point
         res.check("fps", f"{n}->{npoint}",
                   lambda: sampling.fps_cuda(xyz, npoint, zero),
-                  lambda: sampling.fps_plain(xyz, npoint, zero), True, True)
+                  lambda: sampling.fps_plain(xyz, npoint, zero), True, paths,
+                  work=(nbytes(xyz, zero) + B * npoint * 4, 10 * B * npoint * n))
     xyz = cloud(4096)
     start = torch.from_numpy(rng.integers(0, 4096, B).astype(np.int32)).to(dev)
     res.check("fps", "4096->1024 start [B]",
               lambda: sampling.fps_cuda(xyz, 1024, start),
-              lambda: sampling.fps_plain(xyz, 1024, start), True, False)
+              lambda: sampling.fps_plain(xyz, 1024, start), True)
     grid = torch.from_numpy(rng.integers(0, 8, (B, 4096, 3)).astype(np.float32)).to(dev)
     res.check("fps", "4096->256 duplicated points",
               lambda: sampling.fps_cuda(grid, 256, zero),
-              lambda: sampling.fps_plain(grid, 256, zero), True, False)
+              lambda: sampling.fps_plain(grid, 256, zero), True)
 
-    # K2 ball query: the three SA levels (centres are cloud points, as after
-    # FPS), an empty ball, more slots than points
-    balls = {}
-    for n, s, k, r in ((4096, 1024, 32, 0.1), (1024, 256, 32, 0.2), (256, 64, 32, 0.4)):
+    def ball_and_group(paths, n, s, k, r, c):
+        """K2 at (N, S, K, r) with cloud points as centres, as after FPS,
+        then K3 on its indices with C feature channels."""
         xyz = cloud(n)
         centers = xyz[:, :s].contiguous()
-        balls[n] = (xyz, centers)
+        idx = grouping.ball_query_cuda(r, k, xyz, centers)
         res.check("ball_query", f"N={n} S={s} K={k} r={r}",
                   lambda: grouping.ball_query_cuda(r, k, xyz, centers),
-                  lambda: grouping.ball_query_plain(r, k, xyz, centers), True, True)
+                  lambda: grouping.ball_query_plain(r, k, xyz, centers), True, paths,
+                  work=(nbytes(xyz, centers) + B * s * k * 4, 9 * ball_scan_length(idx, n)))
+        feats = normal(B, n, c)
+        flat = idx.reshape(B, -1, 1).clamp(0, n - 1).long().expand(-1, -1, c).contiguous()
+        res.check("group", f"N={n} S={s} K={k} C={c}",
+                  lambda: grouping.group_cuda(xyz, centers, idx, feats),
+                  lambda: grouping.group_plain(xyz, centers, idx, feats), True, paths,
+                  work=(nbytes(xyz, centers, idx, feats) + B * s * k * (3 + c) * 4,
+                        3 * B * s * k),
+                  # the feature channels only, on a ready int64 index
+                  library_fn=lambda: torch.gather(feats, 1, flat))
+
+    # K2 ball query and K3 group: the three SA levels of SSG, then those of
+    # BriStruNet at both radii (K=16 at the small one, K=32 at the large)
+    for n, s, r, c in ((4096, 1024, 0.1, 3), (1024, 256, 0.2, 128), (256, 64, 0.4, 256)):
+        ball_and_group((SSG,), n, s, 32, r, c)
+    for n, s, radii, c in ((4096, 1024, (0.1, 0.2), 3), (1024, 512, (0.2, 0.4), 256),
+                           (512, 128, (0.4, 0.8), 512)):
+        for r, k in zip(radii, (16, 32)):
+            ball_and_group((BRISTRUNET,), n, s, k, r, c)
+    # an empty ball, more slots than points, a group without features
     xyz = cloud(4096)
     far = torch.full((B, 64, 3), 10.0, device=dev)
     res.check("ball_query", "empty balls",
               lambda: grouping.ball_query_cuda(0.1, 32, xyz, far),
-              lambda: grouping.ball_query_plain(0.1, 32, xyz, far), True, False)
+              lambda: grouping.ball_query_plain(0.1, 32, xyz, far), True)
+    centers = xyz[:, :1024].contiguous()
+    idx = grouping.ball_query_cuda(0.1, 32, xyz, centers)
+    res.check("group", "N=4096 S=1024 K=32 C=0",
+              lambda: grouping.group_cuda(xyz, centers, idx, None),
+              lambda: grouping.group_plain(xyz, centers, idx, None), True)
     xyz = cloud(16)
     centers = xyz[:, :8].contiguous()
     res.check("ball_query", "K=32 > N=16",
               lambda: grouping.ball_query_cuda(0.5, 32, xyz, centers),
-              lambda: grouping.ball_query_plain(0.5, 32, xyz, centers), True, False)
+              lambda: grouping.ball_query_plain(0.5, 32, xyz, centers), True)
 
-    # K3 group: C=0 and the three SA levels' (N, S, C), idx from ball query
-    for n, s, c, r, on_path in ((4096, 1024, 0, 0.1, False), (4096, 1024, 3, 0.1, True),
-                                (1024, 256, 128, 0.2, True), (256, 64, 256, 0.4, True)):
-        xyz, centers = balls[n]
-        idx = grouping.ball_query_cuda(r, 32, xyz, centers)
-        feats = normal(B, n, c) if c else None
-        res.check("group", f"N={n} S={s} K=32 C={c}",
-                  lambda: grouping.group_cuda(xyz, centers, idx, feats),
-                  lambda: grouping.group_plain(xyz, centers, idx, feats), True, on_path)
+    # K4 interpolation: the three FP levels of SSG (k=3) and of BriStruNet
+    # (k=4); the sources are a subset of the destinations, as FPS makes them
+    # (zero distances included)
+    for paths, k, levels in (
+        ((SSG,), 3, ((256, 64, 512), (1024, 256, 256), (4096, 1024, 128))),
+        ((BRISTRUNET,), 4, ((512, 128, 1024), (1024, 512, 256), (4096, 1024, 256))),
+    ):
+        for n, s, d in levels:
+            dst = cloud(n)
+            src = dst[:, :s].contiguous()
+            f = normal(B, s, d)
+            res.check("interpolate", f"N={n} S={s} D={d} k={k}",
+                      lambda: interpolate.interpolate_cuda(dst, src, f, k)[0],
+                      lambda: interpolate.interpolate_plain(dst, src, f, k)[0], False, paths,
+                      work=interp_work(dst, src, f, k))
 
-    # K4 interpolation: the three FP levels; the sources are a subset of the
-    # destinations, as FPS makes them (zero distances included)
-    for n, s, d in ((256, 64, 512), (1024, 256, 256), (4096, 1024, 128)):
-        dst = cloud(n)
-        src = dst[:, :s].contiguous()
-        f = normal(B, s, d)
-        res.check("interpolate", f"N={n} S={s} D={d} k=3",
-                  lambda: interpolate.interpolate_cuda(dst, src, f, 3)[0],
-                  lambda: interpolate.interpolate_plain(dst, src, f, 3)[0], False, True)
+    # K5 exact k-NN: the three BriStruNet shapes (self-query), then a query
+    # set of its own with k=64 (two registers a lane) and N no multiple of
+    # 32, exact ties on an integer grid, k=1, and the serve's batch 16
+    for n, k in ((4096, 32), (512, 16), (128, 16)):
+        xyz = cloud(n)
+        res.check("knn", f"N=S={n} k={k}",
+                  lambda: grouping.knn_cuda(xyz, xyz, k),
+                  lambda: grouping.knn_plain(xyz, xyz, k), True, (BRISTRUNET,),
+                  work=(nbytes(xyz) + B * n * k * 8, 9 * B * n * n),
+                  # two calls, so an orientation and no yardstick of one call
+                  library_fn=lambda: (torch.cdist(xyz, xyz) ** 2).topk(k, largest=False))
+    xyz, query = cloud(3001), cloud(1000)
+    res.check("knn", "N=3001 S=1000 k=64",
+              lambda: grouping.knn_cuda(xyz, query, 64),
+              lambda: grouping.knn_plain(xyz, query, 64), True)
+    res.check("knn", "N=3001 S=1000 k=33",
+              lambda: grouping.knn_cuda(xyz, query, 33),
+              lambda: grouping.knn_plain(xyz, query, 33), True)
+    grid = torch.from_numpy(rng.integers(0, 6, (B, 2048, 3)).astype(np.float32)).to(dev)
+    for k in (40, 32, 1):
+        res.check("knn", f"integer grid (ties) N=S=2048 k={k}",
+                  lambda: grouping.knn_cuda(grid, grid, k),
+                  lambda: grouping.knn_plain(grid, grid, k), True)
+    xyz = torch.from_numpy(rng.uniform(size=(16, 4096, 3)).astype(np.float32)).to(dev)
+    res.check("knn", "B=16 N=S=4096 k=32",
+              lambda: grouping.knn_cuda(xyz, xyz, 32),
+              lambda: grouping.knn_plain(xyz, xyz, 32), True)
     return res
+
+
+def ball_scan_length(idx: torch.Tensor, n: int) -> int:
+    """Points a ball query must visit on this data, summed over the queries:
+    up to its k-th hit where the ball holds k (the last slot is then a hit of
+    its own, not a copy of the first), else all n."""
+    full = idx[..., -1] != idx[..., 0]
+    return int(torch.where(full, idx[..., -1] + 1, n).sum().item())
+
+
+def interp_work(dst, src, f, k: int) -> tuple:
+    """(bytes, operations) of an interpolation: every destination measures
+    every source (8 flops and a compare), then blends k rows of D."""
+    b, n, _ = dst.shape
+    s, d = f.shape[1:]
+    return nbytes(dst, src, f) + b * n * d * 4, 9 * b * n * s + 2 * k * b * n * d
 
 
 def compare_backward_kernels(dev: torch.device, res: Results) -> None:
@@ -247,10 +397,18 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
         xyz = cloud(n)
         idx = grouping.ball_query_cuda(r, 32, xyz, xyz[:, :s].contiguous())
         g = normal(B, s, 32, 3 + c)
+        # library: one index_add_ over the batch-flattened rows (zeroing
+        # included, as in the kernel's time), on a ready index and slice
+        rows = g[..., 3:].reshape(-1, c).contiguous()
+        offs = torch.arange(B, device=dev).view(B, 1, 1) * n
+        flat = (idx.clamp(0, n - 1).long() + offs).reshape(-1)
+        acc = torch.empty((B * n, c), device=dev)
         res.check("group_bwd", f"g [{B},{s},32,{3 + c}] -> [{B},{n},{c}]",
                   lambda: grouping.group_backward_cuda(g, idx, n, 3, 3 + c),
                   lambda: grouping.group_backward_plain(g, idx, n, 3, 3 + c),
-                  False, True, scaled=True)
+                  False, (TRAIN,), scaled=True,
+                  work=(nbytes(rows, idx) + B * n * c * 4, B * s * 32 * c),
+                  library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
     xyz = cloud(1024)
     far = torch.full((B, 64, 3), 10.0, device=dev)
     idx = grouping.ball_query_cuda(0.1, 32, xyz, far)  # every slot N
@@ -258,7 +416,7 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     res.check("group_bwd", "empty balls, xyz and features",
               lambda: grouping.group_backward_cuda(g, idx, 1024, 0, 19),
               lambda: grouping.group_backward_plain(g, idx, 1024, 0, 19),
-              False, False, scaled=True)
+              False, scaled=True)
 
     # K4b on the selection the forward kernel keeps; the kept selection
     # itself is held to the plain one (indices exact, weights 1e-6)
@@ -271,10 +429,17 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
         if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
             raise AssertionError(f"interpolate N={n} S={s}: kept selection differs from plain")
         g = normal(B, n, d)
+        # library: one index_add_ of rows that are weighted already
+        rows = (w.unsqueeze(-1) * g.unsqueeze(2)).reshape(-1, d)
+        offs = torch.arange(B, device=dev).view(B, 1, 1) * s
+        flat = (idx.long() + offs).reshape(-1)
+        acc = torch.empty((B * s, d), device=dev)
         res.check("interp_bwd", f"g [{B},{n},{d}] -> [{B},{s},{d}] k=3",
                   lambda: interpolate.interpolate_backward_cuda(g, idx, w, s),
                   lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
-                  False, True, scaled=True)
+                  False, (TRAIN,), scaled=True,
+                  work=(nbytes(g, idx, w) + B * s * d * 4, 2 * 3 * B * n * d),
+                  library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
 
 
 def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -451,9 +616,10 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw) -> dict:
     return counts
 
 
-def train_through_cli(data_dir: Path, dev: torch.device) -> dict:
+def train_through_cli(data_dir: Path, dev: torch.device) -> tuple:
     """Phase 7: two epochs through train_cli.main on the two LAS scenes,
-    validating on the second; launch counts of exactly that run."""
+    validating on the second -> (launch counts of exactly that run, the
+    experiment directory, which the caller removes)."""
     val_dir = data_dir / "val"
     val_dir.mkdir(exist_ok=True)
     shutil.copy(data_dir / "bridge_1.las", val_dir / "bridge_1.las")
@@ -470,7 +636,7 @@ def train_through_cli(data_dir: Path, dev: torch.device) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counts_all_launched("training", FORWARD_KERNELS + BACKWARD_KERNELS)
-    exp_dir = Path(out["exp_dir"])
+    exp_dir = Path(out["exp_dir"]).resolve()
     try:
         hist = out["history"]
         if [r["epoch"] for r in hist] != [1, 2]:
@@ -509,8 +675,9 @@ def train_through_cli(data_dir: Path, dev: torch.device) -> dict:
         torch.cuda.reset_peak_memory_stats()
         step_ms = time_ms(lambda: step(batch, 1e-4, cw), reps=20, warmup=5)
         step_mem = torch.cuda.max_memory_allocated()
-    finally:
+    except BaseException:
         shutil.rmtree(exp_dir, ignore_errors=True)
+        raise
     epoch_s = [round(r["epoch_time_s"], 4) for r in hist]
     print(f"training: 2 epochs through train_cli in {wall:.2f} s wall (epochs {epoch_s} s), "
           f"train loss {[round(r['train_loss'], 4) for r in hist]}, val OA "
@@ -519,7 +686,208 @@ def train_through_cli(data_dir: Path, dev: torch.device) -> dict:
           flush=True)
     print(f"train step: batch 16 x {N} {step_ms:.3f} ms, {16 * N / step_ms * 1e3:.0f} "
           f"points/s trained, peak device memory {step_mem / 2**20:.1f} MiB", flush=True)
-    return counts
+    return counts, exp_dir
+
+
+def kernel_family(name: str) -> str:
+    """The row of PERF.md's breakdown that a device kernel's name goes to."""
+    for key, family in (
+        ("fps_kernel", "K1 FPS"), ("ballq_kernel", "K2 ball query"),
+        ("group_kernel", "K3 group"), ("interp_kernel", "K4 interpolate"),
+        ("knn_kernel", "K5 k-NN"), ("gemm", "GEMMs"), ("gemv", "GEMMs"),
+        ("cutlass", "GEMMs"), ("batch_norm", "BatchNorm"), ("reduce", "reductions"),
+        ("gather", "gather, index, cat"), ("index", "gather, index, cat"),
+        ("Cat", "gather, index, cat"), ("Memcpy", "copies, memset"),
+        ("Memset", "copies, memset"),
+    ):
+        if key in name:
+            return family
+    return "elementwise and other"
+
+
+def bristrunet_forward(ds: BlockDataset, dev: torch.device) -> torch.nn.Module:
+    """Phase 8: BriStruNet at full width, B=4 x 4096, on the card against
+    the CPU; exact launch counts; forward time; device time by family."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    model = get_model("bristrunet", NUM_CLASSES, generator=gen)
+    randomize_bn(model, gen)
+    model.eval()
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz_cpu = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb_cpu = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    xyz, rgb = xyz_cpu.to(dev), rgb_cpu.to(dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu_model(xyz_cpu, rgb_cpu)
+        cpu_s = time.perf_counter() - t0
+        _kernels.reset_launch_counts()
+        out = model(xyz, rgb)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        if counts != BRISTRUNET_LAUNCHES:
+            raise AssertionError(f"BriStruNet forward: launches {counts}, "
+                                 f"expected {BRISTRUNET_LAUNCHES}")
+        out = out.cpu()
+        err = max_abs_err(out, ref)
+        agree = (out.argmax(-1) == ref.argmax(-1)).double().mean().item()
+        print(f"BriStruNet forward: logits {tuple(out.shape)} CUDA vs CPU max|err| {err:.3g} "
+              f"(max|logit| {ref.abs().max().item():.3g}), argmax agreement {agree:.6f}, "
+              f"launches {counts}, CPU reference forward {cpu_s:.2f} s (host)", flush=True)
+        if out.shape != (B, N, NUM_CLASSES) or not torch.isfinite(out).all():
+            raise AssertionError(f"BriStruNet forward: logits {tuple(out.shape)} not finite")
+        if not torch.allclose(out, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+            raise AssertionError(f"BriStruNet forward: CUDA logits differ from CPU by {err}")
+        fwd_ms = time_ms(lambda: model(xyz, rgb))
+        print(f"BriStruNet forward: B={B} N={N} {fwd_ms:.3f} ms, "
+              f"{B * N / fwd_ms * 1e3:.0f} points/s", flush=True)
+
+        # device time by kernel family over 10 back-to-back forwards
+        reps = 10
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(xyz, rgb)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        families: dict = {}
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:  # the attribute's name in older PyTorch
+                    us = ev.self_cuda_time_total
+                fam = kernel_family(ev.key)
+                families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
+        busy = sum(families.values())
+        if busy > 0:
+            print(f"BriStruNet forward profile (device ms a forward, {reps} back to back, "
+                  f"profiler on): busy {busy:.3f}, wall {wall_ms:.3f}, idle "
+                  f"{max(0.0, 1 - busy / wall_ms):.1%}")
+            for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+                print(f"  {fam:24s} {ms:8.3f} ms  {ms / busy:6.1%}")
+        else:
+            print("BriStruNet forward profile: the profiler recorded no device time")
+    return model
+
+
+def run_cli(label: str, argv: list, pattern: str) -> tuple:
+    """infer_cli.main(argv) with its standard output kept -> (wall seconds,
+    the lines that match ``pattern``, launch counts of exactly this call)."""
+    buf = io.StringIO()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        infer_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    lines = [ln for ln in buf.getvalue().splitlines() if re.fullmatch(pattern, ln)]
+    if not lines:
+        raise AssertionError(f"{label}: no metric line in the CLI's output:\n{buf.getvalue()}")
+    return wall, lines, counts
+
+
+def serve_through_cli(data_dir: Path, ssg_exp_dir: Path, bristrunet: torch.nn.Module,
+                      n_blocks: int, dev: torch.device) -> dict:
+    """Phase 9: the inference CLI from checkpoints, on the card."""
+    out_root = data_dir / "infer_out"
+    ckpt = data_dir / "bristrunet_checkpoint"
+    save_checkpoint(str(ckpt), {"model": bristrunet.state_dict(), "epoch": 0})
+    glob_pat = r"GLOBAL mIoU=[\d.]+ OA=[\d.]+ mAcc=[\d.]+ F1=[\d.]+"
+    forward = {k: v for k, v in BRISTRUNET_LAUNCHES.items() if v}
+    by_path = {}
+
+    def blocks(label, model_name, checkpoint, kernels):
+        out_dir = out_root / label.replace(" ", "_")
+        argv = ["blocks", "--checkpoint", str(checkpoint), "--model", model_name,
+                "--data-dir", str(data_dir), "--out-dir", str(out_dir),
+                "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
+                "--batch-size", "16", "--device", dev.type]
+        first, _, _ = run_cli(label, argv, glob_pat)
+        wall, lines, counts = run_cli(label, argv, glob_pat)
+        counts_all_launched(label, kernels)
+        if any(counts[k] for k in BACKWARD_KERNELS):
+            raise AssertionError(f"{label}: a backward kernel ran ({counts})")
+        cm = np.loadtxt(out_dir / "confusion_matrix.csv", delimiter=",")
+        if cm.shape != (NUM_CLASSES, NUM_CLASSES) or cm.sum() != n_blocks * N:
+            raise AssertionError(f"{label}: confusion matrix sums to {cm.sum()}")
+        if "bridge_0.las" not in (out_dir / "metrics.csv").read_text():
+            raise AssertionError(f"{label}: metrics.csv lacks the per-file rows")
+        figures = len(list(out_dir.glob("*.png")))
+        if not figures and importlib.util.find_spec("matplotlib"):
+            raise AssertionError(f"{label}: matplotlib is installed, but no figure was drawn")
+        print(f"{label}: {n_blocks} blocks x {N} in {wall:.3f} s wall warm, first call "
+              f"{first:.3f} s (LAS read, blocks, checkpoint, forward, CSVs, {figures} figures), "
+              f"{n_blocks * N / wall:.0f} points/s end to end, launches {counts}; {lines[-1]}",
+              flush=True)
+        return counts
+
+    # a cold start: the same serve in a fresh interpreter, through the entry
+    # point as a user types it (interpreter and CUDA start-up, library loads)
+    t0 = time.perf_counter()
+    cold = subprocess.run(
+        [sys.executable, "-m", "pointcloud_bridge_tpu_torch.infer_cli", "blocks",
+         "--checkpoint", str(ckpt), "--model", "bristrunet", "--data-dir", str(data_dir),
+         "--out-dir", str(out_root / "cold"), "--num-points", str(N), "--device", dev.type],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    cold_s = time.perf_counter() - t0
+    if cold.returncode != 0 or not re.search(glob_pat, cold.stdout):
+        raise AssertionError(f"serve bristrunet blocks in a fresh process: exit "
+                             f"{cold.returncode}\n{cold.stdout}\n{cold.stderr}")
+    print(f"serve bristrunet blocks, a fresh process (python -m ...infer_cli): "
+          f"{cold_s:.2f} s wall", flush=True)
+
+    by_path["bristrunet_serve_blocks"] = blocks(
+        "serve bristrunet blocks", "bristrunet", ckpt, tuple(forward))
+    by_path["ssg_serve_blocks_cli"] = blocks(
+        "serve pointnet2_ssg blocks", "pointnet2_ssg", ssg_exp_dir, FORWARD_KERNELS)
+    if by_path["ssg_serve_blocks_cli"]["knn"]:
+        raise AssertionError("serve pointnet2_ssg blocks: the k-NN kernel ran")
+
+    # scene mode: 2 votes over each of the two scenes, predicted LAS exported
+    out_dir = out_root / "scene"
+    wall, lines, counts = run_cli(
+        "serve bristrunet scene",
+        ["scene", "--checkpoint", str(ckpt), "--model", "bristrunet",
+         "--data-dir", str(data_dir), "--out-dir", str(out_dir),
+         "--num-classes", str(NUM_CLASSES), "--num-points", str(N), "--batch-size", "16",
+         "--num-votes", "2", "--export-las", "--device", dev.type],
+        r"OVERALL mIoU=[\d.]+ OA=[\d.]+")
+    counts_all_launched("serve bristrunet scene", tuple(forward))
+    if any(counts[k] for k in BACKWARD_KERNELS) or counts["knn"] != counts["fps"]:
+        raise AssertionError(f"serve bristrunet scene: launches {counts}")
+    scene_points = 0
+    for s in (0, 1):
+        pts, _, pred = _load_scene(str(out_dir / f"bridge_{s}_pred.las"))
+        src, _, _ = _load_scene(str(data_dir / f"bridge_{s}.las"))
+        if len(pts) != len(src) or pred.min() < 0 or pred.max() >= NUM_CLASSES:
+            raise AssertionError(f"serve bristrunet scene: bridge_{s}_pred.las has {len(pts)} "
+                                 f"points of {len(src)}, labels {pred.min()}..{pred.max()}")
+        scene_points += len(pts)
+    batches = counts["knn"] // 3
+    print(f"serve bristrunet scene: 2 scenes, {scene_points} points, 2 votes in {wall:.3f} s "
+          f"wall (LAS read, gridding, {batches} forward batches of <= 16 blocks, LAS export), "
+          f"{scene_points / wall:.0f} scene points/s end to end, launches {counts}; {lines[-1]}",
+          flush=True)
+    by_path["bristrunet_serve_scene"] = counts
+
+    # the split of one scene's vote inference, from the function's own timers
+    pts, cols, labels = _load_scene(str(data_dir / "bridge_0.las"))
+    res = whole_scene_vote_predict(
+        bristrunet, np.concatenate([pts, cols], axis=1), labels,
+        scene_labelweights([labels], NUM_CLASSES), NUM_CLASSES, block_points=N,
+        num_votes=2, batch_size=16, collect_timings=True)
+    if res["pred"].shape != (len(pts),) or not (res["vote_pool"].sum(1) > 0).all():
+        raise AssertionError("vote inference: a point got no vote")
+    t = res["timings"]
+    print("vote inference, one 200k-point scene, 2 votes, host seconds: table upload "
+          f"{t['table_upload_s']:.4f}; a vote: "
+          + ", ".join(f"{k[:-2]} {[round(v, 4) for v in t[k]]}"
+                      for k in ("grid_s", "h2d_s", "dispatch_s", "fetch_s", "scatter_s"))
+          + f"; mIoU {res['metrics']['mIoU']:.4f} (random weights)", flush=True)
+    return by_path
 
 
 def main() -> None:
@@ -588,11 +956,11 @@ def main() -> None:
         # shapes for the first time (library kernels load lazily); the
         # counters cover exactly the second
         t0 = time.perf_counter()
-        run_block_inference(model, ds, NUM_CLASSES, batch_size=16, device=dev)
+        run_block_inference(model, ds, NUM_CLASSES, batch_size=16)
         first_wall = time.perf_counter() - t0
         _kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        served = run_block_inference(model, ds, NUM_CLASSES, batch_size=16, device=dev)
+        served = run_block_inference(model, ds, NUM_CLASSES, batch_size=16)
         wall = time.perf_counter() - t0
         serve_counts = counts_all_launched("serve", FORWARD_KERNELS)
         if any(serve_counts[k] for k in BACKWARD_KERNELS):
@@ -623,30 +991,38 @@ def main() -> None:
         labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
         cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
         check_frozen_bn_gradients(model, cpu_model, xyz_cpu, rgb_cpu, labels, cw)
-        check_train_step(model, cpu_model, xyz_cpu, rgb_cpu, labels, cw)
+        step_counts = check_train_step(model, cpu_model, xyz_cpu, rgb_cpu, labels, cw)
 
         # 7. train through the CLI
-        train_counts = train_through_cli(data_dir, dev)
+        train_counts, exp_dir = train_through_cli(data_dir, dev)
+        try:
+            # 8. the BriStruNet forward; 9. serve through the inference CLI
+            bristrunet = bristrunet_forward(ds, dev)
+            by_path = serve_through_cli(data_dir, exp_dir, bristrunet, len(ds), dev)
+        finally:
+            shutil.rmtree(exp_dir, ignore_errors=True)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
-    launches = {k: serve_counts[k] for k in FORWARD_KERNELS}
-    launches.update({k: train_counts[k] for k in BACKWARD_KERNELS})
-
-    summary = {
-        "kernels": [
-            {
-                "name": k.name,
-                "route": "cuda",
-                "source": k.source,
-                "replaces": k.replaces,
-                "launches": launches[k.name],
-                "max_abs_err": res.err[k.name],
-                "ms": res.ms[k.name],
-                "plain_ms": res.plain_ms[k.name],
-            }
-            for k in _kernels.KERNELS
-        ]
-    }
+    # Per kernel and path: the launches of one pass at B=4 (phases 4, 6 and
+    # 8) beside the times and bound summed over exactly those launches'
+    # shapes (phases 3 and 3b). The row's own numbers are those of the
+    # BriStruNet forward, and of the SSG train step for the backward kernels.
+    pass_counts = {SSG: fwd_counts, BRISTRUNET: BRISTRUNET_LAUNCHES, TRAIN: step_counts}
+    serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
+    kernels = []
+    for k in _kernels.KERNELS:
+        backward = k.name in BACKWARD_KERNELS
+        paths = {path: res.row(k.name, path, counts[k.name])
+                 for path, counts in pass_counts.items()
+                 if counts[k.name] and backward == (path == TRAIN)}
+        kernels.append({
+            "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "max_abs_err": res.err[k.name],
+            **paths[TRAIN if backward else BRISTRUNET],
+            "paths": paths,
+            "launches_by_path": {path: c[k.name] for path, c in serves.items()},
+        })
+    summary = {"kernels": kernels}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({

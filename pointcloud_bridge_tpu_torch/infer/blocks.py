@@ -23,21 +23,21 @@ def run_block_inference(
     dataset,
     num_classes: int,
     batch_size: int = 16,
-    device: torch.device | str = "cpu",
 ) -> Dict[str, Any]:
     """Returns {global: metrics, per_file: {name: metrics}, predictions:
     [NB, P] int32 in dataset block order}.
 
-    ``model`` must already be on ``device``; it is put in eval mode. Each
-    batch of ``dataset.points`` / ``dataset.colors`` is copied to the device
-    on its own, and the predictions are fetched once at the end. The last
+    The blocks are served on the device that holds ``model``'s parameters
+    (move it to the card first to serve there); it is put in eval mode. Each
+    batch of ``dataset.points`` / ``dataset.colors`` is copied there on its
+    own, and the predictions are fetched once at the end. The last
     batch re-runs the last ``batch_size`` blocks when the count does not
     divide (the JAX version's overlapping tail slice). On CUDA this sets
     ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False: the port computes in full
     float32.
     """
-    device = torch.device(device)
+    device = next(model.parameters()).device
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -13,6 +13,12 @@ flat, a set-abstraction or feature-propagation layer *is* a SharedMLP with
 its sampling and grouping added, and a segmentation model *is* a SegHead
 with its encoder and decoder added.
 
+The BriStruNet family has no mappable reference torch model, so its layers
+(:class:`Dense`, :class:`DenseMLP`, :class:`MultiScaleSetAbstraction`,
+:class:`EnhancedFeaturePropagation` and models/attention.py) are named after
+the flax modules of the JAX package instead (``sa1.mlp_0.dense_0``,
+``fp3.attn_dense0``), with a Dense weight stored as [out, in].
+
 BatchNorm has flax's semantics (:class:`BatchNorm`): momentum 0.1 and eps
 1e-5, which is flax's momentum 0.9 and eps 1e-5 as the JAX package sets
 them, and the running variance takes the biased batch variance. Dropout
@@ -193,6 +199,114 @@ class FeaturePropagation(SharedMLP):
         if feats_fine is not None:
             interp = torch.cat([feats_fine.float(), interp], dim=-1)
         return super().forward(interp)
+
+
+class Dense(nn.Module):
+    """flax's ``nn.Dense`` over the last axis, its weight stored as
+    [out, in] (the flax kernel transposed). Initialised as :class:`PointConv`
+    is, uniform in +-1/sqrt(in), from ``generator``."""
+
+    def __init__(self, in_ch: int, out_ch: int, bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        bound = 1.0 / math.sqrt(in_ch)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if bias:
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class DenseMLP(nn.Module):
+    """The JAX package's ``SharedMLP`` under its flax names: Dense +
+    BatchNorm + ReLU a layer, children ``dense_{i}`` and ``bn_{i}``
+    (models/common.py:30-60)."""
+
+    def __init__(self, in_ch: int, widths: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.depth = len(widths)
+        for i, w in enumerate(widths):
+            setattr(self, f"dense_{i}", Dense(in_ch, w, generator=generator))
+            setattr(self, f"bn_{i}", BatchNorm(w))
+            in_ch = w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            x = F.relu(getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x)))
+        return x
+
+
+class MultiScaleSetAbstraction(nn.Module):
+    """PointNet++ MSG set abstraction (models/common.py:131-169): one FPS,
+    then for each radius a ball query, grouping, a shared MLP ``mlp_{i}``
+    and a max over the neighbours; the scales are concatenated. Every scale
+    takes the SAME width list, so the output is len(radius_list) * mlp[-1]
+    wide. ``in_ch`` counts the 3 relative coordinates."""
+
+    def __init__(self, npoint: int, radius_list: Sequence[float],
+                 nsample_list: Sequence[int], in_ch: int, mlp: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.npoint = npoint
+        self.radius_list = tuple(radius_list)
+        self.nsample_list = tuple(nsample_list)
+        for i in range(len(self.radius_list)):
+            setattr(self, f"mlp_{i}", DenseMLP(in_ch, mlp, generator))
+
+    def forward(
+        self, xyz: torch.Tensor, features: Optional[torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        fps_idx = farthest_point_sample(xyz, self.npoint)
+        new_xyz = index_points(xyz, fps_idx)
+        scales = []
+        for i, (radius, nsample) in enumerate(zip(self.radius_list, self.nsample_list)):
+            idx = query_ball_point(radius, nsample, xyz, new_xyz)
+            grouped = group_points(xyz, new_xyz, idx, features)
+            scales.append(torch.amax(getattr(self, f"mlp_{i}")(grouped), dim=2))
+        return new_xyz, torch.cat(scales, dim=-1)
+
+
+class EnhancedFeaturePropagation(nn.Module):
+    """Attention- and boundary-augmented decoder layer
+    (models/common.py:254-315): 4-NN interpolation of the coarse features,
+    concatenated after the fine skip features; a channel-attention gate on
+    the result; a shared MLP, with a residual when the widths line up; and
+    an MLP of the fine coordinates added on top. ``in_ch`` is the width
+    after the concatenation."""
+
+    def __init__(self, in_ch: int, mlp: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.residual = in_ch == mlp[-1]
+        self.attn_dense0 = Dense(in_ch, in_ch // 4, generator=g)
+        self.attn_bn = BatchNorm(in_ch // 4)
+        self.attn_dense1 = Dense(in_ch // 4, in_ch, generator=g)
+        self.mlp = DenseMLP(in_ch, mlp, g)
+        self.boundary_mlp0 = DenseMLP(3, (16,), g)
+        self.boundary_dense1 = Dense(16, mlp[-1], generator=g)
+
+    def forward(
+        self,
+        xyz_fine: torch.Tensor,
+        xyz_coarse: torch.Tensor,
+        feats_fine: Optional[torch.Tensor],
+        feats_coarse: torch.Tensor,
+    ) -> torch.Tensor:
+        fused = three_nn_interpolate(xyz_fine, xyz_coarse, feats_coarse, k=4)
+        if feats_fine is not None:
+            fused = torch.cat([feats_fine, fused], dim=-1)
+        attn = F.relu(self.attn_bn(self.attn_dense0(fused)))
+        fused = fused * torch.sigmoid(self.attn_dense1(attn))
+        out = self.mlp(fused)
+        if self.residual:
+            out = out + fused
+        return out + self.boundary_dense1(self.boundary_mlp0(xyz_fine))
 
 
 class SegHead(nn.Module):

@@ -1,6 +1,7 @@
 """Model registry of the port (counterpart of
-pointcloud_bridge_tpu/models/registry.py). Only the models ported so far are
-known; ROADMAP.md lists the order in which the rest follow."""
+pointcloud_bridge_tpu/models/registry.py). ``MODEL_REGISTRY`` holds the
+models the port supports; ``NOT_PORTED`` the JAX package's other names,
+which raise an error that points at ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -9,11 +10,24 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .bristrunet import BriStruNet
 from .pointnet2 import PointNet2SSG
 
 MODEL_REGISTRY = {
     "pointnet2_ssg": PointNet2SSG,
+    "bristrunet": BriStruNet,  # EnhancedPointNet2 / BridgeSeg (paper model)
+    "enhanced_pointnet2": BriStruNet,
+    "bridgeseg": BriStruNet,
 }
+
+# names the JAX package's registry knows and the port does not yet
+NOT_PORTED = (
+    "pointnet2", "pointnet2_msg", "pointnet", "pointnet_seg", "pointnet_global",
+    "dgcnn", "dgcnn_global", "randlanet", "randlanet_ss", "ptv3", "ptv3_moe",
+    "ptv3_pooled", "pointnet_cls", "pointnet2_cls_ssg", "pointnet2_cls_msg",
+    "pointnet2_sem_seg", "pointnet_sem_seg", "spg", "superpoint_graph", "spt",
+    "superpoint_transformer", "enhanced_pointnet2_ssg",
+)
 
 
 def get_model(
@@ -25,11 +39,13 @@ def get_model(
 ) -> nn.Module:
     """Build ``name`` with weights drawn from ``generator`` (a CPU
     generator, or torch's default one when None) and move it to device."""
-    if name not in MODEL_REGISTRY:
+    if name in NOT_PORTED:
         raise NotImplementedError(
             f"model '{name}' is not ported to PyTorch yet (ported: "
             f"{sorted(MODEL_REGISTRY)}); ROADMAP.md lists what comes next"
         )
+    if name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model '{name}'; available: {sorted(MODEL_REGISTRY)}")
     model = MODEL_REGISTRY[name](
         num_classes=num_classes, generator=generator, **kwargs
     )

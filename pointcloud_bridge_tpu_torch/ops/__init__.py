@@ -6,14 +6,36 @@ module: a CPU tensor takes the plain version, a CUDA tensor the kernel.
 """
 
 from .core import index_points, pairwise_sq_dist, square_distance
-from .grouping import group_points, query_ball_point, sample_and_group
+from .grouping import (
+    group_points,
+    knn,
+    knn_set,
+    knn_with_distance,
+    query_ball_point,
+    sample_and_group,
+)
 from .interpolate import three_nn_interpolate
 from .sampling import farthest_point_sample
+from .structure import (
+    eigh3x3,
+    eigvals3_from_entries,
+    knn_relative_positions,
+    local_covariance,
+    local_structure_features,
+)
 
 __all__ = [
+    "eigh3x3",
+    "eigvals3_from_entries",
     "farthest_point_sample",
     "group_points",
     "index_points",
+    "knn",
+    "knn_relative_positions",
+    "knn_set",
+    "knn_with_distance",
+    "local_covariance",
+    "local_structure_features",
     "pairwise_sq_dist",
     "query_ball_point",
     "sample_and_group",

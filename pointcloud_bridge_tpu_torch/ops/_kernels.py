@@ -37,10 +37,11 @@ BUILD_DIR = _REPO / "build" / "pointcloud_bridge_tpu_torch"
 
 # -fmad=false: no FMA contraction anywhere, so distances round exactly as in
 # the reference's separate multiply and add (common.cuh spells it out too).
+# --threads 0: the sources compile side by side, one job a core.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-fmad=false", "-Xptxas", "-v",
+    "-fmad=false", "-Xptxas", "-v", "--threads", "0",
 )
 
 _P = ctypes.c_void_p
@@ -111,7 +112,14 @@ INTERP_BWD = Kernel(
     "pointcloud_bridge_tpu_torch/csrc/interp_bwd.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/interp3.py:115",
 )
-KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD)
+KNN = Kernel(
+    "knn", "pcb_knn",
+    # xyz, query, idx_out, d2_out, B, N, S, k, device, stream
+    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/knn.cu",
+    "pointcloud_bridge_tpu/ops/pallas_kernels/knnset.py:77",
+)
+KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN)
 
 
 def reset_launch_counts() -> None:

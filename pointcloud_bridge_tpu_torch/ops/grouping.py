@@ -1,11 +1,12 @@
-"""Ball query and grouping (counterpart of pointcloud_bridge_tpu/ops/grouping.py).
+"""Ball query, k-NN and grouping (counterpart of
+pointcloud_bridge_tpu/ops/grouping.py).
 
 Only the exact semantics are ported: there is no ``approx`` and no
 ``recall_target``. A CPU tensor goes to the plain PyTorch version, a CUDA
-tensor to the kernel (csrc/ballq.cu, csrc/group.cu); both give the same
-result bit for bit. ``group_points`` is the autograd Function
+tensor to the kernel (csrc/ballq.cu, csrc/knn.cu, csrc/group.cu); both give
+the same result bit for bit. ``group_points`` is the autograd Function
 :class:`GroupPoints` on both devices; its backward is a scatter-add, the
-kernel csrc/group_bwd.cu on the card.
+kernel csrc/group_bwd.cu on the card. k-NN indices carry no gradient.
 """
 
 from __future__ import annotations
@@ -80,6 +81,79 @@ def ball_query_cuda(
         radius_sq(radius), *_kernels.stream_args(xyz),
     )
     return out
+
+
+# the kernel keeps the k best of a query in two registers of each lane
+KNN_MAX_K = 64
+
+
+def knn_with_distance(
+    xyz: torch.Tensor, query: Optional[torch.Tensor] = None, k: int = 20
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest points of every query by squared distance, the query
+    itself included when it is one of the points (ops/grouping.py:191-209).
+
+    xyz [B, N, 3], query [B, S, 3] float32 (default xyz) -> (d2 [B, S, k]
+    float32, idx [B, S, k] int32), nearest first, equal distances to the
+    lower index. Distances are in the direct form of ``pairwise_sq_dist``.
+    """
+    if query is None:
+        query = xyz
+    for name, t in (("xyz", xyz), ("query", query)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if not 1 <= k <= xyz.shape[1]:
+        raise ValueError(f"knn: expected 1 <= k <= N, got k={k}, N={xyz.shape[1]}")
+    if xyz.device.type == "cpu":
+        return knn_plain(xyz, query, k)
+    return knn_cuda(xyz.contiguous(), query.contiguous(), k)
+
+
+def knn(xyz: torch.Tensor, query: Optional[torch.Tensor] = None, k: int = 20) -> torch.Tensor:
+    """``knn_with_distance`` without the distances (ops/grouping.py:164-188)."""
+    return knn_with_distance(xyz, query, k)[1]
+
+
+def knn_set(xyz: torch.Tensor, query: Optional[torch.Tensor] = None, k: int = 16) -> torch.Tensor:
+    """k nearest neighbours for consumers that ignore their order
+    (ops/grouping.py:212-251). The exact sorted list is such a set, and it
+    is what the JAX op returns wherever its selection kernel is off."""
+    return knn(xyz, query, k)
+
+
+def knn_plain(
+    xyz: torch.Tensor, query: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch k-NN: all pairwise distances and a stable sort, which
+    keeps the lower index ahead on equal distances (``torch.topk`` promises
+    no tie order)."""
+    d2, order = pairwise_sq_dist(query, xyz).sort(dim=-1, stable=True)
+    return d2[..., :k].contiguous(), order[..., :k].to(torch.int32)
+
+
+def knn_cuda(
+    xyz: torch.Tensor, query: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-NN kernel wrapper: one launch (csrc/knn.cu) -> (d2, idx)."""
+    _kernels.check_tensor("xyz", xyz, torch.float32, 3)
+    _kernels.check_tensor("query", query, torch.float32, 3)
+    b, n, c = xyz.shape
+    s = query.shape[1]
+    if c != 3 or query.shape[0] != b or query.shape[2] != 3:
+        raise ValueError(f"knn: bad shapes {tuple(xyz.shape)}, {tuple(query.shape)}")
+    if not 1 <= k <= min(KNN_MAX_K, n):
+        raise ValueError(f"knn kernel takes 1 <= k <= min({KNN_MAX_K}, N), got k={k}, N={n}")
+    if b > 65535:
+        raise ValueError(f"knn kernel takes B <= 65535, got {b}")
+    idx = torch.empty((b, s, k), dtype=torch.int32, device=xyz.device)
+    d2 = torch.empty((b, s, k), dtype=torch.float32, device=xyz.device)
+    if idx.numel() == 0:
+        return d2, idx
+    _kernels.KNN.launch(
+        xyz.data_ptr(), query.data_ptr(), idx.data_ptr(), d2.data_ptr(), b, n, s, k,
+        *_kernels.stream_args(xyz),
+    )
+    return d2, idx
 
 
 def group_points(

@@ -25,16 +25,13 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from pointcloud_bridge_tpu.utils.logging import ScalarWriter, initialize_logger
-
 from .. import losses as L
 from ..config import Config
 from ..models import Dropout, get_model
 from ..utils import metrics as M
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+from ..utils.logging import ScalarWriter, initialize_logger, snapshot_code
 from .schedules import ReduceLROnPlateau, cosine_lr, step_decay_lr
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def make_optimizer(params, weight_decay: float = 1e-4) -> torch.optim.Adam:
@@ -142,16 +139,6 @@ def prefetch_to_device(batch_iter, put: Callable, size: int = 2):
         if isinstance(item, tuple) and len(item) == 2 and item[0] == "__prefetch_error__":
             raise item[1]
         yield item
-
-
-def snapshot_code(exp_dir: str) -> None:
-    """Copy the port's package into the experiment dir for reproducibility
-    (the JAX package's utils/logging.py:67-78 copies its own)."""
-    import shutil
-
-    dst = os.path.join(exp_dir, "code_snapshot", os.path.basename(_PKG))
-    if not os.path.exists(dst):
-        shutil.copytree(_PKG, dst, ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
 
 
 def resolve_device(name: str) -> torch.device:

@@ -8,13 +8,61 @@ Usage:
 
 Trains on the first CUDA device; without one it stops with an error.
 ``--device cpu`` runs the plain PyTorch ops on the CPU and is meant for
-tests. The datasets and the config are the JAX package's, shared: neither
-imports JAX.
+tests.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import os
+
+
+def build_datasets(cfg):
+    from .data import BlockDataset
+
+    def files_of(d):
+        out = []
+        for pat in ("*.las", "*.h5", "*.hdf5"):
+            out.extend(glob.glob(os.path.join(d, pat)))
+        return sorted(out)
+
+    train_files = files_of(cfg.data.train_dir)
+    if not train_files:
+        raise FileNotFoundError(f"no LAS/H5 scenes in {cfg.data.train_dir}")
+    tr = BlockDataset.from_files(
+        train_files,
+        num_points=cfg.data.num_points,
+        block_size=cfg.data.block_size,
+        sample_rate=cfg.data.sample_rate,
+        num_classes=cfg.model.num_classes,
+        weighted=cfg.data.weighted_sampling,
+        sampler=cfg.data.sampler,
+        chunk_size=cfg.data.chunk_size,
+        overlap=cfg.data.overlap,
+        steps_per_file=cfg.data.steps_per_file,
+        cache_dir=cfg.data.cache_dir,
+        augment=cfg.data.augment,
+        seed=cfg.train.seed,
+    )
+    va = None
+    if cfg.data.val_dir:
+        val_files = files_of(cfg.data.val_dir)
+        if val_files:
+            va = BlockDataset.from_files(
+                val_files,
+                num_points=cfg.data.num_points,
+                block_size=cfg.data.block_size,
+                sample_rate=cfg.data.sample_rate,
+                num_classes=cfg.model.num_classes,
+                sampler=cfg.data.sampler,
+                chunk_size=cfg.data.chunk_size,
+                overlap=cfg.data.overlap,
+                steps_per_file=cfg.data.steps_per_file,
+                cache_dir=cfg.data.cache_dir,
+                seed=cfg.train.seed + 999,
+            )
+    return tr, va
 
 
 def main(argv=None) -> dict:
@@ -39,8 +87,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; an error without a card) or cpu (tests)")
     args = ap.parse_args(argv)
-
-    from pointcloud_bridge_tpu.train_cli import build_datasets
 
     from .config import Config
 

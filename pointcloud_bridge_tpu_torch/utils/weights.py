@@ -1,27 +1,33 @@
-"""JAX package variables -> the port's state_dict, and back
-(``state_dict_to_flax``, which maps gradients and trained weights onto the
-JAX trees leaf by leaf).
+"""JAX package variables -> the port's state_dict (``flax_to_state_dict``),
+and back (``state_dict_to_flax``, which maps gradients and trained weights
+onto the JAX trees leaf by leaf), for every model the port has.
 
-Takes ``{"params": ..., "batch_stats": ...}`` of the JAX PointNet2SSG as
-nested dicts of numpy arrays (``jax.device_get`` of the flax variables) and
-returns the state_dict of the port's PointNet2SSG. It is the inverse of the
-JAX package's ``_rules_pointnet2_ssg`` (utils/torch_import.py:125-140),
-written out here so that the port needs neither JAX nor that module:
+The variables are ``{"params": ..., "batch_stats": ...}`` as nested dicts of
+numpy arrays (``jax.device_get`` of the flax variables). A rule table a
+model says which flax module becomes which prefix of the state_dict:
 
-  - Dense kernel [I, O] -> conv weight [O, I, 1, 1] (SA, the reference's
-    Conv2d) or [O, I, 1] (FP and head, Conv1d); bias as is;
+  - PointNet2SSG (``pointnet2_ssg_rules``) carries the reference torch
+    model's names. The table is the inverse of the JAX package's
+    ``_rules_pointnet2_ssg`` (utils/torch_import.py:125-140), written out
+    here so that the port needs neither JAX nor that module. Dense kernel
+    [I, O] -> conv weight [O, I, 1, 1] (SA, the reference's Conv2d) or
+    [O, I, 1] (FP and head, Conv1d); bias as is.
+  - BriStruNet (``bristrunet_rules``) has no mappable reference torch model,
+    so the port names its layers after the flax modules and a prefix is the
+    flax path joined with dots. Dense kernel [I, O] -> weight [O, I]; a
+    Dense without a bias has none on either side.
   - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
     running_mean/running_var, num_batches_tracked 0.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-# (torch prefix, flax path, kind); kind is "conv2d", "conv1d" or "bn"
+# (torch prefix, flax path, kind); kind is "conv2d", "conv1d", "dense" or "bn"
 Rule = Tuple[str, Tuple[str, ...], str]
 
 
@@ -43,17 +49,68 @@ def pointnet2_ssg_rules() -> List[Rule]:
     return r
 
 
+def bristrunet_rules() -> List[Rule]:
+    bse = [("mlp0_shared", "dense"), ("mlp0_rel", "dense"), ("bn0", "bn"), ("mlp1", "dense")]
+    layers: List[Tuple[Tuple[str, ...], str]] = [(("bri_enc", n), kind) for n, kind in bse]
+    layers += [(("color_encoder", n), "bn" if "bn" in n else "dense")
+               for n in ("mlp0", "bn0", "mlp1", "bn1", "attn0", "attn_bn", "attn1", "ctx0", "ctx1")]
+    layers += [(("feature_fusion", "fusion"), "dense"), (("feature_fusion", "bn"), "bn")]
+    for sa in ("sa1", "sa2", "sa3"):
+        for scale in (0, 1):
+            for j in range(3):
+                layers.append(((sa, f"mlp_{scale}", f"dense_{j}"), "dense"))
+                layers.append(((sa, f"mlp_{scale}", f"bn_{j}"), "bn"))
+    for geo in ("geometric2", "geometric3"):
+        layers += [((geo, "br_pos", n), kind) for n, kind in bse]
+        layers += [((geo, "mlp0"), "dense"), ((geo, "bn0"), "bn"), ((geo, "mlp1"), "dense")]
+    for fp in ("fp3", "fp2", "fp1"):
+        layers += [((fp, "attn_dense0"), "dense"), ((fp, "attn_bn"), "bn"),
+                   ((fp, "attn_dense1"), "dense")]
+        for j in range(2):
+            layers += [((fp, "mlp", f"dense_{j}"), "dense"), ((fp, "mlp", f"bn_{j}"), "bn")]
+        layers += [((fp, "boundary_mlp0", "dense_0"), "dense"),
+                   ((fp, "boundary_mlp0", "bn_0"), "bn"),
+                   ((fp, "boundary_dense1"), "dense")]
+    for i in range(3):
+        layers += [(("fusion", f"conv{i}"), "dense"), (("fusion", f"bn{i}"), "bn")]
+    layers += [(("final0",), "dense"), (("final_bn",), "bn"), (("final1",), "dense")]
+    return [(".".join(path), path, kind) for path, kind in layers]
+
+
+MODEL_RULES = {
+    "pointnet2_ssg": pointnet2_ssg_rules,
+    "bristrunet": bristrunet_rules,
+    "enhanced_pointnet2": bristrunet_rules,
+    "bridgeseg": bristrunet_rules,
+}
+
+
+def rules_for(model: Union[str, Sequence[Rule]]) -> Sequence[Rule]:
+    """A model's rule table by its registry name; a table passes through."""
+    if not isinstance(model, str):
+        return model
+    if model not in MODEL_RULES:
+        raise KeyError(f"no weight rules for model '{model}'; known: {sorted(MODEL_RULES)}")
+    return MODEL_RULES[model]()
+
+
 def _leaf(tree: Dict[str, Any], path: Tuple[str, ...]) -> np.ndarray:
     for p in path:
         tree = tree[p]
     return np.asarray(tree, dtype=np.float32)
 
 
-def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX PointNet2SSG variables -> state_dict for ``load_state_dict``."""
+_TRAILING = {"conv2d": (1, 1), "conv1d": (1,), "dense": ()}
+
+
+def flax_to_state_dict(
+    variables: Dict[str, Any], model: Union[str, Sequence[Rule]] = "pointnet2_ssg"
+) -> Dict[str, torch.Tensor]:
+    """JAX variables of ``model`` (a registry name or a rule table) ->
+    state_dict for ``load_state_dict``."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
-    for tp, fp, kind in pointnet2_ssg_rules():
+    for tp, fp, kind in rules_for(model):
         if kind == "bn":
             sd[f"{tp}.weight"] = _leaf(params, fp + ("scale",))
             sd[f"{tp}.bias"] = _leaf(params, fp + ("bias",))
@@ -62,14 +119,18 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             sd[f"{tp}.num_batches_tracked"] = np.zeros((), np.int64)
         else:
             kernel = _leaf(params, fp + ("kernel",))  # [I, O]
-            trailing = (1, 1) if kind == "conv2d" else (1,)
-            sd[f"{tp}.weight"] = kernel.T.reshape(kernel.shape[::-1] + trailing)
-            sd[f"{tp}.bias"] = _leaf(params, fp + ("bias",))
+            sd[f"{tp}.weight"] = kernel.T.reshape(kernel.shape[::-1] + _TRAILING[kind])
+            try:
+                sd[f"{tp}.bias"] = _leaf(params, fp + ("bias",))
+            except KeyError:  # a Dense without a bias
+                pass
     return {k: torch.tensor(v) for k, v in sd.items()}  # copies
 
 
-def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The inverse of ``flax_to_state_dict``: a PointNet2SSG state_dict, or
+def state_dict_to_flax(
+    sd: Dict[str, torch.Tensor], model: Union[str, Sequence[Rule]] = "pointnet2_ssg"
+) -> Dict[str, Any]:
+    """The inverse of ``flax_to_state_dict``: a state_dict of ``model``, or
     any part of one (a dict of gradients holds only weights and biases) ->
     ``{"params": ..., "batch_stats": ...}`` nested dicts of float32 numpy
     arrays, with the leaves that ``sd`` has."""
@@ -81,7 +142,7 @@ def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         tree[path[-1]] = v.detach().cpu().numpy().astype(np.float32)
 
     names = {"weight": "scale", "bias": "bias"}
-    for tp, fp, kind in pointnet2_ssg_rules():
+    for tp, fp, kind in rules_for(model):
         if kind == "bn":
             for key, leaf in names.items():
                 if f"{tp}.{key}" in sd:

@@ -1,7 +1,13 @@
 """The PyTorch port's block inference and metrics against the JAX package,
-on the CPU, and the port's import graph (no JAX)."""
+on the CPU, its inference CLI, and the port's import graph (no JAX, nothing
+of the JAX package)."""
 
+import ast
+import contextlib
+import csv
+import io
 import os
+import re
 import subprocess
 import sys
 
@@ -13,15 +19,20 @@ import torch
 
 from pointcloud_bridge_tpu.data import BlockDataset, make_training_blocks
 from pointcloud_bridge_tpu.data.synthetic import toy_bridge_scene
+from pointcloud_bridge_tpu.data import scene_labelweights
+from pointcloud_bridge_tpu.data.dataset import _load_scene
+from pointcloud_bridge_tpu.infer import whole_scene_vote_predict as jax_vote
 from pointcloud_bridge_tpu.infer.blocks import (
     run_block_inference as jax_run_block_inference,
 )
+from pointcloud_bridge_tpu.models import get_model as jax_get_model
 from pointcloud_bridge_tpu.models.pointnet2 import PointNet2SSG as JaxSSG
 from pointcloud_bridge_tpu.utils import metrics as jax_metrics
 from pointcloud_bridge_tpu_torch.infer import run_block_inference, save_metrics_csv
 from pointcloud_bridge_tpu_torch.models import get_model
 from pointcloud_bridge_tpu_torch.utils import metrics
-from pointcloud_bridge_tpu_torch.utils.weights import flax_to_state_dict
+from pointcloud_bridge_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from pointcloud_bridge_tpu_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
 
 from test_torch_ssg import randomize_bn
 
@@ -53,7 +64,7 @@ def served():
     want = jax_run_block_inference(jmodel, variables, ds, num_classes=5, batch_size=4)
     model = get_model("pointnet2_ssg", num_classes=5, sa_npoints=SA_NPOINTS)
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
-    got = run_block_inference(model, ds, num_classes=5, batch_size=4, device="cpu")
+    got = run_block_inference(model, ds, num_classes=5, batch_size=4)
     return ds, want, got
 
 
@@ -97,15 +108,299 @@ def test_metrics_match_jax(rng):
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
 
 
+# ------------------------------------------------- the port's host layer
+
+HOST_COPIES = [
+    "data/lasio.py", "data/h5io.py", "data/blocks.py", "data/dataset.py",
+    "data/augment.py", "data/native.py", "data/samplers_extra.py",
+    "data/synthetic.py", "config.py", "class_names.py", "infer/figures.py",
+    "infer/las_export.py",
+]
+
+
+def _code_without_docstrings(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_layer_copy_has_the_jax_packages_code(rel):
+    """The port carries its own numpy host layer: a copy of the JAX
+    package's, equal statement for statement (comments and docstrings
+    apart), so the two packages read and sample data the same way."""
+    ours = os.path.join(REPO, "pointcloud_bridge_tpu_torch", rel)
+    theirs = os.path.join(REPO, "pointcloud_bridge_tpu", rel)
+    assert _code_without_docstrings(ours) == _code_without_docstrings(theirs)
+
+
+# ------------------------------------------------------------ the CLI
+
+
+def _write_scenes(root, n_points=2500):
+    from pointcloud_bridge_tpu_torch.data import write_las
+
+    root.mkdir()
+    for seed in (0, 1):
+        xyz, rgb, labels = toy_bridge_scene(n_points, seed=seed)
+        write_las(str(root / f"scene{seed}.las"), xyz, rgb, labels)
+    return root
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """Two small LAS scenes, an SSG experiment directory written by the
+    port's train_cli (one epoch on the CPU) and a BriStruNet checkpoint file
+    saved with the port's utils/checkpoint.py."""
+    from pointcloud_bridge_tpu_torch import train_cli
+    from pointcloud_bridge_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = tmp_path_factory.mktemp("cli")
+    data = _write_scenes(root / "data")
+    cwd = os.getcwd()
+    os.chdir(root)  # exp_dir_root is relative
+    try:
+        out = train_cli.main([
+            "--train-dir", str(data), "--num-points", "128", "--batch-size", "4",
+            "--num-epochs", "1", "--sampler", "random", "--device", "cpu", "--case", "cli",
+        ])
+    finally:
+        os.chdir(cwd)
+    bri = get_model("bristrunet", 5, generator=torch.Generator().manual_seed(0))
+    bri_ckpt = root / "bristrunet_ckpt"
+    save_checkpoint(str(bri_ckpt), {"model": bri.state_dict(), "epoch": 0})
+    exp_dir = os.path.join(root, out["exp_dir"])
+    assert os.path.exists(os.path.join(exp_dir, "latest_checkpoint"))
+    return {"data": data, "ssg": exp_dir, "bristrunet": str(bri_ckpt), "root": root}
+
+
+def _checkpoint_file(path):
+    """The file the CLI is to restore from ``path``: an experiment
+    directory's best_model, else its latest_checkpoint, else ``path``."""
+    for cand in ("best_model", "latest_checkpoint"):
+        if os.path.exists(os.path.join(path, cand)):
+            return os.path.join(path, cand)
+    return path
+
+
+def _jax_side(name, checkpoint):
+    """The JAX package's model at the CLI's (full) width with the weights of
+    the port's checkpoint, converted by the port's rule table."""
+    sd = restore_checkpoint(_checkpoint_file(checkpoint))["model"]
+    return jax_get_model(name, 5), state_dict_to_flax(sd, name)
+
+
+def _scene_files(cli_run):
+    return [str(cli_run["data"] / f"scene{seed}.las") for seed in (0, 1)]
+
+
+METRIC_TOL = 1e-3  # of a metric in [0, 1], between the CLI's numbers and the JAX package's
+
+
+def _csv_rows(path):
+    with open(path, newline="") as f:
+        return {r["file"]: r for r in csv.DictReader(f)}
+
+
+@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet"])
+def test_infer_cli_blocks_on_cpu(cli_run, capsys, name):
+    """``blocks`` mode against the JAX package's block inference on the same
+    scenes with the checkpoint's weights: the confusion matrix on >= 99.9%
+    of the points, every number of metrics.csv and of the printed GLOBAL
+    line within 1e-3."""
+    from pointcloud_bridge_tpu_torch import infer_cli
+
+    key = "ssg" if name == "pointnet2_ssg" else name
+    out_dir = cli_run["root"] / f"blocks_{name}"
+    infer_cli.main([
+        "blocks", "--checkpoint", cli_run[key], "--model", name,
+        "--data-dir", str(cli_run["data"]), "--out-dir", str(out_dir),
+        "--num-points", "128", "--batch-size", "8", "--device", "cpu",
+    ])
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GLOBAL")][-1]
+    m = re.fullmatch(r"GLOBAL mIoU=([\d.]+) OA=([\d.]+) mAcc=([\d.]+) F1=([\d.]+)", line)
+    assert m, line
+    assert all(0.0 <= float(v) <= 1.0 for v in m.groups())
+    txt = (out_dir / "metrics.csv").read_text()
+    assert "GLOBAL" in txt and "scene0" in txt and "scene1" in txt
+    cm = np.loadtxt(out_dir / "confusion_matrix.csv", delimiter=",")
+    assert cm.shape == (5, 5) and cm.sum() > 0 and cm.sum() % 128 == 0
+
+    jmodel, variables = _jax_side(name, cli_run[key])
+    ds = BlockDataset.from_files(_scene_files(cli_run), num_points=128, num_classes=5)
+    want = jax_run_block_inference(jmodel, variables, ds, num_classes=5, batch_size=8)
+    want_cm = np.asarray(want["global"]["Confusion_Matrix"])
+    assert cm.sum() == want_cm.sum() == len(ds) * 128
+    assert np.abs(cm - want_cm).sum() / 2 <= 1e-3 * cm.sum()
+    for got, key in zip(m.groups(), ("mIoU", "OA", "mAcc", "F1_score")):
+        assert abs(float(got) - want["global"][key]) <= METRIC_TOL + 5e-5, key  # 4 decimals
+    rows = _csv_rows(out_dir / "metrics.csv")
+    assert set(rows) == {"GLOBAL"} | set(want["per_file"])
+    for fname, row in rows.items():
+        ref = want["global"] if fname == "GLOBAL" else want["per_file"][fname]
+        for key in ("mIoU", "OA", "mAcc", "Precision", "Recall", "F1_score"):
+            assert abs(float(row[key]) - ref[key]) <= METRIC_TOL, (fname, key)
+        for c, iou in enumerate(ref["IoU_per_class"]):
+            got_iou = float(row[f"IoU_class_{c}"])
+            assert (np.isnan(got_iou) and np.isnan(iou)) or abs(got_iou - iou) <= 5 * METRIC_TOL
+
+
+_SCENE_RUNS = {}
+
+
+def _cli_scene(cli_run, name):
+    """One ``scene`` run of the CLI a model, shared by the tests below ->
+    (the lines it printed, its output directory)."""
+    from pointcloud_bridge_tpu_torch import infer_cli
+
+    if name not in _SCENE_RUNS:
+        key = "ssg" if name == "pointnet2_ssg" else name
+        out_dir = cli_run["root"] / f"scene_{name}"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            infer_cli.main([
+                "scene", "--checkpoint", cli_run[key], "--model", name,
+                "--data-dir", str(cli_run["data"]), "--out-dir", str(out_dir),
+                "--num-points", "128", "--batch-size", "8", "--num-votes", "1",
+                "--block-size", "8.0", "--stride", "8.0", "--export-las", "--device", "cpu",
+            ])
+        _SCENE_RUNS[name] = (buf.getvalue().splitlines(), out_dir)
+    return _SCENE_RUNS[name]
+
+
+SCENE_LINE = r"(scene\d\.las): mIoU=([\d.]+) OA=([\d.]+)"
+OVERALL_LINE = r"OVERALL mIoU=([\d.]+) OA=([\d.]+)"
+
+
+@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet"])
+def test_infer_cli_scene_on_cpu(cli_run, name):
+    from pointcloud_bridge_tpu_torch.data import read_las
+
+    lines, out_dir = _cli_scene(cli_run, name)
+    per_scene = [ln for ln in lines if re.fullmatch(SCENE_LINE, ln)]
+    assert len(per_scene) == 2, lines
+    overall = [ln for ln in lines if ln.startswith("OVERALL")][-1]
+    m = re.fullmatch(OVERALL_LINE, overall)
+    assert m and all(0.0 <= float(v) <= 1.0 for v in m.groups()), overall
+    for seed in (0, 1):
+        src = read_las(str(cli_run["data"] / f"scene{seed}.las"))
+        las = read_las(str(out_dir / f"scene{seed}_pred.las"))
+        assert len(las.xyz) == len(src.xyz)
+        np.testing.assert_allclose(las.xyz, src.xyz, atol=2e-3)
+        assert las.classification.min() >= 0 and las.classification.max() < 5
+
+
+@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet"])
+def test_infer_cli_scene_matches_jax(cli_run, name):
+    """``scene`` mode against the JAX package's vote inference on the same
+    scenes with the checkpoint's weights and the vote weights of all scenes
+    together: the exported labels agree on >= 99.9% of the points, the
+    printed per-scene and OVERALL numbers within 1e-3."""
+    from pointcloud_bridge_tpu_torch.data import read_las
+
+    lines, out_dir = _cli_scene(cli_run, name)
+    per_scene = [re.fullmatch(SCENE_LINE, ln) for ln in lines if re.fullmatch(SCENE_LINE, ln)]
+    overall = re.fullmatch(OVERALL_LINE, [ln for ln in lines if ln.startswith("OVERALL")][-1])
+    jmodel, variables = _jax_side(name, cli_run["ssg" if name == "pointnet2_ssg" else name])
+    loaded = [_load_scene(f) for f in _scene_files(cli_run)]
+    lw = scene_labelweights([labels for _, _, labels in loaded], 5)
+    total_cm = np.zeros((5, 5))
+    for seed, (pts, cols, labels) in enumerate(loaded):
+        want = jax_vote(jmodel, variables, np.concatenate([pts, cols], axis=1), labels, lw, 5,
+                        block_points=128, block_size=8.0, stride=8.0, num_votes=1,
+                        batch_size=8)
+        total_cm += want["metrics"]["Confusion_Matrix"]
+        got_pred = read_las(str(out_dir / f"scene{seed}_pred.las")).classification
+        assert (got_pred == want["pred"]).mean() >= 0.999
+        fname, miou, oa = per_scene[seed].groups()
+        assert fname == f"scene{seed}.las"
+        assert abs(float(miou) - want["metrics"]["mIoU"]) <= METRIC_TOL + 5e-5  # 4 decimals
+        assert abs(float(oa) - want["metrics"]["OA"]) <= METRIC_TOL + 5e-5
+    ref = jax_metrics.metrics_from_confusion(total_cm)
+    assert abs(float(overall.group(1)) - ref["mIoU"]) <= METRIC_TOL + 5e-5
+    assert abs(float(overall.group(2)) - ref["OA"]) <= METRIC_TOL + 5e-5
+
+
+@pytest.mark.parametrize("present, taken", [
+    (("best_model", "latest_checkpoint"), "best_model"),
+    (("latest_checkpoint",), "latest_checkpoint"),
+])
+def test_infer_cli_restore_order(cli_run, capsys, present, taken):
+    """From an experiment directory the CLI takes best_model, and
+    latest_checkpoint only where there is no best_model: its confusion
+    matrix is that of a run from the taken file alone, and not that of the
+    other file's weights."""
+    from pointcloud_bridge_tpu_torch import infer_cli
+
+    root = cli_run["root"] / ("order_" + "_".join(present))
+    exp = root / "exp"
+    exp.mkdir(parents=True)
+    files = {}
+    for seed, fname in enumerate(("best_model", "latest_checkpoint")):
+        model = get_model("pointnet2_ssg", 5, generator=torch.Generator().manual_seed(seed))
+        files[fname] = root / f"{fname}_alone"
+        save_checkpoint(str(files[fname]), {"model": model.state_dict(), "epoch": seed})
+        if fname in present:
+            save_checkpoint(str(exp / fname), {"model": model.state_dict(), "epoch": seed})
+
+    def confusion(checkpoint, label):
+        out_dir = root / label
+        infer_cli.main(["blocks", "--checkpoint", str(checkpoint), "--data-dir",
+                        str(cli_run["data"]), "--out-dir", str(out_dir), "--num-points", "128",
+                        "--batch-size", "8", "--device", "cpu"])
+        capsys.readouterr()
+        return np.loadtxt(out_dir / "confusion_matrix.csv", delimiter=",")
+
+    got = confusion(exp, "from_dir")
+    np.testing.assert_array_equal(got, confusion(files[taken], "from_taken"))
+    other = next(f for f in files if f != taken)
+    assert not np.array_equal(got, confusion(files[other], "from_other"))
+
+
+def test_infer_cli_from_snapshot_matches_the_working_tree(cli_run, capsys):
+    """--from-snapshot builds the model from the experiment's code_snapshot
+    (written by train); with an unchanged tree the metrics are the same."""
+    from pointcloud_bridge_tpu_torch import infer_cli
+
+    args = ["blocks", "--checkpoint", cli_run["ssg"], "--data-dir", str(cli_run["data"]),
+            "--num-points", "128", "--batch-size", "8", "--device", "cpu"]
+    infer_cli.main(args + ["--out-dir", str(cli_run["root"] / "snap_a")])
+    a = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GLOBAL")]
+    infer_cli.main(args + ["--out-dir", str(cli_run["root"] / "snap_b"), "--from-snapshot"])
+    b = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GLOBAL")]
+    assert a and a == b
+    assert any(k.startswith("pcb_snapshot_") for k in sys.modules)
+
+
+def test_infer_cli_refuses_a_missing_card(tmp_path):
+    from pointcloud_bridge_tpu_torch import infer_cli
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer_cli.main(["blocks", "--checkpoint", str(tmp_path), "--data-dir", str(tmp_path)])
+
+
 def test_port_imports_no_jax():
-    """A fresh interpreter imports every module of the port and runs a small
-    forward and a block inference; JAX never enters sys.modules."""
+    """A fresh interpreter imports every module of the port and the smoke
+    script, and runs a small forward and a block inference; neither JAX (or
+    flax, optax, orbax) nor any module of the JAX package enters
+    sys.modules."""
     code = (
-        "import sys, numpy as np, torch\n"
-        "import pointcloud_bridge_tpu_torch.ops._kernels\n"
-        "from pointcloud_bridge_tpu_torch import ops, models, infer\n"
-        "from pointcloud_bridge_tpu_torch.utils import weights, metrics\n"
-        "from pointcloud_bridge_tpu.data import BlockDataset\n"
+        "import importlib, pkgutil, sys, numpy as np, torch\n"
+        "import pointcloud_bridge_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) > 30, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "from pointcloud_bridge_tpu_torch import models, infer\n"
+        "from pointcloud_bridge_tpu_torch.data import BlockDataset\n"
         "m = models.get_model('pointnet2_ssg', 5, sa_npoints=(32, 16, 8),\n"
         "                     generator=torch.Generator().manual_seed(0))\n"
         "rng = np.random.default_rng(0)\n"
@@ -114,7 +409,9 @@ def test_port_imports_no_jax():
         "                  np.zeros((2, 64), np.int64), np.zeros(2, np.int64), ['a'])\n"
         "res = infer.run_block_inference(m, ds, 5, batch_size=2)\n"
         "assert res['predictions'].shape == (2, 64)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'flax'))]\n"
+        "bad = [k for k in sys.modules\n"
+        "       if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax')\n"
+        "       or k == 'pointcloud_bridge_tpu' or k.startswith('pointcloud_bridge_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
