@@ -25,6 +25,13 @@ any failure raises and exits non-zero:
    shapes (B=4): group backward (sa2, sa3) and interpolation backward (fp3,
    fp2, fp1, on the selection the forward kernel saved), within 1e-5 of
    max|plain|; median times of both;
+3c. the flash-attention kernel against the plain attention at every shape
+   that the PTv3 family gives it at B=4 x 4096 (the windows of level 0 folded
+   to [16,1024,2,32], the global levels [4,1024,4,32] and [4,256,8,32], the
+   flat model's [4,4096,2,192] and [4,4096,6,64]), on the strided slices of a
+   packed qkv projection of LayerNorm output, and at ragged lengths; within
+   2e-5 * max(1, max|plain|); times beside the bound and beside
+   F.scaled_dot_product_attention;
 4. the SSG forward at B=4 x 4096 on the card against the same model on the
    CPU (plain versions), logits within 2e-4; every forward kernel must have
    been launched; forward time and points/s;
@@ -58,13 +65,28 @@ any failure raises and exits non-zero:
    the CSVs and the printed metric lines checked; one scene once more
    through whole_scene_vote_predict for the split of its phase timings.
 
+10. the ptv3_pooled forward at the benched configuration (dims 64/128/256,
+   encoder depths 2/2/6, decoder depths 1/1, strides 4/4, windows of 1024),
+   B=4 x 4096, on the card against the CPU: logits within 2e-4; exactly 12
+   flash-attention launches and no other kernel; forward time, points/s and
+   device time by kernel family;
+11. the flat ptv3 forward at its default width (384 wide, 8 blocks, 2 heads
+   of 192, global attention over 4096 points), B=4, against the CPU: logits
+   within 2e-4, exactly 8 flash-attention launches; forward time;
+12. serve ptv3_pooled (the registry's default model) through infer_cli.main
+   from a checkpoint the script writes: ``blocks`` over the 48 blocks and
+   ``scene`` with 2 votes, counters reset just before and read just after:
+   the flash-attention kernel and no other; CSVs, exported LAS and printed
+   lines checked; wall and points/s.
+
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
-B=4 (phase 8; of one SSG train step, phase 6, for the backward kernels)
-beside ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over
-exactly those launches' shapes (phase 3); ``paths`` has the same for the SSG
-forward, and ``launches_by_path`` the counts of the serves and the training
-run through the CLIs. The last line is {"ok": true, "device": {...}}.
+B=4 (phase 8; of one SSG train step, phase 6, for the backward kernels; of
+one ptv3_pooled forward, phase 10, for the flash-attention kernel) beside
+``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
+those launches' shapes (phases 3, 3b, 3c); ``paths`` has the same for the
+other forwards, and ``launches_by_path`` the counts of the serves and the
+training run through the CLIs. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -91,9 +113,10 @@ from pointcloud_bridge_tpu_torch.data import BlockDataset, scene_labelweights, w
 from pointcloud_bridge_tpu_torch.data.dataset import _load_scene
 from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
 from pointcloud_bridge_tpu_torch.infer import run_block_inference, whole_scene_vote_predict
-from pointcloud_bridge_tpu_torch.models import BatchNorm, get_model
+from pointcloud_bridge_tpu_torch.models import BatchNorm, Dense, get_model
 from pointcloud_bridge_tpu_torch.ops import (
     _kernels,
+    attention,
     grouping,
     interpolate,
     sampling,
@@ -110,12 +133,16 @@ REPS = 20
 LOGIT_TOL = 2e-4  # PARITY.md §7's band for torch-vs-JAX logits
 INTERP_TOL = 1e-5
 BWD_TOL = 1e-5  # of max|plain|: float atomics add in another order
+ATTN_TOL = 2e-5  # of max(1, max|plain|): the online softmax re-associates the sums
 FORWARD_KERNELS = ("fps", "ball_query", "group", "interpolate")
 BACKWARD_KERNELS = ("group_bwd", "interp_bwd")
 # launches of one BriStruNet forward: an FPS a level, two radii a level, an
 # interpolation a decoder level, a k-NN in bri_enc, geometric2 and geometric3
 BRISTRUNET_LAUNCHES = {"fps": 3, "ball_query": 6, "group": 6, "interpolate": 3, "knn": 3,
-                       "group_bwd": 0, "interp_bwd": 0}
+                       "group_bwd": 0, "interp_bwd": 0, "flash_attn": 0}
+# the benched ptv3_pooled (configs/train_ptv3_pooled.yaml): an attention a block
+POOLED_BENCHED = dict(dims=(64, 128, 256), enc_depths=(2, 2, 6), dec_depths=(1, 1),
+                      strides=(4, 4), window_size=1024)
 # the card's peaks for the bound: HBM3 bytes/s and float32 FLOP/s outside the
 # tensor cores (NVIDIA H100 SXM data sheet, at the full 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -156,6 +183,7 @@ def nbytes(*tensors) -> int:
 
 
 SSG, BRISTRUNET, TRAIN = "ssg_forward", "bristrunet_forward", "ssg_train_step"
+PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")
 
 
@@ -168,18 +196,21 @@ class Results:
         names = [k.name for k in _kernels.KERNELS]
         self.err = dict.fromkeys(names, 0.0)
         self.sums = {path: {name: dict.fromkeys(SUMS, 0.0) | {"library_ms": None, "cases": 0}
-                            for name in names} for path in (SSG, BRISTRUNET, TRAIN)}
+                            for name in names}
+                     for path in (SSG, BRISTRUNET, TRAIN, PTV3_POOLED, PTV3)}
 
-    def check(self, name, label, kernel_fn, plain_fn, exact, paths=(), scaled=False,
-              work=None, library_fn=None):
+    def check(self, name, label, kernel_fn, plain_fn, exact, paths=(), scaled=None,
+              work=None, library_fn=None, times=1):
         """exact: bit-identical; else within INTERP_TOL (rtol and atol), or
-        with scaled=True within BWD_TOL * max|plain|. The functions return a
-        tensor or a tuple of tensors. ``paths`` names the paths that give
-        the kernel this shape; such a case is timed and needs ``work`` =
-        (bytes, operations) of the function on these inputs: each input read
-        once, each output written once, and the arithmetic the function
-        needs on this data. ``library_fn`` is the one PyTorch call that
-        computes the same function, timed beside the kernel."""
+        with scaled=(tol, floor) within tol * max(floor, max|plain|). The
+        functions return a tensor or a tuple of tensors. ``paths`` names the
+        paths that give the kernel this shape, ``times`` in one pass; such a
+        case is timed and needs ``work`` = (bytes, operations) of the
+        function on these inputs: each input read once, each output written
+        once, and the arithmetic the function needs on this data. A case
+        with ``work`` and no path is timed too. ``library_fn`` is the one
+        PyTorch call that computes the same function, timed beside the
+        kernel."""
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
@@ -196,14 +227,14 @@ class Results:
             if exact:
                 ok &= torch.equal(g, w)
             elif scaled:
-                ok &= e <= BWD_TOL * w.abs().max().item()
+                ok &= e <= scaled[0] * max(scaled[1], w.abs().max().item())
             else:
                 ok &= torch.allclose(g, w, rtol=INTERP_TOL, atol=INTERP_TOL)
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees, max |err| {err}")
         self.err[name] = max(self.err[name], err)
         line = f"{name:12s} {label:34s} max|err| {err:.3g}"
-        if paths:
+        if work:
             bytes_ms = work[0] / PEAK_BYTES_S * 1e3
             ops_ms = work[1] / PEAK_FLOPS * 1e3
             case = {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
@@ -216,12 +247,13 @@ class Results:
                 line += f"  library {l_ms:.4f} ms"
             for path in paths:
                 total = self.sums[path][name]
-                total["cases"] += 1
+                total["cases"] += times
                 for key in SUMS:
-                    total[key] += case[key]
+                    total[key] += times * case[key]
                 if l_ms is not None:
-                    total["library_ms"] = (total["library_ms"] or 0.0) + l_ms
-            line += "  [" + ", ".join(paths) + "]"
+                    total["library_ms"] = (total["library_ms"] or 0.0) + times * l_ms
+            if paths:
+                line += f"  [{times} x " + ", ".join(paths) + "]"
         print(line, flush=True)
 
     def row(self, name: str, path: str, launches: int) -> dict:
@@ -406,7 +438,7 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
         res.check("group_bwd", f"g [{B},{s},32,{3 + c}] -> [{B},{n},{c}]",
                   lambda: grouping.group_backward_cuda(g, idx, n, 3, 3 + c),
                   lambda: grouping.group_backward_plain(g, idx, n, 3, 3 + c),
-                  False, (TRAIN,), scaled=True,
+                  False, (TRAIN,), scaled=(BWD_TOL, 0.0),
                   work=(nbytes(rows, idx) + B * n * c * 4, B * s * 32 * c),
                   library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
     xyz = cloud(1024)
@@ -416,7 +448,7 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     res.check("group_bwd", "empty balls, xyz and features",
               lambda: grouping.group_backward_cuda(g, idx, 1024, 0, 19),
               lambda: grouping.group_backward_plain(g, idx, 1024, 0, 19),
-              False, scaled=True)
+              False, scaled=(BWD_TOL, 0.0))
 
     # K4b on the selection the forward kernel keeps; the kept selection
     # itself is held to the plain one (indices exact, weights 1e-6)
@@ -437,9 +469,74 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
         res.check("interp_bwd", f"g [{B},{n},{d}] -> [{B},{s},{d}] k=3",
                   lambda: interpolate.interpolate_backward_cuda(g, idx, w, s),
                   lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
-                  False, (TRAIN,), scaled=True,
+                  False, (TRAIN,), scaled=(BWD_TOL, 0.0),
                   work=(nbytes(g, idx, w) + B * s * d * 4, 2 * 3 * B * n * d),
                   library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
+
+
+def compare_attention_kernel(dev: torch.device, res: Results) -> None:
+    """Phase 3c: the flash-attention kernel against the plain attention at
+    the shapes the PTv3 family gives it at B=4 x 4096. q, k and v are the
+    strided slices of one packed qkv projection (row stride 3*H*D) of
+    LayerNorm output, as PointAttention makes them; ``fold`` is the number
+    of windows a cloud, folded into the batch by a reshape of those views."""
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    def packed_qkv(n, h, d, fold=1, b=B):
+        c = h * d
+        x = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dev)
+        qkv = Dense(c, 3 * c, generator=gen).to(dev)
+        with torch.inference_mode():
+            out = qkv(torch.nn.functional.layer_norm(x, (c,)))
+        views = out.reshape(b, n, 3, h, d).unbind(2)
+        return tuple(t.reshape(b * fold, n // fold, h, d) for t in views)
+
+    def case(label, q, k, v, paths=(), times=1, timed=True):
+        b, n, h, d = q.shape
+        if n > 1 and q.stride(1) != 3 * h * d:
+            raise AssertionError(f"flash_attn {label}: not a packed-qkv view")
+        work = (4 * nbytes(q), 4 * b * h * n * n * d) if timed else None
+        # the library call takes [B, H, N, D]: the same memory, transposed views
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        res.check("flash_attn", label,
+                  lambda: attention.attention_cuda(q, k, v),
+                  lambda: attention.attention_plain(q, k, v), False, paths,
+                  scaled=(ATTN_TOL, 1.0), work=work, times=times,
+                  library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+
+    # ptv3_pooled at 4096 points: level 0 in four windows of 1024 (2 heads),
+    # level 1 (1024 points, 4 heads) and level 2 (256 points, 8 heads) global;
+    # the benched depths run them 3, 3 and 6 times a forward
+    case("[16,1024,2,32] level 0 windows", *packed_qkv(4096, 2, 32, fold=4), (PTV3_POOLED,), 3)
+    case("[4,1024,4,32] level 1", *packed_qkv(1024, 4, 32), (PTV3_POOLED,), 3)
+    case("[4,256,8,32] level 2", *packed_qkv(256, 8, 32), (PTV3_POOLED,), 6)
+    # flat ptv3: global attention over 4096 points, its default 2 heads of
+    # 192 (8 blocks a forward) and the 6 heads of 64 of the wider config
+    case("[4,4096,2,192] flat ptv3", *packed_qkv(4096, 2, 192), (PTV3,), 8)
+    case("[4,4096,6,64] flat ptv3, 6 heads", *packed_qkv(4096, 6, 64))
+    # ragged lengths (no multiple of the 64-row tile), one row, the serve's
+    # batch 16, the other head widths
+    case("[4,200,2,32] ragged", *packed_qkv(200, 2, 32), timed=False)
+    case("[4,1000,4,32] ragged", *packed_qkv(1000, 4, 32), timed=False)
+    case("[4,1,2,32] one row", *packed_qkv(1, 2, 32), timed=False)
+    case("[64,1024,2,32] batch 16 windows", *packed_qkv(4096, 2, 32, fold=4, b=16), timed=False)
+    for d in (96, 128, 160, 224, 256):
+        case(f"[2,333,2,{d}] ragged", *packed_qkv(333, 2, d, b=2), timed=False)
+    # a contiguous tensor passes too, and the result is contiguous [B,N,H,D]
+    q, k, v = (t.contiguous() for t in packed_qkv(130, 2, 64))
+    out = attention.attention(q, k, v)
+    want = attention.attention_plain(q, k, v)
+    if not out.is_contiguous() or max_abs_err(out, want) > ATTN_TOL * max(1.0, want.abs().max().item()):
+        raise AssertionError("flash_attn contiguous [4,130,2,64]: kernel disagrees")
+    # a tensor that needs a gradient is refused: the kernel has no backward
+    try:
+        with torch.enable_grad():
+            attention.attention(q.clone().requires_grad_(), k, v)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("flash_attn: a tensor that needs a gradient was not refused")
 
 
 def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -694,8 +791,10 @@ def kernel_family(name: str) -> str:
     for key, family in (
         ("fps_kernel", "K1 FPS"), ("ballq_kernel", "K2 ball query"),
         ("group_kernel", "K3 group"), ("interp_kernel", "K4 interpolate"),
-        ("knn_kernel", "K5 k-NN"), ("gemm", "GEMMs"), ("gemv", "GEMMs"),
-        ("cutlass", "GEMMs"), ("batch_norm", "BatchNorm"), ("reduce", "reductions"),
+        ("knn_kernel", "K5 k-NN"), ("flash_attn_kernel", "K6 flash attention"),
+        ("gemm", "GEMMs"), ("gemv", "GEMMs"), ("cutlass", "GEMMs"),
+        ("batch_norm", "BatchNorm"), ("layer_norm", "LayerNorm"), ("Sort", "sort"),
+        ("sort", "sort"), ("reduce", "reductions"),
         ("gather", "gather, index, cat"), ("index", "gather, index, cat"),
         ("Cat", "gather, index, cat"), ("Memcpy", "copies, memset"),
         ("Memset", "copies, memset"),
@@ -705,13 +804,13 @@ def kernel_family(name: str) -> str:
     return "elementwise and other"
 
 
-def bristrunet_forward(ds: BlockDataset, dev: torch.device) -> torch.nn.Module:
-    """Phase 8: BriStruNet at full width, B=4 x 4096, on the card against
-    the CPU; exact launch counts; forward time; device time by family."""
-    gen = torch.Generator().manual_seed(SEED + 8)
-    model = get_model("bristrunet", NUM_CLASSES, generator=gen)
-    randomize_bn(model, gen)
-    model.eval()
+def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
+                        dev: torch.device, launches: dict, profile: bool = True) -> tuple:
+    """``model`` (eval mode, on the CPU) at B=4 x 4096 on the card against
+    a copy on the CPU (plain versions): logits within 2e-4, exactly
+    ``launches`` of each kernel in one forward; forward time and points/s;
+    device time by kernel family from one torch.profiler run -> (the model
+    on the card, the forward's milliseconds)."""
     cpu_model = copy.deepcopy(model)
     model.to(dev)
     xyz_cpu = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
@@ -725,22 +824,23 @@ def bristrunet_forward(ds: BlockDataset, dev: torch.device) -> torch.nn.Module:
         out = model(xyz, rgb)
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
-        if counts != BRISTRUNET_LAUNCHES:
-            raise AssertionError(f"BriStruNet forward: launches {counts}, "
-                                 f"expected {BRISTRUNET_LAUNCHES}")
+        if counts != launches:
+            raise AssertionError(f"{label}: launches {counts}, expected {launches}")
         out = out.cpu()
         err = max_abs_err(out, ref)
         agree = (out.argmax(-1) == ref.argmax(-1)).double().mean().item()
-        print(f"BriStruNet forward: logits {tuple(out.shape)} CUDA vs CPU max|err| {err:.3g} "
+        print(f"{label}: logits {tuple(out.shape)} CUDA vs CPU max|err| {err:.3g} "
               f"(max|logit| {ref.abs().max().item():.3g}), argmax agreement {agree:.6f}, "
               f"launches {counts}, CPU reference forward {cpu_s:.2f} s (host)", flush=True)
         if out.shape != (B, N, NUM_CLASSES) or not torch.isfinite(out).all():
-            raise AssertionError(f"BriStruNet forward: logits {tuple(out.shape)} not finite")
+            raise AssertionError(f"{label}: logits {tuple(out.shape)} not finite")
         if not torch.allclose(out, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL):
-            raise AssertionError(f"BriStruNet forward: CUDA logits differ from CPU by {err}")
+            raise AssertionError(f"{label}: CUDA logits differ from CPU by {err}")
         fwd_ms = time_ms(lambda: model(xyz, rgb))
-        print(f"BriStruNet forward: B={B} N={N} {fwd_ms:.3f} ms, "
+        print(f"{label}: B={B} N={N} {fwd_ms:.3f} ms, "
               f"{B * N / fwd_ms * 1e3:.0f} points/s", flush=True)
+        if not profile:
+            return model, fwd_ms
 
         # device time by kernel family over 10 back-to-back forwards
         reps = 10
@@ -761,14 +861,28 @@ def bristrunet_forward(ds: BlockDataset, dev: torch.device) -> torch.nn.Module:
                 families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
         busy = sum(families.values())
         if busy > 0:
-            print(f"BriStruNet forward profile (device ms a forward, {reps} back to back, "
+            print(f"{label} profile (device ms a forward, {reps} back to back, "
                   f"profiler on): busy {busy:.3f}, wall {wall_ms:.3f}, idle "
                   f"{max(0.0, 1 - busy / wall_ms):.1%}")
             for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
                 print(f"  {fam:24s} {ms:8.3f} ms  {ms / busy:6.1%}")
         else:
-            print("BriStruNet forward profile: the profiler recorded no device time")
-    return model
+            print(f"{label} profile: the profiler recorded no device time")
+    return model, fwd_ms
+
+
+def seeded_model(name: str, seed: int, **kwargs) -> torch.nn.Module:
+    """``name`` on the CPU in eval mode, weights and BatchNorm statistics
+    drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    model = get_model(name, NUM_CLASSES, generator=gen, **kwargs)
+    randomize_bn(model, gen)
+    return model.eval()
+
+
+def only(**launches) -> dict:
+    """Launch counts with every kernel at 0 but the named ones."""
+    return dict.fromkeys((k.name for k in _kernels.KERNELS), 0) | launches
 
 
 def run_cli(label: str, argv: list, pattern: str) -> tuple:
@@ -788,40 +902,79 @@ def run_cli(label: str, argv: list, pattern: str) -> tuple:
     return wall, lines, counts
 
 
+GLOBAL_LINE = r"GLOBAL mIoU=[\d.]+ OA=[\d.]+ mAcc=[\d.]+ F1=[\d.]+"
+
+
+def serve_blocks(label: str, model_name: str, checkpoint: Path, launched: tuple,
+                 data_dir: Path, n_blocks: int, dev: torch.device) -> dict:
+    """``infer_cli blocks`` over the scenes of data_dir from ``checkpoint``,
+    twice; the second, warm call is timed and counted -> its launch counts,
+    which must cover ``launched`` and no backward kernel."""
+    out_dir = data_dir / "infer_out" / label.replace(" ", "_")
+    argv = ["blocks", "--checkpoint", str(checkpoint), "--model", model_name,
+            "--data-dir", str(data_dir), "--out-dir", str(out_dir),
+            "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
+            "--batch-size", "16", "--device", dev.type]
+    first, _, _ = run_cli(label, argv, GLOBAL_LINE)
+    wall, lines, counts = run_cli(label, argv, GLOBAL_LINE)
+    counts_all_launched(label, launched)
+    if any(counts[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"{label}: a backward kernel ran ({counts})")
+    cm = np.loadtxt(out_dir / "confusion_matrix.csv", delimiter=",")
+    if cm.shape != (NUM_CLASSES, NUM_CLASSES) or cm.sum() != n_blocks * N:
+        raise AssertionError(f"{label}: confusion matrix sums to {cm.sum()}")
+    if "bridge_0.las" not in (out_dir / "metrics.csv").read_text():
+        raise AssertionError(f"{label}: metrics.csv lacks the per-file rows")
+    figures = len(list(out_dir.glob("*.png")))
+    if not figures and importlib.util.find_spec("matplotlib"):
+        raise AssertionError(f"{label}: matplotlib is installed, but no figure was drawn")
+    print(f"{label}: {n_blocks} blocks x {N} in {wall:.3f} s wall warm, first call "
+          f"{first:.3f} s (LAS read, blocks, checkpoint, forward, CSVs, {figures} figures), "
+          f"{n_blocks * N / wall:.0f} points/s end to end, launches {counts}; {lines[-1]}",
+          flush=True)
+    return counts
+
+
+def serve_scene(label: str, model_name: str, checkpoint: Path, launched: tuple,
+                per_forward: str, data_dir: Path, dev: torch.device) -> dict:
+    """``infer_cli scene``: 2 votes over each of the two scenes, predicted
+    LAS exported -> the call's launch counts, which must cover ``launched``
+    and no backward kernel. ``per_forward`` names a kernel and its launches a
+    forward, "knn:3", from which the number of forward batches follows."""
+    out_dir = data_dir / "infer_out" / label.replace(" ", "_")
+    wall, lines, counts = run_cli(
+        label,
+        ["scene", "--checkpoint", str(checkpoint), "--model", model_name,
+         "--data-dir", str(data_dir), "--out-dir", str(out_dir),
+         "--num-classes", str(NUM_CLASSES), "--num-points", str(N), "--batch-size", "16",
+         "--num-votes", "2", "--export-las", "--device", dev.type],
+        r"OVERALL mIoU=[\d.]+ OA=[\d.]+")
+    counts_all_launched(label, launched)
+    kernel, each = per_forward.split(":")
+    if any(counts[k] for k in BACKWARD_KERNELS) or counts[kernel] % int(each):
+        raise AssertionError(f"{label}: launches {counts}")
+    scene_points = 0
+    for s in (0, 1):
+        pts, _, pred = _load_scene(str(out_dir / f"bridge_{s}_pred.las"))
+        src, _, _ = _load_scene(str(data_dir / f"bridge_{s}.las"))
+        if len(pts) != len(src) or pred.min() < 0 or pred.max() >= NUM_CLASSES:
+            raise AssertionError(f"{label}: bridge_{s}_pred.las has {len(pts)} "
+                                 f"points of {len(src)}, labels {pred.min()}..{pred.max()}")
+        scene_points += len(pts)
+    print(f"{label}: 2 scenes, {scene_points} points, 2 votes in {wall:.3f} s "
+          f"wall (LAS read, gridding, {counts[kernel] // int(each)} forward batches of <= 16 "
+          f"blocks, LAS export), {scene_points / wall:.0f} scene points/s end to end, "
+          f"launches {counts}; {lines[-1]}", flush=True)
+    return counts
+
+
 def serve_through_cli(data_dir: Path, ssg_exp_dir: Path, bristrunet: torch.nn.Module,
                       n_blocks: int, dev: torch.device) -> dict:
     """Phase 9: the inference CLI from checkpoints, on the card."""
-    out_root = data_dir / "infer_out"
     ckpt = data_dir / "bristrunet_checkpoint"
     save_checkpoint(str(ckpt), {"model": bristrunet.state_dict(), "epoch": 0})
-    glob_pat = r"GLOBAL mIoU=[\d.]+ OA=[\d.]+ mAcc=[\d.]+ F1=[\d.]+"
-    forward = {k: v for k, v in BRISTRUNET_LAUNCHES.items() if v}
+    forward = tuple(k for k, v in BRISTRUNET_LAUNCHES.items() if v)
     by_path = {}
-
-    def blocks(label, model_name, checkpoint, kernels):
-        out_dir = out_root / label.replace(" ", "_")
-        argv = ["blocks", "--checkpoint", str(checkpoint), "--model", model_name,
-                "--data-dir", str(data_dir), "--out-dir", str(out_dir),
-                "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
-                "--batch-size", "16", "--device", dev.type]
-        first, _, _ = run_cli(label, argv, glob_pat)
-        wall, lines, counts = run_cli(label, argv, glob_pat)
-        counts_all_launched(label, kernels)
-        if any(counts[k] for k in BACKWARD_KERNELS):
-            raise AssertionError(f"{label}: a backward kernel ran ({counts})")
-        cm = np.loadtxt(out_dir / "confusion_matrix.csv", delimiter=",")
-        if cm.shape != (NUM_CLASSES, NUM_CLASSES) or cm.sum() != n_blocks * N:
-            raise AssertionError(f"{label}: confusion matrix sums to {cm.sum()}")
-        if "bridge_0.las" not in (out_dir / "metrics.csv").read_text():
-            raise AssertionError(f"{label}: metrics.csv lacks the per-file rows")
-        figures = len(list(out_dir.glob("*.png")))
-        if not figures and importlib.util.find_spec("matplotlib"):
-            raise AssertionError(f"{label}: matplotlib is installed, but no figure was drawn")
-        print(f"{label}: {n_blocks} blocks x {N} in {wall:.3f} s wall warm, first call "
-              f"{first:.3f} s (LAS read, blocks, checkpoint, forward, CSVs, {figures} figures), "
-              f"{n_blocks * N / wall:.0f} points/s end to end, launches {counts}; {lines[-1]}",
-              flush=True)
-        return counts
 
     # a cold start: the same serve in a fresh interpreter, through the entry
     # point as a user types it (interpreter and CUDA start-up, library loads)
@@ -829,48 +982,28 @@ def serve_through_cli(data_dir: Path, ssg_exp_dir: Path, bristrunet: torch.nn.Mo
     cold = subprocess.run(
         [sys.executable, "-m", "pointcloud_bridge_tpu_torch.infer_cli", "blocks",
          "--checkpoint", str(ckpt), "--model", "bristrunet", "--data-dir", str(data_dir),
-         "--out-dir", str(out_root / "cold"), "--num-points", str(N), "--device", dev.type],
+         "--out-dir", str(data_dir / "infer_out" / "cold"), "--num-points", str(N),
+         "--device", dev.type],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
     )
     cold_s = time.perf_counter() - t0
-    if cold.returncode != 0 or not re.search(glob_pat, cold.stdout):
+    if cold.returncode != 0 or not re.search(GLOBAL_LINE, cold.stdout):
         raise AssertionError(f"serve bristrunet blocks in a fresh process: exit "
                              f"{cold.returncode}\n{cold.stdout}\n{cold.stderr}")
     print(f"serve bristrunet blocks, a fresh process (python -m ...infer_cli): "
           f"{cold_s:.2f} s wall", flush=True)
 
-    by_path["bristrunet_serve_blocks"] = blocks(
-        "serve bristrunet blocks", "bristrunet", ckpt, tuple(forward))
-    by_path["ssg_serve_blocks_cli"] = blocks(
-        "serve pointnet2_ssg blocks", "pointnet2_ssg", ssg_exp_dir, FORWARD_KERNELS)
+    by_path["bristrunet_serve_blocks"] = serve_blocks(
+        "serve bristrunet blocks", "bristrunet", ckpt, forward, data_dir, n_blocks, dev)
+    by_path["ssg_serve_blocks_cli"] = serve_blocks(
+        "serve pointnet2_ssg blocks", "pointnet2_ssg", ssg_exp_dir, FORWARD_KERNELS,
+        data_dir, n_blocks, dev)
     if by_path["ssg_serve_blocks_cli"]["knn"]:
         raise AssertionError("serve pointnet2_ssg blocks: the k-NN kernel ran")
-
-    # scene mode: 2 votes over each of the two scenes, predicted LAS exported
-    out_dir = out_root / "scene"
-    wall, lines, counts = run_cli(
-        "serve bristrunet scene",
-        ["scene", "--checkpoint", str(ckpt), "--model", "bristrunet",
-         "--data-dir", str(data_dir), "--out-dir", str(out_dir),
-         "--num-classes", str(NUM_CLASSES), "--num-points", str(N), "--batch-size", "16",
-         "--num-votes", "2", "--export-las", "--device", dev.type],
-        r"OVERALL mIoU=[\d.]+ OA=[\d.]+")
-    counts_all_launched("serve bristrunet scene", tuple(forward))
-    if any(counts[k] for k in BACKWARD_KERNELS) or counts["knn"] != counts["fps"]:
+    counts = serve_scene("serve bristrunet scene", "bristrunet", ckpt, forward, "knn:3",
+                         data_dir, dev)
+    if counts["knn"] != counts["fps"]:
         raise AssertionError(f"serve bristrunet scene: launches {counts}")
-    scene_points = 0
-    for s in (0, 1):
-        pts, _, pred = _load_scene(str(out_dir / f"bridge_{s}_pred.las"))
-        src, _, _ = _load_scene(str(data_dir / f"bridge_{s}.las"))
-        if len(pts) != len(src) or pred.min() < 0 or pred.max() >= NUM_CLASSES:
-            raise AssertionError(f"serve bristrunet scene: bridge_{s}_pred.las has {len(pts)} "
-                                 f"points of {len(src)}, labels {pred.min()}..{pred.max()}")
-        scene_points += len(pts)
-    batches = counts["knn"] // 3
-    print(f"serve bristrunet scene: 2 scenes, {scene_points} points, 2 votes in {wall:.3f} s "
-          f"wall (LAS read, gridding, {batches} forward batches of <= 16 blocks, LAS export), "
-          f"{scene_points / wall:.0f} scene points/s end to end, launches {counts}; {lines[-1]}",
-          flush=True)
     by_path["bristrunet_serve_scene"] = counts
 
     # the split of one scene's vote inference, from the function's own timers
@@ -887,6 +1020,31 @@ def serve_through_cli(data_dir: Path, ssg_exp_dir: Path, bristrunet: torch.nn.Mo
           + ", ".join(f"{k[:-2]} {[round(v, 4) for v in t[k]]}"
                       for k in ("grid_s", "h2d_s", "dispatch_s", "fetch_s", "scatter_s"))
           + f"; mIoU {res['metrics']['mIoU']:.4f} (random weights)", flush=True)
+    return by_path
+
+
+def serve_ptv3_pooled_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) -> dict:
+    """Phase 12: ptv3_pooled as both CLIs build it (the registry's default
+    model: encoder depths 2/2/2, 8 attention calls a forward) from a
+    checkpoint written here, in ``blocks`` and in ``scene`` mode: the
+    flash-attention kernel runs and no other kernel does."""
+    ckpt = data_dir / "ptv3_pooled_checkpoint"
+    save_checkpoint(str(ckpt), {"model": seeded_model("ptv3_pooled", SEED + 12).state_dict(),
+                                "epoch": 0})
+    by_path = {
+        "ptv3_pooled_serve_blocks": serve_blocks(
+            "serve ptv3_pooled blocks", "ptv3_pooled", ckpt, ("flash_attn",), data_dir,
+            n_blocks, dev),
+        "ptv3_pooled_serve_scene": serve_scene(
+            "serve ptv3_pooled scene", "ptv3_pooled", ckpt, ("flash_attn",), "flash_attn:8",
+            data_dir, dev),
+    }
+    for path, counts in by_path.items():
+        if counts != only(flash_attn=counts["flash_attn"]):
+            raise AssertionError(f"{path}: another kernel than flash_attn ran ({counts})")
+    if by_path["ptv3_pooled_serve_blocks"]["flash_attn"] != 8 * -(-n_blocks // 16):
+        raise AssertionError(f"serve ptv3_pooled blocks: launches "
+                             f"{by_path['ptv3_pooled_serve_blocks']}")
     return by_path
 
 
@@ -911,9 +1069,11 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas {line.strip()}")
 
-    # 3. kernels against their plain versions; 3b. the backward kernels
+    # 3. kernels against their plain versions; 3b. the backward kernels;
+    # 3c. the flash-attention kernel
     res = compare_kernels(dev)
     compare_backward_kernels(dev, res)
+    compare_attention_kernel(dev, res)
 
     # 4. the SSG forward on the card against the CPU
     data_dir = ROOT / "build" / "chip_smoke_data"
@@ -997,17 +1157,33 @@ def main() -> None:
         train_counts, exp_dir = train_through_cli(data_dir, dev)
         try:
             # 8. the BriStruNet forward; 9. serve through the inference CLI
-            bristrunet = bristrunet_forward(ds, dev)
+            bristrunet, _ = forward_against_cpu(
+                "BriStruNet forward", seeded_model("bristrunet", SEED + 8), ds, dev,
+                BRISTRUNET_LAUNCHES)
             by_path = serve_through_cli(data_dir, exp_dir, bristrunet, len(ds), dev)
         finally:
             shutil.rmtree(exp_dir, ignore_errors=True)
+        del bristrunet
+
+        # 10. ptv3_pooled at the benched configuration; 11. flat ptv3 at its
+        # default width; 12. ptv3_pooled served through the inference CLI
+        pooled_counts = only(flash_attn=12)
+        forward_against_cpu("ptv3_pooled forward",
+                            seeded_model("ptv3_pooled", SEED + 10, **POOLED_BENCHED), ds, dev,
+                            pooled_counts)
+        flat_counts = only(flash_attn=8)
+        forward_against_cpu("ptv3 forward", seeded_model("ptv3", SEED + 11), ds, dev,
+                            flat_counts, profile=False)
+        by_path |= serve_ptv3_pooled_through_cli(data_dir, len(ds), dev)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
-    # Per kernel and path: the launches of one pass at B=4 (phases 4, 6 and
-    # 8) beside the times and bound summed over exactly those launches'
-    # shapes (phases 3 and 3b). The row's own numbers are those of the
-    # BriStruNet forward, and of the SSG train step for the backward kernels.
-    pass_counts = {SSG: fwd_counts, BRISTRUNET: BRISTRUNET_LAUNCHES, TRAIN: step_counts}
+    # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
+    # 10 and 11) beside the times and bound summed over exactly those
+    # launches' shapes (phases 3, 3b and 3c). The row's own numbers are those
+    # of the BriStruNet forward, of the SSG train step for the backward
+    # kernels, and of the ptv3_pooled forward for the flash-attention kernel.
+    pass_counts = {SSG: fwd_counts, BRISTRUNET: BRISTRUNET_LAUNCHES, TRAIN: step_counts,
+                   PTV3_POOLED: pooled_counts, PTV3: flat_counts}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:
@@ -1018,7 +1194,8 @@ def main() -> None:
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "max_abs_err": res.err[k.name],
-            **paths[TRAIN if backward else BRISTRUNET],
+            **paths[TRAIN if backward else PTV3_POOLED if k.name == "flash_attn"
+                    else BRISTRUNET],
             "paths": paths,
             "launches_by_path": {path: c[k.name] for path, c in serves.items()},
         })

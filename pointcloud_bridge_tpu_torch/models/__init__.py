@@ -22,6 +22,15 @@ from .common import (
     SharedMLP,
 )
 from .pointnet2 import PointNet2SSG
+from .ptv3 import (
+    GEGLU,
+    FeedForward,
+    PointAttention,
+    PointTransformerBlock,
+    PointTransformerV3,
+    morton_code,
+)
+from .ptv3_pooled import PointTransformerV3Pooled, SerializedPool, SerializedUnpool
 from .registry import MODEL_REGISTRY, get_model
 
 __all__ = [
@@ -35,14 +44,23 @@ __all__ = [
     "Dropout",
     "EnhancedFeaturePropagation",
     "FeaturePropagation",
+    "FeedForward",
+    "GEGLU",
     "GeometricFeatureExtraction",
     "MODEL_REGISTRY",
     "MultiScaleFeatureFusion",
     "MultiScaleSetAbstraction",
+    "PointAttention",
     "PointConv",
     "PointNet2SSG",
+    "PointTransformerBlock",
+    "PointTransformerV3",
+    "PointTransformerV3Pooled",
     "SegHead",
+    "SerializedPool",
+    "SerializedUnpool",
     "SetAbstraction",
     "SharedMLP",
     "get_model",
+    "morton_code",
 ]

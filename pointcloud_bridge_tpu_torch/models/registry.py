@@ -12,21 +12,25 @@ from torch import nn
 
 from .bristrunet import BriStruNet
 from .pointnet2 import PointNet2SSG
+from .ptv3 import PointTransformerV3
+from .ptv3_pooled import PointTransformerV3Pooled
 
 MODEL_REGISTRY = {
     "pointnet2_ssg": PointNet2SSG,
     "bristrunet": BriStruNet,  # EnhancedPointNet2 / BridgeSeg (paper model)
     "enhanced_pointnet2": BriStruNet,
     "bridgeseg": BriStruNet,
+    "ptv3": PointTransformerV3,  # the reference's flat transformer
+    "ptv3_pooled": PointTransformerV3Pooled,  # serialized encoder-decoder
 }
 
 # names the JAX package's registry knows and the port does not yet
 NOT_PORTED = (
     "pointnet2", "pointnet2_msg", "pointnet", "pointnet_seg", "pointnet_global",
-    "dgcnn", "dgcnn_global", "randlanet", "randlanet_ss", "ptv3", "ptv3_moe",
-    "ptv3_pooled", "pointnet_cls", "pointnet2_cls_ssg", "pointnet2_cls_msg",
-    "pointnet2_sem_seg", "pointnet_sem_seg", "spg", "superpoint_graph", "spt",
-    "superpoint_transformer", "enhanced_pointnet2_ssg",
+    "dgcnn", "dgcnn_global", "randlanet", "randlanet_ss", "ptv3_moe",
+    "pointnet_cls", "pointnet2_cls_ssg", "pointnet2_cls_msg", "pointnet2_sem_seg",
+    "pointnet_sem_seg", "spg", "superpoint_graph", "spt", "superpoint_transformer",
+    "enhanced_pointnet2_ssg",
 )
 
 

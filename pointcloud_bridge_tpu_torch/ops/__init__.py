@@ -3,6 +3,7 @@
 Each op that the JAX package runs as a Pallas kernel has a hand-written CUDA
 kernel here (csrc/) and a plain PyTorch version beside it in the same
 module: a CPU tensor takes the plain version, a CUDA tensor the kernel.
+``ops.attention`` is the attention module (``ops.attention.attention`` the op).
 """
 
 from .core import index_points, pairwise_sq_dist, square_distance

@@ -37,6 +37,7 @@ BUILD_DIR = _REPO / "build" / "pointcloud_bridge_tpu_torch"
 
 # -fmad=false: no FMA contraction anywhere, so distances round exactly as in
 # the reference's separate multiply and add (common.cuh spells it out too).
+# flash_attn.cu, which needs no bit-identity, writes its FMAs as fmaf().
 # --threads 0: the sources compile side by side, one job a core.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +48,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 @dataclasses.dataclass
@@ -119,7 +121,14 @@ KNN = Kernel(
     "pointcloud_bridge_tpu_torch/csrc/knn.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/knnset.py:77",
 )
-KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN)
+FLASH_ATTN = Kernel(
+    "flash_attn", "pcb_flash_attn",
+    # q, k, v, out, B, N, H, D, ldq, ldk, ldv, device, stream
+    (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/flash_attn.cu",
+    "pointcloud_bridge_tpu/models/ptv3.py:74",
+)
+KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN, FLASH_ATTN)
 
 
 def reset_launch_counts() -> None:

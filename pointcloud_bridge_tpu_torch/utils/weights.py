@@ -16,8 +16,13 @@ model says which flax module becomes which prefix of the state_dict:
     so the port names its layers after the flax modules and a prefix is the
     flax path joined with dots. Dense kernel [I, O] -> weight [O, I]; a
     Dense without a bias has none on either side.
+  - The PTv3 family (``ptv3_rules``, ``ptv3_pooled_rules``) is named after
+    the flax modules too; one block table (``_ptv3_block``) serves both
+    models. The tables depend on the depths: the registry names stand for
+    the registry's default models, another depth passes its own table.
   - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
     running_mean/running_var, num_batches_tracked 0.
+  - LayerNorm (kind "ln") scale/bias -> weight/bias; it has no statistics.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from typing import Any, Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-# (torch prefix, flax path, kind); kind is "conv2d", "conv1d", "dense" or "bn"
+# (torch prefix, flax path, kind); kind is "conv2d", "conv1d", "dense", "bn"
+# or "ln"
 Rule = Tuple[str, Tuple[str, ...], str]
 
 
@@ -49,9 +55,17 @@ def pointnet2_ssg_rules() -> List[Rule]:
     return r
 
 
+_Layers = List[Tuple[Tuple[str, ...], str]]  # (flax path, kind)
+
+
+def _by_flax_path(layers: _Layers) -> List[Rule]:
+    """Rules of layers that the port names after their flax path."""
+    return [(".".join(path), path, kind) for path, kind in layers]
+
+
 def bristrunet_rules() -> List[Rule]:
     bse = [("mlp0_shared", "dense"), ("mlp0_rel", "dense"), ("bn0", "bn"), ("mlp1", "dense")]
-    layers: List[Tuple[Tuple[str, ...], str]] = [(("bri_enc", n), kind) for n, kind in bse]
+    layers: _Layers = [(("bri_enc", n), kind) for n, kind in bse]
     layers += [(("color_encoder", n), "bn" if "bn" in n else "dense")
                for n in ("mlp0", "bn0", "mlp1", "bn1", "attn0", "attn_bn", "attn1", "ctx0", "ctx1")]
     layers += [(("feature_fusion", "fusion"), "dense"), (("feature_fusion", "bn"), "bn")]
@@ -74,7 +88,41 @@ def bristrunet_rules() -> List[Rule]:
     for i in range(3):
         layers += [(("fusion", f"conv{i}"), "dense"), (("fusion", f"bn{i}"), "bn")]
     layers += [(("final0",), "dense"), (("final_bn",), "bn"), (("final1",), "dense")]
-    return [(".".join(path), path, kind) for path, kind in layers]
+    return _by_flax_path(layers)
+
+
+def _ptv3_block(name: str) -> _Layers:
+    """The layers of one PointTransformerBlock called ``name``."""
+    return [((name, "norm1"), "ln"), ((name, "attn", "qkv"), "dense"),
+            ((name, "attn", "proj"), "dense"), ((name, "norm2"), "ln"),
+            ((name, "mlp", "geglu", "proj"), "dense"), ((name, "mlp", "out"), "dense")]
+
+
+_PTV3_HEAD: _Layers = [(("norm",), "ln"), (("head_fc1",), "dense"), (("head_bn",), "bn"),
+                       (("head_fc2",), "dense")]
+
+
+def ptv3_rules(depth: int = 8) -> List[Rule]:
+    layers: _Layers = [(("patch_embed",), "dense"), (("patch_norm",), "ln"),
+                       (("pos_embed",), "dense")]
+    for i in range(depth):
+        layers += _ptv3_block(f"block{i}")
+    return _by_flax_path(layers + _PTV3_HEAD)
+
+
+def ptv3_pooled_rules(enc_depths: Sequence[int] = (2, 2, 2),
+                      dec_depths: Sequence[int] = (1, 1)) -> List[Rule]:
+    layers: _Layers = [(("patch_embed",), "dense"), (("patch_norm",), "ln")]
+    for tag, depths in (("enc", enc_depths), ("dec", dec_depths)):
+        for lv, count in enumerate(depths):
+            layers.append(((f"{tag}{lv}_pos",), "dense"))
+            for i in range(count):
+                layers += _ptv3_block(f"{tag}{lv}_block{i}")
+    for lv in range(len(dec_depths)):
+        layers += [((f"pool{lv}", "proj"), "dense"), ((f"pool{lv}", "norm"), "ln"),
+                   ((f"unpool{lv}", "proj_up"), "dense"),
+                   ((f"unpool{lv}", "proj_skip"), "dense"), ((f"unpool{lv}", "norm"), "ln")]
+    return _by_flax_path(layers + _PTV3_HEAD)
 
 
 MODEL_RULES = {
@@ -82,6 +130,8 @@ MODEL_RULES = {
     "bristrunet": bristrunet_rules,
     "enhanced_pointnet2": bristrunet_rules,
     "bridgeseg": bristrunet_rules,
+    "ptv3": ptv3_rules,
+    "ptv3_pooled": ptv3_pooled_rules,
 }
 
 
@@ -111,12 +161,13 @@ def flax_to_state_dict(
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
     for tp, fp, kind in rules_for(model):
-        if kind == "bn":
+        if kind in ("bn", "ln"):
             sd[f"{tp}.weight"] = _leaf(params, fp + ("scale",))
             sd[f"{tp}.bias"] = _leaf(params, fp + ("bias",))
-            sd[f"{tp}.running_mean"] = _leaf(stats, fp + ("mean",))
-            sd[f"{tp}.running_var"] = _leaf(stats, fp + ("var",))
-            sd[f"{tp}.num_batches_tracked"] = np.zeros((), np.int64)
+            if kind == "bn":
+                sd[f"{tp}.running_mean"] = _leaf(stats, fp + ("mean",))
+                sd[f"{tp}.running_var"] = _leaf(stats, fp + ("var",))
+                sd[f"{tp}.num_batches_tracked"] = np.zeros((), np.int64)
         else:
             kernel = _leaf(params, fp + ("kernel",))  # [I, O]
             sd[f"{tp}.weight"] = kernel.T.reshape(kernel.shape[::-1] + _TRAILING[kind])
@@ -143,12 +194,12 @@ def state_dict_to_flax(
 
     names = {"weight": "scale", "bias": "bias"}
     for tp, fp, kind in rules_for(model):
-        if kind == "bn":
+        if kind in ("bn", "ln"):
             for key, leaf in names.items():
                 if f"{tp}.{key}" in sd:
                     put(out["params"], fp + (leaf,), sd[f"{tp}.{key}"])
             for key, leaf in (("running_mean", "mean"), ("running_var", "var")):
-                if f"{tp}.{key}" in sd:
+                if f"{tp}.{key}" in sd:  # a LayerNorm has none
                     put(out["batch_stats"], fp + (leaf,), sd[f"{tp}.{key}"])
         else:
             if f"{tp}.weight" in sd:

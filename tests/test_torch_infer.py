@@ -155,8 +155,8 @@ def _write_scenes(root, n_points=2500):
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
     """Two small LAS scenes, an SSG experiment directory written by the
-    port's train_cli (one epoch on the CPU) and a BriStruNet checkpoint file
-    saved with the port's utils/checkpoint.py."""
+    port's train_cli (one epoch on the CPU), and a BriStruNet and a
+    ptv3_pooled checkpoint file saved with the port's utils/checkpoint.py."""
     from pointcloud_bridge_tpu_torch import train_cli
     from pointcloud_bridge_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -171,12 +171,14 @@ def cli_run(tmp_path_factory):
         ])
     finally:
         os.chdir(cwd)
-    bri = get_model("bristrunet", 5, generator=torch.Generator().manual_seed(0))
-    bri_ckpt = root / "bristrunet_ckpt"
-    save_checkpoint(str(bri_ckpt), {"model": bri.state_dict(), "epoch": 0})
+    files = {}
+    for name in ("bristrunet", "ptv3_pooled"):
+        model = get_model(name, 5, generator=torch.Generator().manual_seed(0))
+        files[name] = str(root / f"{name}_ckpt")
+        save_checkpoint(files[name], {"model": model.state_dict(), "epoch": 0})
     exp_dir = os.path.join(root, out["exp_dir"])
     assert os.path.exists(os.path.join(exp_dir, "latest_checkpoint"))
-    return {"data": data, "ssg": exp_dir, "bristrunet": str(bri_ckpt), "root": root}
+    return {"data": data, "ssg": exp_dir, "root": root, **files}
 
 
 def _checkpoint_file(path):
@@ -207,7 +209,7 @@ def _csv_rows(path):
         return {r["file"]: r for r in csv.DictReader(f)}
 
 
-@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet"])
+@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet", "ptv3_pooled"])
 def test_infer_cli_blocks_on_cpu(cli_run, capsys, name):
     """``blocks`` mode against the JAX package's block inference on the same
     scenes with the checkpoint's weights: the confusion matrix on >= 99.9%
@@ -277,7 +279,7 @@ SCENE_LINE = r"(scene\d\.las): mIoU=([\d.]+) OA=([\d.]+)"
 OVERALL_LINE = r"OVERALL mIoU=([\d.]+) OA=([\d.]+)"
 
 
-@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet"])
+@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet", "ptv3_pooled"])
 def test_infer_cli_scene_on_cpu(cli_run, name):
     from pointcloud_bridge_tpu_torch.data import read_las
 
@@ -295,7 +297,7 @@ def test_infer_cli_scene_on_cpu(cli_run, name):
         assert las.classification.min() >= 0 and las.classification.max() < 5
 
 
-@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet"])
+@pytest.mark.parametrize("name", ["pointnet2_ssg", "bristrunet", "ptv3_pooled"])
 def test_infer_cli_scene_matches_jax(cli_run, name):
     """``scene`` mode against the JAX package's vote inference on the same
     scenes with the checkpoint's weights and the vote weights of all scenes
@@ -375,6 +377,14 @@ def test_infer_cli_from_snapshot_matches_the_working_tree(cli_run, capsys):
     b = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GLOBAL")]
     assert a and a == b
     assert any(k.startswith("pcb_snapshot_") for k in sys.modules)
+
+
+def test_infer_cli_refuses_a_model_not_ported(cli_run):
+    from pointcloud_bridge_tpu_torch import infer_cli
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        infer_cli.main(["blocks", "--checkpoint", cli_run["ptv3_pooled"], "--model", "ptv3_moe",
+                        "--data-dir", str(cli_run["data"]), "--device", "cpu"])
 
 
 def test_infer_cli_refuses_a_missing_card(tmp_path):

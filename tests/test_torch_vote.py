@@ -26,6 +26,9 @@ from test_torch_bristrunet import randomize
 MODELS = {
     "pointnet2_ssg": {"sa_npoints": (32, 16, 8)},
     "bristrunet": {"sa_npoints": (32, 16, 8)},
+    # 128-point blocks: level 0 in four windows of 32, levels 1 and 2 (32 and
+    # 8 points) global; the registry's depths, so its rule table applies
+    "ptv3_pooled": {"dims": (32, 64, 128), "head_dim": 16, "window_size": 32},
 }
 GRID = dict(num_classes=5, block_points=128, block_size=6.0, stride=3.0,
             num_votes=2, batch_size=8, seed=3)
