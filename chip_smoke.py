@@ -32,6 +32,12 @@ any failure raises and exits non-zero:
    packed qkv projection of LayerNorm output, and at ragged lengths; within
    2e-5 * max(1, max|plain|); times beside the bound and beside
    F.scaled_dot_product_attention;
+3d. the two attention-backward kernels (dq, which also writes delta; dk and
+   dv) against the plain backward at the shapes of 3c, within the same band;
+   the forward's log-sum-exp within 1e-5 of torch.logsumexp and its output
+   bit-identical with and without it; the plain backward against autograd;
+   times beside the bound and beside the backward of
+   F.scaled_dot_product_attention;
 4. the SSG forward at B=4 x 4096 on the card against the same model on the
    CPU (plain versions), logits within 2e-4; every forward kernel must have
    been launched; forward time and points/s;
@@ -77,16 +83,32 @@ any failure raises and exits non-zero:
    from a checkpoint the script writes: ``blocks`` over the 48 blocks and
    ``scene`` with 2 votes, counters reset just before and read just after:
    the flash-attention kernel and no other; CSVs, exported LAS and printed
-   lines checked; wall and points/s.
+   lines checked; wall and points/s;
+13. one ptv3_pooled train step (forward, weighted CE, backward; dropout 0) at
+   the benched configuration, B=4 x 4096, on the card against the CPU: loss
+   within 1e-5 relative, train-mode logits within 2e-4, head_bn statistics
+   within 1e-4 of max|stat|, every gradient leaf present, finite, non-zero
+   and within 1e-3 * max|g| + 1e-7; exactly 12 launches of the forward and
+   of each backward kernel and no other kernel; milliseconds a step;
+14. two epochs of ptv3_pooled (the registry's default model) at batch 16
+   through train_cli.main, checked as in 7, then ``infer_cli blocks`` serving
+   the checkpoint that run wrote; the steady-state train step at the benched
+   configuration at batch 16 (ms, points/s trained, peak device memory,
+   device time by kernel family); one epoch each from
+   configs/train_ptv3_pooled.yaml and configs/train_ptv3.yaml through
+   ``--config``;
+15. one flat ptv3 train step at its default width, B=4 x 4096, against the
+   CPU at the same batch, checked as in 13: exactly 8 launches a kernel.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
-B=4 (phase 8; of one SSG train step, phase 6, for the backward kernels; of
-one ptv3_pooled forward, phase 10, for the flash-attention kernel) beside
+B=4 (phase 8; of one SSG train step, phase 6, for its backward kernels; of
+one ptv3_pooled forward, phase 10, for the flash-attention kernel; of one
+ptv3_pooled train step, phase 13, for the attention-backward kernels) beside
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
-those launches' shapes (phases 3, 3b, 3c); ``paths`` has the same for the
-other forwards, and ``launches_by_path`` the counts of the serves and the
-training run through the CLIs. The last line is {"ok": true, "device": {...}}.
+those launches' shapes (phases 3, 3b, 3c, 3d); ``paths`` has the same for
+the other passes, and ``launches_by_path`` the counts of the serves and the
+training runs through the CLIs. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -135,11 +157,25 @@ INTERP_TOL = 1e-5
 BWD_TOL = 1e-5  # of max|plain|: float atomics add in another order
 ATTN_TOL = 2e-5  # of max(1, max|plain|): the online softmax re-associates the sums
 FORWARD_KERNELS = ("fps", "ball_query", "group", "interpolate")
-BACKWARD_KERNELS = ("group_bwd", "interp_bwd")
+SSG_BACKWARD_KERNELS = ("group_bwd", "interp_bwd")
+ATTN_BACKWARD_KERNELS = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+BACKWARD_KERNELS = SSG_BACKWARD_KERNELS + ATTN_BACKWARD_KERNELS
+
+
+def only(**launches) -> dict:
+    """Launch counts with every kernel at 0 but the named ones."""
+    return dict.fromkeys((k.name for k in _kernels.KERNELS), 0) | launches
+
+
+def attention_launches(n: int) -> dict:
+    """A train step with n attention calls: n launches of the forward kernel
+    and of each backward kernel, and no other kernel."""
+    return only(flash_attn=n, flash_attn_bwd_dq=n, flash_attn_bwd_dkv=n)
+
+
 # launches of one BriStruNet forward: an FPS a level, two radii a level, an
 # interpolation a decoder level, a k-NN in bri_enc, geometric2 and geometric3
-BRISTRUNET_LAUNCHES = {"fps": 3, "ball_query": 6, "group": 6, "interpolate": 3, "knn": 3,
-                       "group_bwd": 0, "interp_bwd": 0, "flash_attn": 0}
+BRISTRUNET_LAUNCHES = only(fps=3, ball_query=6, group=6, interpolate=3, knn=3)
 # the benched ptv3_pooled (configs/train_ptv3_pooled.yaml): an attention a block
 POOLED_BENCHED = dict(dims=(64, 128, 256), enc_depths=(2, 2, 6), dec_depths=(1, 1),
                       strides=(4, 4), window_size=1024)
@@ -184,6 +220,12 @@ def nbytes(*tensors) -> int:
 
 SSG, BRISTRUNET, TRAIN = "ssg_forward", "bristrunet_forward", "ssg_train_step"
 PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
+PTV3_POOLED_TRAIN, PTV3_TRAIN = "ptv3_pooled_train_step", "ptv3_train_step"
+PATHS = (SSG, BRISTRUNET, TRAIN, PTV3_POOLED, PTV3, PTV3_POOLED_TRAIN, PTV3_TRAIN)
+# the path whose numbers stand in a kernel's own row of the summary
+# (BriStruNet's forward for the kernels not named here)
+ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "flash_attn": PTV3_POOLED,
+            "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN}
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")
 
 
@@ -197,7 +239,7 @@ class Results:
         self.err = dict.fromkeys(names, 0.0)
         self.sums = {path: {name: dict.fromkeys(SUMS, 0.0) | {"library_ms": None, "cases": 0}
                             for name in names}
-                     for path in (SSG, BRISTRUNET, TRAIN, PTV3_POOLED, PTV3)}
+                     for path in PATHS}
 
     def check(self, name, label, kernel_fn, plain_fn, exact, paths=(), scaled=None,
               work=None, library_fn=None, times=1):
@@ -233,7 +275,7 @@ class Results:
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees, max |err| {err}")
         self.err[name] = max(self.err[name], err)
-        line = f"{name:12s} {label:34s} max|err| {err:.3g}"
+        line = f"{name:18s} {label:34s} max|err| {err:.3g}"
         if work:
             bytes_ms = work[0] / PEAK_BYTES_S * 1e3
             ops_ms = work[1] / PEAK_FLOPS * 1e3
@@ -474,28 +516,60 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
                   library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
 
 
-def compare_attention_kernel(dev: torch.device, res: Results) -> None:
-    """Phase 3c: the flash-attention kernel against the plain attention at
-    the shapes the PTv3 family gives it at B=4 x 4096. q, k and v are the
-    strided slices of one packed qkv projection (row stride 3*H*D) of
-    LayerNorm output, as PointAttention makes them; ``fold`` is the number
+def packed_qkv_maker(dev: torch.device, seed: int):
+    """-> make(n, h, d, fold=1, b=B): q, k and v [b * fold, n / fold, h, d]
+    as PointAttention makes them, the strided slices of one packed qkv
+    projection (row stride 3*h*d) of LayerNorm output; ``fold`` is the number
     of windows a cloud, folded into the batch by a reshape of those views."""
-    rng = np.random.default_rng(SEED + 2)
-    gen = torch.Generator().manual_seed(SEED + 2)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
 
-    def packed_qkv(n, h, d, fold=1, b=B):
+    def make(n, h, d, fold=1, b=B):
         c = h * d
         x = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dev)
         qkv = Dense(c, 3 * c, generator=gen).to(dev)
-        with torch.inference_mode():
+        with torch.no_grad():
             out = qkv(torch.nn.functional.layer_norm(x, (c,)))
         views = out.reshape(b, n, 3, h, d).unbind(2)
-        return tuple(t.reshape(b * fold, n // fold, h, d) for t in views)
+        q, k, v = (t.reshape(b * fold, n // fold, h, d) for t in views)
+        if n > fold and q.stride(1) != 3 * c:
+            raise AssertionError(f"packed qkv [{b * fold},{n // fold},{h},{d}]: not a view")
+        return q, k, v
+
+    return make
+
+
+# (label, n, h, d, fold, batch, the forward paths that give the kernel this
+# shape, how often a pass, timed) of phases 3c and 3d. ptv3_pooled at 4096
+# points: level 0 in four windows of 1024 (2 heads), level 1 (1024 points, 4
+# heads) and level 2 (256 points, 8 heads) global; the benched depths run
+# them 3, 3 and 6 times a pass. Flat ptv3: global attention over 4096 points,
+# its default 2 heads of 192 (8 blocks a pass) and the 6 heads of 64 of the
+# wider config. Then ragged lengths (no multiple of the 64-row tile), one
+# row, the serve's batch 16, the other head widths.
+ATTENTION_CASES = (
+    ("[16,1024,2,32] level 0 windows", 4096, 2, 32, 4, B, PTV3_POOLED, 3, True),
+    ("[4,1024,4,32] level 1", 1024, 4, 32, 1, B, PTV3_POOLED, 3, True),
+    ("[4,256,8,32] level 2", 256, 8, 32, 1, B, PTV3_POOLED, 6, True),
+    ("[4,4096,2,192] flat ptv3", 4096, 2, 192, 1, B, PTV3, 8, True),
+    ("[4,4096,6,64] flat ptv3, 6 heads", 4096, 6, 64, 1, B, None, 1, True),
+    ("[4,200,2,32] ragged", 200, 2, 32, 1, B, None, 1, False),
+    ("[4,1000,4,32] ragged", 1000, 4, 32, 1, B, None, 1, False),
+    ("[4,1,2,32] one row", 1, 2, 32, 1, B, None, 1, False),
+    ("[64,1024,2,32] batch 16 windows", 4096, 2, 32, 4, 16, None, 1, False),
+) + tuple((f"[2,333,2,{d}] ragged", 333, 2, d, 1, 2, None, 1, False)
+          for d in (96, 128, 160, 224, 256))
+TRAIN_PATH_OF = {PTV3_POOLED: PTV3_POOLED_TRAIN, PTV3: PTV3_TRAIN}
+
+
+def compare_attention_kernel(dev: torch.device, res: Results) -> None:
+    """Phase 3c: the flash-attention kernel against the plain attention at
+    the shapes the PTv3 family gives it at B=4 x 4096 (ATTENTION_CASES), on
+    packed-qkv views."""
+    packed_qkv = packed_qkv_maker(dev, SEED + 2)
 
     def case(label, q, k, v, paths=(), times=1, timed=True):
         b, n, h, d = q.shape
-        if n > 1 and q.stride(1) != 3 * h * d:
-            raise AssertionError(f"flash_attn {label}: not a packed-qkv view")
         work = (4 * nbytes(q), 4 * b * h * n * n * d) if timed else None
         # the library call takes [B, H, N, D]: the same memory, transposed views
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -505,38 +579,123 @@ def compare_attention_kernel(dev: torch.device, res: Results) -> None:
                   scaled=(ATTN_TOL, 1.0), work=work, times=times,
                   library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
 
-    # ptv3_pooled at 4096 points: level 0 in four windows of 1024 (2 heads),
-    # level 1 (1024 points, 4 heads) and level 2 (256 points, 8 heads) global;
-    # the benched depths run them 3, 3 and 6 times a forward
-    case("[16,1024,2,32] level 0 windows", *packed_qkv(4096, 2, 32, fold=4), (PTV3_POOLED,), 3)
-    case("[4,1024,4,32] level 1", *packed_qkv(1024, 4, 32), (PTV3_POOLED,), 3)
-    case("[4,256,8,32] level 2", *packed_qkv(256, 8, 32), (PTV3_POOLED,), 6)
-    # flat ptv3: global attention over 4096 points, its default 2 heads of
-    # 192 (8 blocks a forward) and the 6 heads of 64 of the wider config
-    case("[4,4096,2,192] flat ptv3", *packed_qkv(4096, 2, 192), (PTV3,), 8)
-    case("[4,4096,6,64] flat ptv3, 6 heads", *packed_qkv(4096, 6, 64))
-    # ragged lengths (no multiple of the 64-row tile), one row, the serve's
-    # batch 16, the other head widths
-    case("[4,200,2,32] ragged", *packed_qkv(200, 2, 32), timed=False)
-    case("[4,1000,4,32] ragged", *packed_qkv(1000, 4, 32), timed=False)
-    case("[4,1,2,32] one row", *packed_qkv(1, 2, 32), timed=False)
-    case("[64,1024,2,32] batch 16 windows", *packed_qkv(4096, 2, 32, fold=4, b=16), timed=False)
-    for d in (96, 128, 160, 224, 256):
-        case(f"[2,333,2,{d}] ragged", *packed_qkv(333, 2, d, b=2), timed=False)
+    for label, n, h, d, fold, b, path, times, timed in ATTENTION_CASES:
+        case(label, *packed_qkv(n, h, d, fold, b), (path,) if path else (), times, timed)
     # a contiguous tensor passes too, and the result is contiguous [B,N,H,D]
     q, k, v = (t.contiguous() for t in packed_qkv(130, 2, 64))
     out = attention.attention(q, k, v)
     want = attention.attention_plain(q, k, v)
     if not out.is_contiguous() or max_abs_err(out, want) > ATTN_TOL * max(1.0, want.abs().max().item()):
         raise AssertionError("flash_attn contiguous [4,130,2,64]: kernel disagrees")
-    # a tensor that needs a gradient is refused: the kernel has no backward
-    try:
-        with torch.enable_grad():
-            attention.attention(q.clone().requires_grad_(), k, v)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("flash_attn: a tensor that needs a gradient was not refused")
+
+
+def compare_attention_backward(dev: torch.device, res: Results) -> None:
+    """Phase 3d: the two attention-backward kernels against
+    attention_backward_plain at the shapes of phase 3c, on packed-qkv views
+    and a random cotangent: each of dq, delta, dk, dv within ATTN_TOL *
+    max(1, max|plain|) (no atomics: the sums are re-associated, and the same
+    from run to run). Beside it: the forward's lse within 1e-5 of
+    torch.logsumexp, its output bit-identical with and without lse,
+    attention_backward_plain against autograd through attention_plain, and
+    the Function's gradient reaching a packed projection. A timed case also
+    times the forward with lse and, as the library call, the backward alone
+    of F.scaled_dot_product_attention in float32 on a kept graph (dq alone,
+    dk and dv alone, and all three beside the two kernels together). The
+    bound counts the products a function cannot do without: S, dP and dS . k
+    for dq (6 B H N^2 D operations), S, dP, P^T . do and dS^T . q for dk and
+    dv (8), five for all three (10)."""
+    packed_qkv = packed_qkv_maker(dev, SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def band(name, label, got, want):
+        err = max_abs_err(got, want)
+        if err > ATTN_TOL * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"{name} {label}: max |err| {err}")
+        return err
+
+    def case(label, q, k, v, paths, times, timed):
+        b, n, h, d = q.shape
+        g = normal(b, n, h, d)
+
+        # the forward with lse: the same output bit for bit, lse as logsumexp
+        out, lse = attention.attention_cuda(q, k, v, need_lse=True)
+        if not torch.equal(out, attention.attention_cuda(q, k, v)):
+            raise AssertionError(f"flash_attn {label}: writing lse changed the output")
+        want_out = attention.attention_plain(q, k, v)
+        want_lse = torch.logsumexp(attention._scores(q, k), dim=-1)
+        want_delta = (want_out * g).sum(-1).transpose(1, 2).contiguous()
+        lse_err = max_abs_err(lse, want_lse)
+        if lse_err > 1e-5:
+            raise AssertionError(f"flash_attn {label}: lse differs from logsumexp by {lse_err}")
+
+        def plain_backward():
+            return attention.attention_backward_plain(q, k, v, want_out, want_lse, g)
+
+        # the plain backward against autograd through the plain forward
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(attention.attention_plain(*leaves), leaves, g)
+        plain_err = max(band("attention_backward_plain vs autograd", label, got, want)
+                        for got, want in zip(plain_backward(), auto))
+        print(f"{'attention':18s} {label:34s} lse max|err| {lse_err:.3g}  plain backward vs "
+              f"autograd max|err| {plain_err:.3g}", flush=True)
+        del leaves, auto
+
+        size, ops, stats = nbytes(q), b * h * n * n * d, nbytes(lse)
+        work, library = {}, {}
+        if timed:
+            work = {"fwd": (4 * size + stats, 4 * ops), "dq": (6 * size + 2 * stats, 6 * ops),
+                    "dkv": (6 * size + 2 * stats, 8 * ops)}
+            # the library call takes [B, H, N, D]: the same memory, transposed views
+            qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+            lib_out, gt = sdpa(qt, kt, vt), g.transpose(1, 2)
+            library = {name: (lambda wrt=wrt: torch.autograd.grad(lib_out, wrt, gt,
+                                                                 retain_graph=True))
+                       for name, wrt in (("dq", (qt,)), ("dkv", (kt, vt)),
+                                         ("all", (qt, kt, vt)))}
+            res.check("flash_attn", label + " +lse",
+                      lambda: attention.attention_cuda(q, k, v, need_lse=True),
+                      lambda: (attention.attention_plain(q, k, v),
+                               torch.logsumexp(attention._scores(q, k), dim=-1)),
+                      False, paths, scaled=(ATTN_TOL, 1.0), work=work["fwd"], times=times,
+                      library_fn=lambda: sdpa(qt, kt, vt))
+        delta = attention.attention_backward_dq_cuda(q, k, v, out, lse, g)[1]
+        res.check("flash_attn_bwd_dq", label,
+                  lambda: attention.attention_backward_dq_cuda(q, k, v, out, lse, g),
+                  lambda: (plain_backward()[0], want_delta),
+                  False, paths, scaled=(ATTN_TOL, 1.0), work=work.get("dq"), times=times,
+                  library_fn=library.get("dq"))
+        res.check("flash_attn_bwd_dkv", label,
+                  lambda: attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g),
+                  lambda: plain_backward()[1:],
+                  False, paths, scaled=(ATTN_TOL, 1.0), work=work.get("dkv"), times=times,
+                  library_fn=library.get("dkv"))
+        if timed:
+            both = time_ms(lambda: attention.attention_backward_cuda(q, k, v, out, lse, g))
+            bound = max((10 * size + 2 * stats) / PEAK_BYTES_S, 10 * ops / PEAK_FLOPS) * 1e3
+            print(f"{'attention':18s} {label:34s} dq, dk and dv together: kernels {both:.4f} ms"
+                  f"  bound {bound:.5f} ms  library backward {time_ms(library['all']):.4f} ms",
+                  flush=True)
+
+    for label, n, h, d, fold, b, path, times, timed in ATTENTION_CASES:
+        case(label, *packed_qkv(n, h, d, fold, b),
+             (TRAIN_PATH_OF[path],) if path else (), times, timed)
+
+    # through the Function: the gradient that reaches a packed projection
+    # through the three views and a window fold, against the plain version's
+    x = normal(2, 256, 3 * 64)
+    g = normal(4, 128, 2, 32)
+    grads = []
+    for fn in (attention.attention, attention.attention_plain):
+        leaf = x.clone().requires_grad_()
+        q, k, v = (t.reshape(4, 128, 2, 32) for t in leaf.reshape(2, 256, 3, 2, 32).unbind(2))
+        grads.append(torch.autograd.grad(fn(q, k, v), leaf, g)[0])
+    err = band("attention Function", "gradient of a packed qkv", *grads)
+    print(f"{'attention':18s} {'Function on a folded packed qkv':34s} max|err| {err:.3g}",
+          flush=True)
 
 
 def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -580,14 +739,44 @@ def is_pre_bn_bias(name: str) -> bool:
 
 def loss_and_grads(model, xyz, rgb, labels, cw):
     """One forward (in the model's mode) and backward on model's device ->
-    (loss, {name: grad}); the gradients are cleared on the model."""
+    (loss, {name: grad}, logits); the gradients are cleared on the model."""
     dev = next(model.parameters()).device
     logits = model(xyz.to(dev), rgb.to(dev))
     loss = losses.weighted_cross_entropy(logits, labels.to(dev), cw.to(dev))
     loss.backward()
     grads = {k: p.grad for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    return loss.detach(), grads
+    return loss.detach(), grads, logits.detach()
+
+
+def gradient_faults(grads: dict, cpu_grads: dict, zero: tuple = (),
+                    zero_bound: float = 0.0) -> tuple:
+    """The card's gradient leaves against the CPU's, element by element:
+    each present, finite, within 1e-3 * max|g_leaf| + 1e-7 and not all zero
+    where the CPU's is not. The leaves named in ``zero`` have a gradient that
+    is exactly 0, so any float32 value of it is rounding noise: both sides
+    must keep it below ``zero_bound``. -> (faults, (worst share of a leaf's
+    band, its name), (worst relative L2, its name))."""
+    faults, worst, rel_l2 = [], (0.0, ""), (0.0, "")
+    for name, want in cpu_grads.items():
+        got = grads[name]
+        if got is None or not torch.isfinite(got).all():
+            faults.append(f"{name}: gradient {got if got is None else 'not finite'}")
+            continue
+        got, want = got.double().cpu(), want.double()
+        err, size = (got - want).abs().max().item(), want.abs().max().item()
+        on_card = got.abs().max().item()
+        if name in zero:
+            if max(size, on_card) > zero_bound:
+                faults.append(f"{name}: a gradient that is exactly 0 reads {size:.3g} on the "
+                              f"CPU and {on_card:.3g} on the card")
+            continue
+        if err > 1e-3 * size + 1e-7 or (size > 0 and on_card == 0):
+            faults.append(f"{name}: max|err| {err:.3g}, max|g| {size:.3g}, on the card "
+                          f"max|g| {on_card:.3g}")
+        worst = max(worst, (err / (1e-3 * size + 1e-7), name))
+        rel_l2 = max(rel_l2, ((got - want).norm().item() / max(want.norm().item(), 1e-30), name))
+    return faults, worst, rel_l2
 
 
 def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw) -> None:
@@ -598,23 +787,11 @@ def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw) -> None:
     a gradient lost or misplaced by a backward kernel shows here."""
     model.eval()
     cpu_model.eval()
-    cpu_loss, cpu_grads = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
-    loss, grads = loss_and_grads(model, xyz, rgb, labels, cw)
+    cpu_loss, cpu_grads, _ = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
+    loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw)
     torch.cuda.synchronize()
     loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
-    worst, rel_l2, faults = (0.0, ""), (0.0, ""), []
-    for name, want in cpu_grads.items():
-        got = grads[name]
-        if got is None or not torch.isfinite(got).all():
-            faults.append(f"{name}: gradient {got if got is None else 'not finite'}")
-            continue
-        got, want = got.double().cpu(), want.double()
-        err = (got - want).abs().max().item()
-        size = want.abs().max().item()
-        if err > 1e-3 * size + 1e-7 or (size > 0 and got.abs().max().item() == 0):
-            faults.append(f"{name}: max|err| {err:.3g}, max|g| {size:.3g}")
-        worst = max(worst, (err / (1e-3 * size + 1e-7), name))
-        rel_l2 = max(rel_l2, ((got - want).norm().item() / max(want.norm().item(), 1e-30), name))
+    faults, worst, rel_l2 = gradient_faults(grads, cpu_grads)
     print(f"frozen-BN gradients: loss {loss.item():.7f} (CPU {cpu_loss.item():.7f}, rel "
           f"{loss_rel:.3g}); over {len(cpu_grads)} leaves the worst max|err| is at "
           f"{worst[0]:.3g} of its band ({worst[1]}), the worst relative L2 "
@@ -644,13 +821,13 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw) -> dict:
     """
     cpu_model.train()
     t0 = time.perf_counter()
-    cpu_loss, cpu_grads = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
+    cpu_loss, cpu_grads, _ = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
     cpu_s = time.perf_counter() - t0
     model.train()
     _kernels.reset_launch_counts()
-    loss, grads = loss_and_grads(model, xyz, rgb, labels, cw)
+    loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw)
     torch.cuda.synchronize()
-    counts = counts_all_launched("train step", FORWARD_KERNELS + BACKWARD_KERNELS)
+    counts = counts_all_launched("train step", FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
     if not torch.isfinite(loss):
         raise AssertionError(f"train step: loss {loss.item()}")
     loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
@@ -713,10 +890,13 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw) -> dict:
     return counts
 
 
-def train_through_cli(data_dir: Path, dev: torch.device) -> tuple:
-    """Phase 7: two epochs through train_cli.main on the two LAS scenes,
-    validating on the second -> (launch counts of exactly that run, the
-    experiment directory, which the caller removes)."""
+def run_train_cli(label: str, data_dir: Path, args: list, epochs: int, launched: tuple) -> tuple:
+    """train_cli.main on the two LAS scenes of data_dir, validating on the
+    second, with the launch counters reset just before and read just after
+    -> (its result, wall seconds, launch counts, which must cover
+    ``launched`` and nothing else, peak device memory of the run). Finite
+    losses and both checkpoints are checked; the caller removes the
+    experiment directory."""
     val_dir = data_dir / "val"
     val_dir.mkdir(exist_ok=True)
     shutil.copy(data_dir / "bridge_1.las", val_dir / "bridge_1.las")
@@ -724,29 +904,51 @@ def train_through_cli(data_dir: Path, dev: torch.device) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = train_cli.main([
-        "--train-dir", str(data_dir), "--val-dir", str(val_dir),
-        "--model", "pointnet2_ssg", "--num-classes", str(NUM_CLASSES),
-        "--num-points", str(N), "--batch-size", "16", "--num-epochs", "2",
-        "--loss", "weighted_ce", "--scheduler", "cosine", "--case", "chip_smoke",
-        "--device", "cuda",
+        "--train-dir", str(data_dir), "--val-dir", str(val_dir), *args,
+        "--num-epochs", str(epochs), "--case", "chip_smoke", "--device", "cuda",
     ])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = counts_all_launched("training", FORWARD_KERNELS + BACKWARD_KERNELS)
     exp_dir = Path(out["exp_dir"]).resolve()
     try:
+        counts = counts_all_launched(label, launched)
+        if counts != only(**{k: counts[k] for k in launched}):
+            raise AssertionError(f"{label}: another kernel ran ({counts})")
         hist = out["history"]
-        if [r["epoch"] for r in hist] != [1, 2]:
-            raise AssertionError(f"training: epochs {[r['epoch'] for r in hist]}")
+        if [r["epoch"] for r in hist] != list(range(1, epochs + 1)):
+            raise AssertionError(f"{label}: epochs {[r['epoch'] for r in hist]}")
         for r in hist:
             for key in ("train_loss", "val_loss", "val_acc", "val_miou"):
                 if not np.isfinite(r[key]):
-                    raise AssertionError(f"training: epoch {r['epoch']} {key} = {r[key]}")
+                    raise AssertionError(f"{label}: epoch {r['epoch']} {key} = {r[key]}")
         for name in ("best_model", "latest_checkpoint"):
             if not (exp_dir / name).is_file():
-                raise AssertionError(f"training: {name} not written")
-        train_mem = torch.cuda.max_memory_allocated()
+                raise AssertionError(f"{label}: {name} not written")
+    except BaseException:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        raise
+    return out, wall, counts, torch.cuda.max_memory_allocated()
 
+
+def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Path,
+                      dev: torch.device, step_model: torch.nn.Module = None,
+                      profile: bool = False) -> tuple:
+    """Phases 7 and 14: two epochs of ``model_name`` (the registry's default
+    model) at batch 16 through train_cli.main -> (launch counts of exactly
+    that run, the experiment directory, which the caller removes). A reload
+    of latest_checkpoint must give the trained model's eval logits exactly.
+    Then the steady-state train step at batch 16 (Adam, weighted CE) on the
+    reloaded model, or on ``step_model`` where the timed configuration is
+    another than the default one; with ``profile`` its device time by kernel
+    family."""
+    out, wall, counts, train_mem = run_train_cli(
+        label, data_dir,
+        ["--model", model_name, "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
+         "--batch-size", "16", "--loss", "weighted_ce", "--scheduler", "cosine"],
+        2, launched)
+    exp_dir = Path(out["exp_dir"]).resolve()
+    hist = out["history"]
+    try:
         # a reload of latest_checkpoint gives the trained model's logits
         model = out["model"]
         ds = BlockDataset.from_files([str(data_dir / "bridge_0.las")], num_points=N,
@@ -754,7 +956,7 @@ def train_through_cli(data_dir: Path, dev: torch.device) -> tuple:
         xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:16], np.float32)).to(dev)
         rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:16], np.float32)).to(dev)
         labels = torch.from_numpy(ds.labels[:16].astype(np.int64)).to(dev)
-        reloaded = get_model("pointnet2_ssg", NUM_CLASSES).to(dev)
+        reloaded = get_model(model_name, NUM_CLASSES).to(dev)
         reloaded.load_state_dict(
             restore_checkpoint(str(exp_dir / "latest_checkpoint"), map_location=dev)["model"])
         model.eval()
@@ -762,11 +964,13 @@ def train_through_cli(data_dir: Path, dev: torch.device) -> tuple:
         with torch.inference_mode():
             same = torch.equal(model(xyz, rgb), reloaded(xyz, rgb))
         if not same:
-            raise AssertionError("training: the reloaded checkpoint gives other logits")
+            raise AssertionError(f"{label}: the reloaded checkpoint gives other logits")
 
-        # steady-state train step at batch 16 on a copy of the trained model
-        opt = make_optimizer(reloaded.parameters())
-        step = make_train_step(reloaded, LossConfig(name="weighted_ce"), opt)
+        # steady-state train step at batch 16
+        del model, out["model"]
+        step_model = reloaded if step_model is None else step_model.to(dev)
+        opt = make_optimizer(step_model.parameters())
+        step = make_train_step(step_model, LossConfig(name="weighted_ce"), opt)
         cw = out["class_weights"]
         batch = {"points": xyz, "colors": rgb, "labels": labels}
         torch.cuda.reset_peak_memory_stats()
@@ -776,14 +980,121 @@ def train_through_cli(data_dir: Path, dev: torch.device) -> tuple:
         shutil.rmtree(exp_dir, ignore_errors=True)
         raise
     epoch_s = [round(r["epoch_time_s"], 4) for r in hist]
-    print(f"training: 2 epochs through train_cli in {wall:.2f} s wall (epochs {epoch_s} s), "
+    print(f"{label}: 2 epochs through train_cli in {wall:.2f} s wall (epochs {epoch_s} s), "
           f"train loss {[round(r['train_loss'], 4) for r in hist]}, val OA "
           f"{[round(r['val_acc'], 4) for r in hist]}, launches {counts}, peak device memory "
           f"{train_mem / 2**20:.1f} MiB; reloaded latest_checkpoint: eval logits identical",
           flush=True)
-    print(f"train step: batch 16 x {N} {step_ms:.3f} ms, {16 * N / step_ms * 1e3:.0f} "
+    print(f"{label} step: batch 16 x {N} {step_ms:.3f} ms, {16 * N / step_ms * 1e3:.0f} "
           f"points/s trained, peak device memory {step_mem / 2**20:.1f} MiB", flush=True)
+    if profile:
+        profile_by_family(f"{label} step", "step", lambda: step(batch, 1e-4, cw))
     return counts, exp_dir
+
+
+# the final LayerNorm's bias and head_fc1's: a constant shift of head_bn's input
+PRE_BN_BIASES = ("norm.bias", "head_fc1.bias")
+
+
+def check_attention_train_step(label: str, model: torch.nn.Module, ds: BlockDataset,
+                               dev: torch.device, launches: dict) -> float:
+    """Phases 13 and 15: one train-mode forward and backward (weighted CE,
+    dropout 0) of a PTv3 model at B=4 x 4096 on the card against the same
+    model on the CPU (plain versions), from the same weights and batch.
+
+    Bands: the loss within 1e-5 relative, the train-mode logits within 2e-4,
+    the head's BatchNorm statistics within 1e-4 * max|stat|, exactly
+    ``launches`` of each kernel; every gradient leaf present, finite,
+    non-zero and within 1e-3 * max|g_leaf| + 1e-7 of the CPU's, element by
+    element: the family has LayerNorms and one BatchNorm at the very end, so
+    nothing amplifies float32 rounding as the SSG step's BatchNorms do. The
+    two biases that feed that BatchNorm (PRE_BN_BIASES) shift every row of
+    its input alike, the batch mean takes them out again and their gradient
+    is exactly 0: both sides must keep it below 1e-3 * max|g| of
+    head_fc1.weight. -> the milliseconds of one forward and backward on the
+    card."""
+    cpu_model = copy.deepcopy(model).train()
+    model.to(dev).train()
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads, cpu_logits = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
+    cpu_s = time.perf_counter() - t0
+    _kernels.reset_launch_counts()
+    loss, grads, logits = loss_and_grads(model, xyz, rgb, labels, cw)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    if counts != launches:
+        raise AssertionError(f"{label}: launches {counts}, expected {launches}")
+    loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    logit_err = max_abs_err(logits.cpu(), cpu_logits)
+    faults = []
+    if not loss_rel <= 1e-5:
+        faults.append(f"loss {loss.item()} vs CPU {cpu_loss.item()}")
+    if not logit_err <= LOGIT_TOL:
+        faults.append(f"train-mode logits differ from the CPU's by {logit_err}")
+    grad_faults, worst, _ = gradient_faults(
+        grads, cpu_grads, PRE_BN_BIASES, 1e-3 * cpu_grads["head_fc1.weight"].abs().max().item())
+    faults += grad_faults
+    if not all(g.abs().max() > 0 for name, g in cpu_grads.items() if name not in PRE_BN_BIASES):
+        faults.append("a gradient leaf is all zero on the CPU")
+    stat_err = 0.0
+    for name, want in cpu_model.head_bn.named_buffers():
+        if name != "num_batches_tracked":
+            got = getattr(model.head_bn, name)
+            stat_err = max(stat_err, max_abs_err(got.cpu(), want) / want.abs().max().item())
+    if stat_err > 1e-4:
+        faults.append(f"head_bn statistics {stat_err:.3g} of max|stat| from the CPU")
+    print(f"{label}: B={B} N={N} loss {loss.item():.7f} (CPU {cpu_loss.item():.7f}, rel "
+          f"{loss_rel:.3g}), train-mode logits max|err| {logit_err:.3g}; over {len(cpu_grads)} "
+          f"gradient leaves the worst max|err| is at {worst[0]:.3g} of its band ({worst[1]}; "
+          f"the two zero gradients before head_bn apart); "
+          f"head_bn statistics {stat_err:.3g} of max|stat|; launches {counts}; CPU reference "
+          f"step {cpu_s:.2f} s (host)", flush=True)
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults))
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
+    print(f"{label}: forward and backward {step_ms:.3f} ms, "
+          f"{B * N / step_ms * 1e3:.0f} points/s", flush=True)
+    return step_ms
+
+
+def train_ptv3_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) -> dict:
+    """Phase 14: train ptv3_pooled through train_cli.main (the registry's
+    default model, which infer_cli restores), serve the checkpoint it wrote
+    through ``infer_cli blocks``, time the batch-16 step at the benched
+    configuration, and run one epoch from each of the family's two configs
+    as a user would (``--config``, the data directories and the epochs as
+    flags) -> launch counts by path."""
+    trained = ("flash_attn",) + ATTN_BACKWARD_KERNELS
+    step_model = seeded_model("ptv3_pooled", SEED + 14, **POOLED_BENCHED)
+    by_path = {}
+    by_path["ptv3_pooled_train_cli"], exp_dir = train_through_cli(
+        "train ptv3_pooled", "ptv3_pooled", trained, data_dir, dev, step_model, profile=True)
+    try:
+        by_path["ptv3_pooled_serve_trained"] = serve_blocks(
+            "serve trained ptv3_pooled blocks", "ptv3_pooled", exp_dir, ("flash_attn",),
+            data_dir, n_blocks, dev)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    if by_path["ptv3_pooled_serve_trained"] != only(flash_attn=8 * -(-n_blocks // 16)):
+        raise AssertionError(f"serve trained ptv3_pooled blocks: launches "
+                             f"{by_path['ptv3_pooled_serve_trained']}")
+    for name in ("ptv3_pooled", "ptv3"):
+        out, wall, counts, mem = run_train_cli(
+            f"train {name} from its config", data_dir,
+            ["--config", str(ROOT / "configs" / f"train_{name}.yaml")], 1, trained)
+        shutil.rmtree(out["exp_dir"], ignore_errors=True)
+        r = out["history"][0]
+        by_path[f"{name}_train_config"] = counts
+        print(f"train {name} from configs/train_{name}.yaml: 1 epoch in {wall:.2f} s wall "
+              f"(epoch {r['epoch_time_s']:.2f} s), train loss {r['train_loss']:.4f}, val OA "
+              f"{r['val_acc']:.4f}, launches {counts}, peak device memory "
+              f"{mem / 2**20:.1f} MiB", flush=True)
+        del out
+    return by_path
 
 
 def kernel_family(name: str) -> str:
@@ -792,6 +1103,8 @@ def kernel_family(name: str) -> str:
         ("fps_kernel", "K1 FPS"), ("ballq_kernel", "K2 ball query"),
         ("group_kernel", "K3 group"), ("interp_kernel", "K4 interpolate"),
         ("knn_kernel", "K5 k-NN"), ("flash_attn_kernel", "K6 flash attention"),
+        ("flash_attn_bwd", "K6b flash attention backward"),
+        ("multi_tensor", "Adam (foreach)"),
         ("gemm", "GEMMs"), ("gemv", "GEMMs"), ("cutlass", "GEMMs"),
         ("batch_norm", "BatchNorm"), ("layer_norm", "LayerNorm"), ("Sort", "sort"),
         ("sort", "sort"), ("reduce", "reductions"),
@@ -802,6 +1115,35 @@ def kernel_family(name: str) -> str:
         if key in name:
             return family
     return "elementwise and other"
+
+
+def profile_by_family(label: str, what: str, fn, reps: int = 10) -> None:
+    """Print the device time of one fn() by kernel family, from one
+    torch.profiler run over ``reps`` back-to-back calls."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    families: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:  # the attribute's name in older PyTorch
+                us = ev.self_cuda_time_total
+            fam = kernel_family(ev.key)
+            families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
+    busy = sum(families.values())
+    if busy > 0:
+        print(f"{label} profile (device ms a {what}, {reps} back to back, "
+              f"profiler on): busy {busy:.3f}, wall {wall_ms:.3f}, idle "
+              f"{max(0.0, 1 - busy / wall_ms):.1%}")
+        for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            print(f"  {fam:28s} {ms:8.3f} ms  {ms / busy:6.1%}")
+    else:
+        print(f"{label} profile: the profiler recorded no device time")
 
 
 def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
@@ -839,35 +1181,8 @@ def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
         fwd_ms = time_ms(lambda: model(xyz, rgb))
         print(f"{label}: B={B} N={N} {fwd_ms:.3f} ms, "
               f"{B * N / fwd_ms * 1e3:.0f} points/s", flush=True)
-        if not profile:
-            return model, fwd_ms
-
-        # device time by kernel family over 10 back-to-back forwards
-        reps = 10
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                model(xyz, rgb)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        families: dict = {}
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                us = getattr(ev, "self_device_time_total", None)
-                if us is None:  # the attribute's name in older PyTorch
-                    us = ev.self_cuda_time_total
-                fam = kernel_family(ev.key)
-                families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
-        busy = sum(families.values())
-        if busy > 0:
-            print(f"{label} profile (device ms a forward, {reps} back to back, "
-                  f"profiler on): busy {busy:.3f}, wall {wall_ms:.3f}, idle "
-                  f"{max(0.0, 1 - busy / wall_ms):.1%}")
-            for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
-                print(f"  {fam:24s} {ms:8.3f} ms  {ms / busy:6.1%}")
-        else:
-            print(f"{label} profile: the profiler recorded no device time")
+        if profile:
+            profile_by_family(label, "forward", lambda: model(xyz, rgb))
     return model, fwd_ms
 
 
@@ -878,11 +1193,6 @@ def seeded_model(name: str, seed: int, **kwargs) -> torch.nn.Module:
     model = get_model(name, NUM_CLASSES, generator=gen, **kwargs)
     randomize_bn(model, gen)
     return model.eval()
-
-
-def only(**launches) -> dict:
-    """Launch counts with every kernel at 0 but the named ones."""
-    return dict.fromkeys((k.name for k in _kernels.KERNELS), 0) | launches
 
 
 def run_cli(label: str, argv: list, pattern: str) -> tuple:
@@ -1070,10 +1380,11 @@ def main() -> None:
             print(f"  ptxas {line.strip()}")
 
     # 3. kernels against their plain versions; 3b. the backward kernels;
-    # 3c. the flash-attention kernel
+    # 3c. the flash-attention kernel; 3d. its backward kernels
     res = compare_kernels(dev)
     compare_backward_kernels(dev, res)
     compare_attention_kernel(dev, res)
+    compare_attention_backward(dev, res)
 
     # 4. the SSG forward on the card against the CPU
     data_dir = ROOT / "build" / "chip_smoke_data"
@@ -1154,7 +1465,9 @@ def main() -> None:
         step_counts = check_train_step(model, cpu_model, xyz_cpu, rgb_cpu, labels, cw)
 
         # 7. train through the CLI
-        train_counts, exp_dir = train_through_cli(data_dir, dev)
+        train_counts, exp_dir = train_through_cli(
+            "train pointnet2_ssg", "pointnet2_ssg", FORWARD_KERNELS + SSG_BACKWARD_KERNELS,
+            data_dir, dev)
         try:
             # 8. the BriStruNet forward; 9. serve through the inference CLI
             bristrunet, _ = forward_against_cpu(
@@ -1175,27 +1488,44 @@ def main() -> None:
         forward_against_cpu("ptv3 forward", seeded_model("ptv3", SEED + 11), ds, dev,
                             flat_counts, profile=False)
         by_path |= serve_ptv3_pooled_through_cli(data_dir, len(ds), dev)
+
+        # 13. one ptv3_pooled train step at the benched configuration against
+        # the CPU; 14. ptv3_pooled trained through the training CLI and served
+        # from the checkpoint it wrote; 15. one flat ptv3 train step
+        no_dropout = dict(drop_rate=0.0, head_drop_rate=0.0)
+        pooled_step_counts = attention_launches(12)
+        check_attention_train_step(
+            "ptv3_pooled train step",
+            seeded_model("ptv3_pooled", SEED + 13, **no_dropout, **POOLED_BENCHED), ds, dev,
+            pooled_step_counts)
+        by_path |= train_ptv3_through_cli(data_dir, len(ds), dev)
+        flat_step_counts = attention_launches(8)
+        check_attention_train_step(
+            "ptv3 train step", seeded_model("ptv3", SEED + 15, **no_dropout), ds, dev,
+            flat_step_counts)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
-    # 10 and 11) beside the times and bound summed over exactly those
-    # launches' shapes (phases 3, 3b and 3c). The row's own numbers are those
-    # of the BriStruNet forward, of the SSG train step for the backward
-    # kernels, and of the ptv3_pooled forward for the flash-attention kernel.
+    # 10, 11, 13 and 15) beside the times and bound summed over exactly those
+    # launches' shapes (phases 3, 3b, 3c and 3d). The row's own numbers are
+    # those of the BriStruNet forward, of the SSG train step for its backward
+    # kernels, of the ptv3_pooled forward for the flash-attention kernel and of
+    # the ptv3_pooled train step for its backward kernels (ROW_PATH). The SSG
+    # train step gives its forward kernels the shapes of the SSG forward, which
+    # stand under that path.
     pass_counts = {SSG: fwd_counts, BRISTRUNET: BRISTRUNET_LAUNCHES, TRAIN: step_counts,
-                   PTV3_POOLED: pooled_counts, PTV3: flat_counts}
+                   PTV3_POOLED: pooled_counts, PTV3: flat_counts,
+                   PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:
-        backward = k.name in BACKWARD_KERNELS
         paths = {path: res.row(k.name, path, counts[k.name])
                  for path, counts in pass_counts.items()
-                 if counts[k.name] and backward == (path == TRAIN)}
+                 if counts[k.name] and (path != TRAIN or k.name in SSG_BACKWARD_KERNELS)}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "max_abs_err": res.err[k.name],
-            **paths[TRAIN if backward else PTV3_POOLED if k.name == "flash_attn"
-                    else BRISTRUNET],
+            **paths[ROW_PATH.get(k.name, BRISTRUNET)],
             "paths": paths,
             "launches_by_path": {path: c[k.name] for path, c in serves.items()},
         })

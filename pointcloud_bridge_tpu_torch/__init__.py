@@ -10,15 +10,16 @@ int32 indices).
 Layout:
     csrc/      hand-written CUDA kernels for sm_90a (FPS, ball query, exact
                k-NN, grouping and its backward, k-NN interpolation and its
-               backward), plain C entry points
+               backward, flash attention and its backward), plain C entry
+               points
     ops/       point-cloud ops; each kernel's ctypes wrapper sits beside its
                plain PyTorch version (ops/_kernels.py builds and binds);
-               grouping and interpolation are autograd Functions;
+               grouping, interpolation and attention are autograd Functions;
                structure.py holds the closed-form 3x3 eigenvalues and the
                local shape descriptor
-    models/    PointNet++ SSG (nn.Modules with the reference torch names)
-               and BriStruNet (named after the flax modules), with
-               flax-semantics BatchNorm
+    models/    PointNet++ SSG (nn.Modules with the reference torch names),
+               BriStruNet and the PTv3 family (named after the flax
+               modules), with flax-semantics BatchNorm
     data/      LAS/H5 IO, block samplers, BlockDataset, synthetic scenes
     config.py  the typed config tree; class_names.py the label maps
     losses.py  the segmentation losses

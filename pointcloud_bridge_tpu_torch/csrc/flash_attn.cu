@@ -14,7 +14,10 @@
 // the head and channel axes contiguous and a row stride each (ldq, ldk,
 // ldv, in elements), so the three slices of one packed [B, N, 3, H, D]
 // projection are read in place; the batch stride is N rows. o is written
-// contiguous as [B, N, H, D].
+// contiguous as [B, N, H, D]. Where lse is not null, each row's natural-log
+// sum of its exponentiated scaled scores, log sum_j exp(q . k_j / sqrt(D)),
+// is written to lse[b, h, i] ([B, H, N] float32) for the backward
+// (flash_attn_bwd.cu); a caller that needs no gradient passes null.
 //
 // What bounds it on the H100: operations. 4*B*H*N*N*D float32 operations
 // against 16*B*N*H*D bytes is N/4 operations a byte, and the card's
@@ -48,14 +51,15 @@
 // do, and would otherwise halve this kernel's arithmetic rate.
 #include <cmath>
 
-#include "common.cuh"
+#include "flash_attn.cuh"
 
 namespace {
 
-constexpr int kBM = 64;        // query rows a block
-constexpr int kBN = 64;        // keys a step
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPad = 4;        // floats added to a staged row
+using flash::kPad;
+using flash::kThreads;
+
+constexpr int kBM = 64;  // query rows a block
+constexpr int kBN = 64;  // keys a step
 constexpr int kPS = kBN + kPad;
 
 template <int D>
@@ -63,30 +67,13 @@ constexpr size_t smem_bytes() {
   return (size_t)(3 * kBM * (D + kPad) + kBM * kPS) * sizeof(float);
 }
 
-// 64 rows of D floats from row0 on, rows past n as zeros, into dst with
-// row stride D + kPad.
-template <int D>
-__device__ __forceinline__ void stage_tile(float* __restrict__ dst,
-                                           const float* __restrict__ src,
-                                           int row0, int n, long long ld) {
-  constexpr int V4 = D / 4;
-  for (int t = threadIdx.x; t < kBM * V4; t += kThreads) {
-    const int r = t / V4;
-    const int c = (t % V4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * ld + c);
-    }
-    *reinterpret_cast<float4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int n,
-                  int heads, int tiles, long long ldq, long long ldk,
-                  long long ldv, float scale_log2e) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int n, int heads, int tiles,
+                  long long ldq, long long ldk, long long ldv,
+                  float scale_log2e) {
   constexpr int LD = D + kPad;
   constexpr int CPT = D / 16;  // output channels a thread and row
   extern __shared__ __align__(16) float smem[];
@@ -107,7 +94,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)b * n * ldk + (size_t)h * D;
   const float* vb = v + (size_t)b * n * ldv + (size_t)h * D;
 
-  stage_tile<D>(sq, qb, i0, n, ldq);
+  flash::stage_tile<D, kBM>(sq, qb, i0, n, ldq);
 
   const float ninf = -INFINITY;
   float m[4], l[4], acc[4][CPT];
@@ -121,38 +108,13 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int j0 = 0; j0 < n; j0 += kBN) {
     __syncthreads();  // the previous step's k, v and p are no longer read
-    stage_tile<D>(sk, kb, j0, n, ldk);
-    stage_tile<D>(sv, vb, j0, n, ldv);
+    flash::stage_tile<D, kBN>(sk, kb, j0, n, ldk);
+    flash::stage_tile<D, kBN>(sv, vb, j0, n, ldv);
     __syncthreads();  // and the q tile is there the first time
 
     // scores of rows ty + 16 i, keys tx + 16 j
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(sq + (ty + 16 * i) * LD + d);
-        c[i] = *reinterpret_cast<const float4*>(sk + (tx + 16 * i) * LD + d);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(a[i].x, c[j].x, t);
-          t = fmaf(a[i].y, c[j].y, t);
-          t = fmaf(a[i].z, c[j].z, t);
-          t = fmaf(a[i].w, c[j].w, t);
-          s[i][j] = t;
-        }
-      }
-    }
+    flash::dot_tile<D, 4>(sq, ty, sk, tx, s);
 
     // online softmax in base 2; the 16 threads of a row are 16 neighbouring
     // lanes, so xor-shuffles by 8, 4, 2, 1 stay inside the row
@@ -191,35 +153,18 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the p tile is whole
 
     // rows ty + 16 i of p . v, channels 2 tx + 32 mm (+1)
-#pragma unroll 1
-    for (int jj = 0; jj < kBN; jj += 4) {
-      float4 p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = *reinterpret_cast<const float4*>(sp + (ty + 16 * i) * kPS + jj);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int mm = 0; mm < CPT / 2; ++mm) {
-          const float2 vv = *reinterpret_cast<const float2*>(
-              sv + (jj + e) * LD + 2 * tx + 32 * mm);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pe = e == 0 ? p[i].x : e == 1 ? p[i].y
-                           : e == 2 ? p[i].z : p[i].w;
-            acc[i][2 * mm] = fmaf(pe, vv.x, acc[i][2 * mm]);
-            acc[i][2 * mm + 1] = fmaf(pe, vv.y, acc[i][2 * mm + 1]);
-          }
-        }
-      }
-    }
+    flash::accumulate_tile<D, kBN>(sp, kPS, ty, sv, tx, acc);
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = i0 + ty + 16 * i;
     if (row >= n) continue;
+    if (lse != nullptr && tx == 0) {
+      // m and l are in base 2: ln sum_j e^(s_j) = (m + log2 l) ln 2
+      lse[((size_t)b * heads + h) * n + row] =
+          (m[i] + log2f(l[i])) * flash::kLn2;
+    }
     float* dst = o + (((size_t)b * n + row) * heads + h) * D;
 #pragma unroll
     for (int mm = 0; mm < CPT / 2; ++mm) {
@@ -233,8 +178,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int b, int n, int heads, long long ldq, long long ldk,
-                   long long ldv, cudaStream_t st) {
+                   float* lse, int b, int n, int heads, long long ldq,
+                   long long ldk, long long ldv, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -246,7 +191,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   // softmax(s / sqrt(D)) = 2^((s - max) * log2(e) / sqrt(D))
   const float scale_log2e = (float)(1.4426950408889634 / std::sqrt((double)D));
   flash_attn_kernel<D><<<(unsigned)((size_t)b * heads * tiles), kThreads, bytes,
-                         st>>>(q, k, v, o, n, heads, tiles, ldq, ldk, ldv,
+                         st>>>(q, k, v, o, lse, n, heads, tiles, ldq, ldk, ldv,
                                scale_log2e);
   return cudaGetLastError();
 }
@@ -255,25 +200,17 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 
 // d a multiple of 32 up to 256; b * heads * ceil(n / 64) < 2^31; the three
 // pointers 16-byte aligned and the row strides multiples of 4: checked by
-// the wrapper.
+// the wrapper. lse may be null.
 PCB_API int pcb_flash_attn(const float* q, const float* k, const float* v,
-                           float* o, int b, int n, int heads, int d,
+                           float* o, float* lse, int b, int n, int heads, int d,
                            long long ldq, long long ldk, long long ldv,
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b < 1 || n < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 32: err = launch<32>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    case 64: err = launch<64>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    case 96: err = launch<96>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    case 128: err = launch<128>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    case 160: err = launch<160>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    case 192: err = launch<192>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    case 224: err = launch<224>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    case 256: err = launch<256>(q, k, v, o, b, n, heads, ldq, ldk, ldv, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+#define PCB_FWD(DD) launch<DD>(q, k, v, o, lse, b, n, heads, ldq, ldk, ldv, st)
+  PCB_FOR_HEAD_DIMS(PCB_FWD)
+#undef PCB_FWD
   return (int)err;
 }

@@ -8,10 +8,14 @@ runs inside fixed windows of the sorted axis.
 Layers are named after the flax modules (``patch_embed``, ``block0.attn.qkv``,
 ``block0.mlp.geglu.proj``, ``head_bn``), a Dense weight stored as [out, in],
 so ``utils/weights.py`` maps the JAX variables by path. Every attention call
-goes through ``ops.attention``: the flash-attention kernel on the card, the
-plain version on the CPU.
+goes through ``ops.attention``, an autograd Function: the flash-attention
+kernels on the card, forward and backward, and their plain versions on the
+CPU. In train mode the three dropouts a block (after the attention's output
+projection, and twice in the feed-forward) and the head's draw from the
+generator that the trainer sets.
 
-Only the dense, single-device, float32 model is ported. The JAX classes'
+Only the dense, single-device, float32 model is ported, for serving and for
+training. The JAX classes'
 other arguments (``sp_axis``, ``axis_name``, ``compute_dtype``,
 ``stream_dtype``, ``remat``, ``num_experts`` and the ``moe_*`` arguments) are
 accepted by name and raise NotImplementedError unless left at their default.

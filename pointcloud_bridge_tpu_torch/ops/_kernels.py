@@ -37,7 +37,8 @@ BUILD_DIR = _REPO / "build" / "pointcloud_bridge_tpu_torch"
 
 # -fmad=false: no FMA contraction anywhere, so distances round exactly as in
 # the reference's separate multiply and add (common.cuh spells it out too).
-# flash_attn.cu, which needs no bit-identity, writes its FMAs as fmaf().
+# flash_attn.cu and flash_attn_bwd.cu, which need no bit-identity, write their
+# FMAs as fmaf().
 # --threads 0: the sources compile side by side, one job a core.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -123,12 +124,29 @@ KNN = Kernel(
 )
 FLASH_ATTN = Kernel(
     "flash_attn", "pcb_flash_attn",
-    # q, k, v, out, B, N, H, D, ldq, ldk, ldv, device, stream
-    (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+    # q, k, v, out, lse (or null), B, N, H, D, ldq, ldk, ldv, device, stream
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/flash_attn.cu",
     "pointcloud_bridge_tpu/models/ptv3.py:74",
 )
-KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN, FLASH_ATTN)
+# the library kernel's VJP, which the block_*_dq and block_*_dkv sizes of
+# ptv3.py:154-156 configure: two kernels there, two here
+FLASH_ATTN_BWD_DQ = Kernel(
+    "flash_attn_bwd_dq", "pcb_flash_attn_bwd_dq",
+    # q, k, v, o, do, lse, dq, delta, B, N, H, D, ldq, ldk, ldv, device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/flash_attn_bwd.cu",
+    "pointcloud_bridge_tpu/models/ptv3.py:156",
+)
+FLASH_ATTN_BWD_DKV = Kernel(
+    "flash_attn_bwd_dkv", "pcb_flash_attn_bwd_dkv",
+    # q, k, v, do, lse, delta, dk, dv, B, N, H, D, ldq, ldk, ldv, device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/flash_attn_bwd.cu",
+    "pointcloud_bridge_tpu/models/ptv3.py:154",
+)
+KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN, FLASH_ATTN,
+           FLASH_ATTN_BWD_DQ, FLASH_ATTN_BWD_DKV)
 
 
 def reset_launch_counts() -> None:

@@ -3,14 +3,18 @@ pointcloud_bridge_tpu/models/ptv3.py::_attention, :74-172).
 
 One route a device: a CPU tensor takes the plain PyTorch version, which is
 what ``jax.nn.dot_product_attention`` computes on the CPU; a CUDA tensor
-takes the flash-attention kernel (csrc/flash_attn.cu), which keeps the
-[B, H, N, N] scores out of device memory, at every length and for global and
-windowed attention alike (a window fold is a larger batch of shorter rows).
-The JAX function's environment switches, its pad of D = 192 to 256 and its
-quiet fallback are the TPU kernel's and are not carried over.
+takes the flash-attention kernels (csrc/flash_attn.cu, flash_attn_bwd.cu),
+which keep the [B, H, N, N] scores out of device memory, at every length and
+for global and windowed attention alike (a window fold is a larger batch of
+shorter rows). The JAX function's environment switches, its pad of D = 192
+to 256 and its quiet fallback are the TPU kernel's and are not carried over.
 
-The kernel has no backward yet: on a CUDA tensor that needs a gradient the
-wrapper raises (ROADMAP.md, Queue 2).
+:class:`Attention` is an autograd Function on both devices, so the CPU tests
+build the graph that the card runs. Where an input needs a gradient, the
+forward also keeps each row's log-sum-exp of the scaled scores, and the
+backward recomputes the probabilities from it: the plain formulas of
+:func:`attention_backward_plain` on the CPU, the two backward kernels on the
+card.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from . import _kernels
 
-# head widths the kernel is instantiated for
+# head widths the kernels are instantiated for
 FLASH_HEAD_DIMS = tuple(range(32, 257, 32))
 
 
@@ -30,12 +34,40 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 
     q, k, v [B, N, H, D] float32, the JAX layout; any strides (the three
     slices of a packed qkv projection are read in place) -> [B, N, H, D]
-    float32, contiguous.
+    float32, contiguous. Differentiable in q, k and v.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    return attention_cuda(q, k, v)
+    return Attention.apply(q, k, v)
+
+
+class Attention(torch.autograd.Function):
+    """attention() with its backward. It saves q, k and v as the views it
+    was given (three slices of one packed projection share their storage),
+    the output and the [B, H, N] log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        need_grad = any(ctx.needs_input_grad)
+        if q.device.type == "cpu":
+            scores = _scores(q, k)
+            out = _weighted_sum(torch.softmax(scores, dim=-1), v)
+            if need_grad:
+                lse = torch.logsumexp(scores, dim=-1)
+        elif need_grad:
+            out, lse = attention_cuda(q, k, v, need_lse=True)
+        else:
+            out = attention_cuda(q, k, v)
+        if need_grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable  # the kernels build no graph
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return attention_backward_plain(q, k, v, out, lse, grad_out)
+        return attention_backward_cuda(q, k, v, out, lse, grad_out)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -49,12 +81,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The [B, H, N, N] scores, scaled by 1/sqrt(D)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def _weighted_sum(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).contiguous()
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch attention: the [B, H, N, N] scores, scaled by 1/sqrt(D),
-    a softmax over the keys, and the weighted sum of v, all in float32."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
-    return out.contiguous()
+    a softmax over the keys, and the weighted sum of v, all in the inputs'
+    type."""
+    return _weighted_sum(torch.softmax(_scores(q, k), dim=-1), v)
+
+
+def attention_backward_plain(q, k, v, out, lse, grad_out):
+    """Plain PyTorch backward of attention (the plain version of the two
+    backward kernels) -> (dq, dk, dv), each [B, N, H, D] contiguous.
+
+    ``out`` is the forward's result, ``lse`` [B, H, N] the log-sum-exp of its
+    scaled scores, ``grad_out`` [B, N, H, D]. With P = exp(S - lse),
+    delta_i = sum_d out * grad_out, dP = grad_out . v^T and
+    dS = P * (dP - delta): dv = P^T . grad_out, dq = dS . k / sqrt(D),
+    dk = dS^T . q / sqrt(D)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k) - lse.unsqueeze(-1))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, grad_out)
+    dp = torch.einsum("bqhd,bkhd->bhqk", grad_out, v)
+    delta = (out * grad_out).sum(-1).transpose(1, 2)  # [B, H, N]
+    ds = p * (dp - delta.unsqueeze(-1))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -70,30 +130,92 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Flash-attention kernel wrapper: one launch (csrc/flash_attn.cu)."""
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on what the kernels do not take."""
     _check(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"attention: {name}: expected a CUDA tensor, got {t.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "attention: the flash-attention kernel has no backward yet "
-            "(ROADMAP.md Queue 2); run under torch.no_grad() or on the CPU"
-        )
     b, n, h, d = q.shape
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(
             f"attention kernel takes a head width of {FLASH_HEAD_DIMS}, got D={d}"
         )
-    out = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out
     if b * h * ((n + 63) // 64) >= 2**31:
         raise ValueError(f"attention kernel takes < 2^31 blocks, got {tuple(q.shape)}")
-    q, k, v = _rows(q), _rows(k), _rows(v)
-    _kernels.FLASH_ATTN.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, h, d,
-        q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
-    )
-    return out
+
+
+def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   need_lse: bool = False):
+    """Flash-attention kernel wrapper: one launch (csrc/flash_attn.cu) ->
+    the output, or with ``need_lse`` (output, lse [B, H, N] float32)."""
+    _check_cuda(q, k, v)
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if need_lse else None
+    if out.numel():
+        q, k, v = _rows(q), _rows(k), _rows(v)
+        _kernels.FLASH_ATTN.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if need_lse else None, b, n, h, d,
+            q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
+        )
+    return (out, lse) if need_lse else out
+
+
+def _check_saved(**tensors) -> None:
+    """Raise unless each name=(tensor, shape) is a contiguous float32 CUDA
+    tensor of that shape."""
+    for name, (t, shape) in tensors.items():
+        _kernels.check_tensor(f"attention backward: {name}", t, torch.float32, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"attention backward: {name}: expected {shape}, got {tuple(t.shape)}")
+
+
+def attention_backward_dq_cuda(q, k, v, out, lse, grad_out):
+    """The dq kernel's wrapper: one launch (csrc/flash_attn_bwd.cu) ->
+    (dq [B, N, H, D], delta [B, H, N]), delta_i = sum_d out * grad_out, which
+    the dk/dv kernel reads."""
+    _check_cuda(q, k, v)
+    b, n, h, d = q.shape
+    _check_saved(out=(out, (b, n, h, d)), grad_out=(grad_out, (b, n, h, d)),
+                 lse=(lse, (b, h, n)))
+    dq = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    if dq.numel():
+        q, k, v = _rows(q), _rows(k), _rows(v)
+        _kernels.FLASH_ATTN_BWD_DQ.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), b, n, h, d,
+            q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
+        )
+    return dq, delta
+
+
+def attention_backward_dkv_cuda(q, k, v, lse, delta, grad_out):
+    """The dk/dv kernel's wrapper: one launch (csrc/flash_attn_bwd.cu) ->
+    (dk, dv), each [B, N, H, D]; ``delta`` is the dq kernel's."""
+    _check_cuda(q, k, v)
+    b, n, h, d = q.shape
+    _check_saved(grad_out=(grad_out, (b, n, h, d)), lse=(lse, (b, h, n)),
+                 delta=(delta, (b, h, n)))
+    dk = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    if dk.numel():
+        q, k, v = _rows(q), _rows(k), _rows(v)
+        _kernels.FLASH_ATTN_BWD_DKV.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, d,
+            q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
+        )
+    return dk, dv
+
+
+def attention_backward_cuda(q, k, v, out, lse, grad_out):
+    """Backward of attention on the card: the dq kernel, then the dk/dv
+    kernel on the delta it wrote -> (dq, dk, dv)."""
+    grad_out = grad_out.contiguous()
+    dq, delta = attention_backward_dq_cuda(q, k, v, out, lse, grad_out)
+    dk, dv = attention_backward_dkv_cuda(q, k, v, lse, delta, grad_out)
+    return dq, dk, dv

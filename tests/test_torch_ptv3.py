@@ -2,9 +2,11 @@
 against the JAX package, on the CPU.
 
 On the CPU the JAX ``_attention`` is ``jax.nn.dot_product_attention`` (its
-flash kernel runs on a TPU only) and the port's ``attention`` is
-``attention_plain``: the two plain versions are held together here, the CUDA
-kernel against ``attention_plain`` on the card by chip_smoke.py. Flax modules
+flash kernel runs on a TPU only) and the port's ``attention`` computes what
+``attention_plain`` does: the two plain versions are held together here, the
+CUDA kernel against ``attention_plain`` on the card by chip_smoke.py. The
+backward is in test_torch_attention_bwd.py, training in
+test_torch_ptv3_train.py. Flax modules
 are initialised from a seed, perturbed in numpy (fresh biases are zero, a
 fresh norm is the identity), converted with utils/weights.py and loaded with
 strict=True. Modules agree to 2e-5, whole models to 2e-4 (PARITY.md §7's
@@ -394,9 +396,10 @@ def test_pooled_refuses_shapes_it_cannot_pool():
 
 
 def test_ptv3_train_mode_forward_and_backward_on_the_cpu(rng):
-    """Train mode runs on the CPU through the plain attention: finite logits,
-    the head's BatchNorm statistics move, every parameter gets a finite
-    gradient (training on the card waits for the kernel's backward)."""
+    """Train mode runs on the CPU through the attention Function's plain
+    versions: finite logits, the head's BatchNorm statistics move, every
+    parameter gets a finite gradient (test_torch_ptv3_train.py holds the
+    step to the JAX package)."""
     model = get_model("ptv3_pooled", 5, generator=torch.Generator().manual_seed(0),
                       drop_rate=0.0, head_drop_rate=0.0, **POOLED)
     model.train()
