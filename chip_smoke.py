@@ -24,18 +24,26 @@ any failure raises and exits non-zero:
 3b. the backward kernels against their plain versions at the SSG train
    shapes (B=4): group backward (sa2, sa3) and interpolation backward (fp3,
    fp2, fp1, on the selection the forward kernel saved), within 1e-5 of
-   max|plain|; median times of both;
+   max|plain|; median times of both; and, held without being timed, at the
+   shapes a BriStruNet backward gives them (group backward at sa1-sa3, K=16
+   and 32 with 3, 256 and 512 channels; interpolation backward at k=4 with
+   up to 1024 channels);
 3c. the flash-attention kernel against the plain attention at every shape
    that the PTv3 family gives it at B=4 x 4096 (the windows of level 0 folded
    to [16,1024,2,32], the global levels [4,1024,4,32] and [4,256,8,32], the
    flat model's [4,4096,2,192] and [4,4096,6,64]), on the strided slices of a
-   packed qkv projection of LayerNorm output, and at ragged lengths; within
-   2e-5 * max(1, max|plain|); times beside the bound and beside
-   F.scaled_dot_product_attention;
+   packed qkv projection of LayerNorm output, at ragged lengths (65, 129 and
+   4095 among them: no multiple of a tile height) and with q and k scaled
+   until the largest score is 55, where the error of a product goes into an
+   exponent; within 2e-5 * max(1, max|plain|); times beside two bounds, the
+   tensor cores in 3xTF32 (the fastest route at float32 accuracy) and
+   float32 FMAs, and beside F.scaled_dot_product_attention;
 3d. the two attention-backward kernels (dq, which also writes delta; dk and
    dv) against the plain backward at the shapes of 3c, within the same band;
-   the forward's log-sum-exp within 1e-5 of torch.logsumexp and its output
-   bit-identical with and without it; the plain backward against autograd;
+   the forward's log-sum-exp within 1e-5 of torch.logsumexp (1e-6 of itself
+   where it is large) and its output bit-identical with and without it; each
+   backward kernel the same bits from one call to the next; the plain
+   backward against autograd;
    times beside the bound and beside the backward of
    F.scaled_dot_product_attention;
 4. the SSG forward at B=4 x 4096 on the card against the same model on the
@@ -183,6 +191,10 @@ POOLED_BENCHED = dict(dims=(64, 128, 256), enc_depths=(2, 2, 6), dec_depths=(1, 
 # tensor cores (NVIDIA H100 SXM data sheet, at the full 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
+# float32-grade work on the tensor cores: three TF32 passes a product (3xTF32)
+# at 495 TFLOP/s dense; the least of the routes at float32 accuracy, which
+# bounds the attention kernels
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 
 
 def nvidia_smi() -> str:
@@ -226,7 +238,7 @@ PATHS = (SSG, BRISTRUNET, TRAIN, PTV3_POOLED, PTV3, PTV3_POOLED_TRAIN, PTV3_TRAI
 # (BriStruNet's forward for the kernels not named here)
 ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "flash_attn": PTV3_POOLED,
             "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN}
-SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")
+SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms", "fma_bound_ms")
 
 
 class Results:
@@ -242,7 +254,7 @@ class Results:
                      for path in PATHS}
 
     def check(self, name, label, kernel_fn, plain_fn, exact, paths=(), scaled=None,
-              work=None, library_fn=None, times=1):
+              work=None, library_fn=None, times=1, peak_flops=PEAK_FLOPS):
         """exact: bit-identical; else within INTERP_TOL (rtol and atol), or
         with scaled=(tol, floor) within tol * max(floor, max|plain|). The
         functions return a tensor or a tuple of tensors. ``paths`` names the
@@ -252,7 +264,8 @@ class Results:
         once, and the arithmetic the function needs on this data. A case
         with ``work`` and no path is timed too. ``library_fn`` is the one
         PyTorch call that computes the same function, timed beside the
-        kernel."""
+        kernel. ``peak_flops`` is the rate of the fastest route that keeps the
+        function's accuracy; the bound over float32 FMAs stands beside it."""
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
@@ -278,11 +291,14 @@ class Results:
         line = f"{name:18s} {label:34s} max|err| {err:.3g}"
         if work:
             bytes_ms = work[0] / PEAK_BYTES_S * 1e3
-            ops_ms = work[1] / PEAK_FLOPS * 1e3
+            ops_ms = work[1] / peak_flops * 1e3
             case = {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
-                    "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
+                    "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "fma_bound_ms": max(bytes_ms, work[1] / PEAK_FLOPS * 1e3)}
             line += (f"  kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f} ms  bound "
                      f"{case['bound_ms']:.5f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+            if peak_flops != PEAK_FLOPS:
+                line += f"  over FMAs {case['fma_bound_ms']:.5f} ms"
             l_ms = None
             if library_fn is not None:
                 l_ms = time_ms(library_fn)
@@ -306,7 +322,7 @@ class Results:
             raise AssertionError(f"{name} on {path}: {launches} launches a pass, but "
                                  f"{total['cases']} shapes were held against the plain version")
         return {"launches": launches, "ms": total["ms"], "plain_ms": total["plain_ms"],
-                "bound_ms": total["bound_ms"],
+                "bound_ms": total["bound_ms"], "fma_bound_ms": total["fma_bound_ms"],
                 "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
                 "library_ms": total["library_ms"]}
 
@@ -483,6 +499,18 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
                   False, (TRAIN,), scaled=(BWD_TOL, 0.0),
                   work=(nbytes(rows, idx) + B * n * c * 4, B * s * 32 * c),
                   library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
+    # the shapes of a BriStruNet backward (sa1-sa3 at both radii, K=16 and
+    # 32, with 3, 256 and 512 feature channels): held, not timed
+    for n, s, radii, c in ((4096, 1024, (0.1, 0.2), 3), (1024, 512, (0.2, 0.4), 256),
+                           (512, 128, (0.4, 0.8), 512)):
+        for r, k in zip(radii, (16, 32)):
+            xyz = cloud(n)
+            idx = grouping.ball_query_cuda(r, k, xyz, xyz[:, :s].contiguous())
+            g = normal(B, s, k, 3 + c)
+            res.check("group_bwd", f"BriStruNet g [{B},{s},{k},{3 + c}] -> [{B},{n},{c}]",
+                      lambda: grouping.group_backward_cuda(g, idx, n, 3, 3 + c),
+                      lambda: grouping.group_backward_plain(g, idx, n, 3, 3 + c),
+                      False, scaled=(BWD_TOL, 0.0))
     xyz = cloud(1024)
     far = torch.full((B, 64, 3), 10.0, device=dev)
     idx = grouping.ball_query_cuda(0.1, 32, xyz, far)  # every slot N
@@ -494,26 +522,31 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
 
     # K4b on the selection the forward kernel keeps; the kept selection
     # itself is held to the plain one (indices exact, weights 1e-6)
-    for n, s, d in ((256, 64, 512), (1024, 256, 256), (4096, 1024, 128)):
-        dst = cloud(n)
-        src = dst[:, :s].contiguous()
-        f = normal(B, s, d)
-        _, idx, w = interpolate.interpolate_cuda(dst, src, f, 3, True)
-        _, pidx, pw = interpolate.interpolate_plain(dst, src, f, 3, True)
-        if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
-            raise AssertionError(f"interpolate N={n} S={s}: kept selection differs from plain")
-        g = normal(B, n, d)
-        # library: one index_add_ of rows that are weighted already
-        rows = (w.unsqueeze(-1) * g.unsqueeze(2)).reshape(-1, d)
-        offs = torch.arange(B, device=dev).view(B, 1, 1) * s
-        flat = (idx.long() + offs).reshape(-1)
-        acc = torch.empty((B * s, d), device=dev)
-        res.check("interp_bwd", f"g [{B},{n},{d}] -> [{B},{s},{d}] k=3",
-                  lambda: interpolate.interpolate_backward_cuda(g, idx, w, s),
-                  lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
-                  False, (TRAIN,), scaled=(BWD_TOL, 0.0),
-                  work=(nbytes(g, idx, w) + B * s * d * 4, 2 * 3 * B * n * d),
-                  library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
+    # the SSG levels (k=3, timed into the train step's sums), then those of a
+    # BriStruNet backward (fp3-fp1: k=4, D up to 1024): held, not timed
+    ssg = ((256, 64, 512), (1024, 256, 256), (4096, 1024, 128))
+    bristrunet = ((512, 128, 1024), (1024, 512, 256), (4096, 1024, 256))
+    for k, levels, timed in ((3, ssg, True), (4, bristrunet, False)):
+        for n, s, d in levels:
+            dst = cloud(n)
+            src = dst[:, :s].contiguous()
+            f = normal(B, s, d)
+            _, idx, w = interpolate.interpolate_cuda(dst, src, f, k, True)
+            _, pidx, pw = interpolate.interpolate_plain(dst, src, f, k, True)
+            if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
+                raise AssertionError(f"interpolate N={n} S={s}: kept selection differs from plain")
+            g = normal(B, n, d)
+            # library: one index_add_ of rows that are weighted already
+            rows = (w.unsqueeze(-1) * g.unsqueeze(2)).reshape(-1, d)
+            offs = torch.arange(B, device=dev).view(B, 1, 1) * s
+            flat = (idx.long() + offs).reshape(-1)
+            acc = torch.empty((B * s, d), device=dev)
+            res.check("interp_bwd", f"g [{B},{n},{d}] -> [{B},{s},{d}] k={k}",
+                      lambda: interpolate.interpolate_backward_cuda(g, idx, w, s),
+                      lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
+                      False, (TRAIN,) if timed else (), scaled=(BWD_TOL, 0.0),
+                      work=(nbytes(g, idx, w) + B * s * d * 4, 2 * k * B * n * d) if timed else None,
+                      library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
 
 
 def packed_qkv_maker(dev: torch.device, seed: int):
@@ -539,6 +572,17 @@ def packed_qkv_maker(dev: torch.device, seed: int):
     return make
 
 
+def large_scores(q, k, v):
+    """q and k scaled by one factor so that max|q . k / sqrt(D)| is
+    LARGE_SCORE; -> (q, k, v, the largest scaled score as measured)."""
+    f = (LARGE_SCORE / attention._scores(q, k).abs().max().item()) ** 0.5
+    q, k = q * f, k * f
+    top = attention._scores(q, k).abs().max().item()
+    if top < 50.0:
+        raise AssertionError(f"large-magnitude case: max|S| {top}")
+    return q, k, v, top
+
+
 # (label, n, h, d, fold, batch, the forward paths that give the kernel this
 # shape, how often a pass, timed) of phases 3c and 3d. ptv3_pooled at 4096
 # points: level 0 in four windows of 1024 (2 heads), level 1 (1024 points, 4
@@ -558,7 +602,14 @@ ATTENTION_CASES = (
     ("[4,1,2,32] one row", 1, 2, 32, 1, B, None, 1, False),
     ("[64,1024,2,32] batch 16 windows", 4096, 2, 32, 4, 16, None, 1, False),
 ) + tuple((f"[2,333,2,{d}] ragged", 333, 2, d, 1, 2, None, 1, False)
-          for d in (96, 128, 160, 224, 256))
+          for d in (96, 128, 160, 224, 256)
+) + tuple((f"[2,{n},2,{d}] ragged", n, 2, d, 1, 2, None, 1, False)
+          # one past a 64-row tile, one past two, one short of the last
+          for d in (32, 192) for n in (65, 129, 4095))
+# the large-magnitude case: q and k of [4,1024,2,192] scaled so that the
+# largest scaled score is LARGE_SCORE, where the error of a split product
+# shows (a score's error goes into the exponent)
+LARGE_SCORE = 55.0
 TRAIN_PATH_OF = {PTV3_POOLED: PTV3_POOLED_TRAIN, PTV3: PTV3_TRAIN}
 
 
@@ -576,11 +627,14 @@ def compare_attention_kernel(dev: torch.device, res: Results) -> None:
         res.check("flash_attn", label,
                   lambda: attention.attention_cuda(q, k, v),
                   lambda: attention.attention_plain(q, k, v), False, paths,
-                  scaled=(ATTN_TOL, 1.0), work=work, times=times,
+                  scaled=(ATTN_TOL, 1.0), work=work, times=times, peak_flops=PEAK_FLOPS_3XTF32,
                   library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
 
     for label, n, h, d, fold, b, path, times, timed in ATTENTION_CASES:
         case(label, *packed_qkv(n, h, d, fold, b), (path,) if path else (), times, timed)
+    for d in (32, 192):
+        q, k, v, top = large_scores(*packed_qkv(1024, 2, d))
+        case(f"[4,1024,2,{d}] max|S| {top:.1f}", q, k, v, timed=False)
     # a contiguous tensor passes too, and the result is contiguous [B,N,H,D]
     q, k, v = (t.contiguous() for t in packed_qkv(130, 2, 64))
     out = attention.attention(q, k, v)
@@ -629,7 +683,8 @@ def compare_attention_backward(dev: torch.device, res: Results) -> None:
         want_lse = torch.logsumexp(attention._scores(q, k), dim=-1)
         want_delta = (want_out * g).sum(-1).transpose(1, 2).contiguous()
         lse_err = max_abs_err(lse, want_lse)
-        if lse_err > 1e-5:
+        # float32 is spaced 3.8e-6 apart at 55: a large lse is held to 1e-6 of itself
+        if lse_err > max(1e-5, 1e-6 * want_lse.abs().max().item()):
             raise AssertionError(f"flash_attn {label}: lse differs from logsumexp by {lse_err}")
 
         def plain_backward():
@@ -661,28 +716,42 @@ def compare_attention_backward(dev: torch.device, res: Results) -> None:
                       lambda: (attention.attention_plain(q, k, v),
                                torch.logsumexp(attention._scores(q, k), dim=-1)),
                       False, paths, scaled=(ATTN_TOL, 1.0), work=work["fwd"], times=times,
-                      library_fn=lambda: sdpa(qt, kt, vt))
-        delta = attention.attention_backward_dq_cuda(q, k, v, out, lse, g)[1]
+                      peak_flops=PEAK_FLOPS_3XTF32, library_fn=lambda: sdpa(qt, kt, vt))
+        dq, delta = attention.attention_backward_dq_cuda(q, k, v, out, lse, g)
+        # the same bits from run to run: no atomics, a fixed order of sums
+        again = (attention.attention_backward_dq_cuda(q, k, v, out, lse, g)
+                 + attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g)
+                 + attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g))
+        for name, a, b2 in (("dq", dq, again[0]), ("delta", delta, again[1]),
+                            ("dk", again[2], again[4]), ("dv", again[3], again[5])):
+            if not torch.equal(a, b2):
+                raise AssertionError(f"flash_attn_bwd {label}: {name} differs from run to run")
+        del dq, again
         res.check("flash_attn_bwd_dq", label,
                   lambda: attention.attention_backward_dq_cuda(q, k, v, out, lse, g),
                   lambda: (plain_backward()[0], want_delta),
                   False, paths, scaled=(ATTN_TOL, 1.0), work=work.get("dq"), times=times,
-                  library_fn=library.get("dq"))
+                  peak_flops=PEAK_FLOPS_3XTF32, library_fn=library.get("dq"))
         res.check("flash_attn_bwd_dkv", label,
                   lambda: attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g),
                   lambda: plain_backward()[1:],
                   False, paths, scaled=(ATTN_TOL, 1.0), work=work.get("dkv"), times=times,
-                  library_fn=library.get("dkv"))
+                  peak_flops=PEAK_FLOPS_3XTF32, library_fn=library.get("dkv"))
         if timed:
             both = time_ms(lambda: attention.attention_backward_cuda(q, k, v, out, lse, g))
-            bound = max((10 * size + 2 * stats) / PEAK_BYTES_S, 10 * ops / PEAK_FLOPS) * 1e3
+            bytes_s = (10 * size + 2 * stats) / PEAK_BYTES_S
+            bound = max(bytes_s, 10 * ops / PEAK_FLOPS_3XTF32) * 1e3
+            fma_bound = max(bytes_s, 10 * ops / PEAK_FLOPS) * 1e3
             print(f"{'attention':18s} {label:34s} dq, dk and dv together: kernels {both:.4f} ms"
-                  f"  bound {bound:.5f} ms  library backward {time_ms(library['all']):.4f} ms",
-                  flush=True)
+                  f"  bound {bound:.5f} ms  over FMAs {fma_bound:.5f} ms  library backward "
+                  f"{time_ms(library['all']):.4f} ms", flush=True)
 
     for label, n, h, d, fold, b, path, times, timed in ATTENTION_CASES:
         case(label, *packed_qkv(n, h, d, fold, b),
              (TRAIN_PATH_OF[path],) if path else (), times, timed)
+    for d in (32, 192):
+        q, k, v, top = large_scores(*packed_qkv(1024, 2, d))
+        case(f"[4,1024,2,{d}] max|S| {top:.1f}", q, k, v, (), 1, False)
 
     # through the Function: the gradient that reaches a packed projection
     # through the three views and a window fold, against the plain version's
@@ -1381,6 +1450,12 @@ def main() -> None:
 
     # 3. kernels against their plain versions; 3b. the backward kernels;
     # 3c. the flash-attention kernel; 3d. its backward kernels
+    if sys.argv[1:] == ["--attention"]:
+        # kernel work on K6 and K6b: phases 1, 2, 3c and 3d alone, no result line
+        res = Results()
+        compare_attention_kernel(dev, res)
+        compare_attention_backward(dev, res)
+        return
     res = compare_kernels(dev)
     compare_backward_kernels(dev, res)
     compare_attention_kernel(dev, res)

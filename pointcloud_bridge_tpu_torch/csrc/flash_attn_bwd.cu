@@ -25,39 +25,55 @@
 //
 // What bounds it on the H100: operations, as the forward. Five N x N x D
 // products are the least a backward does (10*B*H*N*N*D operations against
-// 36*B*N*H*D bytes), so the arithmetic is the floor from N = 72 up.
+// 36*B*N*H*D bytes); at float32 accuracy the fastest route is the tensor
+// cores in 3xTF32 (165 TFLOP/s of float32-grade work), so the arithmetic is
+// the floor from N = 180 up.
 //
-// Design: two kernels and no atomics, so that the result is the same from
-// run to run. That recomputes S and dP in both, seven tile products for
-// five, and buys deterministic sums and no zeroing pass.
-//  - pcb_flash_attn_bwd_dq: a block of 16 x 16 threads owns a (batch, head)
-//    and 64 query rows, keeps their q and do tiles in shared memory, and
-//    loops over the key tiles as the forward does. Its prologue computes
-//    delta for its rows (o from device memory against the staged do, joined
-//    over the 16 threads of a row by shuffles) and writes it for the dk/dv
-//    kernel, which therefore runs after it on the same stream. A step: S and
-//    dP as 4 x 4 register tiles, dS to a shared tile, dq += dS . k.
+// Design: two kernels and no atomics, so that the result is the same bits
+// from run to run. That recomputes S and dP in both, seven tile products for
+// five. One pass over key tiles that also hands out dq would need a partial
+// dq a key tile (N/64 times dq's size: 1.6 GB at [4, 4096, 2, 192]) or float
+// atomics; the split keeps the sums in registers and their order fixed.
+// Both kernels follow the forward (flash_attn.cu, flash_attn.cuh): a warp
+// owns 16 rows, the streamed tiles arrive in a ring of buffers filled by
+// cp.async under the arithmetic of the step before, one __syncthreads() a
+// step, and every product runs on the tensor cores in 3xTF32, the second
+// product of a step straight from the accumulator registers of the first.
+//  - pcb_flash_attn_bwd_dq: a block owns a (batch, head) and 64 query rows,
+//    keeps their q and do tiles in shared memory, and loops over the key
+//    tiles (k and v in the ring). Its prologue computes delta for its rows
+//    (o against do, both from device memory, a warp a row) and writes it for
+//    the dk/dv kernel, which therefore runs after it on the same stream. A
+//    step: S = q . k^T and dP = do . v^T as accumulator fragments,
+//    dS = P * (dP - delta) in place, dq += dS . k.
 //  - pcb_flash_attn_bwd_dkv: a block owns a (batch, head) and 64 keys, keeps
-//    their k and v tiles in shared memory, and loops over the query tiles.
-//    It computes the transposed tiles S^T = k . q^T and dP^T = v . do^T, so
-//    that a thread's 4 rows are keys in the products and in the sums alike:
-//    P^T and dS^T go to two shared tiles, then dv += P^T . do and
-//    dk += dS^T . q, D/16 channels a thread and row each. No softmax
-//    reduction is needed: lse is known.
-// Shared memory is what limits the tiles: four staged tiles of 64 rows and
-// the dS tile are 213 KB at D = 192 (of the 227 KB a block may have) and
-// over it beyond; the dk/dv kernel's second weight tile brings it over at
-// D = 192 already. The streamed side (keys in dq, queries in dk/dv) is
-// therefore 32 rows where 64 do not fit: D > 192 in dq, D > 160 in dk/dv.
-// Registers: dk/dv holds 2 x 4 x D/16 sums a thread, 96 at D = 192; a block
-// of 256 threads may use 255 registers a thread, and one block an SM is all
-// the shared memory admits at D >= 96 anyway.
+//    their k and v tiles in shared memory, and loops over the query tiles (q
+//    and do in the ring, with their lse and delta). It computes the
+//    transposed tiles S^T = k . q^T and dP^T = v . do^T, so that a warp's 16
+//    rows are keys in the products and in the sums alike; then
+//    dv += P^T . do and dk += dS^T . q. No softmax reduction is needed: lse
+//    is known.
+// Registers and shared memory limit the tiles. A warp's sums are 16 rows by
+// D channels, D/2 registers a thread and output, and dk/dv holds two of
+// them: from D = 96 up, two warps share 16 rows and split the channels
+// (CS = 2; a block is then 8 warps). Each computes the half of S and dP that
+// its channels contribute; the helper hands its halves to the pair's leader
+// through shared memory, the leader adds them, makes dS (dk/dv: P^T and
+// dS^T) and hands that back (flash_attn.cuh, pair_write and pair_read: two
+// named barriers of 64 threads a step, one buffer a pair), and each goes on
+// with its own half of the output channels: no product and no exponential
+// is done twice, and D = 192 costs 96 sum registers a thread in dk/dv and 48
+// in dq. The streamed side is 64 rows a step at D <= 64 (two or three blocks
+// an SM), 32 rows to D = 192 and 16 beyond, three buffers where they fit.
 //
 // Ragged N: staged rows past N are zeros. In dq, keys past N get P = 0 and
 // rows past N are not stored. In dk/dv, query rows past N get lse = +inf,
-// hence P = exp2(-inf) = 0, and key rows past N are not stored.
+// hence P = exp2(-inf) = 0, and key rows past N are not stored. A warp whose
+// 16 rows all lie past N copies and waits with the others and computes
+// nothing.
 //
-// The FMAs are written as fmaf(): the library is built with -fmad=false.
+// The library is built with -fmad=false; a fused operation here is written
+// as fmaf().
 #include <cmath>
 
 #include "flash_attn.cuh"
@@ -65,28 +81,47 @@
 namespace {
 
 using flash::kPad;
-using flash::kThreads;
 
 constexpr int kBM = 64;  // rows a block owns (queries in dq, keys in dk/dv)
 
-// rows of the streamed side a step
-constexpr int dq_step(int d) { return d <= 192 ? 64 : 32; }
-constexpr int dkv_step(int d) { return d <= 160 ? 64 : 32; }
+// warps that share 16 rows and split the channels; rows of the streamed
+// side a step; buffers in the ring
+constexpr int bwd_split(int d) { return d <= 64 ? 1 : 2; }
+constexpr int bwd_step(int d) { return d <= 64 ? 64 : d <= 192 ? 32 : 16; }
 
-template <int D, int BN>
-constexpr size_t dq_smem_bytes() {
-  return (size_t)((2 * kBM + 2 * BN) * (D + kPad) + kBM * (BN + kPad)) *
-         sizeof(float);
+// resident tiles (two of kBM rows), the ring, the pairs' exchange buffers
+// and (dk/dv) the ring of row statistics
+constexpr size_t bwd_smem_bytes(int d, int stages, bool stats) {
+  const int bn = bwd_step(d);
+  size_t floats = (size_t)(2 * kBM + 2 * stages * bn) * (d + kPad);
+  if (bwd_split(d) == 2) floats += (size_t)(kBM / 16) * 2 * (bn / 8) * 128;
+  if (stats) floats += (size_t)2 * stages * bn;
+  return floats * sizeof(float);
+}
+constexpr int bwd_stages(int d) {
+  if (d <= 64) return d == 32 ? 3 : 2;  // two blocks an SM at least
+  return bwd_smem_bytes(d, 3, true) <= flash::kMaxShared ? 3 : 2;
 }
 
-template <int D, int BQ>
-constexpr size_t dkv_smem_bytes() {
-  return (size_t)((2 * kBM + 2 * BQ) * (D + kPad) + 2 * kBM * (BQ + kPad) +
-                  2 * BQ) * sizeof(float);
+// acc[0] = a0 . b0^T and acc[1] = a1 . b1^T (flash::dot_rows): side by side
+// where a step has fewer than 8 score fragments, one after the other where
+// it has 8 and twice as many would not fit the registers.
+template <int LD, int NT, int KSTEPS>
+__device__ __forceinline__ void dot_pair(const float* a0, const float* b0,
+                                         const float* a1, const float* b1,
+                                         int g, int t, float (&acc)[2][NT][4]) {
+  if constexpr (NT < 8) {
+    flash::dot_rows<LD, NT, KSTEPS, 2>({a0, a1}, {b0, b1}, g, t, acc);
+  } else {
+    flash::dot_rows<LD, NT, KSTEPS, 1>(
+        {a0}, {b0}, g, t, *reinterpret_cast<float(*)[1][NT][4]>(&acc[0]));
+    flash::dot_rows<LD, NT, KSTEPS, 1>(
+        {a1}, {b1}, g, t, *reinterpret_cast<float(*)[1][NT][4]>(&acc[1]));
+  }
 }
 
-template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int BN, int STAGES, int CS>
+__global__ void __launch_bounds__(2 * kBM * CS)
 flash_attn_bwd_dq_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -97,23 +132,31 @@ flash_attn_bwd_dq_kernel(const float* __restrict__ q,
                          int n, int heads, int tiles, long long ldq,
                          long long ldk, long long ldv, float scale) {
   constexpr int LD = D + kPad;
-  constexpr int CPT = D / 16;  // output channels a thread and row
-  constexpr int NJ = BN / 16;  // keys a thread and step
-  constexpr int PS = BN + kPad;
+  constexpr int THREADS = 2 * kBM * CS;
+  constexpr int WARPS = THREADS / 32;
+  constexpr int NT = BN / 8;        // score fragments a warp and step
+  constexpr int DH = D / CS;        // channels a warp
+  constexpr int NCH = DH / 8;       // output fragments a warp
+  constexpr int TILE = BN * LD;
+  constexpr int XCH = 2 * NT * 128;  // floats of a pair's exchange buffer
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;
   float* sdo = sq + kBM * LD;
-  float* sk = sdo + kBM * LD;
-  float* sv = sk + BN * LD;
-  float* sds = sv + BN * LD;
+  float* ring = sdo + kBM * LD;          // STAGES x (k tile, v tile)
+  float* sx = ring + 2 * STAGES * TILE;  // a pair an exchange buffer (CS == 2)
 
   const int tile = blockIdx.x % tiles;
   const int bh = blockIdx.x / tiles;
   const int b = bh / heads;
   const int h = bh % heads;
   const int i0 = tile * kBM;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = (warp % (kBM / 16)) * 16;  // the warp's first row in the tile
+  const int c0 = (warp / (kBM / 16)) * DH;  // and its first channel
+  const bool active = i0 + r0 < n;
   const long long ldo = (long long)heads * D;
 
   const float* qb = q + (size_t)b * n * ldq + (size_t)h * D;
@@ -122,83 +165,136 @@ flash_attn_bwd_dq_kernel(const float* __restrict__ q,
   const float* ob = o + (size_t)b * n * ldo + (size_t)h * D;
   const float* dob = dout + (size_t)b * n * ldo + (size_t)h * D;
   const size_t stat0 = (size_t)bh * n;
+  const int steps = (n + BN - 1) / BN;
 
-  flash::stage_tile<D, kBM>(sq, qb, i0, n, ldq);
-  flash::stage_tile<D, kBM>(sdo, dob, i0, n, ldo);
-  __syncthreads();
-
-  // delta and the base-2 lse of rows ty + 16 i; the 16 threads of a row are
-  // 16 neighbouring lanes and take the channels 2 tx + 32 mm (+1) each
-  float dl[4], ls[4], acc[4][CPT];
+  // the q and do tiles travel with the first k and v tiles
+  flash::stage_tile_async<D, kBM, THREADS>(sq, qb, i0, n, ldq);
+  flash::stage_tile_async<D, kBM, THREADS>(sdo, dob, i0, n, ldo);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) {
+      flash::stage_tile_async<D, BN, THREADS>(ring + 2 * s * TILE, kb, s * BN, n, ldk);
+      flash::stage_tile_async<D, BN, THREADS>(ring + (2 * s + 1) * TILE, vb, s * BN, n, ldv);
+    }
+    flash::cp_async_commit();
+  }
+
+  // delta of the block's rows, a warp a row, while the copies fly; each
+  // thread then keeps the statistics of its two rows in registers
+  __shared__ float sdelta[kBM];
+  for (int r = warp; r < kBM; r += WARPS) {
     const int row = i0 + r;
     float part = 0.f;
     if (row < n) {
-#pragma unroll
-      for (int mm = 0; mm < CPT / 2; ++mm) {
-        const int c = 2 * tx + 32 * mm;
-        const float2 ov = *reinterpret_cast<const float2*>(ob + (size_t)row * ldo + c);
-        const float2 gv = *reinterpret_cast<const float2*>(sdo + r * LD + c);
+      for (int c = 4 * lane; c < D; c += 128) {
+        const float4 ov = *reinterpret_cast<const float4*>(ob + (size_t)row * ldo + c);
+        const float4 gv = *reinterpret_cast<const float4*>(dob + (size_t)row * ldo + c);
         part = fmaf(ov.x, gv.x, part);
         part = fmaf(ov.y, gv.y, part);
+        part = fmaf(ov.z, gv.z, part);
+        part = fmaf(ov.w, gv.w, part);
       }
     }
 #pragma unroll
-    for (int w = 8; w >= 1; w >>= 1) {
+    for (int w = 16; w >= 1; w >>= 1) {
       part += __shfl_xor_sync(0xffffffffu, part, w);
     }
-    dl[i] = part;
-    ls[i] = row < n ? lse[stat0 + row] * flash::kLog2e : 0.f;
-    if (row < n && tx == 0) delta[stat0 + row] = part;
+    if (lane == 0) {
+      sdelta[r] = part;
+      if (row < n) delta[stat0 + row] = part;
+    }
+  }
+  __syncthreads();
+
+  // delta and the base-2 lse of rows g and g + 8 of the warp's 16
+  float dl[2], ls[2], acc[NCH][4];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + r0 + g + 8 * r;
+    dl[r] = sdelta[r0 + g + 8 * r];
+    ls[r] = row < n ? lse[stat0 + row] * flash::kLog2e : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   }
   const float scale_log2e = scale * flash::kLog2e;
 
-  for (int j0 = 0; j0 < n; j0 += BN) {
-    __syncthreads();  // the previous step's k, v and dS are no longer read
-    flash::stage_tile<D, BN>(sk, kb, j0, n, ldk);
-    flash::stage_tile<D, BN>(sv, vb, j0, n, ldv);
+  for (int step = 0; step < steps; ++step) {
+    // this step's tiles have landed, and every warp is done with the
+    // buffer of the step before, which the next copy overwrites
+    flash::cp_async_wait<STAGES - 2>();
     __syncthreads();
+    const int ahead = step + STAGES - 1;
+    if (ahead < steps) {
+      float* dst = ring + 2 * (ahead % STAGES) * TILE;
+      flash::stage_tile_async<D, BN, THREADS>(dst, kb, ahead * BN, n, ldk);
+      flash::stage_tile_async<D, BN, THREADS>(dst + TILE, vb, ahead * BN, n, ldv);
+    }
+    flash::cp_async_commit();
+    if (!active) continue;
 
-    // rows ty + 16 i, keys tx + 16 j: S = q . k^T, dP = do . v^T
-    float s[4][NJ], dp[4][NJ];
-    flash::dot_tile<D, NJ>(sq, ty, sk, tx, s);
-    flash::dot_tile<D, NJ>(sdo, ty, sv, tx, dp);
+    const float* sk = ring + 2 * (step % STAGES) * TILE;
+    const float* sv = sk + TILE;
+    const int j0 = step * BN;
+
+    // rows g, g + 8 against keys j0 + 8 j + 2 t, + 1, over the warp's
+    // channels: S = q . k^T, dP = do . v^T
+    float sd[2][NT][4];
+    dot_pair<LD, NT, DH / 8>(sq + r0 * LD + c0, sk + c0, sdo + r0 * LD + c0,
+                             sv + c0, g, t, sd);
+    float (&s)[NT][4] = sd[0];
+    float (&dp)[NT][4] = sd[1];
+    // the pair's leader (channels from 0) sums the halves and makes dS
+    const int pair = warp % (kBM / 16);
+    const bool leader = CS == 1 || c0 == 0;
+    float* buf = sx + pair * XCH;
+    if (CS == 2) {
+      if (!leader) flash::pair_write<2, NT>(sd, buf, lane);
+      flash::pair_barrier(1 + pair);
+      if (leader) flash::pair_read<2, true, NT>(sd, buf, lane);
+    }
+    if (leader) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const bool valid = j0 + tx + 16 * j < n;
-        const float p = valid ? exp2f(fmaf(s[i][j], scale_log2e, -ls[i])) : 0.f;
-        sds[(ty + 16 * i) * PS + tx + 16 * j] = p * (dp[i][j] - dl[i]);
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = j0 + 8 * j + 2 * t + (e & 1) < n;
+          const float p =
+              valid ? exp2f(fmaf(s[j][e], scale_log2e, -ls[e >> 1])) : 0.f;
+          s[j][e] = p * (dp[j][e] - dl[e >> 1]);
+        }
       }
     }
-    __syncthreads();  // the dS tile is whole
+    if (CS == 2) {
+      if (leader) flash::pair_write<1, NT>(sd, buf, lane);
+      flash::pair_barrier(1 + pair);
+      if (!leader) flash::pair_read<1, false, NT>(sd, buf, lane);
+    }
 
-    // rows ty + 16 i of dS . k, channels 2 tx + 32 mm (+1)
-    flash::accumulate_tile<D, BN>(sds, PS, ty, sk, tx, acc);
+    // acc += dS . k over the warp's channels, from the registers
+    flash::weighted_rows<LD, NT, NCH>(s, sk + c0, g, t, acc);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = i0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + r0 + g + 8 * r;
     if (row >= n) continue;
-    float* dst = dq + (size_t)b * n * ldo + (size_t)row * ldo + (size_t)h * D;
+    float* dst = dq + (size_t)b * n * ldo + (size_t)row * ldo + (size_t)h * D +
+                 c0 + 2 * t;
 #pragma unroll
-    for (int mm = 0; mm < CPT / 2; ++mm) {
+    for (int c = 0; c < NCH; ++c) {
       float2 out;
-      out.x = acc[i][2 * mm] * scale;
-      out.y = acc[i][2 * mm + 1] * scale;
-      *reinterpret_cast<float2*>(dst + 2 * tx + 32 * mm) = out;
+      out.x = acc[c][2 * r] * scale;
+      out.y = acc[c][2 * r + 1] * scale;
+      *reinterpret_cast<float2*>(dst + 8 * c) = out;
     }
   }
 }
 
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int BQ, int STAGES, int CS>
+__global__ void __launch_bounds__(2 * kBM * CS)
 flash_attn_bwd_dkv_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -209,26 +305,32 @@ flash_attn_bwd_dkv_kernel(const float* __restrict__ q,
                           int n, int heads, int tiles, long long ldq,
                           long long ldk, long long ldv, float scale) {
   constexpr int LD = D + kPad;
-  constexpr int CPT = D / 16;  // output channels a thread and row
-  constexpr int NJ = BQ / 16;  // queries a thread and step
-  constexpr int PS = BQ + kPad;
+  constexpr int THREADS = 2 * kBM * CS;
+  constexpr int NT = BQ / 8;        // score fragments a warp and step
+  constexpr int DH = D / CS;        // channels a warp
+  constexpr int NCH = DH / 8;       // output fragments a warp and output
+  constexpr int TILE = BQ * LD;
+  constexpr int XCH = 2 * NT * 128;  // floats of a pair's exchange buffer
+  static_assert(2 * BQ <= THREADS, "a thread a row statistic");
   extern __shared__ __align__(16) float smem[];
   float* sk = smem;
   float* sv = sk + kBM * LD;
-  float* sq = sv + kBM * LD;
-  float* sdo = sq + BQ * LD;
-  float* sp = sdo + BQ * LD;    // P^T  [key][query]
-  float* sds = sp + kBM * PS;   // dS^T [key][query]
-  float* sl = sds + kBM * PS;   // base-2 lse of the step's queries
-  float* sdl = sl + BQ;         // their delta
+  float* ring = sv + kBM * LD;             // STAGES x (q tile, do tile)
+  float* sstat = ring + 2 * STAGES * TILE;  // STAGES x (base-2 lse, delta)
+  float* sx = sstat + 2 * STAGES * BQ;      // a pair an exchange buffer (CS == 2)
 
   const int tile = blockIdx.x % tiles;
   const int bh = blockIdx.x / tiles;
   const int b = bh / heads;
   const int h = bh % heads;
   const int j0 = tile * kBM;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = (warp % (kBM / 16)) * 16;  // the warp's first key in the tile
+  const int c0 = (warp / (kBM / 16)) * DH;  // and its first channel
+  const bool active = j0 + r0 < n;
   const long long ldo = (long long)heads * D;
 
   const float* qb = q + (size_t)b * n * ldq + (size_t)h * D;
@@ -236,96 +338,137 @@ flash_attn_bwd_dkv_kernel(const float* __restrict__ q,
   const float* vb = v + (size_t)b * n * ldv + (size_t)h * D;
   const float* dob = dout + (size_t)b * n * ldo + (size_t)h * D;
   const size_t stat0 = (size_t)bh * n;
+  const int steps = (n + BQ - 1) / BQ;
 
-  flash::stage_tile<D, kBM>(sk, kb, j0, n, ldk);
-  flash::stage_tile<D, kBM>(sv, vb, j0, n, ldv);
+  // Ask for the q and do tiles of a step and store its row statistics: the
+  // base-2 lse (+inf for a row past N, so that P = exp2(-inf) = 0) by the
+  // first BQ threads, delta by the next BQ. A plain store: it is read a
+  // __syncthreads() later at the earliest.
+  auto stage = [&](int step) {
+    float* dst = ring + 2 * (step % STAGES) * TILE;
+    flash::stage_tile_async<D, BQ, THREADS>(dst, qb, step * BQ, n, ldq);
+    flash::stage_tile_async<D, BQ, THREADS>(dst + TILE, dob, step * BQ, n, ldo);
+    float* st = sstat + 2 * (step % STAGES) * BQ;
+    if (threadIdx.x < BQ) {
+      const int row = step * BQ + threadIdx.x;
+      st[threadIdx.x] = row < n ? lse[stat0 + row] * flash::kLog2e : INFINITY;
+    } else if (threadIdx.x < 2 * BQ) {
+      const int row = step * BQ + threadIdx.x - BQ;
+      st[threadIdx.x] = row < n ? delta[stat0 + row] : 0.f;
+    }
+  };
 
-  float acck[4][CPT], accv[4][CPT];
+  // the k and v tiles travel with the first q and do tiles
+  flash::stage_tile_async<D, kBM, THREADS>(sk, kb, j0, n, ldk);
+  flash::stage_tile_async<D, kBM, THREADS>(sv, vb, j0, n, ldv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) stage(s);
+    flash::cp_async_commit();
+  }
+
+  float acck[NCH][4], accv[NCH][4];  // keys g and g + 8 of the warp's 16
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      acck[i][c] = 0.f;
-      accv[i][c] = 0.f;
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acck[c][e] = 0.f;
+      accv[c][e] = 0.f;
     }
   }
   const float scale_log2e = scale * flash::kLog2e;
 
-  for (int i0 = 0; i0 < n; i0 += BQ) {
-    __syncthreads();  // the previous step's q, do, P^T and dS^T are no longer read
-    flash::stage_tile<D, BQ>(sq, qb, i0, n, ldq);
-    flash::stage_tile<D, BQ>(sdo, dob, i0, n, ldo);
-    if (threadIdx.x < BQ) {
-      const int row = i0 + threadIdx.x;
-      // a query row past N: P = exp2(-inf) = 0
-      sl[threadIdx.x] = row < n ? lse[stat0 + row] * flash::kLog2e : INFINITY;
-      sdl[threadIdx.x] = row < n ? delta[stat0 + row] : 0.f;
-    }
-    __syncthreads();  // and the k and v tiles are there the first time
+  for (int step = 0; step < steps; ++step) {
+    // this step's tiles have landed, and every warp is done with the
+    // buffer of the step before, which the next copy overwrites
+    flash::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (step + STAGES - 1 < steps) stage(step + STAGES - 1);
+    flash::cp_async_commit();
+    if (!active) continue;
 
-    // keys ty + 16 i, queries tx + 16 j: S^T = k . q^T, dP^T = v . do^T
-    float st[4][NJ], dpt[4][NJ];
-    flash::dot_tile<D, NJ>(sk, ty, sq, tx, st);
-    flash::dot_tile<D, NJ>(sv, ty, sdo, tx, dpt);
+    const float* sq = ring + 2 * (step % STAGES) * TILE;
+    const float* sdo = sq + TILE;
+    const float* sl = sstat + 2 * (step % STAGES) * BQ;
+    const float* sdl = sl + BQ;
+
+    // keys g, g + 8 against queries 8 j + 2 t, + 1 of the step, over the
+    // warp's channels: S^T = k . q^T, dP^T = v . do^T
+    float sd[2][NT][4];
+    dot_pair<LD, NT, DH / 8>(sk + r0 * LD + c0, sq + c0, sv + r0 * LD + c0,
+                             sdo + c0, g, t, sd);
+    float (&st)[NT][4] = sd[0];
+    float (&dpt)[NT][4] = sd[1];
+    // the pair's leader (channels from 0) sums the halves and makes P^T, dS^T
+    const int pair = warp % (kBM / 16);
+    const bool leader = CS == 1 || c0 == 0;
+    float* buf = sx + pair * XCH;
+    if (CS == 2) {
+      if (!leader) flash::pair_write<2, NT>(sd, buf, lane);
+      flash::pair_barrier(1 + pair);
+      if (leader) flash::pair_read<2, true, NT>(sd, buf, lane);
+    }
+    if (leader) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float lq = sl[tx + 16 * j];
-      const float dlq = sdl[tx + 16 * j];
+      for (int j = 0; j < NT; ++j) {
+        const float2 lq = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t);
+        const float2 dlq = *reinterpret_cast<const float2*>(sdl + 8 * j + 2 * t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = exp2f(fmaf(st[i][j], scale_log2e, -lq));
-        sp[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        sds[(ty + 16 * i) * PS + tx + 16 * j] = p * (dpt[i][j] - dlq);
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(st[j][e], scale_log2e, e & 1 ? -lq.y : -lq.x));
+          st[j][e] = p;                                         // P^T
+          dpt[j][e] = p * (dpt[j][e] - (e & 1 ? dlq.y : dlq.x));  // dS^T
+        }
       }
     }
-    __syncthreads();  // both tiles are whole
+    if (CS == 2) {
+      if (leader) flash::pair_write<2, NT>(sd, buf, lane);
+      flash::pair_barrier(1 + pair);
+      if (!leader) flash::pair_read<2, false, NT>(sd, buf, lane);
+    }
 
-    // keys ty + 16 i of P^T . do and dS^T . q, channels 2 tx + 32 mm (+1)
-    flash::accumulate_tile<D, BQ>(sp, PS, ty, sdo, tx, accv);
-    flash::accumulate_tile<D, BQ>(sds, PS, ty, sq, tx, acck);
+    // dv += P^T . do and dk += dS^T . q over the warp's channels
+    flash::weighted_rows<LD, NT, NCH>(st, sdo + c0, g, t, accv);
+    flash::weighted_rows<LD, NT, NCH>(dpt, sq + c0, g, t, acck);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = j0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = j0 + r0 + g + 8 * r;
     if (row >= n) continue;
-    const size_t off = (size_t)b * n * ldo + (size_t)row * ldo + (size_t)h * D;
+    const size_t off = (size_t)b * n * ldo + (size_t)row * ldo +
+                       (size_t)h * D + c0 + 2 * t;
 #pragma unroll
-    for (int mm = 0; mm < CPT / 2; ++mm) {
+    for (int c = 0; c < NCH; ++c) {
       float2 gk, gv;
-      gk.x = acck[i][2 * mm] * scale;
-      gk.y = acck[i][2 * mm + 1] * scale;
-      gv.x = accv[i][2 * mm];
-      gv.y = accv[i][2 * mm + 1];
-      *reinterpret_cast<float2*>(dk + off + 2 * tx + 32 * mm) = gk;
-      *reinterpret_cast<float2*>(dv + off + 2 * tx + 32 * mm) = gv;
+      gk.x = acck[c][2 * r] * scale;
+      gk.y = acck[c][2 * r + 1] * scale;
+      gv.x = accv[c][2 * r];
+      gv.y = accv[c][2 * r + 1];
+      *reinterpret_cast<float2*>(dk + off + 8 * c) = gk;
+      *reinterpret_cast<float2*>(dv + off + 8 * c) = gv;
     }
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int D>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* o, const float* dout, const float* lse,
                       float* dq, float* delta, int b, int n, int heads,
-                      long long ldq, long long ldk, long long ldv,
+                      long long ldq, long long ldk, long long ldv, int device,
                       cudaStream_t st) {
-  constexpr int BN = dq_step(D);
-  constexpr size_t bytes = dq_smem_bytes<D, BN>();
-  cudaError_t err = allow_shared(flash_attn_bwd_dq_kernel<D, BN>, bytes);
+  constexpr int BN = bwd_step(D), STAGES = bwd_stages(D), CS = bwd_split(D);
+  constexpr size_t bytes = bwd_smem_bytes(D, STAGES, false);
+  static_assert(bytes <= flash::kMaxShared, "shared memory");
+  auto kernel = flash_attn_bwd_dq_kernel<D, BN, STAGES, CS>;
+  static bool allowed[flash::kDevices] = {};
+  cudaError_t err = flash::allow_shared(
+      kernel, bytes, device < flash::kDevices ? &allowed[device] : nullptr);
   if (err != cudaSuccess) return err;
   const int tiles = (n + kBM - 1) / kBM;
   const float scale = (float)(1.0 / std::sqrt((double)D));
-  flash_attn_bwd_dq_kernel<D, BN>
-      <<<(unsigned)((size_t)b * heads * tiles), kThreads, bytes, st>>>(
-          q, k, v, o, dout, lse, dq, delta, n, heads, tiles, ldq, ldk, ldv,
-          scale);
+  kernel<<<(unsigned)((size_t)b * heads * tiles), 2 * kBM * CS, bytes, st>>>(
+      q, k, v, o, dout, lse, dq, delta, n, heads, tiles, ldq, ldk, ldv, scale);
   return cudaGetLastError();
 }
 
@@ -333,23 +476,24 @@ template <int D>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse, const float* delta,
                        float* dk, float* dv, int b, int n, int heads,
-                       long long ldq, long long ldk, long long ldv,
+                       long long ldq, long long ldk, long long ldv, int device,
                        cudaStream_t st) {
-  constexpr int BQ = dkv_step(D);
-  constexpr size_t bytes = dkv_smem_bytes<D, BQ>();
-  cudaError_t err = allow_shared(flash_attn_bwd_dkv_kernel<D, BQ>, bytes);
+  constexpr int BQ = bwd_step(D), STAGES = bwd_stages(D), CS = bwd_split(D);
+  constexpr size_t bytes = bwd_smem_bytes(D, STAGES, true);
+  static_assert(bytes <= flash::kMaxShared, "shared memory");
+  auto kernel = flash_attn_bwd_dkv_kernel<D, BQ, STAGES, CS>;
+  static bool allowed[flash::kDevices] = {};
+  cudaError_t err = flash::allow_shared(
+      kernel, bytes, device < flash::kDevices ? &allowed[device] : nullptr);
   if (err != cudaSuccess) return err;
   const int tiles = (n + kBM - 1) / kBM;
   const float scale = (float)(1.0 / std::sqrt((double)D));
-  flash_attn_bwd_dkv_kernel<D, BQ>
-      <<<(unsigned)((size_t)b * heads * tiles), kThreads, bytes, st>>>(
-          q, k, v, dout, lse, delta, dk, dv, n, heads, tiles, ldq, ldk, ldv,
-          scale);
+  kernel<<<(unsigned)((size_t)b * heads * tiles), 2 * kBM * CS, bytes, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, n, heads, tiles, ldq, ldk, ldv, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
-
 // For both: d a multiple of 32 up to 256; b * heads * ceil(n / 64) < 2^31;
 // every pointer 16-byte aligned and the row strides multiples of 4: checked
 // by the wrapper.
@@ -367,7 +511,8 @@ PCB_API int pcb_flash_attn_bwd_dq(const float* q, const float* k,
   if (b < 1 || n < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define PCB_DQ(DD) \
-  launch_dq<DD>(q, k, v, o, dout, lse, dq, delta, b, n, heads, ldq, ldk, ldv, st)
+  launch_dq<DD>(q, k, v, o, dout, lse, dq, delta, b, n, heads, ldq, ldk, ldv, \
+                device, st)
   PCB_FOR_HEAD_DIMS(PCB_DQ)
 #undef PCB_DQ
   return (int)err;
@@ -387,7 +532,8 @@ PCB_API int pcb_flash_attn_bwd_dkv(const float* q, const float* k,
   if (b < 1 || n < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define PCB_DKV(DD) \
-  launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, b, n, heads, ldq, ldk, ldv, st)
+  launch_dkv<DD>(q, k, v, dout, lse, delta, dk, dv, b, n, heads, ldq, ldk, ldv, \
+                 device, st)
   PCB_FOR_HEAD_DIMS(PCB_DKV)
 #undef PCB_DKV
   return (int)err;

@@ -16,6 +16,7 @@ from .ptv3 import PointTransformerV3
 from .ptv3_pooled import PointTransformerV3Pooled
 
 MODEL_REGISTRY = {
+    "pointnet2": PointNet2SSG,  # reference name for the SSG seg model
     "pointnet2_ssg": PointNet2SSG,
     "bristrunet": BriStruNet,  # EnhancedPointNet2 / BridgeSeg (paper model)
     "enhanced_pointnet2": BriStruNet,
@@ -26,7 +27,7 @@ MODEL_REGISTRY = {
 
 # names the JAX package's registry knows and the port does not yet
 NOT_PORTED = (
-    "pointnet2", "pointnet2_msg", "pointnet", "pointnet_seg", "pointnet_global",
+    "pointnet2_msg", "pointnet", "pointnet_seg", "pointnet_global",
     "dgcnn", "dgcnn_global", "randlanet", "randlanet_ss", "ptv3_moe",
     "pointnet_cls", "pointnet2_cls_ssg", "pointnet2_cls_msg", "pointnet2_sem_seg",
     "pointnet_sem_seg", "spg", "superpoint_graph", "spt", "superpoint_transformer",

@@ -6,7 +6,9 @@ what ``jax.nn.dot_product_attention`` computes on the CPU; a CUDA tensor
 takes the flash-attention kernels (csrc/flash_attn.cu, flash_attn_bwd.cu),
 which keep the [B, H, N, N] scores out of device memory, at every length and
 for global and windowed attention alike (a window fold is a larger batch of
-shorter rows). The JAX function's environment switches, its pad of D = 192
+shorter rows). The kernels multiply on the tensor cores in 3xTF32, float32
+in and out at float32 accuracy; :func:`split_tf32` and
+:func:`einsum_3xtf32` are that arithmetic in plain PyTorch, for the tests. The JAX function's environment switches, its pad of D = 192
 to 256 and its quiet fallback are the TPU kernel's and are not carried over.
 
 :class:`Attention` is an autograd Function on both devices, so the CPU tests
@@ -81,23 +83,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _scores(q: torch.Tensor, k: torch.Tensor, einsum=torch.einsum) -> torch.Tensor:
     """The [B, H, N, N] scores, scaled by 1/sqrt(D)."""
-    return torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    return einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
 
 
-def _weighted_sum(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bhqk,bkhd->bqhd", p, v).contiguous()
+def _weighted_sum(p: torch.Tensor, v: torch.Tensor, einsum=torch.einsum) -> torch.Tensor:
+    return einsum("bhqk,bkhd->bqhd", p, v).contiguous()
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    einsum=torch.einsum) -> torch.Tensor:
     """Plain PyTorch attention: the [B, H, N, N] scores, scaled by 1/sqrt(D),
     a softmax over the keys, and the weighted sum of v, all in the inputs'
-    type."""
-    return _weighted_sum(torch.softmax(_scores(q, k), dim=-1), v)
+    type. ``einsum`` computes the two products (the tests pass
+    :func:`einsum_3xtf32`, the kernels' arithmetic)."""
+    return _weighted_sum(torch.softmax(_scores(q, k, einsum), dim=-1), v, einsum)
 
 
-def attention_backward_plain(q, k, v, out, lse, grad_out):
+def attention_backward_plain(q, k, v, out, lse, grad_out, einsum=torch.einsum):
     """Plain PyTorch backward of attention (the plain version of the two
     backward kernels) -> (dq, dk, dv), each [B, N, H, D] contiguous.
 
@@ -105,16 +109,47 @@ def attention_backward_plain(q, k, v, out, lse, grad_out):
     scaled scores, ``grad_out`` [B, N, H, D]. With P = exp(S - lse),
     delta_i = sum_d out * grad_out, dP = grad_out . v^T and
     dS = P * (dP - delta): dv = P^T . grad_out, dq = dS . k / sqrt(D),
-    dk = dS^T . q / sqrt(D)."""
+    dk = dS^T . q / sqrt(D). ``einsum`` computes the five products."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(_scores(q, k) - lse.unsqueeze(-1))
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, grad_out)
-    dp = torch.einsum("bqhd,bkhd->bhqk", grad_out, v)
+    p = torch.exp(_scores(q, k, einsum) - lse.unsqueeze(-1))
+    dv = einsum("bhqk,bqhd->bkhd", p, grad_out)
+    dp = einsum("bqhd,bkhd->bhqk", grad_out, v)
     delta = (out * grad_out).sum(-1).transpose(1, 2)  # [B, H, N]
     ds = p * (dp - delta.unsqueeze(-1))
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    dq = einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = einsum("bhqk,bqhd->bkhd", ds, q) * scale
     return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+def _tf32_bits(x: torch.Tensor) -> torch.Tensor:
+    """x with the 13 mantissa bits that a TF32 operand lacks set to 0: what a
+    tensor core reads of a float32."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """float32 x -> (big, small) as the kernels split an operand
+    (csrc/flash_attn.cuh). big is x rounded to TF32, 10 mantissa bits, to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32`` rounds: half a
+    TF32 ulp added to the bit pattern, then cut. small is what a tensor core
+    reads of the exact rest x - big. x = big + small up to 2^-21 |x|."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32: expected float32, got {x.dtype}")
+    big = _tf32_bits((x.contiguous().view(torch.int32) + 0x1000).view(torch.float32))
+    return big, _tf32_bits(x - big)
+
+
+def einsum_3xtf32(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two float32 tensors as the kernels multiply
+    (3xTF32): small . big + big . small + big . big over the TF32 halves of
+    both operands. The products of two TF32 numbers are exact in float64,
+    where the sums are taken here, so what differs from the exact product is
+    the split's doing: the dropped small . small and the cut of small."""
+    (a_big, a_small), (b_big, b_small) = split_tf32(a), split_tf32(b)
+    a_big, a_small, b_big, b_small = (t.double() for t in (a_big, a_small, b_big, b_small))
+    out = (torch.einsum(equation, a_small, b_big) + torch.einsum(equation, a_big, b_small)
+           + torch.einsum(equation, a_big, b_big))
+    return out.float()
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:

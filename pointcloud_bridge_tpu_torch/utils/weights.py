@@ -126,6 +126,7 @@ def ptv3_pooled_rules(enc_depths: Sequence[int] = (2, 2, 2),
 
 
 MODEL_RULES = {
+    "pointnet2": pointnet2_ssg_rules,
     "pointnet2_ssg": pointnet2_ssg_rules,
     "bristrunet": bristrunet_rules,
     "enhanced_pointnet2": bristrunet_rules,
