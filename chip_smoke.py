@@ -20,14 +20,23 @@ any failure raises and exits non-zero:
    within 1e-5; median times of both from CUDA events, summed a path,
    beside the least time the card could take (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s float32, whichever is larger) and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time. The group
+   kernel (K3) also at the SSG levels at B=16 (the serve's batch), at
+   widths 3, 4 and 16, over empty balls, N = 1, 35 rows a batch and indices
+   out of range, the same bits twice, and with its two ways to store side
+   by side; each timed K3 case adds the split of its time: device time a
+   call of the kernel and of the library call (a CUDA graph of 20 calls
+   between two events) and the wrapper's host time a call (1000 calls);
 3b. the backward kernels against their plain versions at the SSG train
-   shapes (B=4): group backward (sa2, sa3) and interpolation backward (fp3,
-   fp2, fp1, on the selection the forward kernel saved), within 1e-5 of
-   max|plain|; median times of both; and, held without being timed, at the
-   shapes a BriStruNet backward gives them (group backward at sa1-sa3, K=16
-   and 32 with 3, 256 and 512 channels; interpolation backward at k=4 with
-   up to 1024 channels);
+   shapes (B=4): group backward (K3b: sa2, sa3) and interpolation backward
+   (fp3, fp2, fp1, on the selection the forward kernel saved), within 1e-5
+   of max|plain|; median times of both; K3b also timed, with the split of
+   its time, at the SSG train step's shapes at B=16 and at those of a
+   BriStruNet backward (sa1-sa3, K=16 and 32 with 3, 256 and 512 channels),
+   and held with the xyz channels (c0 = 0, c1 = 3), output widths 1, 4 and
+   16, empty balls, N = 1, K = 64 and 35 rows a batch; interpolation
+   backward held, not timed, at a BriStruNet backward's shapes (k=4, up to
+   1024 channels);
 3c. the flash-attention kernel against the plain attention at every shape
    that the PTv3 family gives it at B=4 x 4096 (the windows of level 0 folded
    to [16,1024,2,32], the global levels [4,1024,4,32] and [4,256,8,32], the
@@ -64,7 +73,7 @@ any failure raises and exits non-zero:
    reset just before and read just after; finite losses, best_model and
    latest_checkpoint written, a reload of latest_checkpoint gives the
    trained model's eval logits exactly; steady-state train step at batch
-   16 (ms, points/s) and peak device memory;
+   16 (ms, points/s), peak device memory and device time by kernel family;
 8. the BriStruNet forward at full width, B=4 x 4096, random weights and
    BatchNorm statistics, on the card against the CPU (plain versions):
    logits within 2e-4; exactly 3 FPS, 6 ball-query, 6 group, 3
@@ -108,15 +117,21 @@ any failure raises and exits non-zero:
 15. one flat ptv3 train step at its default width, B=4 x 4096, against the
    CPU at the same batch, checked as in 13: exactly 8 launches a kernel.
 
+``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
+K3b cases of phases 3 and 3b alone (and ``--attention`` phases 3c and 3d),
+and prints no result line.
+
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
 B=4 (phase 8; of one SSG train step, phase 6, for its backward kernels; of
 one ptv3_pooled forward, phase 10, for the flash-attention kernel; of one
 ptv3_pooled train step, phase 13, for the attention-backward kernels) beside
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
-those launches' shapes (phases 3, 3b, 3c, 3d); ``paths`` has the same for
-the other passes, and ``launches_by_path`` the counts of the serves and the
-training runs through the CLIs. The last line is {"ok": true, "device": {...}}.
+those launches' shapes (phases 3, 3b, 3c, 3d), and for K3 and K3b the
+device times ``device_ms`` and ``library_device_ms`` (null for the other
+kernels); ``paths`` has the same for the other passes, and
+``launches_by_path`` the counts of the serves and the training runs through
+the CLIs. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -222,6 +237,61 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Median device milliseconds a call: ``calls`` calls of fn captured in
+    one CUDA graph (allocations, memsets and ctypes launches on the current
+    stream are captured like any other work), the graph replayed between two
+    CUDA events, divided by ``calls``. Where capture fails, the device
+    self-time of ``calls`` calls from torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as exc:
+        print(f"  CUDA graph capture failed ({exc}); device time from torch.profiler")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+                   for ev in prof.key_averages()) / 1e3 / calls
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 1000, rounds: int = 5, warmup: int = 20) -> float:
+    """Host microseconds a call: perf_counter around ``calls`` calls with no
+    synchronise (after a warm-up), the median of ``rounds`` such runs (the
+    host's cores are shared, and single runs spread widely). Where the
+    device is the slower, the launch queue fills and this reads the device's
+    pace instead."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
 
@@ -233,12 +303,14 @@ def nbytes(*tensors) -> int:
 SSG, BRISTRUNET, TRAIN = "ssg_forward", "bristrunet_forward", "ssg_train_step"
 PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
 PTV3_POOLED_TRAIN, PTV3_TRAIN = "ptv3_pooled_train_step", "ptv3_train_step"
-PATHS = (SSG, BRISTRUNET, TRAIN, PTV3_POOLED, PTV3, PTV3_POOLED_TRAIN, PTV3_TRAIN)
 # the path whose numbers stand in a kernel's own row of the summary
 # (BriStruNet's forward for the kernels not named here)
 ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "flash_attn": PTV3_POOLED,
             "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN}
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms", "fma_bound_ms")
+# None unless measured: the library call's event time (cases with a library
+# call), device times from a CUDA graph and host time (cases with ``split``)
+SPLIT_SUMS = ("library_ms", "device_ms", "library_device_ms", "host_us")
 
 
 class Results:
@@ -247,14 +319,17 @@ class Results:
     over exactly the launches of one forward (or one train step) at B=4."""
 
     def __init__(self):
-        names = [k.name for k in _kernels.KERNELS]
-        self.err = dict.fromkeys(names, 0.0)
-        self.sums = {path: {name: dict.fromkeys(SUMS, 0.0) | {"library_ms": None, "cases": 0}
-                            for name in names}
-                     for path in PATHS}
+        self.err = dict.fromkeys((k.name for k in _kernels.KERNELS), 0.0)
+        # path -> kernel -> sums; a side path (a batch of 16, a backward that
+        # is not run as a pass here) is printed by ``print_sums`` alone
+        self.sums = {}
+
+    def total(self, path: str, name: str) -> dict:
+        return self.sums.setdefault(path, {}).setdefault(
+            name, dict.fromkeys(SUMS, 0.0) | dict.fromkeys(SPLIT_SUMS) | {"cases": 0})
 
     def check(self, name, label, kernel_fn, plain_fn, exact, paths=(), scaled=None,
-              work=None, library_fn=None, times=1, peak_flops=PEAK_FLOPS):
+              work=None, library_fn=None, times=1, peak_flops=PEAK_FLOPS, split=False):
         """exact: bit-identical; else within INTERP_TOL (rtol and atol), or
         with scaled=(tol, floor) within tol * max(floor, max|plain|). The
         functions return a tensor or a tuple of tensors. ``paths`` names the
@@ -265,7 +340,10 @@ class Results:
         with ``work`` and no path is timed too. ``library_fn`` is the one
         PyTorch call that computes the same function, timed beside the
         kernel. ``peak_flops`` is the rate of the fastest route that keeps the
-        function's accuracy; the bound over float32 FMAs stands beside it."""
+        function's accuracy; the bound over float32 FMAs stands beside it.
+        ``split`` adds the device time a call of the kernel and of the
+        library call (``device_ms``) and the kernel wrapper's host time
+        (``host_us``) beside the event times."""
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
@@ -299,17 +377,25 @@ class Results:
                      f"{case['bound_ms']:.5f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
             if peak_flops != PEAK_FLOPS:
                 line += f"  over FMAs {case['fma_bound_ms']:.5f} ms"
-            l_ms = None
             if library_fn is not None:
-                l_ms = time_ms(library_fn)
-                line += f"  library {l_ms:.4f} ms"
+                case["library_ms"] = time_ms(library_fn)
+                line += f"  library {case['library_ms']:.4f} ms"
+            if split:
+                case["device_ms"] = device_ms(kernel_fn)
+                case["host_us"] = host_us(kernel_fn)
+                line += f"  | device: kernel {case['device_ms']:.4f} ms"
+                if library_fn is not None:
+                    case["library_device_ms"] = device_ms(library_fn)
+                    line += f"  library {case['library_device_ms']:.4f} ms"
+                line += f"  | host {case['host_us']:.1f} us a call"
             for path in paths:
-                total = self.sums[path][name]
+                total = self.total(path, name)
                 total["cases"] += times
                 for key in SUMS:
                     total[key] += times * case[key]
-                if l_ms is not None:
-                    total["library_ms"] = (total["library_ms"] or 0.0) + times * l_ms
+                for key in SPLIT_SUMS:
+                    if key in case:
+                        total[key] = (total[key] or 0.0) + times * case[key]
             if paths:
                 line += f"  [{times} x " + ", ".join(paths) + "]"
         print(line, flush=True)
@@ -317,14 +403,25 @@ class Results:
     def row(self, name: str, path: str, launches: int) -> dict:
         """The numbers of one kernel on one path, as the summary prints
         them; the path must have given the kernel a case a launch."""
-        total = self.sums[path][name]
+        total = self.total(path, name)
         if total["cases"] != launches:
             raise AssertionError(f"{name} on {path}: {launches} launches a pass, but "
                                  f"{total['cases']} shapes were held against the plain version")
         return {"launches": launches, "ms": total["ms"], "plain_ms": total["plain_ms"],
                 "bound_ms": total["bound_ms"], "fma_bound_ms": total["fma_bound_ms"],
                 "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
-                "library_ms": total["library_ms"]}
+                "library_ms": total["library_ms"], "device_ms": total["device_ms"],
+                "library_device_ms": total["library_device_ms"]}
+
+    def print_sums(self, name: str, paths) -> None:
+        """One line a path: the kernel's sums over the path's timed cases."""
+        for path in paths:
+            t = self.total(path, name)
+            host = "" if t["host_us"] is None else f", host {t['host_us'] / t['cases']:.1f} us a call"
+            print(f"{name:18s} sum over {path} ({t['cases']} launches): event {t['ms']:.4f} ms, "
+                  f"device {t['device_ms']} ms, bound {t['bound_ms']:.5f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library event {t['library_ms']} ms, device "
+                  f"{t['library_device_ms']} ms{host}", flush=True)
 
 
 def compare_kernels(dev: torch.device) -> Results:
@@ -362,45 +459,14 @@ def compare_kernels(dev: torch.device) -> Results:
               lambda: sampling.fps_cuda(grid, 256, zero),
               lambda: sampling.fps_plain(grid, 256, zero), True)
 
-    def ball_and_group(paths, n, s, k, r, c):
-        """K2 at (N, S, K, r) with cloud points as centres, as after FPS,
-        then K3 on its indices with C feature channels."""
-        xyz = cloud(n)
-        centers = xyz[:, :s].contiguous()
-        idx = grouping.ball_query_cuda(r, k, xyz, centers)
-        res.check("ball_query", f"N={n} S={s} K={k} r={r}",
-                  lambda: grouping.ball_query_cuda(r, k, xyz, centers),
-                  lambda: grouping.ball_query_plain(r, k, xyz, centers), True, paths,
-                  work=(nbytes(xyz, centers) + B * s * k * 4, 9 * ball_scan_length(idx, n)))
-        feats = normal(B, n, c)
-        flat = idx.reshape(B, -1, 1).clamp(0, n - 1).long().expand(-1, -1, c).contiguous()
-        res.check("group", f"N={n} S={s} K={k} C={c}",
-                  lambda: grouping.group_cuda(xyz, centers, idx, feats),
-                  lambda: grouping.group_plain(xyz, centers, idx, feats), True, paths,
-                  work=(nbytes(xyz, centers, idx, feats) + B * s * k * (3 + c) * 4,
-                        3 * B * s * k),
-                  # the feature channels only, on a ready int64 index
-                  library_fn=lambda: torch.gather(feats, 1, flat))
-
-    # K2 ball query and K3 group: the three SA levels of SSG, then those of
-    # BriStruNet at both radii (K=16 at the small one, K=32 at the large)
-    for n, s, r, c in ((4096, 1024, 0.1, 3), (1024, 256, 0.2, 128), (256, 64, 0.4, 256)):
-        ball_and_group((SSG,), n, s, 32, r, c)
-    for n, s, radii, c in ((4096, 1024, (0.1, 0.2), 3), (1024, 512, (0.2, 0.4), 256),
-                           (512, 128, (0.4, 0.8), 512)):
-        for r, k in zip(radii, (16, 32)):
-            ball_and_group((BRISTRUNET,), n, s, k, r, c)
-    # an empty ball, more slots than points, a group without features
+    # K2 ball query and K3 group at the levels of both models, then K3's
+    # own cases (batch 16, widths, empty balls, ragged row counts)
+    compare_group_kernel(dev, res, rng, with_ball=True)
     xyz = cloud(4096)
     far = torch.full((B, 64, 3), 10.0, device=dev)
     res.check("ball_query", "empty balls",
               lambda: grouping.ball_query_cuda(0.1, 32, xyz, far),
               lambda: grouping.ball_query_plain(0.1, 32, xyz, far), True)
-    centers = xyz[:, :1024].contiguous()
-    idx = grouping.ball_query_cuda(0.1, 32, xyz, centers)
-    res.check("group", "N=4096 S=1024 K=32 C=0",
-              lambda: grouping.group_cuda(xyz, centers, idx, None),
-              lambda: grouping.group_plain(xyz, centers, idx, None), True)
     xyz = cloud(16)
     centers = xyz[:, :8].contiguous()
     res.check("ball_query", "K=32 > N=16",
@@ -453,6 +519,116 @@ def compare_kernels(dev: torch.device) -> Results:
     return res
 
 
+# (N, S, K, radius, C) of each grouping call of a pass: the three SA levels
+# of SSG, then those of BriStruNet at both radii (K=16 at the small one,
+# K=32 at the large); the SSG train step's backward runs at SSG's sa2 and sa3
+SSG_LEVELS = ((4096, 1024, 32, 0.1, 3), (1024, 256, 32, 0.2, 128), (256, 64, 32, 0.4, 256))
+BRISTRUNET_LEVELS = tuple(
+    (n, s, k, r, c)
+    for n, s, radii, c in ((4096, 1024, (0.1, 0.2), 3), (1024, 512, (0.2, 0.4), 256),
+                           (512, 128, (0.4, 0.8), 512))
+    for r, k in zip(radii, (16, 32)))
+# side paths: timed and summed on lines of their own, no pass of this script
+SSG_B16, TRAIN_B16, BRISTRUNET_BWD = "ssg_forward_b16", "ssg_train_step_b16", "bristrunet_backward"
+
+
+def compare_group_kernel(dev: torch.device, res: Results, rng, with_ball: bool) -> None:
+    """K3 against group_plain, bit for bit, at every level of SSG and
+    BriStruNet at B=4 (and K2 on the same inputs where ``with_ball``), SSG's
+    levels at B=16, then widths 3, 4 and 16 (C = 0, 1, 13), empty balls,
+    N = 1, row counts that are no multiple of a lane group, indices out of
+    range on both sides, and the same bits from one call to the next. The
+    timed cases carry the split of their time (``split``)."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def group_case(label, xyz, centers, idx, feats, paths=(), timed=False):
+        b, n, _ = xyz.shape
+        _, s, k = idx.shape
+        c = 0 if feats is None else feats.shape[2]
+        work = library = None
+        if timed:
+            work = (nbytes(xyz, centers, idx, feats) + b * s * k * (3 + c) * 4, 3 * b * s * k)
+            # the feature channels only, on a ready int64 index
+            flat = idx.reshape(b, -1, 1).clamp(0, n - 1).long().expand(-1, -1, c).contiguous()
+            library = lambda: torch.gather(feats, 1, flat)  # noqa: E731
+        first = grouping.group_cuda(xyz, centers, idx, feats)
+        if not torch.equal(first, grouping.group_cuda(xyz, centers, idx, feats)):
+            raise AssertionError(f"group {label}: the bits differ from one call to the next")
+        res.check("group", label,
+                  lambda: grouping.group_cuda(xyz, centers, idx, feats),
+                  lambda: grouping.group_plain(xyz, centers, idx, feats), True, paths,
+                  work=work, library_fn=library, split=timed)
+
+    def level(paths, b, n, s, k, r, c):
+        xyz = cloud(b, n)
+        centers = xyz[:, :s].contiguous()
+        idx = grouping.ball_query_cuda(r, k, xyz, centers)
+        if with_ball and b == B:
+            res.check("ball_query", f"N={n} S={s} K={k} r={r}",
+                      lambda: grouping.ball_query_cuda(r, k, xyz, centers),
+                      lambda: grouping.ball_query_plain(r, k, xyz, centers), True, paths,
+                      work=(nbytes(xyz, centers) + b * s * k * 4, 9 * ball_scan_length(idx, n)))
+        group_case(f"B={b} N={n} S={s} K={k} C={c}", xyz, centers, idx, normal(b, n, c),
+                   paths, timed=True)
+
+    for lv in SSG_LEVELS:
+        level((SSG,), B, *lv)
+    for lv in BRISTRUNET_LEVELS:
+        level((BRISTRUNET,), B, *lv)
+    for lv in SSG_LEVELS:
+        level((SSG_B16,), 16, *lv)
+    res.print_sums("group", (SSG, BRISTRUNET, SSG_B16))
+
+    # the kernel's two ways to store, each bit for bit: the warp's tile
+    # staged in shared memory and written with 16-byte stores (the default)
+    # against 4-byte stores straight from the lanes, at the models' widths
+    # (6, 131, 259, 515: no row is 16-byte aligned) and at 4 and 16
+    for n, s, k, r, c in ((4096, 1024, 32, 0.1, 3), (1024, 256, 32, 0.2, 128),
+                          (1024, 512, 32, 0.4, 256), (512, 128, 32, 0.8, 512),
+                          (1024, 256, 32, 0.2, 1), (1024, 256, 32, 0.2, 13)):
+        xyz = cloud(B, n)
+        centers = xyz[:, :s].contiguous()
+        idx = grouping.ball_query_cuda(r, k, xyz, centers)
+        feats = normal(B, n, c)
+        want = grouping.group_plain(xyz, centers, idx, feats)
+        times = {True: [], False: []}
+        for staged in (True, False, False, True):
+            def run(staged=staged):
+                return grouping.group_cuda(xyz, centers, idx, feats, staged=staged)
+            if not torch.equal(run(), want):
+                raise AssertionError(f"group width {3 + c} staged={staged}: kernel disagrees")
+            times[staged].append(device_ms(run))
+        print(f"{'group':18s} stores at width {3 + c:3d} ([{B},{s},{k}]): device ms, staged tile "
+              f"{times[True][0]:.4f} {times[True][1]:.4f}, 4-byte stores {times[False][0]:.4f} "
+              f"{times[False][1]:.4f}", flush=True)
+
+    xyz = cloud(B, 1024)
+    centers = xyz[:, :256].contiguous()
+    idx = grouping.ball_query_cuda(0.2, 32, xyz, centers)
+    for c in (0, 1, 13):  # widths 3, 4 and 16
+        group_case(f"N=1024 S=256 K=32 C={c}", xyz, centers, idx,
+                   normal(B, 1024, c) if c else None)
+    far = torch.full((B, 64, 3), 10.0, device=dev)
+    empty = grouping.ball_query_cuda(0.1, 32, xyz, far)  # every slot N
+    for c in (3, 128):
+        group_case(f"empty balls C={c}", xyz, far, empty, normal(B, 1024, c))
+    one = cloud(B, 1)
+    group_case("N=1 S=1 K=32 C=5", one, one, grouping.ball_query_cuda(0.5, 32, one, one),
+               normal(B, 1, 5))
+    # S*K = 35 a batch: no multiple of any group's rows; indices from -2 to
+    # N + 2 (a miss is N, and the clamp takes both sides)
+    for c in (0, 3, 13, 128, 509):
+        wild = torch.from_numpy(rng.integers(-2, 1027, (3, 7, 5)).astype(np.int32)).to(dev)
+        xyz3 = cloud(3, 1024)
+        group_case(f"S=7 K=5 C={c}, indices -2..N+2", xyz3, cloud(3, 7), wild,
+                   normal(3, 1024, c) if c else None)
+
+
 def ball_scan_length(idx: torch.Tensor, n: int) -> int:
     """Points a ball query must visit on this data, summed over the queries:
     up to its k-th hit where the ball holds k (the last slot is then a hit of
@@ -480,45 +656,7 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     def normal(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    # K3b: the feature channels of g [B,S,K,3+C] -> [B,N,C] over ball-query
-    # indices (repeats and all), as at sa2 and sa3; then an empty-ball case
-    # with the xyz channels too
-    for n, s, c, r in ((1024, 256, 128, 0.2), (256, 64, 256, 0.4)):
-        xyz = cloud(n)
-        idx = grouping.ball_query_cuda(r, 32, xyz, xyz[:, :s].contiguous())
-        g = normal(B, s, 32, 3 + c)
-        # library: one index_add_ over the batch-flattened rows (zeroing
-        # included, as in the kernel's time), on a ready index and slice
-        rows = g[..., 3:].reshape(-1, c).contiguous()
-        offs = torch.arange(B, device=dev).view(B, 1, 1) * n
-        flat = (idx.clamp(0, n - 1).long() + offs).reshape(-1)
-        acc = torch.empty((B * n, c), device=dev)
-        res.check("group_bwd", f"g [{B},{s},32,{3 + c}] -> [{B},{n},{c}]",
-                  lambda: grouping.group_backward_cuda(g, idx, n, 3, 3 + c),
-                  lambda: grouping.group_backward_plain(g, idx, n, 3, 3 + c),
-                  False, (TRAIN,), scaled=(BWD_TOL, 0.0),
-                  work=(nbytes(rows, idx) + B * n * c * 4, B * s * 32 * c),
-                  library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
-    # the shapes of a BriStruNet backward (sa1-sa3 at both radii, K=16 and
-    # 32, with 3, 256 and 512 feature channels): held, not timed
-    for n, s, radii, c in ((4096, 1024, (0.1, 0.2), 3), (1024, 512, (0.2, 0.4), 256),
-                           (512, 128, (0.4, 0.8), 512)):
-        for r, k in zip(radii, (16, 32)):
-            xyz = cloud(n)
-            idx = grouping.ball_query_cuda(r, k, xyz, xyz[:, :s].contiguous())
-            g = normal(B, s, k, 3 + c)
-            res.check("group_bwd", f"BriStruNet g [{B},{s},{k},{3 + c}] -> [{B},{n},{c}]",
-                      lambda: grouping.group_backward_cuda(g, idx, n, 3, 3 + c),
-                      lambda: grouping.group_backward_plain(g, idx, n, 3, 3 + c),
-                      False, scaled=(BWD_TOL, 0.0))
-    xyz = cloud(1024)
-    far = torch.full((B, 64, 3), 10.0, device=dev)
-    idx = grouping.ball_query_cuda(0.1, 32, xyz, far)  # every slot N
-    g = normal(B, 64, 32, 3 + 16)
-    res.check("group_bwd", "empty balls, xyz and features",
-              lambda: grouping.group_backward_cuda(g, idx, 1024, 0, 19),
-              lambda: grouping.group_backward_plain(g, idx, 1024, 0, 19),
-              False, scaled=(BWD_TOL, 0.0))
+    compare_group_backward(dev, res, rng)
 
     # K4b on the selection the forward kernel keeps; the kept selection
     # itself is held to the plain one (indices exact, weights 1e-6)
@@ -547,6 +685,80 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
                       False, (TRAIN,) if timed else (), scaled=(BWD_TOL, 0.0),
                       work=(nbytes(g, idx, w) + B * s * d * 4, 2 * k * B * n * d) if timed else None,
                       library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
+
+
+def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
+    """K3b against group_backward_plain within BWD_TOL * max|plain|: the
+    feature channels of g [B,S,K,3+C] -> [B,N,C] over ball-query indices
+    (repeats and all) at the SSG train step's sa2 and sa3 at B=4 and B=16 and
+    at the six levels of a BriStruNet backward (all timed, with the split of
+    their time); then the xyz channels (c0 = 0, with and without features),
+    output widths 1, 4 and 16 (the aligned vector path at 4 and 16), empty
+    balls, N = 1, K = 64 (a trailing run that starts in the first 32 slots
+    and one that starts after them), and 35 rows a batch over indices from
+    -2 to N + 2."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def bwd_case(label, g, idx, n, c0, c1, paths=(), timed=False):
+        b, s, k, _ = g.shape
+        work = library = None
+        if timed:
+            # library: one index_add_ over the batch-flattened rows (zeroing
+            # included, as in the kernel's time), on a ready index and slice
+            rows = g[..., c0:c1].reshape(-1, c1 - c0).contiguous()
+            offs = torch.arange(b, device=dev).view(b, 1, 1) * n
+            flat = (idx.clamp(0, n - 1).long() + offs).reshape(-1)
+            acc = torch.empty((b * n, c1 - c0), device=dev)
+            work = (nbytes(rows, idx) + b * n * (c1 - c0) * 4, b * s * k * (c1 - c0))
+            library = lambda: acc.zero_().index_add_(0, flat, rows)  # noqa: E731
+        res.check("group_bwd", label,
+                  lambda: grouping.group_backward_cuda(g, idx, n, c0, c1),
+                  lambda: grouping.group_backward_plain(g, idx, n, c0, c1),
+                  False, paths, scaled=(BWD_TOL, 0.0), work=work, library_fn=library,
+                  split=timed)
+
+    def level(paths, b, n, s, k, r, c):
+        xyz = cloud(b, n)
+        idx = grouping.ball_query_cuda(r, k, xyz, xyz[:, :s].contiguous())
+        g = normal(b, s, k, 3 + c)
+        bwd_case(f"g [{b},{s},{k},{3 + c}] -> [{b},{n},{c}]", g, idx, n, 3, 3 + c, paths,
+                 timed=True)
+
+    for lv in SSG_LEVELS[1:]:
+        level((TRAIN,), B, *lv)
+    for lv in SSG_LEVELS[1:]:
+        level((TRAIN_B16,), 16, *lv)
+    for lv in BRISTRUNET_LEVELS:
+        level((BRISTRUNET_BWD,), B, *lv)
+    res.print_sums("group_bwd", (TRAIN, TRAIN_B16, BRISTRUNET_BWD))
+
+    xyz = cloud(B, 1024)
+    idx = grouping.ball_query_cuda(0.2, 32, xyz, xyz[:, :256].contiguous())
+    for c, c0, c1 in ((16, 0, 19), (16, 0, 3), (1, 0, 4), (13, 0, 16), (1, 3, 4), (128, 0, 131)):
+        bwd_case(f"g [{B},256,32,{3 + c}] channels [{c0},{c1})", normal(B, 256, 32, 3 + c),
+                 idx, 1024, c0, c1)
+    far = torch.full((B, 64, 3), 10.0, device=dev)
+    empty = grouping.ball_query_cuda(0.1, 32, xyz, far)  # every slot N
+    for c, c0 in ((16, 0), (128, 3)):
+        bwd_case(f"empty balls C={c} channels [{c0},{3 + c})", normal(B, 64, 32, 3 + c),
+                 empty, 1024, c0, 3 + c)
+    one = cloud(B, 1)
+    bwd_case("N=1 S=1 K=32 C=8", normal(B, 1, 32, 11),
+             grouping.ball_query_cuda(0.5, 32, one, one), 1, 0, 11)
+    # K=64: a ball of 0.1 holds a few points of 1024 (its run starts early),
+    # one of 0.3 most of 64 (its run starts late or not at all)
+    for r in (0.1, 0.3):
+        idx64 = grouping.ball_query_cuda(r, 64, xyz, xyz[:, :128].contiguous())
+        bwd_case(f"K=64 r={r} C=128", normal(B, 128, 64, 131), idx64, 1024, 3, 131)
+    for c, c0 in ((3, 0), (13, 3), (128, 3), (128, 0)):
+        wild = torch.from_numpy(rng.integers(-2, 1027, (3, 7, 5)).astype(np.int32)).to(dev)
+        bwd_case(f"S=7 K=5 C={c} channels [{c0},{3 + c}), indices -2..N+2",
+                 normal(3, 7, 5, 3 + c), wild, 1024, c0, 3 + c)
 
 
 def packed_qkv_maker(dev: torch.device, seed: int):
@@ -1170,7 +1382,8 @@ def kernel_family(name: str) -> str:
     """The row of PERF.md's breakdown that a device kernel's name goes to."""
     for key, family in (
         ("fps_kernel", "K1 FPS"), ("ballq_kernel", "K2 ball query"),
-        ("group_kernel", "K3 group"), ("interp_kernel", "K4 interpolate"),
+        ("group_kernel", "K3 group"), ("group_bwd_kernel", "K3b group backward"),
+        ("interp_kernel", "K4 interpolate"), ("interp_bwd_kernel", "K4b interpolation backward"),
         ("knn_kernel", "K5 k-NN"), ("flash_attn_kernel", "K6 flash attention"),
         ("flash_attn_bwd", "K6b flash attention backward"),
         ("multi_tensor", "Adam (foreach)"),
@@ -1456,6 +1669,15 @@ def main() -> None:
         compare_attention_kernel(dev, res)
         compare_attention_backward(dev, res)
         return
+    if sys.argv[1:] == ["--grouping"]:
+        # kernel work on K3 and K3b: phases 1, 2 and their cases of 3 and 3b
+        # alone, no result line
+        res = Results()
+        compare_group_kernel(dev, res, np.random.default_rng(SEED), with_ball=False)
+        compare_group_backward(dev, res, np.random.default_rng(SEED + 1))
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     res = compare_kernels(dev)
     compare_backward_kernels(dev, res)
     compare_attention_kernel(dev, res)
@@ -1542,7 +1764,7 @@ def main() -> None:
         # 7. train through the CLI
         train_counts, exp_dir = train_through_cli(
             "train pointnet2_ssg", "pointnet2_ssg", FORWARD_KERNELS + SSG_BACKWARD_KERNELS,
-            data_dir, dev)
+            data_dir, dev, profile=True)
         try:
             # 8. the BriStruNet forward; 9. serve through the inference CLI
             bristrunet, _ = forward_against_cpu(

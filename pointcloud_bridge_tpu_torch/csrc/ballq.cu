@@ -89,7 +89,7 @@ __global__ void ballq_kernel(const float* __restrict__ xyz,
 PCB_API int pcb_ball_query(const float* xyz, const float* centers, int* out,
                            int b, int n, int s, int k, float r2, int device,
                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s + kWarps - 1) / kWarps, b);
   ballq_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(

@@ -241,7 +241,7 @@ PCB_API int pcb_flash_attn(const float* q, const float* k, const float* v,
                            float* o, float* lse, int b, int n, int heads, int d,
                            long long ldq, long long ldk, long long ldv,
                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (b < 1 || n < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

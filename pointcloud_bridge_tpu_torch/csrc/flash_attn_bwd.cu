@@ -506,7 +506,7 @@ PCB_API int pcb_flash_attn_bwd_dq(const float* q, const float* k,
                                   int heads, int d, long long ldq,
                                   long long ldk, long long ldv, int device,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (b < 1 || n < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -527,7 +527,7 @@ PCB_API int pcb_flash_attn_bwd_dkv(const float* q, const float* k,
                                    int heads, int d, long long ldq,
                                    long long ldk, long long ldv, int device,
                                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (b < 1 || n < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -121,7 +121,7 @@ void launch_fps(const float* xyz, const int* start, int* out, int b, int n,
 // The wrapper keeps N <= 16384 (PPT <= 16 at 1024 threads).
 PCB_API int pcb_fps(const float* xyz, const int* start, int* out, int b,
                     int n, int npoint, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   // about four points a thread, whole warps, at most 1024 threads
   int threads = ((n + 3) / 4 + 31) / 32 * 32;

@@ -160,7 +160,7 @@ PCB_API int pcb_interpolate(const float* dst, const float* src,
                             const float* feats, float* out, int* idx_out,
                             float* w_out, int b, int n, int s, int d, int k,
                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   switch (k) {

@@ -56,7 +56,7 @@ PCB_API int pcb_interpolate_backward(const float* g, const int* idx,
                                      const float* w, float* df, int b, int n,
                                      int s, int d, int k, int device,
                                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   err = cudaMemsetAsync(df, 0, (size_t)b * s * d * sizeof(float), st);

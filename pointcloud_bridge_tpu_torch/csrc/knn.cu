@@ -152,7 +152,7 @@ __global__ void knn_kernel(const float* __restrict__ xyz,
 PCB_API int pcb_knn(const float* xyz, const float* query, int* idx_out,
                     float* d2_out, int b, int n, int s, int k, int device,
                     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (k < 1 || k > 64 || k > n) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -11,7 +11,12 @@ Each kernel is a :class:`Kernel`: its C entry point, its argument types, and
 a launch counter that goes up by one for every successful launch, so that a
 run can show which kernels the main path went through. The wrappers in the
 ``ops`` modules check their tensors and call :meth:`Kernel.launch` with
-raw pointers and PyTorch's current stream.
+raw pointers and PyTorch's current stream. The launch path is kept thin,
+because at the models' smaller shapes a call's host time exceeds its device
+time: each entry point is bound once (``Kernel.fn``), the stream is read as
+a raw handle, the C side sets the device only when it changes, and the group
+kernels take their integers as one array laid out once a shape
+(ops/grouping.py), since ctypes converts every argument on every call.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc`` or a GPU.
@@ -62,13 +67,13 @@ class Kernel:
     source: str  # path in the repository
     replaces: str  # file:line of the Pallas kernel it ports
     launches: int = 0
+    fn: object = dataclasses.field(default=None, repr=False)  # bound by library()
 
     def launch(self, *args) -> None:
         """Call the entry point; raise if it returns a CUDA error."""
-        lib = library()
-        err = getattr(lib, self.symbol)(*args)
+        err = (self.fn or _bound(self))(*args)
         if err != 0:
-            msg = lib.pcb_error_string(err).decode()
+            msg = library().pcb_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel: CUDA error {err}: {msg}")
         self.launches += 1
 
@@ -89,8 +94,9 @@ BALL_QUERY = Kernel(
 )
 GROUP = Kernel(
     "group", "pcb_group",
-    # xyz, centers, idx, feats, out, B, N, S, K, C, device, stream
-    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # xyz, centers, idx, feats, out, plan (ops/grouping.py GROUP_PLAN),
+    # device, stream
+    (_P, _P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/group.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/gather3.py:57",
 )
@@ -103,8 +109,8 @@ INTERPOLATE = Kernel(
 )
 GROUP_BWD = Kernel(
     "group_bwd", "pcb_group_backward",
-    # g, idx, out, B, N, S, K, width, c0, c1, device, stream
-    (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # g, idx, out, plan (ops/grouping.py GROUP_BWD_PLAN), device, stream
+    (_P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/group_bwd.cu",
     "pointcloud_bridge_tpu/ops/core.py:44",
 )
@@ -215,15 +221,22 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, k.symbol)
         fn.argtypes = list(k.argtypes)
         fn.restype = ctypes.c_int
+        k.fn = fn
     lib.pcb_error_string.argtypes = [ctypes.c_int]
     lib.pcb_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _bound(kernel: Kernel):
+    """The kernel's entry point, after a first build and load."""
+    library()
+    return kernel.fn
+
+
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                  ndim: int) -> None:
     """Raise unless t is a contiguous CUDA tensor of dtype and rank ndim."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -234,6 +247,7 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def stream_args(t: torch.Tensor) -> tuple:
-    """(device index, current stream handle) for a launch on t's device."""
-    dev = t.device.index
-    return dev, torch.cuda.current_stream(dev).cuda_stream
+    """(device index, raw handle of the current stream) for a launch on t's
+    device, read without building a torch.cuda.Stream."""
+    dev = t.get_device()
+    return dev, torch._C._cuda_getCurrentRawStream(dev)

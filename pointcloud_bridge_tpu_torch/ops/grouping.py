@@ -11,6 +11,8 @@ kernel csrc/group_bwd.cu on the card. k-NN indices carry no gradient.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -214,12 +216,79 @@ def group_plain(xyz, new_xyz, idx, features=None) -> torch.Tensor:
     return torch.cat([grouped, index_points(features, idx)], dim=-1)
 
 
-def group_cuda(xyz, new_xyz, idx, features=None) -> torch.Tensor:
-    """Group kernel wrapper: one launch writes all 3 + C channels."""
+# 2^31: every element offset inside the group kernels is a 32-bit int, and a
+# fast divisor holds for dividends below it
+_INT_LIMIT = 2**31
+# csrc/group.cu stages a warp's tile of rows in shared memory where the tile
+# fits _STAGED_FLOATS floats (the warp's share of 48 KB)
+_STAGED_FLOATS = 3072
+
+
+def group_lanes(units: int) -> int:
+    """Lanes that own one row of ``units`` (a width in channels, or in
+    4-channel units where a lane takes four): 4, 8, 16 or 32."""
+    return 4 if units <= 4 else 8 if units <= 8 else 16 if units <= 16 else 32
+
+
+@functools.lru_cache(maxsize=None)
+def fast_divisor(d: int) -> Tuple[int, int]:
+    """(mul, shift) with n // d == (n * mul >> 32) >> shift for 0 <= n < 2^31
+    (csrc/common.cuh FastDiv): mul = ceil(2^(31 + l) / d), shift = l - 1,
+    l = ceil(log2 d); (0, 0) for d = 1, which the kernel reads as n."""
+    if not 1 <= d < _INT_LIMIT:
+        raise ValueError(f"fast divisor: expected 1 <= d < 2^31, got {d}")
+    if d == 1:
+        return 0, 0
+    l = (d - 1).bit_length()
+    return -(-(1 << (31 + l)) // d), l - 1
+
+
+@functools.lru_cache(maxsize=None)
+def group_launch(width: int) -> Tuple[int, int, bool]:
+    """(lanes a row, rows in flight a lane group, staged) of csrc/group.cu
+    for rows of ``width`` floats: a warp's tile is (32 / lanes) * rows rows,
+    one index a lane; 8 rows where that tile fits shared memory, else 4
+    staged, else 4 stored 4 bytes a lane."""
+    lanes = group_lanes(width)
+    for rows in (8, 4):
+        tile = 32 // lanes * rows
+        if tile <= 32 and (tile * width + 6) // 4 * 4 <= _STAGED_FLOATS:
+            return lanes, rows, True
+    return lanes, 4, False
+
+
+# the integers of a launch, in the order pcb_group (csrc/group.cu) and
+# pcb_group_backward (csrc/group_bwd.cu) read them from their `plan`
+GROUP_PLAN = ("b", "n", "s", "k", "c", "lanes", "rows", "staged", "k_mul", "k_shift")
+GROUP_BWD_PLAN = ("b", "n", "s", "k", "width", "c0", "c1", "lanes", "vec")
+
+
+@functools.lru_cache(maxsize=1024)
+def _group_plan(b: int, n: int, s: int, k: int, c: int, staged: Optional[bool] = None):
+    """pcb_group's plan for B, N, S, K, C (GROUP_PLAN), checked and laid out
+    once a shape. ``staged`` False forces 4-byte stores and 4 rows a group;
+    True raises where a tile does not fit shared memory."""
+    width = 3 + c
+    if b * s * k * width >= 2**30 or n * width >= _INT_LIMIT or b > 65535:
+        raise ValueError(f"group kernel takes < 2^30 output elements, N * (3 + C) < 2^31 "
+                         f"and B <= 65535, got [{b}, {s}, {k}] x {width} over N={n}")
+    lanes, rows, fits = group_launch(width)
+    if staged is not None and staged != fits:
+        if staged:
+            raise ValueError(f"group kernel: a tile of width {width} does not fit shared memory")
+        rows, fits = 4, False
+    return (ctypes.c_uint * len(GROUP_PLAN))(b, n, s, k, c, lanes, rows, fits,
+                                             *fast_divisor(max(k, 1)))
+
+
+def group_cuda(xyz, new_xyz, idx, features=None, staged=None) -> torch.Tensor:
+    """Group kernel wrapper: one launch writes all 3 + C channels. ``staged``
+    False forces 4-byte stores where the kernel would stage its tiles (a
+    comparison on the card); by default it stages wherever a tile fits."""
     _kernels.check_tensor("xyz", xyz, torch.float32, 3)
     _kernels.check_tensor("new_xyz", new_xyz, torch.float32, 3)
     _kernels.check_tensor("idx", idx, torch.int32, 3)
-    b, n, _ = xyz.shape
+    b, n, three = xyz.shape
     _, s, k = idx.shape
     c = 0
     if features is not None:
@@ -227,19 +296,29 @@ def group_cuda(xyz, new_xyz, idx, features=None) -> torch.Tensor:
         c = features.shape[2]
         if features.shape[:2] != (b, n):
             raise ValueError(f"group: features {tuple(features.shape)} vs xyz {tuple(xyz.shape)}")
-    if xyz.shape[2] != 3 or new_xyz.shape != (b, s, 3) or idx.shape[0] != b:
+    if three != 3 or new_xyz.shape != (b, s, 3) or idx.shape[0] != b:
         raise ValueError(
             f"group: bad shapes {tuple(xyz.shape)}, {tuple(new_xyz.shape)}, {tuple(idx.shape)}"
         )
-    out = torch.empty((b, s, k, 3 + c), dtype=torch.float32, device=xyz.device)
-    if out.numel() >= 2**30:
-        raise ValueError(f"group kernel takes < 2^30 output elements, got {out.numel()}")
+    plan = _group_plan(b, n, s, k, c, staged)
+    # the sizes as separate arguments: torch parses them faster than a tuple
+    out = torch.empty(b, s, k, 3 + c, dtype=torch.float32, device=xyz.device)
     if out.numel() == 0:
         return out
     _kernels.GROUP.launch(
         xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
-        features.data_ptr() if features is not None else None,
-        out.data_ptr(), b, n, s, k, c, *_kernels.stream_args(xyz),
+        features.data_ptr() if c else None, out.data_ptr(), plan, *_kernels.stream_args(xyz),
+    )
+    return out
+    lanes, rows, fits = group_launch(width)
+    if staged is not None and staged != fits:
+        if staged:
+            raise ValueError(f"group kernel: a tile of width {width} does not fit shared memory")
+        rows, fits = 4, False
+    _kernels.GROUP.launch(
+        xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
+        features.data_ptr() if c else None, out.data_ptr(), b, n, s, k, c, lanes, rows,
+        fits, *fast_divisor(k), *_kernels.stream_args(xyz),
     )
     return out
 
@@ -257,6 +336,19 @@ def group_backward_plain(
     return out.scatter_add_(1, flat.expand_as(src), src)
 
 
+@functools.lru_cache(maxsize=1024)
+def _group_backward_plan(b: int, n: int, s: int, k: int, width: int, c0: int, c1: int):
+    """pcb_group_backward's plan (GROUP_BWD_PLAN), checked and laid out once
+    a shape: four channels a lane where c1 - c0 is a multiple of 4."""
+    if not 0 <= c0 < c1 <= width or n < 1:
+        raise ValueError(f"group backward: bad channels [{c0}, {c1}) of {width}, N={n}")
+    if b > 65535:
+        raise ValueError(f"group backward kernel takes B <= 65535, got {b}")
+    vec = 4 if (c1 - c0) % 4 == 0 else 1
+    return (ctypes.c_int * len(GROUP_BWD_PLAN))(b, n, s, k, width, c0, c1,
+                                                group_lanes((c1 - c0) // vec), vec)
+
+
 def group_backward_cuda(
     g: torch.Tensor, idx: torch.Tensor, n: int, c0: int, c1: int
 ) -> torch.Tensor:
@@ -264,21 +356,14 @@ def group_backward_cuda(
     _kernels.check_tensor("g", g, torch.float32, 4)
     _kernels.check_tensor("idx", idx, torch.int32, 3)
     b, s, k, width = g.shape
-    if idx.shape != (b, s, k) or not 0 <= c0 < c1 <= width or n < 1:
-        raise ValueError(
-            f"group backward: bad shapes g {tuple(g.shape)}, idx {tuple(idx.shape)}, "
-            f"channels [{c0}, {c1}), N={n}"
-        )
-    out = torch.empty((b, n, c1 - c0), dtype=torch.float32, device=g.device)
-    total = b * s * k * (c1 - c0)
-    if total >= 2**30 or out.numel() >= 2**31:
-        raise ValueError(f"group backward kernel takes < 2^30 elements, got {total}")
-    if total == 0:
+    if idx.shape != (b, s, k):
+        raise ValueError(f"group backward: g {tuple(g.shape)} vs idx {tuple(idx.shape)}")
+    plan = _group_backward_plan(b, n, s, k, width, c0, c1)
+    out = torch.empty(b, n, c1 - c0, dtype=torch.float32, device=g.device)
+    if b * s * k == 0:
         return out.zero_()
-    _kernels.GROUP_BWD.launch(
-        g.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, s, k, width, c0, c1,
-        *_kernels.stream_args(g),
-    )
+    _kernels.GROUP_BWD.launch(g.data_ptr(), idx.data_ptr(), out.data_ptr(), plan,
+                              *_kernels.stream_args(g))
     return out
 
 
