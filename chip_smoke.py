@@ -20,13 +20,23 @@ any failure raises and exits non-zero:
    within 1e-5; median times of both from CUDA events, summed a path,
    beside the least time the card could take (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s float32, whichever is larger) and, where one
-   PyTorch call computes the same function, that call's time. The group
+   PyTorch call computes the same function, that call's time. FPS (K1)
+   also at the SSG levels at B=16, from a [B] start, over duplicated points
+   and a row of one point, at N no multiple of 32 (one warp and several),
+   npoint = N, npoint > N and N = 16384 (the cap); each timed K1 case adds
+   ns and cycles a step at the SM clock that nvidia-smi reads meanwhile,
+   beside the one-SM issue floor (12 instructions a point over 128 lanes a
+   cycle). Interpolation (K4) also at the SSG levels at B=16, D=131, a
+   feature view 4 bytes off alignment, S=2 with k=2, ties on an integer grid
+   and S=2000, each case with the kept selection (indices bit for bit,
+   weights within 1e-6) and the same output with and without it. The group
    kernel (K3) also at the SSG levels at B=16 (the serve's batch), at
    widths 3, 4 and 16, over empty balls, N = 1, 35 rows a batch and indices
    out of range, the same bits twice, and with its two ways to store side
-   by side; each timed K3 case adds the split of its time: device time a
-   call of the kernel and of the library call (a CUDA graph of 20 calls
-   between two events) and the wrapper's host time a call (1000 calls);
+   by side. Each timed K1, K3 and K4 case adds the split of its time: device
+   time a call of the kernel and of the library call (a CUDA graph of 20
+   calls between two events) and the wrapper's host time a call (1000
+   calls);
 3b. the backward kernels against their plain versions at the SSG train
    shapes (B=4): group backward (K3b: sa2, sa3) and interpolation backward
    (fp3, fp2, fp1, on the selection the forward kernel saved), within 1e-5
@@ -118,7 +128,9 @@ any failure raises and exits non-zero:
    CPU at the same batch, checked as in 13: exactly 8 launches a kernel.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
-K3b cases of phases 3 and 3b alone (and ``--attention`` phases 3c and 3d),
+K3b cases of phases 3 and 3b alone (``--attention`` phases 3c and 3d;
+``--sampling`` the K1 and K4 cases of phase 3, then each kernel's launch
+choices side by side: FPS by threads a row, interpolation by lanes a query),
 and prints no result line.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
@@ -127,9 +139,10 @@ B=4 (phase 8; of one SSG train step, phase 6, for its backward kernels; of
 one ptv3_pooled forward, phase 10, for the flash-attention kernel; of one
 ptv3_pooled train step, phase 13, for the attention-backward kernels) beside
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
-those launches' shapes (phases 3, 3b, 3c, 3d), and for K3 and K3b the
-device times ``device_ms`` and ``library_device_ms`` (null for the other
-kernels); ``paths`` has the same for the other passes, and
+those launches' shapes (phases 3, 3b, 3c, 3d), and for K1, K3, K3b and
+K4 the device times ``device_ms`` and ``library_device_ms`` (null for the
+other kernels and where no library call exists); ``paths`` has the same for
+the other passes, and
 ``launches_by_path`` the counts of the serves and the training runs through
 the CLIs. The last line is {"ok": true, "device": {...}}.
 """
@@ -399,6 +412,7 @@ class Results:
             if paths:
                 line += f"  [{times} x " + ", ".join(paths) + "]"
         print(line, flush=True)
+        return case if work else None
 
     def row(self, name: str, path: str, launches: int) -> dict:
         """The numbers of one kernel on one path, as the summary prints
@@ -438,26 +452,7 @@ def compare_kernels(dev: torch.device) -> Results:
     res = Results()
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
 
-    # K1 FPS: the SA levels of both models (the first is the same shape in
-    # both), a [B] start, duplicated points (ties)
-    for n, npoint, paths in ((4096, 1024, (SSG, BRISTRUNET)), (1024, 256, (SSG,)),
-                             (256, 64, (SSG,)), (1024, 512, (BRISTRUNET,)),
-                             (512, 128, (BRISTRUNET,))):
-        xyz = cloud(n)
-        # a step is a distance (8 flops), a min and a compare of each point
-        res.check("fps", f"{n}->{npoint}",
-                  lambda: sampling.fps_cuda(xyz, npoint, zero),
-                  lambda: sampling.fps_plain(xyz, npoint, zero), True, paths,
-                  work=(nbytes(xyz, zero) + B * npoint * 4, 10 * B * npoint * n))
-    xyz = cloud(4096)
-    start = torch.from_numpy(rng.integers(0, 4096, B).astype(np.int32)).to(dev)
-    res.check("fps", "4096->1024 start [B]",
-              lambda: sampling.fps_cuda(xyz, 1024, start),
-              lambda: sampling.fps_plain(xyz, 1024, start), True)
-    grid = torch.from_numpy(rng.integers(0, 8, (B, 4096, 3)).astype(np.float32)).to(dev)
-    res.check("fps", "4096->256 duplicated points",
-              lambda: sampling.fps_cuda(grid, 256, zero),
-              lambda: sampling.fps_plain(grid, 256, zero), True)
+    compare_fps_kernel(dev, res, rng)
 
     # K2 ball query and K3 group at the levels of both models, then K3's
     # own cases (batch 16, widths, empty balls, ragged row counts)
@@ -473,21 +468,7 @@ def compare_kernels(dev: torch.device) -> Results:
               lambda: grouping.ball_query_cuda(0.5, 32, xyz, centers),
               lambda: grouping.ball_query_plain(0.5, 32, xyz, centers), True)
 
-    # K4 interpolation: the three FP levels of SSG (k=3) and of BriStruNet
-    # (k=4); the sources are a subset of the destinations, as FPS makes them
-    # (zero distances included)
-    for paths, k, levels in (
-        ((SSG,), 3, ((256, 64, 512), (1024, 256, 256), (4096, 1024, 128))),
-        ((BRISTRUNET,), 4, ((512, 128, 1024), (1024, 512, 256), (4096, 1024, 256))),
-    ):
-        for n, s, d in levels:
-            dst = cloud(n)
-            src = dst[:, :s].contiguous()
-            f = normal(B, s, d)
-            res.check("interpolate", f"N={n} S={s} D={d} k={k}",
-                      lambda: interpolate.interpolate_cuda(dst, src, f, k)[0],
-                      lambda: interpolate.interpolate_plain(dst, src, f, k)[0], False, paths,
-                      work=interp_work(dst, src, f, k))
+    compare_interp_kernel(dev, res, rng)
 
     # K5 exact k-NN: the three BriStruNet shapes (self-query), then a query
     # set of its own with k=64 (two registers a lane) and N no multiple of
@@ -645,6 +626,205 @@ def interp_work(dst, src, f, k: int) -> tuple:
     return nbytes(dst, src, f) + b * n * d * 4, 9 * b * n * s + 2 * k * b * n * d
 
 
+# (B, N, npoint, paths) of each FPS call of a pass: SSG's three levels and
+# BriStruNet's (the first is the same shape in both) at B=4, SSG's at B=16
+FPS_LEVELS = ((B, 4096, 1024, (SSG, BRISTRUNET)), (B, 1024, 256, (SSG,)),
+              (B, 256, 64, (SSG,)), (B, 1024, 512, (BRISTRUNET,)), (B, 512, 128, (BRISTRUNET,)),
+              (16, 4096, 1024, (SSG_B16,)), (16, 1024, 256, (SSG_B16,)),
+              (16, 256, 64, (SSG_B16,)))
+# instructions a point a step that csrc/fps.cu issues (a distance: 3
+# subtractions, 3 multiplications, 2 additions; a min, a compare, two
+# selects) and the float32 lanes of one SM a cycle: a row's step cannot take
+# fewer than N * 12 / 128 cycles on its one SM
+FPS_INSTRUCTIONS = 12
+SM_LANES = 128
+# (N, S, D) of each interpolation of a pass: the three FP levels of SSG (k=3)
+# and of BriStruNet (k=4); the sources are a subset of the destinations
+SSG_INTERP = ((256, 64, 512), (1024, 256, 256), (4096, 1024, 128))
+BRISTRUNET_INTERP = ((512, 128, 1024), (1024, 512, 256), (4096, 1024, 256))
+
+
+class SmClock:
+    """``nvidia-smi``'s clocks.sm every 50 ms from a background process while
+    the block runs; ``mhz`` is the highest reading, the clock under load."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+             "-lms", "50", "-i", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        readings = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+        self.mhz = max(readings) if readings else float("nan")
+
+
+def compare_fps_kernel(dev: torch.device, res: Results, rng) -> None:
+    """K1 against fps_plain, bit for bit: the SA levels of SSG and BriStruNet
+    at B=4 and SSG's at B=16, timed three ways (events; device time from a
+    CUDA graph; host time a call), with ns and cycles a step at the SM clock
+    that nvidia-smi reads meanwhile and beside the one-SM issue floor; then a
+    [B] start, duplicated points, a row of equal points, N no multiple of 32
+    (one warp and several), npoint = N, npoint > N and N = 16384, the cap."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def case(label, xyz, npoint, start, paths=(), timed=False):
+        b, n, _ = xyz.shape
+        # a step is a distance (8 flops), a min and a compare of each point
+        work = (nbytes(xyz, start) + b * npoint * 4, 10 * b * npoint * n) if timed else None
+        return res.check("fps", label, lambda: sampling.fps_cuda(xyz, npoint, start),
+                         lambda: sampling.fps_plain(xyz, npoint, start), True, paths,
+                         work=work, split=timed)
+
+    timed = []
+    with SmClock() as clock:
+        for b, n, npoint, paths in FPS_LEVELS:
+            got = case(f"B={b} {n}->{npoint}", cloud(b, n), npoint,
+                       torch.zeros(b, dtype=torch.int32, device=dev), paths, timed=True)
+            timed.append((b, n, npoint, paths, got["device_ms"]))
+    sums = {}
+    for b, n, npoint, paths, ms in timed:
+        floor_ms = npoint * n * FPS_INSTRUCTIONS / SM_LANES / (clock.mhz * 1e3)
+        ns = ms * 1e6 / npoint
+        print(f"{'fps':18s} B={b} {n}->{npoint}: device {ms:.4f} ms, {ns:.1f} ns = "
+              f"{ns * clock.mhz / 1e3:.0f} cycles a step at {clock.mhz:.0f} MHz; one-SM issue "
+              f"floor {floor_ms:.4f} ms", flush=True)
+        for path in paths:
+            t = sums.setdefault(path, [0.0, 0, 0.0])
+            t[0], t[1], t[2] = t[0] + ms, t[1] + npoint, t[2] + floor_ms
+    for path, (ms, steps, floor_ms) in sums.items():
+        print(f"{'fps':18s} {path}: {steps} steps, device {ms:.4f} ms, "
+              f"{ms * 1e6 / steps:.1f} ns a step, one-SM issue floor {floor_ms:.4f} ms "
+              f"(clocks.sm {clock.mhz:.0f} MHz)", flush=True)
+    res.print_sums("fps", (SSG, BRISTRUNET, SSG_B16))
+
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    start = torch.from_numpy(rng.integers(0, 4096, B).astype(np.int32)).to(dev)
+    case("4096->1024 start [B]", cloud(B, 4096), 1024, start)
+    grid = torch.from_numpy(rng.integers(0, 8, (B, 4096, 3)).astype(np.float32)).to(dev)
+    case("4096->256 duplicated points", grid, 256, zero)
+    same = cloud(B, 4096)
+    same[1] = 0.5
+    case("4096->256, row 1 one point 4096 times", same, 256, zero)
+    for n, npoint in ((1000, 300), (200, 50), (33, 33), (2048, 2048), (100, 300)):
+        case(f"{n}->{npoint}", cloud(B, n), npoint, zero)
+    start = torch.from_numpy(rng.integers(0, 16384, B).astype(np.int32)).to(dev)
+    case("16384->2500 (the cap), start [B]", cloud(B, 16384), 2500, start)
+
+
+def compare_interp_kernel(dev: torch.device, res: Results, rng) -> None:
+    """K4 against interpolate_plain: the output within INTERP_TOL, and with
+    ``keep`` the kept indices bit for bit and the weights within 1e-6, the
+    output the same bits with ``keep`` on and off. The FP levels of SSG (k=3)
+    and BriStruNet (k=4) at B=4 and SSG's at B=16, timed three ways (events;
+    device time from a CUDA graph; host time a call); then D=131, a feature
+    view 4 bytes off 16-byte alignment, S=2 with k=2 (fewer sources than a
+    lane group), exact ties on an integer grid and S=2000 (two staged tiles)."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def case(label, dst, src, f, k, paths=(), timed=False):
+        out, idx, w = interpolate.interpolate_cuda(dst, src, f, k, True)
+        _, pidx, pw = interpolate.interpolate_plain(dst, src, f, k, True)
+        if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
+            raise AssertionError(f"interpolate {label}: kept selection differs from plain")
+        if not torch.equal(out, interpolate.interpolate_cuda(dst, src, f, k)[0]):
+            raise AssertionError(f"interpolate {label}: keep on and off give other outputs")
+        res.check("interpolate", label, lambda: interpolate.interpolate_cuda(dst, src, f, k)[0],
+                  lambda: interpolate.interpolate_plain(dst, src, f, k)[0], False, paths,
+                  work=interp_work(dst, src, f, k) if timed else None, split=timed)
+
+    for b, paths, k, levels in ((B, (SSG,), 3, SSG_INTERP), (B, (BRISTRUNET,), 4, BRISTRUNET_INTERP),
+                                (16, (SSG_B16,), 3, SSG_INTERP)):
+        for n, s, d in levels:
+            dst = cloud(b, n)
+            case(f"B={b} N={n} S={s} D={d} k={k}", dst, dst[:, :s].contiguous(), normal(b, s, d),
+                 k, paths, timed=True)
+    res.print_sums("interpolate", (SSG, BRISTRUNET, SSG_B16))
+
+    dst = cloud(B, 1024)
+    src = dst[:, :256].contiguous()
+    case("N=1024 S=256 D=131 k=3", dst, src, normal(B, 256, 131), 3)
+    flat = normal(B * 256 * 256 + 1)
+    view = flat[1:].view(B, 256, 256)  # contiguous, 4 bytes past 16-byte alignment
+    case("N=1024 S=256 D=256 k=3, feats 4 bytes off", dst, src, view, 3)
+    case("N=1000 S=2 D=64 k=2", cloud(B, 1000), cloud(B, 2), normal(B, 2, 64), 2)
+    grid = torch.from_numpy(rng.integers(0, 5, (B, 2048, 3)).astype(np.float32)).to(dev)
+    for k in (4, 1):
+        case(f"integer grid (ties) N=2048 S=512 D=64 k={k}", grid, grid[:, ::4].contiguous(),
+             normal(B, 512, 64), k)
+    case("N=300 S=2000 D=64 k=3", cloud(B, 300), cloud(B, 2000), normal(B, 2000, 64), 3)
+
+
+def fps_with(xyz, npoint: int, start, threads: int) -> torch.Tensor:
+    """csrc/fps.cu at ``threads`` threads a row (and the points a thread
+    that N then takes), in place of the wrapper's choice."""
+    b, n, _ = xyz.shape
+    out = torch.empty(b, npoint, dtype=torch.int32, device=xyz.device)
+    plan = sampling._fps_plan(b, n, npoint, threads, sampling._pow2_at_least(-(-n // threads)))
+    _kernels.FPS.launch(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), plan,
+                        *_kernels.stream_args(xyz))
+    return out
+
+
+def interp_with(dst, src, f, k: int, lanes: int) -> torch.Tensor:
+    """csrc/interp.cu at ``lanes`` lanes a query, in place of the wrapper's
+    choice."""
+    b, n, _ = dst.shape
+    s, d = f.shape[1:]
+    out = torch.empty(b, n, d, device=dst.device)
+    plan = interpolate._interp_plan(b, n, s, d, k, d % 4 == 0,
+                                    interpolate._sm_count(dst.get_device()), lanes)
+    _kernels.INTERPOLATE.launch(dst.data_ptr(), src.data_ptr(), f.data_ptr(), out.data_ptr(),
+                                None, None, plan, *_kernels.stream_args(dst))
+    return out
+
+
+def compare_sampling_designs(dev: torch.device) -> None:
+    """The launch choices of K1 and K4 side by side, device ms a call (CUDA
+    graph), each result held to the plain version: FPS at every block size
+    from one warp to 1024 threads that keeps <= 16 points a thread, at the
+    model levels; interpolation at 4, 8, 16 and 32 lanes a query, at the model
+    levels at B=4 and SSG's at B=16."""
+    rng = np.random.default_rng(SEED + 3)
+    for b, n, npoint, _ in FPS_LEVELS:
+        xyz = torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+        zero = torch.zeros(b, dtype=torch.int32, device=dev)
+        want = sampling.fps_plain(xyz, npoint, zero)
+        line = []
+        for threads in (32, 64, 128, 256, 512, 1024):
+            if threads > max(32, n) or -(-n // threads) > 16:
+                continue
+            if not torch.equal(fps_with(xyz, npoint, zero, threads), want):
+                raise AssertionError(f"fps B={b} {n}->{npoint} at {threads} threads: disagrees")
+            line.append(f"{threads}: {device_ms(lambda: fps_with(xyz, npoint, zero, threads)):.4f}")
+        chosen = sampling.fps_launch(n)[0]
+        print(f"{'fps':18s} B={b} {n}->{npoint} device ms by threads a row (chosen {chosen}): "
+              + ", ".join(line), flush=True)
+    for b, k, levels in ((B, 3, SSG_INTERP), (B, 4, BRISTRUNET_INTERP), (16, 3, SSG_INTERP)):
+        for n, s, d in levels:
+            dst = torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+            src = dst[:, :s].contiguous()
+            f = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(dev)
+            want = interpolate.interpolate_cuda(dst, src, f, k)[0]
+            line = []
+            for lanes in (4, 8, 16, 32):
+                if not torch.equal(interp_with(dst, src, f, k, lanes), want):
+                    raise AssertionError(f"interpolate B={b} N={n} S={s}: {lanes} lanes disagree")
+                line.append(f"{lanes}: {device_ms(lambda: interp_with(dst, src, f, k, lanes)):.4f}")
+            print(f"{'interpolate':18s} B={b} N={n} S={s} D={d} k={k} device ms by lanes a query "
+                  f"(chosen {interpolate.interp_lanes(b * n)}): " + ", ".join(line), flush=True)
+
+
 def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     """Phase 3b: the backward kernels against their plain versions at the
     SSG train shapes (B=4)."""
@@ -662,9 +842,7 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     # itself is held to the plain one (indices exact, weights 1e-6)
     # the SSG levels (k=3, timed into the train step's sums), then those of a
     # BriStruNet backward (fp3-fp1: k=4, D up to 1024): held, not timed
-    ssg = ((256, 64, 512), (1024, 256, 256), (4096, 1024, 128))
-    bristrunet = ((512, 128, 1024), (1024, 512, 256), (4096, 1024, 256))
-    for k, levels, timed in ((3, ssg, True), (4, bristrunet, False)):
+    for k, levels, timed in ((3, SSG_INTERP, True), (4, BRISTRUNET_INTERP, False)):
         for n, s, d in levels:
             dst = cloud(n)
             src = dst[:, :s].contiguous()
@@ -1675,6 +1853,15 @@ def main() -> None:
         res = Results()
         compare_group_kernel(dev, res, np.random.default_rng(SEED), with_ball=False)
         compare_group_backward(dev, res, np.random.default_rng(SEED + 1))
+        return
+    if sys.argv[1:] == ["--sampling"]:
+        # kernel work on K1 and K4: phases 1, 2 and their cases of 3, then
+        # their launch choices side by side, no result line
+        res = Results()
+        rng = np.random.default_rng(SEED)
+        compare_fps_kernel(dev, res, rng)
+        compare_interp_kernel(dev, res, rng)
+        compare_sampling_designs(dev)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")

@@ -47,6 +47,22 @@ struct FastDiv {
   }
 };
 
+// Warp argmax over (key, index) pairs: the largest key and, among the lanes
+// that hold it, the lowest index. A non-negative float32 orders like its
+// uint32 bits, so a distance d >= 0 goes in as __float_as_uint(d). Two
+// redux.sync operations (compute capability 8.0 and up) take the place of a
+// five-level tree of shuffles and merges. Every lane gets the result; all 32
+// lanes must call it.
+struct KeyIndex {
+  unsigned key;
+  unsigned idx;
+};
+__device__ __forceinline__ KeyIndex warp_argmax(unsigned key, unsigned idx) {
+  const unsigned best = __reduce_max_sync(0xffffffffu, key);
+  const unsigned at = __reduce_min_sync(0xffffffffu, key == best ? idx : 0xffffffffu);
+  return {best, at};
+}
+
 // Clamp an index into [0, n - 1], as index_points does: a ball-query miss
 // is n and reads point n - 1.
 __device__ __forceinline__ int clamp_index(int j, int n) {

@@ -14,9 +14,10 @@ run can show which kernels the main path went through. The wrappers in the
 raw pointers and PyTorch's current stream. The launch path is kept thin,
 because at the models' smaller shapes a call's host time exceeds its device
 time: each entry point is bound once (``Kernel.fn``), the stream is read as
-a raw handle, the C side sets the device only when it changes, and the group
-kernels take their integers as one array laid out once a shape
-(ops/grouping.py), since ctypes converts every argument on every call.
+a raw handle, the C side sets the device only when it changes, and the FPS,
+group and interpolation kernels take their integers as one array laid out
+once a shape (ops/sampling.py, grouping.py, interpolate.py), since ctypes
+converts every argument on every call.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc`` or a GPU.
@@ -80,8 +81,8 @@ class Kernel:
 
 FPS = Kernel(
     "fps", "pcb_fps",
-    # xyz, start, out, B, N, npoint, device, stream
-    (_P, _P, _P, _I, _I, _I, _I, _P),
+    # xyz, start, out, plan (ops/sampling.py FPS_PLAN), device, stream
+    (_P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/fps.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/fps.py:137",
 )
@@ -102,8 +103,9 @@ GROUP = Kernel(
 )
 INTERPOLATE = Kernel(
     "interpolate", "pcb_interpolate",
-    # dst, src, feats, out, idx_out, w_out, B, N, S, D, k, device, stream
-    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # dst, src, feats, out, idx_out, w_out, plan (ops/interpolate.py
+    # INTERP_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/interp.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/interp3.py:53",
 )

@@ -310,17 +310,6 @@ def group_cuda(xyz, new_xyz, idx, features=None, staged=None) -> torch.Tensor:
         features.data_ptr() if c else None, out.data_ptr(), plan, *_kernels.stream_args(xyz),
     )
     return out
-    lanes, rows, fits = group_launch(width)
-    if staged is not None and staged != fits:
-        if staged:
-            raise ValueError(f"group kernel: a tile of width {width} does not fit shared memory")
-        rows, fits = 4, False
-    _kernels.GROUP.launch(
-        xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
-        features.data_ptr() if c else None, out.data_ptr(), b, n, s, k, c, lanes, rows,
-        fits, *fast_divisor(k), *_kernels.stream_args(xyz),
-    )
-    return out
 
 
 def group_backward_plain(

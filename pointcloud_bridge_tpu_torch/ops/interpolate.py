@@ -16,6 +16,8 @@ query's k indices and weights for it.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -25,6 +27,14 @@ from .core import index_points, pairwise_sq_dist
 
 # the kernel keeps the k best neighbours in registers
 INTERP_MAX_K = 4
+# the integers of a launch, in the order pcb_interpolate (csrc/interp.cu)
+# reads them
+INTERP_PLAN = ("b", "n", "s", "d", "k", "lanes", "chunk", "vec")
+# csrc/interp.cu: threads a block; a channel chunk is whole warp widths of
+# 16-byte accesses
+_INTERP_THREADS = 256
+_CHUNK_FLOATS = 128
+_LANES_AT_WORK = 2**17
 
 
 def three_nn_interpolate(
@@ -57,11 +67,11 @@ class Interpolate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xyz_dst, xyz_src, feats_src, k: int, keep: bool):
-        cpu = xyz_dst.device.type == "cpu"
-        if cpu:
+        if xyz_dst.device.type == "cpu":
             out, idx, w = interpolate_plain(xyz_dst, xyz_src, feats_src, k, keep)
         else:
-            out, idx, w = interpolate_cuda(xyz_dst, xyz_src, feats_src, k, keep)
+            out, idx, w = interpolate_cuda(xyz_dst.contiguous(), xyz_src.contiguous(),
+                                           feats_src.contiguous(), k, keep)
         if keep:
             ctx.save_for_backward(idx, w)
             ctx.s = xyz_src.shape[1]
@@ -115,11 +125,58 @@ def interpolate_plain(
     return out, idx.to(torch.int32), w
 
 
+def interp_lanes(queries: int) -> int:
+    """Lanes that select for one query in csrc/interp.cu, by the number of
+    queries B * N: the fewest of 4, 8, 16 and 32 that put 2^17 lanes to work
+    (a wave of the card's 132 SMs at about 1000 threads each). Fewer lanes
+    a query scan longer but merge less, which pays where the queries alone
+    fill the card."""
+    for lanes in (4, 8, 16):
+        if queries * lanes >= _LANES_AT_WORK:
+            return lanes
+    return 32
+
+
+def interp_chunk(blocks: int, d: int, sms: int) -> int:
+    """Channels a block of csrc/interp.cu blends, where ``blocks`` blocks
+    cover the rows: all D where that gives the card two blocks an SM, else
+    D cut into chunks of whole warp widths (128 channels), as many as it
+    takes to get there and at most one a warp width."""
+    if blocks >= 2 * sms or d <= _CHUNK_FLOATS:
+        return max(d, 1)
+    chunks = min(-(-2 * sms // blocks), -(-d // _CHUNK_FLOATS))
+    width = -(-d // chunks)
+    return min(d, -(-width // _CHUNK_FLOATS) * _CHUNK_FLOATS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _interp_plan(b: int, n: int, s: int, d: int, k: int, vec: bool, sms: int,
+                 lanes: Optional[int] = None):
+    """pcb_interpolate's plan (INTERP_PLAN), checked and laid out once a
+    shape: ``interp_lanes`` lanes a query (or ``lanes``), and the channel
+    chunk that gives ``sms`` SMs two blocks each where the rows allow."""
+    if b > 65535 or b * n >= 2**31:
+        raise ValueError(f"interpolate kernel takes B <= 65535 and B * N < 2^31, got B={b}, N={n}")
+    lanes = lanes or interp_lanes(b * n)
+    if lanes not in (4, 8, 16, 32):
+        raise ValueError(f"interpolate kernel: 4, 8, 16 or 32 lanes a query, got {lanes}")
+    blocks = -(-n // (_INTERP_THREADS // lanes)) * b
+    return (ctypes.c_int * len(INTERP_PLAN))(b, n, s, d, k, lanes, interp_chunk(blocks, d, sms),
+                                             vec)
+
+
 def interpolate_cuda(
     xyz_dst, xyz_src, feats_src, k: int, keep: bool = False
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Interpolation kernel wrapper: one launch -> (out, idx, w) as
-    ``interpolate_plain``; with ``keep`` the kernel also writes idx and w."""
+    """Interpolation kernel wrapper -> (out, idx, w) as ``interpolate_plain``;
+    with ``keep`` the kernel also writes idx and w. 16-byte accesses where D
+    is a multiple of 4 and both feats_src and the output are 16-byte aligned
+    (a contiguous view at an offset need not be)."""
     _kernels.check_tensor("xyz_dst", xyz_dst, torch.float32, 3)
     _kernels.check_tensor("xyz_src", xyz_src, torch.float32, 3)
     _kernels.check_tensor("feats_src", feats_src, torch.float32, 3)
@@ -135,17 +192,18 @@ def interpolate_cuda(
     if not 1 <= k <= min(INTERP_MAX_K, s):
         raise ValueError(f"interpolate kernel takes 1 <= k <= min(4, S), got k={k}, S={s}")
     dev = xyz_dst.device
-    out = torch.empty((b, n, d), dtype=torch.float32, device=dev)
+    out = torch.empty(b, n, d, dtype=torch.float32, device=dev)
+    vec = d % 4 == 0 and feats_src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = _interp_plan(b, n, s, d, k, vec, _sm_count(dev.index))
     idx = w = None
     if keep:
-        idx = torch.empty((b, n, k), dtype=torch.int32, device=dev)
-        w = torch.empty((b, n, k), dtype=torch.float32, device=dev)
+        idx = torch.empty(b, n, k, dtype=torch.int32, device=dev)
+        w = torch.empty(b, n, k, dtype=torch.float32, device=dev)
     if b * n == 0:
         return out, idx, w
     _kernels.INTERPOLATE.launch(
-        xyz_dst.data_ptr(), xyz_src.data_ptr(), feats_src.data_ptr(),
-        out.data_ptr(), idx.data_ptr() if keep else None,
-        w.data_ptr() if keep else None, b, n, s, d, k,
+        xyz_dst.data_ptr(), xyz_src.data_ptr(), feats_src.data_ptr(), out.data_ptr(),
+        idx.data_ptr() if keep else None, w.data_ptr() if keep else None, plan,
         *_kernels.stream_args(xyz_dst),
     )
     return out, idx, w
