@@ -13,8 +13,9 @@ any failure raises and exits non-zero:
 2. build the CUDA kernels from csrc/ (timed, with the ptxas report);
 3. hold each kernel against its plain PyTorch version on the card at every
    shape that the PointNet++ SSG forward and the BriStruNet forward give it
-   (B=4, 4096 points; BriStruNet: FPS 4096->1024->512->128, ball query and
-   group at K=16 and K=32 over two radii a level with 3, 256 and 512 feature
+   (B=4, 4096 points; BriStruNet: FPS 4096->1024->512->128, ball query (one
+   scan a level for both radii) and group at K=16 and K=32 over two radii a
+   level with 3, 256 and 512 feature
    channels, interpolation at k=4, the exact k-NN kernel at its three
    shapes): FPS, ball query, group and k-NN bit-identical, interpolation
    within 1e-5; median times of both from CUDA events, summed a path,
@@ -26,17 +27,27 @@ any failure raises and exits non-zero:
    npoint = N, npoint > N and N = 16384 (the cap); each timed K1 case adds
    ns and cycles a step at the SM clock that nvidia-smi reads meanwhile,
    beside the one-SM issue floor (12 instructions a point over 128 lanes a
-   cycle). Interpolation (K4) also at the SSG levels at B=16, D=131, a
+   cycle). Ball query (K2) also at the SSG levels at B=16, over empty balls,
+   K > N (duplicate points among them), N no multiple of 32, N = 16384 (a
+   ring of staged tiles), radius 0 over duplicate points and one scan of
+   three radii over N = 9000 (a ring) and of two where the smaller radius
+   asks for more points, each output held to its own radius; the exact k-NN
+   (K5), indices and distances, also at N=S=4096 k=32 at B=16 (the serve's
+   batch), N = 16384 with k = 64 (a ring of staged tiles), S != N, k = N, N
+   no multiple of 32, and k = 1, 32, 40 and 64 on an integer grid (ties);
+   each timed K2 and K5 case adds its issue floor (9 instructions a pair
+   scanned over 128 lanes an SM a cycle at the SM clock that nvidia-smi
+   reads meanwhile). Interpolation (K4) also at the SSG levels at B=16, D=131, a
    feature view 4 bytes off alignment, S=2 with k=2, ties on an integer grid
    and S=2000, each case with the kept selection (indices bit for bit,
    weights within 1e-6) and the same output with and without it. The group
    kernel (K3) also at the SSG levels at B=16 (the serve's batch), at
    widths 3, 4 and 16, over empty balls, N = 1, 35 rows a batch and indices
    out of range, the same bits twice, and with its two ways to store side
-   by side. Each timed K1, K3 and K4 case adds the split of its time: device
-   time a call of the kernel and of the library call (a CUDA graph of 20
-   calls between two events) and the wrapper's host time a call (1000
-   calls);
+   by side. Each timed K1, K2, K3, K4 and K5 case adds the split of its
+   time: device time a call of the kernel and of the library call (a CUDA
+   graph of 20 calls between two events) and the wrapper's host time a call
+   (1000 calls);
 3b. the backward kernels against their plain versions at the SSG train
    shapes (B=4): group backward (K3b: sa2, sa3) and interpolation backward
    (fp3, fp2, fp1, on the selection the forward kernel saved), within 1e-5
@@ -45,8 +56,9 @@ any failure raises and exits non-zero:
    BriStruNet backward (sa1-sa3, K=16 and 32 with 3, 256 and 512 channels),
    and held with the xyz channels (c0 = 0, c1 = 3), output widths 1, 4 and
    16, empty balls, N = 1, K = 64 and 35 rows a batch; interpolation
-   backward held, not timed, at a BriStruNet backward's shapes (k=4, up to
-   1024 channels);
+   backward (K4b) timed at the SSG shapes with the split of its time and of
+   index_add_'s, and held, not timed, at a BriStruNet backward's shapes
+   (k=4, up to 1024 channels);
 3c. the flash-attention kernel against the plain attention at every shape
    that the PTv3 family gives it at B=4 x 4096 (the windows of level 0 folded
    to [16,1024,2,32], the global levels [4,1024,4,32] and [4,256,8,32], the
@@ -86,8 +98,9 @@ any failure raises and exits non-zero:
    16 (ms, points/s), peak device memory and device time by kernel family;
 8. the BriStruNet forward at full width, B=4 x 4096, random weights and
    BatchNorm statistics, on the card against the CPU (plain versions):
-   logits within 2e-4; exactly 3 FPS, 6 ball-query, 6 group, 3
-   interpolation and 3 k-NN launches and no backward kernel; forward time,
+   logits within 2e-4; exactly 3 FPS, 3 ball-query (both radii of a level
+   in one scan), 6 group, 3 interpolation and 3 k-NN launches and no
+   backward kernel; forward time,
    points/s, and device time by kernel family from one torch.profiler run;
 9. serve through the inference CLI (infer_cli.main) from checkpoints:
    BriStruNet in ``blocks`` mode (once in a fresh interpreter, the cold
@@ -130,8 +143,10 @@ any failure raises and exits non-zero:
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
 K3b cases of phases 3 and 3b alone (``--attention`` phases 3c and 3d;
 ``--sampling`` the K1 and K4 cases of phase 3, then each kernel's launch
-choices side by side: FPS by threads a row, interpolation by lanes a query),
-and prints no result line.
+choices side by side: FPS by threads a row, interpolation by lanes a query;
+``--neighbours`` the K2 and K5 cases of phase 3, then their launch choices
+side by side: warps a block and queries a warp, and K5's row staged as a
+ring of tiles), and prints no result line.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
@@ -139,9 +154,10 @@ B=4 (phase 8; of one SSG train step, phase 6, for its backward kernels; of
 one ptv3_pooled forward, phase 10, for the flash-attention kernel; of one
 ptv3_pooled train step, phase 13, for the attention-backward kernels) beside
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
-those launches' shapes (phases 3, 3b, 3c, 3d), and for K1, K3, K3b and
-K4 the device times ``device_ms`` and ``library_device_ms`` (null for the
-other kernels and where no library call exists); ``paths`` has the same for
+those launches' shapes (phases 3, 3b, 3c, 3d), and for K1-K5, K3b and K4b
+the device times ``device_ms`` and ``library_device_ms`` (null for the
+other kernels and where no library call exists), for K2 and K5 the issue
+floor ``issue_floor_ms`` (null for the others); ``paths`` has the same for
 the other passes, and
 ``launches_by_path`` the counts of the serves and the training runs through
 the CLIs. The last line is {"ok": true, "device": {...}}.
@@ -209,9 +225,10 @@ def attention_launches(n: int) -> dict:
     return only(flash_attn=n, flash_attn_bwd_dq=n, flash_attn_bwd_dkv=n)
 
 
-# launches of one BriStruNet forward: an FPS a level, two radii a level, an
-# interpolation a decoder level, a k-NN in bri_enc, geometric2 and geometric3
-BRISTRUNET_LAUNCHES = only(fps=3, ball_query=6, group=6, interpolate=3, knn=3)
+# launches of one BriStruNet forward: an FPS a level, one ball-query scan a
+# level for its two radii, a group a radius, an interpolation a decoder
+# level, a k-NN in bri_enc, geometric2 and geometric3
+BRISTRUNET_LAUNCHES = only(fps=3, ball_query=3, group=6, interpolate=3, knn=3)
 # the benched ptv3_pooled (configs/train_ptv3_pooled.yaml): an attention a block
 POOLED_BENCHED = dict(dims=(64, 128, 256), enc_depths=(2, 2, 6), dec_depths=(1, 1),
                       strides=(4, 4), window_size=1024)
@@ -322,8 +339,9 @@ ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "flash_attn": PTV3_POOLED,
             "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN}
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms", "fma_bound_ms")
 # None unless measured: the library call's event time (cases with a library
-# call), device times from a CUDA graph and host time (cases with ``split``)
-SPLIT_SUMS = ("library_ms", "device_ms", "library_device_ms", "host_us")
+# call), device times from a CUDA graph and host time (cases with ``split``),
+# and the instruction-issue floor (K2 and K5, ``add``)
+SPLIT_SUMS = ("library_ms", "device_ms", "library_device_ms", "host_us", "issue_ms")
 
 
 class Results:
@@ -425,15 +443,24 @@ class Results:
                 "bound_ms": total["bound_ms"], "fma_bound_ms": total["fma_bound_ms"],
                 "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
                 "library_ms": total["library_ms"], "device_ms": total["device_ms"],
-                "library_device_ms": total["library_device_ms"]}
+                "library_device_ms": total["library_device_ms"],
+                "issue_floor_ms": total["issue_ms"]}
+
+    def add(self, name: str, paths, key: str, value: float) -> None:
+        """Add a number found after the cases ran (the issue floor at the
+        clock read meanwhile) to each path's sum of ``key``."""
+        for path in paths:
+            total = self.total(path, name)
+            total[key] = (total[key] or 0.0) + value
 
     def print_sums(self, name: str, paths) -> None:
         """One line a path: the kernel's sums over the path's timed cases."""
         for path in paths:
             t = self.total(path, name)
             host = "" if t["host_us"] is None else f", host {t['host_us'] / t['cases']:.1f} us a call"
+            floor = "" if t["issue_ms"] is None else f", issue floor {t['issue_ms']:.5f} ms"
             print(f"{name:18s} sum over {path} ({t['cases']} launches): event {t['ms']:.4f} ms, "
-                  f"device {t['device_ms']} ms, bound {t['bound_ms']:.5f} ms, plain "
+                  f"device {t['device_ms']} ms, bound {t['bound_ms']:.5f} ms{floor}, plain "
                   f"{t['plain_ms']:.4f} ms, library event {t['library_ms']} ms, device "
                   f"{t['library_device_ms']} ms{host}", flush=True)
 
@@ -442,61 +469,15 @@ def compare_kernels(dev: torch.device) -> Results:
     """Phase 3: each kernel against its plain version at the shapes that
     the SSG forward and the BriStruNet forward give it (B=4)."""
     rng = np.random.default_rng(SEED)
-
-    def cloud(n):
-        return torch.from_numpy(rng.uniform(size=(B, n, 3)).astype(np.float32)).to(dev)
-
-    def normal(*shape):
-        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
-
     res = Results()
-    zero = torch.zeros(B, dtype=torch.int32, device=dev)
-
     compare_fps_kernel(dev, res, rng)
 
-    # K2 ball query and K3 group at the levels of both models, then K3's
-    # own cases (batch 16, widths, empty balls, ragged row counts)
-    compare_group_kernel(dev, res, rng, with_ball=True)
-    xyz = cloud(4096)
-    far = torch.full((B, 64, 3), 10.0, device=dev)
-    res.check("ball_query", "empty balls",
-              lambda: grouping.ball_query_cuda(0.1, 32, xyz, far),
-              lambda: grouping.ball_query_plain(0.1, 32, xyz, far), True)
-    xyz = cloud(16)
-    centers = xyz[:, :8].contiguous()
-    res.check("ball_query", "K=32 > N=16",
-              lambda: grouping.ball_query_cuda(0.5, 32, xyz, centers),
-              lambda: grouping.ball_query_plain(0.5, 32, xyz, centers), True)
-
+    # K3 group at the levels of both models, then its own cases (batch 16,
+    # widths, empty balls, ragged row counts)
+    compare_group_kernel(dev, res, rng)
     compare_interp_kernel(dev, res, rng)
-
-    # K5 exact k-NN: the three BriStruNet shapes (self-query), then a query
-    # set of its own with k=64 (two registers a lane) and N no multiple of
-    # 32, exact ties on an integer grid, k=1, and the serve's batch 16
-    for n, k in ((4096, 32), (512, 16), (128, 16)):
-        xyz = cloud(n)
-        res.check("knn", f"N=S={n} k={k}",
-                  lambda: grouping.knn_cuda(xyz, xyz, k),
-                  lambda: grouping.knn_plain(xyz, xyz, k), True, (BRISTRUNET,),
-                  work=(nbytes(xyz) + B * n * k * 8, 9 * B * n * n),
-                  # two calls, so an orientation and no yardstick of one call
-                  library_fn=lambda: (torch.cdist(xyz, xyz) ** 2).topk(k, largest=False))
-    xyz, query = cloud(3001), cloud(1000)
-    res.check("knn", "N=3001 S=1000 k=64",
-              lambda: grouping.knn_cuda(xyz, query, 64),
-              lambda: grouping.knn_plain(xyz, query, 64), True)
-    res.check("knn", "N=3001 S=1000 k=33",
-              lambda: grouping.knn_cuda(xyz, query, 33),
-              lambda: grouping.knn_plain(xyz, query, 33), True)
-    grid = torch.from_numpy(rng.integers(0, 6, (B, 2048, 3)).astype(np.float32)).to(dev)
-    for k in (40, 32, 1):
-        res.check("knn", f"integer grid (ties) N=S=2048 k={k}",
-                  lambda: grouping.knn_cuda(grid, grid, k),
-                  lambda: grouping.knn_plain(grid, grid, k), True)
-    xyz = torch.from_numpy(rng.uniform(size=(16, 4096, 3)).astype(np.float32)).to(dev)
-    res.check("knn", "B=16 N=S=4096 k=32",
-              lambda: grouping.knn_cuda(xyz, xyz, 32),
-              lambda: grouping.knn_plain(xyz, xyz, 32), True)
+    # K2 ball query and K5 exact k-NN
+    compare_neighbour_kernels(dev, res, rng)
     return res
 
 
@@ -509,13 +490,19 @@ BRISTRUNET_LEVELS = tuple(
     for n, s, radii, c in ((4096, 1024, (0.1, 0.2), 3), (1024, 512, (0.2, 0.4), 256),
                            (512, 128, (0.4, 0.8), 512))
     for r, k in zip(radii, (16, 32)))
+# (N, S, ((radius, K), ...)) of each ball-query launch of a pass: SSG's
+# levels, one radius each; BriStruNet's, both radii of a level in one scan
+SSG_BALLS = tuple((n, s, ((r, k),)) for n, s, k, r, _ in SSG_LEVELS)
+BRISTRUNET_BALLS = tuple((n, s, tuple((r, k) for n2, s2, k, r, _ in BRISTRUNET_LEVELS
+                                      if (n2, s2) == (n, s)))
+                         for n, s in dict.fromkeys((n, s) for n, s, *_ in BRISTRUNET_LEVELS))
 # side paths: timed and summed on lines of their own, no pass of this script
 SSG_B16, TRAIN_B16, BRISTRUNET_BWD = "ssg_forward_b16", "ssg_train_step_b16", "bristrunet_backward"
 
 
-def compare_group_kernel(dev: torch.device, res: Results, rng, with_ball: bool) -> None:
+def compare_group_kernel(dev: torch.device, res: Results, rng) -> None:
     """K3 against group_plain, bit for bit, at every level of SSG and
-    BriStruNet at B=4 (and K2 on the same inputs where ``with_ball``), SSG's
+    BriStruNet at B=4 (on ball-query indices), SSG's
     levels at B=16, then widths 3, 4 and 16 (C = 0, 1, 13), empty balls,
     N = 1, row counts that are no multiple of a lane group, indices out of
     range on both sides, and the same bits from one call to the next. The
@@ -549,11 +536,6 @@ def compare_group_kernel(dev: torch.device, res: Results, rng, with_ball: bool) 
         xyz = cloud(b, n)
         centers = xyz[:, :s].contiguous()
         idx = grouping.ball_query_cuda(r, k, xyz, centers)
-        if with_ball and b == B:
-            res.check("ball_query", f"N={n} S={s} K={k} r={r}",
-                      lambda: grouping.ball_query_cuda(r, k, xyz, centers),
-                      lambda: grouping.ball_query_plain(r, k, xyz, centers), True, paths,
-                      work=(nbytes(xyz, centers) + b * s * k * 4, 9 * ball_scan_length(idx, n)))
         group_case(f"B={b} N={n} S={s} K={k} C={c}", xyz, centers, idx, normal(b, n, c),
                    paths, timed=True)
 
@@ -610,12 +592,12 @@ def compare_group_kernel(dev: torch.device, res: Results, rng, with_ball: bool) 
                    normal(3, 1024, c) if c else None)
 
 
-def ball_scan_length(idx: torch.Tensor, n: int) -> int:
-    """Points a ball query must visit on this data, summed over the queries:
-    up to its k-th hit where the ball holds k (the last slot is then a hit of
-    its own, not a copy of the first), else all n."""
+def ball_scan_lengths(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Points each ball query must visit on this data: up to its k-th hit
+    where the ball holds k (the last slot is then a hit of its own, not a
+    copy of the first), else all n."""
     full = idx[..., -1] != idx[..., 0]
-    return int(torch.where(full, idx[..., -1] + 1, n).sum().item())
+    return torch.where(full, idx[..., -1].long() + 1, n)
 
 
 def interp_work(dst, src, f, k: int) -> tuple:
@@ -825,6 +807,216 @@ def compare_sampling_designs(dev: torch.device) -> None:
                   f"(chosen {interpolate.interp_lanes(b * n)}): " + ", ".join(line), flush=True)
 
 
+# (N, k) of each k-NN call of a BriStruNet forward, all self-queries:
+# bri_enc, geometric2, geometric3; and the side path of its first at the
+# serve's batch of 16
+BRISTRUNET_KNN = ((4096, 32), (512, 16), (128, 16))
+KNN_B16 = "knn_b16"
+# instructions a pair that K2 and K5 cannot go below: a distance (8 rounded
+# operations, no contraction) and its compare
+NEIGHBOUR_INSTRUCTIONS = 9
+
+
+def issue_floor_ms(pairs: int, mhz: float) -> float:
+    """The least time the card's float32 lanes take to issue
+    NEIGHBOUR_INSTRUCTIONS for each pair: 128 lanes an SM a cycle."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pairs * NEIGHBOUR_INSTRUCTIONS / (SM_LANES * sms * mhz * 1e3)
+
+
+def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
+    """K2 against ball_query_plain and K5 against knn_plain, bit for bit
+    (K5: indices and distances). Timed three ways (events; device time from
+    a CUDA graph; host time a call) beside two bounds, the FMA-rate bound
+    and the issue floor at the SM clock that nvidia-smi reads meanwhile: K2
+    at the SA levels of SSG and BriStruNet at B=4 and SSG's at B=16 (points
+    scanned up to each query's K-th hit), K5 at BriStruNet's three shapes
+    and its first at B=16. Then K2 over empty balls, K > N, N no multiple of
+    32, N = 16384 (a ring of tiles) and radius 0 over duplicate points; K5
+    at N = 16384 with k = 64 (a ring of tiles), S != N, k = N, and k = 1,
+    32, 40 and 64 on an integer grid (ties)."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def grid(b, n, side):
+        return torch.from_numpy(rng.integers(0, side, (b, n, 3)).astype(np.float32)).to(dev)
+
+    def ball_case(label, balls, xyz, centers, paths=(), timed=False):
+        """K2 at each (radius, K) of ``balls`` over the same points: one launch
+        (ops.grouping.ball_query_radii_cuda), or one a radius where the
+        package has no such launch (a parent's)."""
+        b, n, _ = xyz.shape
+        work = None
+        if timed:
+            # a scan goes on until its last radius has K hits
+            pairs = int(torch.stack([ball_scan_lengths(grouping.ball_query_plain(r, k, xyz, centers),
+                                                        n) for r, k in balls]).amax(0).sum())
+            work = (nbytes(xyz, centers) + sum(b * centers.shape[1] * k * 4 for _, k in balls),
+                    9 * pairs)
+        if hasattr(grouping, "ball_query_radii_cuda"):
+            def kernel():
+                return tuple(grouping.ball_query_radii_cuda(balls, xyz, centers))
+        else:
+            def kernel():
+                return tuple(grouping.ball_query_cuda(r, k, xyz, centers) for r, k in balls)
+        got = res.check("ball_query", label, kernel,
+                        lambda: tuple(grouping.ball_query_plain(r, k, xyz, centers)
+                                      for r, k in balls), True, paths, work=work, split=timed)
+        return (pairs, got) if timed else None
+
+    def knn_case(label, xyz, query, k, paths=(), timed=False):
+        b, n, _ = xyz.shape
+        s = query.shape[1]
+        work = library = None
+        if timed:
+            work = (nbytes(xyz, query) + b * s * k * 8, 9 * b * s * n)
+            # two calls, so an orientation and no yardstick of one call
+            library = lambda: (torch.cdist(query, xyz) ** 2).topk(k, largest=False)  # noqa: E731
+        got = res.check("knn", label, lambda: grouping.knn_cuda(xyz, query, k),
+                        lambda: grouping.knn_plain(xyz, query, k), True, paths, work=work,
+                        library_fn=library, split=timed)
+        return (b * s * n, got) if timed else None
+
+    timed = []
+    with SmClock() as clock:
+        for b, paths, levels in ((B, (SSG,), SSG_BALLS), (B, (BRISTRUNET,), BRISTRUNET_BALLS),
+                                 (16, (SSG_B16,), SSG_BALLS)):
+            for n, s, balls in levels:
+                xyz = cloud(b, n)
+                label = f"B={b} N={n} S={s} " + " and ".join(f"K={k} r={r}" for r, k in balls)
+                got = ball_case(label, balls, xyz, xyz[:, :s].contiguous(), paths, timed=True)
+                timed.append(("ball_query", label, paths, *got))
+        for b, paths, (n, k) in [(B, (BRISTRUNET,), nk) for nk in BRISTRUNET_KNN] + [
+                (16, (KNN_B16,), BRISTRUNET_KNN[0])]:
+            xyz = cloud(b, n)
+            timed.append(("knn", f"B={b} N=S={n} k={k}", paths,
+                          *knn_case(f"B={b} N=S={n} k={k}", xyz, xyz, k, paths, timed=True)))
+    for name, label, paths, pairs, got in timed:
+        floor_ms = issue_floor_ms(pairs, clock.mhz)
+        res.add(name, paths, "issue_ms", floor_ms)
+        print(f"{name:18s} {label}: device {got['device_ms']:.4f} ms, {pairs} pairs, issue floor "
+              f"{floor_ms:.5f} ms at {clock.mhz:.0f} MHz ({got['device_ms'] / floor_ms:.1f}x)",
+              flush=True)
+    res.print_sums("ball_query", (SSG, BRISTRUNET, SSG_B16))
+    res.print_sums("knn", (BRISTRUNET, KNN_B16))
+
+    xyz = cloud(B, 4096)
+    ball_case("empty balls", ((0.1, 32),), xyz, torch.full((B, 64, 3), 10.0, device=dev))
+    small = cloud(B, 16)
+    ball_case("K=32 > N=16", ((0.5, 32),), small, small[:, :8].contiguous())
+    dup = grid(B, 40, 2)  # 40 points on 8 sites
+    ball_case("K=64 > N=40, duplicate points", ((0.5, 64),), dup, dup[:, :10].contiguous())
+    xyz = cloud(B, 1000)
+    ball_case("N=1000 S=300 K=32 r=0.15", ((0.15, 32),), xyz, cloud(B, 300))
+    xyz = cloud(B, 16384)
+    ball_case("N=16384 S=1024 K=32 r=0.05", ((0.05, 32),), xyz, xyz[:, ::16].contiguous())
+    dup = grid(B, 4096, 6)
+    ball_case("radius 0 over duplicate points K=16", ((0.0, 16),), dup,
+              dup[:, :512].contiguous())
+    # one scan of three radii, a ring of tiles among them, and of two where
+    # the smaller radius asks for more points
+    xyz = cloud(B, 9000)
+    ball_case("N=9000 S=700 three radii", ((0.05, 8), (0.1, 16), (0.2, 64)), xyz,
+              xyz[:, :700].contiguous())
+    xyz = cloud(B, 1000)
+    ball_case("N=1000 S=256 K=64 r=0.1 and K=4 r=0.3", ((0.1, 64), (0.3, 4)), xyz,
+              xyz[:, :256].contiguous())
+
+    xyz = cloud(B, 16384)
+    knn_case("N=16384 S=1000 k=64", xyz, cloud(B, 1000), 64)
+    xyz, query = cloud(B, 3001), cloud(B, 1000)
+    for k in (64, 33):
+        knn_case(f"N=3001 S=1000 k={k}", xyz, query, k)
+    tiny = cloud(B, 64)
+    knn_case("k = N = 64", tiny, cloud(B, 7), 64)
+    ties = grid(B, 2048, 6)
+    for k in (64, 40, 32, 1):
+        knn_case(f"integer grid (ties) N=S=2048 k={k}", ties, ties, k)
+
+
+def knn_with(xyz, k: int, warps=None, tile=None) -> tuple:
+    """csrc/knn.cu self-query at ``warps`` a block and ``tile`` points a
+    staged tile, in place of the wrapper's plan -> (d2, idx)."""
+    b, n, _ = xyz.shape
+    idx = torch.empty(b, n, k, dtype=torch.int32, device=xyz.device)
+    d2 = torch.empty(b, n, k, device=xyz.device)
+    plan = grouping._knn_plan(b, n, n, k, _kernels.sm_count(xyz.get_device()), warps, tile)
+    _kernels.KNN.launch(xyz.data_ptr(), xyz.data_ptr(), idx.data_ptr(), d2.data_ptr(), plan,
+                        *_kernels.stream_args(xyz))
+    return d2, idx
+
+
+def ball_with(balls, xyz, centers, warps: int, queries: int) -> list:
+    """csrc/ballq.cu for the (radius, K) of ``balls`` (up to three) at
+    ``warps`` a block and ``queries`` a warp, in place of the wrapper's
+    plan."""
+    b, n, _ = xyz.shape
+    s = centers.shape[1]
+    outs = [torch.empty(b, s, k, dtype=torch.int32, device=xyz.device) for _, k in balls]
+    plan = grouping._ball_plan(b, n, s, balls, _kernels.sm_count(xyz.get_device()), warps,
+                               queries)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (grouping.BALL_MAX_RADII - len(outs))
+    _kernels.BALL_QUERY.launch(xyz.data_ptr(), centers.data_ptr(), *ptrs, plan,
+                               *_kernels.stream_args(xyz))
+    return outs
+
+
+def compare_neighbour_designs(dev: torch.device) -> None:
+    """The launch choices of K2 and K5 side by side, device ms a call (CUDA
+    graph), each result held to the plain version: K5 at 4, 8, 16 and 32
+    warps a block and with its row staged as a ring of 1024-point tiles; K2
+    at 1 and 4 queries a warp and 4-32 warps a block; at the model levels of
+    both (B=4) and at B=16; then BriStruNet's levels as one scan of both
+    radii against a launch a radius."""
+    rng = np.random.default_rng(SEED + 5)
+    sms = _kernels.sm_count(0)
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    for b, (n, k) in [(B, nk) for nk in BRISTRUNET_KNN] + [(16, BRISTRUNET_KNN[0])]:
+        xyz = cloud(b, n)
+        want = grouping.knn_plain(xyz, xyz, k)
+        line = []
+        for warps, tile in [(w, None) for w in (4, 8, 16, 32)] + [(None, 1024)]:
+            def run(warps=warps, tile=tile):
+                return knn_with(xyz, k, warps, tile)
+            got = run()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"knn B={b} N={n} at {warps} warps, tile {tile}: disagrees")
+            line.append(f"{'plan, ring 1024' if tile else warps}: {device_ms(run):.4f}")
+        print(f"{'knn':18s} B={b} N=S={n} k={k} device ms by warps a block (chosen "
+              f"{grouping.neighbour_launch(b, n, sms)}): " + ", ".join(line), flush=True)
+    for b, levels in ((B, SSG_BALLS), (B, BRISTRUNET_BALLS), (16, SSG_BALLS)):
+        for n, s, balls in levels:
+            xyz = cloud(b, n)
+            centers = xyz[:, :s].contiguous()
+            want = [grouping.ball_query_plain(r, k, xyz, centers) for r, k in balls]
+            line = []
+            for queries in (1, 4):
+                for warps in (4, 8, 16, 32):
+                    def run(warps=warps, queries=queries):
+                        return ball_with(balls, xyz, centers, warps, queries)
+                    if not all(map(torch.equal, run(), want)):
+                        raise AssertionError(f"ball query B={b} N={n} S={s}: {warps} x {queries} "
+                                             "disagrees")
+                    line.append(f"{warps}x{queries}: {device_ms(run):.4f}")
+            queries = grouping.ball_queries_a_warp(b, s, sms)
+            print(f"{'ball_query':18s} B={b} N={n} S={s} {balls} device ms by warps x queries a "
+                  f"warp (chosen {grouping.neighbour_launch(b, s, sms, queries)}x{queries}): "
+                  + ", ".join(line), flush=True)
+            if len(balls) > 1:
+                def apart():
+                    return [grouping.ball_query_cuda(r, k, xyz, centers) for r, k in balls]
+                if not all(map(torch.equal, apart(), want)):
+                    raise AssertionError(f"ball query B={b} N={n} S={s}: a launch a radius "
+                                         "disagrees")
+                one = device_ms(lambda: grouping.ball_query_radii_cuda(balls, xyz, centers))
+                print(f"{'ball_query':18s} B={b} N={n} S={s} {balls}: one scan {one:.4f} ms, a "
+                      f"launch a radius {device_ms(apart):.4f} ms (device, together)", flush=True)
+
+
 def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     """Phase 3b: the backward kernels against their plain versions at the
     SSG train shapes (B=4)."""
@@ -862,7 +1054,7 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
                       lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
                       False, (TRAIN,) if timed else (), scaled=(BWD_TOL, 0.0),
                       work=(nbytes(g, idx, w) + B * s * d * 4, 2 * k * B * n * d) if timed else None,
-                      library_fn=lambda: acc.zero_().index_add_(0, flat, rows))
+                      library_fn=lambda: acc.zero_().index_add_(0, flat, rows), split=timed)
 
 
 def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
@@ -1559,7 +1751,7 @@ def train_ptv3_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) -> 
 def kernel_family(name: str) -> str:
     """The row of PERF.md's breakdown that a device kernel's name goes to."""
     for key, family in (
-        ("fps_kernel", "K1 FPS"), ("ballq_kernel", "K2 ball query"),
+        ("fps_kernel", "K1 FPS"), ("ballq_", "K2 ball query"),
         ("group_kernel", "K3 group"), ("group_bwd_kernel", "K3b group backward"),
         ("interp_kernel", "K4 interpolate"), ("interp_bwd_kernel", "K4b interpolation backward"),
         ("knn_kernel", "K5 k-NN"), ("flash_attn_kernel", "K6 flash attention"),
@@ -1851,7 +2043,7 @@ def main() -> None:
         # kernel work on K3 and K3b: phases 1, 2 and their cases of 3 and 3b
         # alone, no result line
         res = Results()
-        compare_group_kernel(dev, res, np.random.default_rng(SEED), with_ball=False)
+        compare_group_kernel(dev, res, np.random.default_rng(SEED))
         compare_group_backward(dev, res, np.random.default_rng(SEED + 1))
         return
     if sys.argv[1:] == ["--sampling"]:
@@ -1862,6 +2054,12 @@ def main() -> None:
         compare_fps_kernel(dev, res, rng)
         compare_interp_kernel(dev, res, rng)
         compare_sampling_designs(dev)
+        return
+    if sys.argv[1:] == ["--neighbours"]:
+        # kernel work on K2 and K5: phases 1, 2 and their cases of 3, then
+        # their launch choices side by side, no result line
+        compare_neighbour_kernels(dev, Results(), np.random.default_rng(SEED))
+        compare_neighbour_designs(dev)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")

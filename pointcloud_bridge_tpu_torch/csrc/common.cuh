@@ -74,3 +74,41 @@ __device__ __forceinline__ int clamp_index(int j, int n) {
 __device__ __forceinline__ void red_add4(float* out, float4 v) {
   atomicAdd(reinterpret_cast<float4*>(out), v);
 }
+
+// 4 bytes from device to shared memory without passing through registers
+// (cp.async, compute capability 8.0 and up). A 3-D point is 12 bytes, so no
+// wider copy keeps every point aligned.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// Commit this thread's copies and wait for all of them.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Points [0, count) of `pts` (x, y, z interleaved) into dst[0, count) as
+// float4 (x, y, z, unused) by the whole block, copied asynchronously; slots
+// [count, padded) get NaN coordinates, whose distance to any point is NaN:
+// never within a radius, never among the nearest. A float4 a point is one
+// 16-byte shared load, conflict-free across a warp. The caller waits
+// (cp_async_wait_all) and synchronises before reading.
+__device__ __forceinline__ void stage_points(float4* dst, const float* pts,
+                                             int count, int padded) {
+  float* d = reinterpret_cast<float*>(dst);
+  for (int t = threadIdx.x; t < 3 * count; t += blockDim.x) {
+    const int p = t / 3;
+    cp_async_f32(d + 4 * p + (t - 3 * p), pts + t);
+  }
+  const float nan = __int_as_float(0x7fffffff);
+  for (int p = count + threadIdx.x; p < padded; p += blockDim.x) {
+    dst[p] = make_float4(nan, nan, nan, nan);
+  }
+}
+
+// Lanes below this one, as a mask.
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}

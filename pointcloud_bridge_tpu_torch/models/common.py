@@ -41,6 +41,7 @@ from ..ops import (
     query_ball_point,
     three_nn_interpolate,
 )
+from ..ops.grouping import _query_ball_radii
 
 
 class PointConv(nn.Module):
@@ -243,10 +244,11 @@ class DenseMLP(nn.Module):
 
 class MultiScaleSetAbstraction(nn.Module):
     """PointNet++ MSG set abstraction (models/common.py:131-169): one FPS,
-    then for each radius a ball query, grouping, a shared MLP ``mlp_{i}``
-    and a max over the neighbours; the scales are concatenated. Every scale
-    takes the SAME width list, so the output is len(radius_list) * mlp[-1]
-    wide. ``in_ch`` counts the 3 relative coordinates."""
+    then for each radius a ball query (all radii in one launch on the card),
+    grouping, a shared MLP ``mlp_{i}`` and a max over the neighbours; the
+    scales are concatenated. Every scale takes the SAME width list, so the
+    output is len(radius_list) * mlp[-1] wide. ``in_ch`` counts the 3
+    relative coordinates."""
 
     def __init__(self, npoint: int, radius_list: Sequence[float],
                  nsample_list: Sequence[int], in_ch: int, mlp: Sequence[int],
@@ -264,8 +266,10 @@ class MultiScaleSetAbstraction(nn.Module):
         fps_idx = farthest_point_sample(xyz, self.npoint)
         new_xyz = index_points(xyz, fps_idx)
         scales = []
-        for i, (radius, nsample) in enumerate(zip(self.radius_list, self.nsample_list)):
-            idx = query_ball_point(radius, nsample, xyz, new_xyz)
+        # every radius in one scan on the card; each the same bits as its own
+        # query_ball_point
+        balls = tuple(zip(self.radius_list, self.nsample_list))
+        for i, idx in enumerate(_query_ball_radii(balls, xyz, new_xyz)):
             grouped = group_points(xyz, new_xyz, idx, features)
             scales.append(torch.amax(getattr(self, f"mlp_{i}")(grouped), dim=2))
         return new_xyz, torch.cat(scales, dim=-1)

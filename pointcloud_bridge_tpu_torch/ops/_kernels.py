@@ -15,9 +15,9 @@ raw pointers and PyTorch's current stream. The launch path is kept thin,
 because at the models' smaller shapes a call's host time exceeds its device
 time: each entry point is bound once (``Kernel.fn``), the stream is read as
 a raw handle, the C side sets the device only when it changes, and the FPS,
-group and interpolation kernels take their integers as one array laid out
-once a shape (ops/sampling.py, grouping.py, interpolate.py), since ctypes
-converts every argument on every call.
+ball-query, group, interpolation and k-NN kernels take their integers as one
+array laid out once a shape (ops/sampling.py, grouping.py, interpolate.py),
+since ctypes converts every argument on every call.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc`` or a GPU.
@@ -88,8 +88,9 @@ FPS = Kernel(
 )
 BALL_QUERY = Kernel(
     "ball_query", "pcb_ball_query",
-    # xyz, centers, out, B, N, S, K, r2, device, stream
-    (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # xyz, centers, out0, out1, out2 (one a radius), plan (ops/grouping.py
+    # BALL_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/ballq.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/ballq.py:85",
 )
@@ -125,8 +126,9 @@ INTERP_BWD = Kernel(
 )
 KNN = Kernel(
     "knn", "pcb_knn",
-    # xyz, query, idx_out, d2_out, B, N, S, k, device, stream
-    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # xyz, query, idx_out, d2_out, plan (ops/grouping.py KNN_PLAN), device,
+    # stream
+    (_P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/knn.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/knnset.py:77",
 )
@@ -246,6 +248,12 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_args(t: torch.Tensor) -> tuple:

@@ -39,12 +39,20 @@ def query_ball_point(
     first nsample in-radius indices in ascending order, misses padded with
     the first hit, and N in every slot of an empty ball.
     """
+    return _query_ball_radii(((radius, nsample),), xyz, new_xyz)[0]
+
+
+def _query_ball_radii(balls, xyz: torch.Tensor, new_xyz: torch.Tensor) -> list:
+    """``query_ball_point`` at each (radius, nsample) of ``balls`` over the
+    same points and centres, as a multi-scale set abstraction asks: on the
+    card one scan computes each distance once for up to BALL_MAX_RADII
+    radii, each output the same bits as its own one-radius query."""
     for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if xyz.device.type == "cpu":
-        return ball_query_plain(radius, nsample, xyz, new_xyz)
-    return ball_query_cuda(radius, nsample, xyz, new_xyz)
+        return [ball_query_plain(r, k, xyz, new_xyz) for r, k in balls]
+    return ball_query_radii_cuda(tuple(balls), xyz.contiguous(), new_xyz.contiguous())
 
 
 def ball_query_plain(
@@ -63,10 +71,95 @@ def ball_query_plain(
     return torch.where(top > 0, idx, idx[..., :1]).to(torch.int32)
 
 
+# points of a row that csrc/knn.cu and csrc/ballq.cu stage whole in shared
+# memory (16 bytes a point: 128 KB); a longer row goes through a ring of two
+# tiles of STAGE_TILE points
+STAGE_ROW_MAX = 8192
+STAGE_TILE = 4096
+# radii that one ball-query launch answers (csrc/ballq.cu kMaxRadii)
+BALL_MAX_RADII = 3
+# warps an SM that a ball query keeps in flight with 4 queries a warp
+_WARPS_AN_SM = 30
+# the integers of a launch, in the order pcb_ball_query (csrc/ballq.cu) and
+# pcb_knn (csrc/knn.cu) read them from their `plan`
+BALL_PLAN = ("b", "n", "s", "warps", "queries", "tile", "radii",
+             "k0", "r2_bits0", "k1", "r2_bits1", "k2", "r2_bits2")
+KNN_PLAN = ("b", "n", "s", "k", "warps", "tile")
+
+
+def stage_tile(n: int) -> int:
+    """Points a staged tile for rows of N: the whole row up to
+    STAGE_ROW_MAX, else a ring of two tiles of STAGE_TILE."""
+    return n if n <= STAGE_ROW_MAX else STAGE_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def neighbour_launch(b: int, s: int, sms: int, queries: int = 1) -> int:
+    """Warps a block of K2 and K5 for B * S queries at ``queries`` a warp:
+    the fewest of 4, 8, 16 and 32 that keep the blocks to about one an SM
+    (measured fastest at every model level, PERF.md PR 9: a block stages its
+    row once, so fewer and larger blocks copy less), 32 where there are
+    more."""
+    per_sm = -(-b * s // (queries * sms))
+    return min(32, max(4, 1 << max(0, per_sm - 1).bit_length()))
+
+
+def ball_queries_a_warp(b: int, s: int, sms: int) -> int:
+    """4 queries a warp (one load of a point for the four) where that still
+    leaves _WARPS_AN_SM warps an SM, else 1 (PERF.md PR 9)."""
+    return 4 if b * s >= 4 * _WARPS_AN_SM * sms else 1
+
+
+def _check_neighbour_launch(op: str, b: int, n: int, s: int, warps: int, tile: int) -> None:
+    if n < 1 or n * 3 >= 2**31 or b > 65535 or b * s >= 2**31:
+        raise ValueError(f"{op} kernel takes 1 <= N, N * 3 < 2^31, B <= 65535 and "
+                         f"B * S < 2^31, got B={b}, N={n}, S={s}")
+    if warps not in (4, 8, 16, 32) or not (tile >= n or 1 <= tile <= STAGE_ROW_MAX):
+        raise ValueError(f"{op} kernel: no block of {warps} warps with tiles of {tile} "
+                         f"points for N={n}")
+
+
+def _r2_bits(radius: float) -> int:
+    """radius_sq's float32 bits: the kernel compares the distances' uint32
+    bits with them, the order of the floats for r2 >= 0."""
+    r2 = np.float32(radius_sq(radius))
+    if np.isnan(r2):
+        raise ValueError(f"ball query kernel: radius {radius} is not a number")
+    return int(r2.view(np.int32))
+
+
+@functools.lru_cache(maxsize=1024)
+def _ball_plan(b: int, n: int, s: int, balls: tuple, sms: int,
+               warps: Optional[int] = None, queries: Optional[int] = None):
+    """pcb_ball_query's plan (BALL_PLAN) for the (radius, K) of ``balls``
+    (1 to BALL_MAX_RADII, every K >= 1), checked and laid out once a shape:
+    ``ball_queries_a_warp`` and ``neighbour_launch`` (or ``queries`` and
+    ``warps``) and ``stage_tile``."""
+    if not 1 <= len(balls) <= BALL_MAX_RADII or any(k < 1 for _, k in balls):
+        raise ValueError(f"ball query kernel takes 1 to {BALL_MAX_RADII} radii of K >= 1, "
+                         f"got {balls}")
+    queries = queries or ball_queries_a_warp(b, s, sms)
+    if queries not in (1, 4):
+        raise ValueError(f"ball query kernel takes 1 or 4 queries a warp, got {queries}")
+    warps = warps or neighbour_launch(b, s, sms, queries)
+    tile = stage_tile(n)
+    _check_neighbour_launch("ball query", b, n, s, warps, tile)
+    radii = [v for r, k in balls for v in (k, _r2_bits(r))]
+    radii += [0] * (2 * BALL_MAX_RADII - len(radii))
+    return (ctypes.c_int * len(BALL_PLAN))(b, n, s, warps, queries, tile, len(balls), *radii)
+
+
 def ball_query_cuda(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> torch.Tensor:
-    """Ball-query kernel wrapper: one launch."""
+    """Ball-query kernel wrapper for one radius: one launch."""
+    return ball_query_radii_cuda(((radius, nsample),), xyz, new_xyz)[0]
+
+
+def ball_query_radii_cuda(balls, xyz: torch.Tensor, new_xyz: torch.Tensor) -> list:
+    """Ball-query kernel wrapper (csrc/ballq.cu): the [B, S, K] indices of
+    each (radius, K) of ``balls``, one launch for every BALL_MAX_RADII
+    radii."""
     _kernels.check_tensor("xyz", xyz, torch.float32, 3)
     _kernels.check_tensor("new_xyz", new_xyz, torch.float32, 3)
     b, n, c = xyz.shape
@@ -75,14 +168,30 @@ def ball_query_cuda(
         raise ValueError(
             f"ball query: bad shapes {tuple(xyz.shape)}, {tuple(new_xyz.shape)}"
         )
-    out = torch.empty((b, s, nsample), dtype=torch.int32, device=xyz.device)
-    if out.numel() == 0:
-        return out
-    _kernels.BALL_QUERY.launch(
-        xyz.data_ptr(), new_xyz.data_ptr(), out.data_ptr(), b, n, s, nsample,
-        radius_sq(radius), *_kernels.stream_args(xyz),
-    )
-    return out
+    outs = [torch.empty(b, s, k, dtype=torch.int32, device=xyz.device) for _, k in balls]
+    if b * s == 0:
+        return outs
+    stream = _kernels.stream_args(xyz)
+    sms = _kernels.sm_count(stream[0])
+    for part, at in _ball_launches(balls):
+        plan = _ball_plan(b, n, s, part, sms)
+        ptrs = [outs[i].data_ptr() for i in at]
+        _kernels.BALL_QUERY.launch(xyz.data_ptr(), new_xyz.data_ptr(),
+                                   *ptrs, *_NO_OUTPUT[len(ptrs):], plan, *stream)
+    return outs
+
+
+@functools.lru_cache(maxsize=256)
+def _ball_launches(balls: tuple) -> tuple:
+    """((radii, their positions in ``balls``), ...) of each launch: up to
+    BALL_MAX_RADII radii a launch, none of K = 0 (an empty output)."""
+    live = [i for i, (_, k) in enumerate(balls) if k > 0]
+    return tuple((tuple(balls[i] for i in live[at:at + BALL_MAX_RADII]),
+                  tuple(live[at:at + BALL_MAX_RADII]))
+                 for at in range(0, len(live), BALL_MAX_RADII))
+
+
+_NO_OUTPUT = (None,) * BALL_MAX_RADII
 
 
 # the kernel keeps the k best of a query in two registers of each lane
@@ -133,6 +242,20 @@ def knn_plain(
     return d2[..., :k].contiguous(), order[..., :k].to(torch.int32)
 
 
+@functools.lru_cache(maxsize=1024)
+def _knn_plan(b: int, n: int, s: int, k: int, sms: int, warps: Optional[int] = None,
+              tile: Optional[int] = None):
+    """pcb_knn's plan (KNN_PLAN), checked and laid out once a shape:
+    ``neighbour_launch`` (or ``warps``) and ``stage_tile`` (or ``tile``, at
+    most STAGE_ROW_MAX where it is not the whole row)."""
+    if not 1 <= k <= min(KNN_MAX_K, n):
+        raise ValueError(f"knn kernel takes 1 <= k <= min({KNN_MAX_K}, N), got k={k}, N={n}")
+    warps = warps or neighbour_launch(b, s, sms)
+    tile = tile or stage_tile(n)
+    _check_neighbour_launch("knn", b, n, s, warps, tile)
+    return (ctypes.c_int * len(KNN_PLAN))(b, n, s, k, warps, tile)
+
+
 def knn_cuda(
     xyz: torch.Tensor, query: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,18 +266,14 @@ def knn_cuda(
     s = query.shape[1]
     if c != 3 or query.shape[0] != b or query.shape[2] != 3:
         raise ValueError(f"knn: bad shapes {tuple(xyz.shape)}, {tuple(query.shape)}")
-    if not 1 <= k <= min(KNN_MAX_K, n):
-        raise ValueError(f"knn kernel takes 1 <= k <= min({KNN_MAX_K}, N), got k={k}, N={n}")
-    if b > 65535:
-        raise ValueError(f"knn kernel takes B <= 65535, got {b}")
-    idx = torch.empty((b, s, k), dtype=torch.int32, device=xyz.device)
-    d2 = torch.empty((b, s, k), dtype=torch.float32, device=xyz.device)
+    stream = _kernels.stream_args(xyz)
+    plan = _knn_plan(b, n, s, k, _kernels.sm_count(stream[0]))
+    idx = torch.empty(b, s, k, dtype=torch.int32, device=xyz.device)
+    d2 = torch.empty(b, s, k, dtype=torch.float32, device=xyz.device)
     if idx.numel() == 0:
         return d2, idx
-    _kernels.KNN.launch(
-        xyz.data_ptr(), query.data_ptr(), idx.data_ptr(), d2.data_ptr(), b, n, s, k,
-        *_kernels.stream_args(xyz),
-    )
+    _kernels.KNN.launch(xyz.data_ptr(), query.data_ptr(), idx.data_ptr(), d2.data_ptr(), plan,
+                        *stream)
     return d2, idx
 
 
