@@ -56,9 +56,14 @@ any failure raises and exits non-zero:
    BriStruNet backward (sa1-sa3, K=16 and 32 with 3, 256 and 512 channels),
    and held with the xyz channels (c0 = 0, c1 = 3), output widths 1, 4 and
    16, empty balls, N = 1, K = 64 and 35 rows a batch; interpolation
-   backward (K4b) timed at the SSG shapes with the split of its time and of
-   index_add_'s, and held, not timed, at a BriStruNet backward's shapes
-   (k=4, up to 1024 channels);
+   backward (K4b) on the selection the forward kernel keeps, timed with the
+   split of its time and of index_add_'s at the SSG train step's shapes
+   (k=3) and the BriStruNet train step's (k=4, up to 1024 channels), both
+   at B=4 and B=16, and held, not timed, with every query on one source
+   (S=2 with k=2; N=4096 with every slot on one row), sources that no query
+   chose (exactly 0), D = 1, 3, 131 and 1024, a g view 4 bytes off 16-byte
+   alignment, S = 16384, N * k around the 4096-entry windows and k = 1..4,
+   each case the same bits from one call to the next;
 3c. the flash-attention kernel against the plain attention at every shape
    that the PTv3 family gives it at B=4 x 4096 (the windows of level 0 folded
    to [16,1024,2,32], the global levels [4,1024,4,32] and [4,256,8,32], the
@@ -138,10 +143,24 @@ any failure raises and exits non-zero:
    configs/train_ptv3_pooled.yaml and configs/train_ptv3.yaml through
    ``--config``;
 15. one flat ptv3 train step at its default width, B=4 x 4096, against the
-   CPU at the same batch, checked as in 13: exactly 8 launches a kernel.
+   CPU at the same batch, checked as in 13: exactly 8 launches a kernel;
+16. one BriStruNet train step at full width, B=4 x 4096, dropout 0, with the
+   loss of configs/train_bristrunet.yaml (bridge_structure, alpha 80,
+   rel_margin 0.3), on the card against the CPU, checked as in 6 (frozen
+   BatchNorms first; in train mode both sides take the class weights of the
+   CPU step's predictions, a step function of the argmax): exactly 3 FPS, 3
+   ball-query, 6 group, 3 interpolation, 3 k-NN, 6 group-backward and 3
+   interpolation-backward launches; milliseconds a step;
+17. two epochs of BriStruNet at batch 16 through train_cli.main with
+   ``--config configs/train_bristrunet.yaml`` (bridge_structure loss,
+   weighted block sampling, the plateau scheduler, Adam), checked as in 7,
+   the batch-16 step timed and profiled by kernel family, then
+   ``infer_cli blocks`` serving the checkpoint that run wrote.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
-K3b cases of phases 3 and 3b alone (``--attention`` phases 3c and 3d;
+K3b cases of phases 3 and 3b alone (``--interp-backward`` the K4b cases of
+phase 3b, then K4b's designs side by side, pointcloud_bridge_tpu_torch/
+probes/k4b_probe.py; ``--attention`` phases 3c and 3d;
 ``--sampling`` the K1 and K4 cases of phase 3, then each kernel's launch
 choices side by side: FPS by threads a row, interpolation by lanes a query;
 ``--neighbours`` the K2 and K5 cases of phase 3, then their launch choices
@@ -158,7 +177,8 @@ those launches' shapes (phases 3, 3b, 3c, 3d), and for K1-K5, K3b and K4b
 the device times ``device_ms`` and ``library_device_ms`` (null for the
 other kernels and where no library call exists), for K2 and K5 the issue
 floor ``issue_floor_ms`` (null for the others); ``paths`` has the same for
-the other passes, and
+the other passes (the BriStruNet train step, phase 16, among them for K3b
+and K4b), and
 ``launches_by_path`` the counts of the serves and the training runs through
 the CLIs. The last line is {"ok": true, "device": {...}}.
 """
@@ -182,12 +202,17 @@ import numpy as np
 import torch
 
 from pointcloud_bridge_tpu_torch import infer_cli, losses, train_cli
-from pointcloud_bridge_tpu_torch.config import LossConfig
 from pointcloud_bridge_tpu_torch.data import BlockDataset, scene_labelweights, write_las
 from pointcloud_bridge_tpu_torch.data.dataset import _load_scene
 from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
 from pointcloud_bridge_tpu_torch.infer import run_block_inference, whole_scene_vote_predict
-from pointcloud_bridge_tpu_torch.models import BatchNorm, Dense, get_model
+from pointcloud_bridge_tpu_torch.config import Config, LossConfig
+from pointcloud_bridge_tpu_torch.models import (
+    BatchNorm,
+    Dense,
+    MultiScaleSetAbstraction,
+    get_model,
+)
 from pointcloud_bridge_tpu_torch.ops import (
     _kernels,
     attention,
@@ -196,6 +221,7 @@ from pointcloud_bridge_tpu_torch.ops import (
     sampling,
 )
 from pointcloud_bridge_tpu_torch.train import make_optimizer, make_train_step
+from pointcloud_bridge_tpu_torch.train.loop import loss_fn_for
 from pointcloud_bridge_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 ROOT = Path(__file__).resolve().parent
@@ -331,6 +357,7 @@ def nbytes(*tensors) -> int:
 
 
 SSG, BRISTRUNET, TRAIN = "ssg_forward", "bristrunet_forward", "ssg_train_step"
+BRISTRUNET_TRAIN = "bristrunet_train_step"
 PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
 PTV3_POOLED_TRAIN, PTV3_TRAIN = "ptv3_pooled_train_step", "ptv3_train_step"
 # the path whose numbers stand in a kernel's own row of the summary
@@ -497,7 +524,8 @@ BRISTRUNET_BALLS = tuple((n, s, tuple((r, k) for n2, s2, k, r, _ in BRISTRUNET_L
                                       if (n2, s2) == (n, s)))
                          for n, s in dict.fromkeys((n, s) for n, s, *_ in BRISTRUNET_LEVELS))
 # side paths: timed and summed on lines of their own, no pass of this script
-SSG_B16, TRAIN_B16, BRISTRUNET_BWD = "ssg_forward_b16", "ssg_train_step_b16", "bristrunet_backward"
+SSG_B16, TRAIN_B16 = "ssg_forward_b16", "ssg_train_step_b16"
+BRISTRUNET_TRAIN_B16 = "bristrunet_train_step_b16"
 
 
 def compare_group_kernel(dev: torch.device, res: Results, rng) -> None:
@@ -1019,42 +1047,109 @@ def compare_neighbour_designs(dev: torch.device) -> None:
 
 def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     """Phase 3b: the backward kernels against their plain versions at the
-    SSG train shapes (B=4)."""
+    train steps' shapes."""
     rng = np.random.default_rng(SEED + 1)
+    compare_group_backward(dev, res, rng)
+    compare_interp_backward(dev, res, rng)
 
-    def cloud(n):
-        return torch.from_numpy(rng.uniform(size=(B, n, 3)).astype(np.float32)).to(dev)
+
+def kept_selection(dst, src, k: int) -> tuple:
+    """The selection the forward kernel keeps for the backward, held to the
+    plain one (indices exact, weights within 1e-6) -> (idx, w)."""
+    f = torch.zeros(*src.shape[:2], 4, device=src.device)
+    _, idx, w = interpolate.interpolate_cuda(dst, src, f, k, True)
+    _, pidx, pw = interpolate.interpolate_plain(dst, src, f, k, True)
+    if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
+        raise AssertionError(f"interpolate N={dst.shape[1]} S={src.shape[1]}: kept selection "
+                             "differs from plain")
+    return idx, w
+
+
+def compare_interp_backward(dev: torch.device, res: Results, rng,
+                            deterministic: bool = True) -> None:
+    """K4b against interpolate_backward_plain within BWD_TOL * max|plain|
+    (the plain version adds with atomics in its own order), on the selection
+    the forward kernel keeps: the FP levels of the SSG train step (k=3) and
+    of the BriStruNet train step (k=4, D up to 1024) at B=4 and B=16, timed
+    three ways (events; device time from a CUDA graph; host time a call)
+    beside the bytes bound and index_add_ of pre-weighted rows; then held,
+    not timed: every query on one source (S=2 with k=2; N=4096 with every
+    slot on one row, the longest list), sources that no query chose (their
+    rows exactly 0), D = 1, 3, 131 and 1024, a g view 4 bytes off 16-byte
+    alignment, S = 16384, N * k around the 4096-entry windows and k = 1..4.
+    With ``deterministic`` every case must give the same bits from one call
+    to the next (the kernel adds each row in a fixed order); the parent's
+    kernel, timed under these cases, is called with it off."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
 
     def normal(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    compare_group_backward(dev, res, rng)
-
-    # K4b on the selection the forward kernel keeps; the kept selection
-    # itself is held to the plain one (indices exact, weights 1e-6)
-    # the SSG levels (k=3, timed into the train step's sums), then those of a
-    # BriStruNet backward (fp3-fp1: k=4, D up to 1024): held, not timed
-    for k, levels, timed in ((3, SSG_INTERP, True), (4, BRISTRUNET_INTERP, False)):
-        for n, s, d in levels:
-            dst = cloud(n)
-            src = dst[:, :s].contiguous()
-            f = normal(B, s, d)
-            _, idx, w = interpolate.interpolate_cuda(dst, src, f, k, True)
-            _, pidx, pw = interpolate.interpolate_plain(dst, src, f, k, True)
-            if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
-                raise AssertionError(f"interpolate N={n} S={s}: kept selection differs from plain")
-            g = normal(B, n, d)
-            # library: one index_add_ of rows that are weighted already
+    def case(label, g, idx, w, s, paths=(), timed=False):
+        b, n, d = g.shape
+        k = idx.shape[2]
+        kernel = lambda: interpolate.interpolate_backward_cuda(g, idx, w, s)  # noqa: E731
+        if deterministic and not torch.equal(kernel(), kernel()):
+            raise AssertionError(f"interp_bwd {label}: two calls give other bits")
+        work = library = None
+        if timed:
+            # library: one index_add_ of rows that are weighted already,
+            # zeroing included, on a ready index
             rows = (w.unsqueeze(-1) * g.unsqueeze(2)).reshape(-1, d)
-            offs = torch.arange(B, device=dev).view(B, 1, 1) * s
+            offs = torch.arange(b, device=dev).view(b, 1, 1) * s
             flat = (idx.long() + offs).reshape(-1)
-            acc = torch.empty((B * s, d), device=dev)
-            res.check("interp_bwd", f"g [{B},{n},{d}] -> [{B},{s},{d}] k={k}",
-                      lambda: interpolate.interpolate_backward_cuda(g, idx, w, s),
-                      lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
-                      False, (TRAIN,) if timed else (), scaled=(BWD_TOL, 0.0),
-                      work=(nbytes(g, idx, w) + B * s * d * 4, 2 * k * B * n * d) if timed else None,
-                      library_fn=lambda: acc.zero_().index_add_(0, flat, rows), split=timed)
+            acc = torch.empty((b * s, d), device=dev)
+            work = (nbytes(g, idx, w) + b * s * d * 4, 2 * k * b * n * d)
+            library = lambda: acc.zero_().index_add_(0, flat, rows)  # noqa: E731
+        res.check("interp_bwd", label, kernel,
+                  lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
+                  False, paths, scaled=(BWD_TOL, 0.0), work=work, library_fn=library,
+                  split=timed)
+        return kernel()
+
+    for b, k, levels, path in ((B, 3, SSG_INTERP, TRAIN), (16, 3, SSG_INTERP, TRAIN_B16),
+                               (B, 4, BRISTRUNET_INTERP, BRISTRUNET_TRAIN),
+                               (16, 4, BRISTRUNET_INTERP, BRISTRUNET_TRAIN_B16)):
+        for n, s, d in levels:
+            dst = cloud(b, n)
+            idx, w = kept_selection(dst, dst[:, :s].contiguous(), k)
+            case(f"g [{b},{n},{d}] -> [{b},{s},{d}] k={k}", normal(b, n, d), idx, w, s, (path,),
+                 timed=True)
+    res.print_sums("interp_bwd", (TRAIN, TRAIN_B16, BRISTRUNET_TRAIN, BRISTRUNET_TRAIN_B16))
+
+    # every query on both sources of S = 2; every slot of N = 4096 on row 1
+    dst = cloud(B, 4096)
+    idx, w = kept_selection(dst, cloud(B, 2), 2)
+    case("N=4096 S=2 D=64 k=2", normal(B, 4096, 64), idx, w, 2)
+    one = torch.ones(B, 4096, 4, dtype=torch.int32, device=dev)
+    case("N=4096 S=8 D=128 k=4, every slot on row 1", normal(B, 4096, 128), one,
+         torch.rand(B, 4096, 4, device=dev), 8)
+    # every fourth source chosen: the others must be exactly 0
+    picked = torch.from_numpy(rng.integers(0, 64, (B, 1024, 3)).astype(np.int32) * 4).to(dev)
+    df = case("N=1024 S=256 D=128 k=3, every 4th row chosen", normal(B, 1024, 128), picked,
+              torch.rand(B, 1024, 3, device=dev), 256)
+    unchosen = torch.ones(B, 256, dtype=torch.bool, device=dev)
+    unchosen.scatter_(1, picked.reshape(B, -1).long(), False)
+    if df[unchosen].abs().max() != 0:
+        raise AssertionError("interp_bwd: a source that no query chose is not 0")
+    dst = cloud(B, 1024)
+    src = dst[:, :256].contiguous()
+    for k in (1, 2, 3, 4):
+        idx, w = kept_selection(dst, src, k)
+        for d in (1, 3, 131, 1024) if k == 3 else (64,):
+            case(f"N=1024 S=256 D={d} k={k}", normal(B, 1024, d), idx, w, 256)
+    idx, w = kept_selection(dst, src, 3)
+    view = normal(B * 1024 * 256 + 1)[1:].view(B, 1024, 256)  # 4 bytes past alignment
+    case("N=1024 S=256 D=256 k=3, g 4 bytes off", view, idx, w, 256)
+    wide = torch.from_numpy(rng.integers(0, 16384, (B, 6000, 3)).astype(np.int32)).to(dev)
+    case("N=6000 S=16384 D=32 k=3, random rows", normal(B, 6000, 32), wide,
+         torch.rand(B, 6000, 3, device=dev), 16384)
+    for n, k in ((4095, 1), (2048, 2), (4097, 1), (1365, 3), (1025, 4)):  # N * k near 4096
+        dst = cloud(B, n)
+        idx, w = kept_selection(dst, dst[:, :100].contiguous(), k)
+        case(f"N={n} S=100 D=36 k={k} (N * k = {n * k})", normal(B, n, 36), idx, w, 100)
 
 
 def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
@@ -1104,8 +1199,8 @@ def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
     for lv in SSG_LEVELS[1:]:
         level((TRAIN_B16,), 16, *lv)
     for lv in BRISTRUNET_LEVELS:
-        level((BRISTRUNET_BWD,), B, *lv)
-    res.print_sums("group_bwd", (TRAIN, TRAIN_B16, BRISTRUNET_BWD))
+        level((BRISTRUNET_TRAIN,), B, *lv)
+    res.print_sums("group_bwd", (TRAIN, TRAIN_B16, BRISTRUNET_TRAIN))
 
     xyz = cloud(B, 1024)
     idx = grouping.ball_query_cuda(0.2, 32, xyz, xyz[:, :256].contiguous())
@@ -1381,19 +1476,44 @@ def counts_all_launched(where: str, kernels) -> dict:
     return counts
 
 
-def is_pre_bn_bias(name: str) -> bool:
-    """A conv bias that feeds a train-mode BatchNorm: the batch mean takes
-    it out again, so its gradient is exactly 0 and any float32 value of it
-    is rounding noise."""
-    return name.endswith(".bias") and (".mlp_convs." in name or name == "conv1.bias")
-
-
-def loss_and_grads(model, xyz, rgb, labels, cw):
-    """One forward (in the model's mode) and backward on model's device ->
-    (loss, {name: grad}, logits); the gradients are cleared on the model."""
+def pre_bn_biases(model, xyz, rgb) -> set:
+    """The biases that feed a BatchNorm: those of each layer whose output is
+    a BatchNorm's input, found by one forward with hooks. In train mode the
+    batch mean takes such a bias out again, so its gradient is exactly 0 and
+    any float32 value of it is rounding noise."""
+    made, fed, hooks = {}, set(), []
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp: fed.add(made.get(id(inp[0])))))
+        elif isinstance(getattr(m, "bias", None), torch.nn.Parameter):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, name=name: made.__setitem__(id(out), name)))
     dev = next(model.parameters()).device
-    logits = model(xyz.to(dev), rgb.to(dev))
-    loss = losses.weighted_cross_entropy(logits, labels.to(dev), cw.to(dev))
+    training = model.training
+    model.eval()  # no BatchNorm statistic moves
+    try:
+        with torch.no_grad():
+            model(xyz.to(dev), rgb.to(dev))
+    finally:
+        model.train(training)
+        for h in hooks:
+            h.remove()
+    return {f"{layer}.bias" for layer in fed - {None}}
+
+
+def loss_and_grads(model, xyz, rgb, labels, cw, loss_fn=None):
+    """One forward (in the model's mode) and backward on model's device ->
+    (loss, {name: grad}, logits); the gradients are cleared on the model.
+    The loss is weighted CE, or ``loss_fn(logits, labels, xyz, cw)`` as
+    train/loop.py::loss_fn_for builds it."""
+    dev = next(model.parameters()).device
+    xyz = xyz.to(dev)
+    logits = model(xyz, rgb.to(dev))
+    if loss_fn is None:
+        loss = losses.weighted_cross_entropy(logits, labels.to(dev), cw.to(dev))
+    else:
+        loss = loss_fn(logits, labels.to(dev), xyz, cw.to(dev))
     loss.backward()
     grads = {k: p.grad for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
@@ -1430,30 +1550,38 @@ def gradient_faults(grads: dict, cpu_grads: dict, zero: tuple = (),
     return faults, worst, rel_l2
 
 
-def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw) -> None:
-    """Phase 6a: the gradient of the same loss with the BatchNorms frozen
-    (eval mode), on the card and on the CPU. Without the batch statistics
-    the step is well conditioned, so every leaf is held element by element
-    within 1e-3 * max|g_leaf| + 1e-7 and the loss within 1e-5 relative:
-    a gradient lost or misplaced by a backward kernel shows here."""
+def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
+                              label: str = "frozen-BN gradients") -> None:
+    """Phases 6a and 16a: the gradient of the same loss with the BatchNorms
+    frozen (eval mode), on the card and on the CPU. Without the batch
+    statistics the step is well conditioned, so every leaf is held element
+    by element within 1e-3 * max|g_leaf| + 1e-7 and the loss within 1e-5
+    relative: a gradient lost or misplaced by a backward kernel shows here."""
     model.eval()
     cpu_model.eval()
-    cpu_loss, cpu_grads, _ = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
-    loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw)
+    cpu_loss, cpu_grads, _ = loss_and_grads(cpu_model, xyz, rgb, labels, cw, loss_fn)
+    loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw, loss_fn)
     torch.cuda.synchronize()
     loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
     faults, worst, rel_l2 = gradient_faults(grads, cpu_grads)
-    print(f"frozen-BN gradients: loss {loss.item():.7f} (CPU {cpu_loss.item():.7f}, rel "
+    print(f"{label}: loss {loss.item():.7f} (CPU {cpu_loss.item():.7f}, rel "
           f"{loss_rel:.3g}); over {len(cpu_grads)} leaves the worst max|err| is at "
           f"{worst[0]:.3g} of its band ({worst[1]}), the worst relative L2 "
           f"{rel_l2[0]:.3g} ({rel_l2[1]})", flush=True)
     if loss_rel > 1e-5 or faults:
-        raise AssertionError(f"frozen-BN gradients: loss rel {loss_rel:.3g}; " + "; ".join(faults))
+        raise AssertionError(f"{label}: loss rel {loss_rel:.3g}; " + "; ".join(faults))
 
 
-def check_train_step(model, cpu_model, xyz, rgb, labels, cw) -> dict:
-    """Phase 6: one train-mode forward and backward on the card (kernels)
-    and on the CPU (plain versions) from the same weights and batch.
+def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
+                     launches: dict = None, label: str = "train step",
+                     zero_below: float = 0.0) -> dict:
+    """Phases 6 and 16: one train-mode forward and backward on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batch; with ``launches``, exactly those launches of each kernel. With
+    ``zero_below``, a bias whose gradient on the CPU step stays below that
+    share of its layer weight's max|g| is held as an exactly zero one too:
+    one that the batch statistics take out through a sum or a gate, not
+    straight in front of a BatchNorm.
 
     Bands. The loss within 1e-5 relative, the updated BatchNorm statistics
     within 1e-4 * max|stat| + 1e-7. Gradients cannot be held element by
@@ -1467,23 +1595,30 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw) -> dict:
     cosine >= 0.98; a leaf that is nonzero on the CPU must be nonzero on
     the card (a lost gradient gives relative L2 1 and cosine 0). The conv
     biases that feed a BatchNorm have an exactly zero gradient: both sides
-    must keep it below 1e-3 * max|g| of the same conv's weight. Phase 6a
-    and the kernels' own phases 3 and 3b hold element by element.
+    must keep it below 1e-3 * max|g| of the same conv's weight
+    (``pre_bn_biases`` finds them). Phase 6a and the kernels' own phases 3
+    and 3b hold element by element.
     """
+    pre_bn = pre_bn_biases(model, xyz, rgb)
     cpu_model.train()
     t0 = time.perf_counter()
-    cpu_loss, cpu_grads, _ = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
+    cpu_loss, cpu_grads, _ = loss_and_grads(cpu_model, xyz, rgb, labels, cw, loss_fn)
     cpu_s = time.perf_counter() - t0
     model.train()
     _kernels.reset_launch_counts()
-    loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw)
+    loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw, loss_fn)
     torch.cuda.synchronize()
-    counts = counts_all_launched("train step", FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+    counts = counts_all_launched(label, FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+    if launches is not None and counts != launches:
+        raise AssertionError(f"{label}: launches {counts}, expected {launches}")
     if not torch.isfinite(loss):
-        raise AssertionError(f"train step: loss {loss.item()}")
+        raise AssertionError(f"{label}: loss {loss.item()}")
     loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
     if loss_rel > 1e-5:
-        raise AssertionError(f"train step: loss {loss.item()} vs CPU {cpu_loss.item()}")
+        raise AssertionError(f"{label}: loss {loss.item()} vs CPU {cpu_loss.item()}")
+    pre_bn |= {name for name, g in cpu_grads.items() if name.endswith(".bias")
+               and name[:-4] + "weight" in cpu_grads and g.abs().max()
+               < zero_below * cpu_grads[name[:-4] + "weight"].abs().max()}
 
     # every leaf is measured and printed first, then held to its band
     rows, biases, faults = [], [], []
@@ -1496,7 +1631,7 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw) -> dict:
         if not torch.isfinite(got).all():
             faults.append(f"non-finite gradient for {name}")
             continue
-        if is_pre_bn_bias(name):
+        if name in pre_bn:
             bound = 1e-3 * cpu_grads[name[:-4] + "weight"].abs().max().item()
             size = max(got.abs().max().item(), want.abs().max().item())
             biases.append((size / bound, name))
@@ -1529,15 +1664,16 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw) -> dict:
             faults.append(f"{name} {err:.3g} of max|stat| from the CPU")
         stat_err = max(stat_err, (err, name))
     worst = lambda key, sign=1: max(rows, key=lambda r: sign * r[key])  # noqa: E731
-    print(f"train step: B={B} N={N} loss {loss.item():.7f} (CPU {cpu_loss.item():.7f}, "
+    print(f"{label}: B={B} N={N} loss {loss.item():.7f} (CPU {cpu_loss.item():.7f}, "
           f"rel {loss_rel:.3g}); gradients over {len(rows)} leaves: worst max|err|/max|g| "
           f"{worst('max_err')['max_err']:.4g}, worst relative L2 {worst('rel_l2')['rel_l2']:.4g} "
           f"({worst('rel_l2')['name']}), worst cosine {worst('cos', -1)['cos']:.6f}; "
-          f"zero-gradient biases at {max(biases)[0]:.3g} of their bound; BatchNorm statistics "
-          f"worst {stat_err[0]:.3g} of max|stat| ({stat_err[1]}); launches {counts}; "
+          f"{len(biases)} zero-gradient biases at {max(biases)[0]:.3g} of their bound; "
+          f"BatchNorm statistics worst {stat_err[0]:.3g} of max|stat| ({stat_err[1]}); "
+          f"launches {counts}; "
           f"CPU reference step {cpu_s:.2f} s (host)", flush=True)
     if faults:
-        raise AssertionError("train step: " + "; ".join(faults))
+        raise AssertionError(f"{label}: " + "; ".join(faults))
     return counts
 
 
@@ -1583,20 +1719,22 @@ def run_train_cli(label: str, data_dir: Path, args: list, epochs: int, launched:
 
 def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Path,
                       dev: torch.device, step_model: torch.nn.Module = None,
-                      profile: bool = False) -> tuple:
-    """Phases 7 and 14: two epochs of ``model_name`` (the registry's default
-    model) at batch 16 through train_cli.main -> (launch counts of exactly
-    that run, the experiment directory, which the caller removes). A reload
-    of latest_checkpoint must give the trained model's eval logits exactly.
-    Then the steady-state train step at batch 16 (Adam, weighted CE) on the
-    reloaded model, or on ``step_model`` where the timed configuration is
-    another than the default one; with ``profile`` its device time by kernel
-    family."""
-    out, wall, counts, train_mem = run_train_cli(
-        label, data_dir,
-        ["--model", model_name, "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
-         "--batch-size", "16", "--loss", "weighted_ce", "--scheduler", "cosine"],
-        2, launched)
+                      profile: bool = False, recipe: Path = None) -> tuple:
+    """Phases 7, 14 and 17: two epochs of ``model_name`` (the registry's
+    default model) at batch 16 through train_cli.main -> (launch counts of
+    exactly that run, the experiment directory, which the caller removes).
+    A reload of latest_checkpoint must give the trained model's eval logits
+    exactly. Then the steady-state train step at batch 16 (Adam, weighted
+    CE) on the reloaded model, or on ``step_model`` where the timed
+    configuration is another than the default one; with ``profile`` its
+    device time by kernel family. With ``recipe`` (a config of configs/),
+    the run and the timed step take that config's loss, sampling and
+    schedule (``--config``), the data directories and the epochs as flags."""
+    args = (["--config", str(recipe)] if recipe else
+            ["--model", model_name, "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
+             "--batch-size", "16", "--loss", "weighted_ce", "--scheduler", "cosine"])
+    loss_cfg = Config.from_yaml(str(recipe)).loss if recipe else LossConfig(name="weighted_ce")
+    out, wall, counts, train_mem = run_train_cli(label, data_dir, args, 2, launched)
     exp_dir = Path(out["exp_dir"]).resolve()
     hist = out["history"]
     try:
@@ -1621,7 +1759,7 @@ def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Pa
         del model, out["model"]
         step_model = reloaded if step_model is None else step_model.to(dev)
         opt = make_optimizer(step_model.parameters())
-        step = make_train_step(step_model, LossConfig(name="weighted_ce"), opt)
+        step = make_train_step(step_model, loss_cfg, opt)
         cw = out["class_weights"]
         batch = {"points": xyz, "colors": rgb, "labels": labels}
         torch.cuda.reset_peak_memory_stats()
@@ -1745,6 +1883,97 @@ def train_ptv3_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) -> 
               f"{r['val_acc']:.4f}, launches {counts}, peak device memory "
               f"{mem / 2**20:.1f} MiB", flush=True)
         del out
+    return by_path
+
+
+def bristrunet_step_launches(model: torch.nn.Module) -> dict:
+    """Launches of one BriStruNet train step: its forward's, a group
+    backward a radius of every set-abstraction level (each groups features
+    that carry a gradient) and an interpolation backward a decoder level."""
+    radii = sum(len(m.radius_list) for m in model.modules()
+                if isinstance(m, MultiScaleSetAbstraction))
+    return BRISTRUNET_LAUNCHES | {"group_bwd": radii,
+                                  "interp_bwd": BRISTRUNET_LAUNCHES["interpolate"]}
+
+
+def check_bristrunet_train_step(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 16: one BriStruNet train step at full width, B=4 x 4096, random
+    weights and BatchNorm statistics moved off the identity, dropout 0, the
+    recipe's loss (configs/train_bristrunet.yaml: bridge_structure, alpha 80,
+    rel_margin 0.3, with its class weights) on the card against the CPU,
+    checked as phase 6 checks SSG's step, with exactly the step's launches
+    of each kernel -> those launch counts."""
+    model = seeded_model("bristrunet", SEED + 16, dropout_rate=0.0)
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
+    recipe = Config.from_yaml(str(ROOT / "configs" / "train_bristrunet.yaml")).loss
+    loss_fn = loss_fn_for(recipe)
+    launches = bristrunet_step_launches(model)
+    print(f"BriStruNet train step: the model groups {launches['group_bwd']} feature sets that "
+          f"carry a gradient (two radii a level): {launches['group_bwd']} group backward "
+          "launches expected", flush=True)
+    check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw, loss_fn,
+                              "BriStruNet frozen-BN gradients")
+
+    # The recipe's class weights are a step function of the argmax
+    # predictions (losses.bridge_structure_weights): in train mode the
+    # BatchNorms spread the rounding of the logits to ~1e-4, a point whose
+    # top two logits lie closer than that may flip, and one flip moves the
+    # loss by ~1e-5. So both sides of the train-mode step take the class
+    # weights of the CPU step's predictions (from a forward of a copy), and
+    # the recipe's loss as each side computes it is printed beside.
+    with torch.no_grad():
+        cpu_logits = copy.deepcopy(cpu_model).train()(xyz, rgb)
+        card_logits = copy.deepcopy(model).train()(xyz.to(dev), rgb.to(dev)).cpu()
+    weights = losses.bridge_structure_weights(cpu_logits.argmax(-1), labels, xyz, recipe.alpha,
+                                              recipe.rel_margin)
+    flips = int((cpu_logits.argmax(-1) != card_logits.argmax(-1)).sum())
+    own = [loss_fn(lg, labels, xyz, cw).item() for lg in (card_logits, cpu_logits)]
+    print(f"BriStruNet train step: train-mode logits max|err| "
+          f"{max_abs_err(card_logits, cpu_logits):.3g}, {flips} of {B * N} argmax predictions "
+          f"differ; the recipe's loss with each side's own class weights {own[0]:.7f} (CPU "
+          f"{own[1]:.7f}, rel {abs(own[0] - own[1]) / own[1]:.3g})", flush=True)
+
+    def fixed_weights(logits, lbl, _xyz, _cw):
+        return losses.weighted_cross_entropy(logits, lbl, weights.to(logits.device),
+                                             label_smoothing=0.2)
+
+    # 47 of its 59 biases have an exactly zero gradient in train mode (the
+    # JAX package's float64 step gives them at most 1e-13 of their weight's,
+    # the others 0.07 and more; tests/test_torch_bristrunet_train.py): 40
+    # straight in front of a BatchNorm and 7 whose shift reaches one through
+    # a sum, found by their CPU gradient below 1e-4 of their weight's
+    counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, fixed_weights, launches,
+                              "BriStruNet train step", zero_below=1e-4)
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw, loss_fn), reps=10)
+    print(f"BriStruNet train step: forward and backward {step_ms:.3f} ms, "
+          f"{B * N / step_ms * 1e3:.0f} points/s", flush=True)
+    return counts
+
+
+def train_bristrunet_through_cli(data_dir: Path, n_blocks: int, dev: torch.device,
+                                 launches: dict) -> dict:
+    """Phase 17: two epochs of BriStruNet at batch 16 through train_cli.main
+    with configs/train_bristrunet.yaml (bridge_structure loss, weighted block
+    sampling, the plateau scheduler, Adam), checked as phase 7, the batch-16
+    step timed and profiled by kernel family; then ``infer_cli blocks``
+    serves the checkpoint that run wrote -> launch counts by path."""
+    trained = tuple(k for k, v in launches.items() if v)
+    by_path = {}
+    by_path["bristrunet_train_cli"], exp_dir = train_through_cli(
+        "train bristrunet (configs/train_bristrunet.yaml)", "bristrunet", trained, data_dir,
+        dev, profile=True, recipe=ROOT / "configs" / "train_bristrunet.yaml")
+    try:
+        forward = tuple(k for k, v in BRISTRUNET_LAUNCHES.items() if v)
+        by_path["bristrunet_serve_trained"] = serve_blocks(
+            "serve trained bristrunet blocks", "bristrunet", exp_dir, forward, data_dir,
+            n_blocks, dev)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
     return by_path
 
 
@@ -2061,6 +2290,14 @@ def main() -> None:
         compare_neighbour_kernels(dev, Results(), np.random.default_rng(SEED))
         compare_neighbour_designs(dev)
         return
+    if sys.argv[1:] == ["--interp-backward"]:
+        # kernel work on K4b: phases 1, 2 and its cases of 3b, then its two
+        # designs side by side (probes/k4b_probe.py), no result line
+        from pointcloud_bridge_tpu_torch.probes import k4b_probe
+
+        compare_interp_backward(dev, Results(), np.random.default_rng(SEED + 1))
+        k4b_probe.compare(dev)
+        return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     res = compare_kernels(dev)
@@ -2185,17 +2422,24 @@ def main() -> None:
         check_attention_train_step(
             "ptv3 train step", seeded_model("ptv3", SEED + 15, **no_dropout), ds, dev,
             flat_step_counts)
+
+        # 16. one BriStruNet train step against the CPU; 17. BriStruNet
+        # trained through the training CLI with its recipe and served from
+        # the checkpoint it wrote
+        bristrunet_step_counts = check_bristrunet_train_step(ds, dev)
+        by_path |= train_bristrunet_through_cli(data_dir, len(ds), dev, bristrunet_step_counts)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
-    # 10, 11, 13 and 15) beside the times and bound summed over exactly those
-    # launches' shapes (phases 3, 3b, 3c and 3d). The row's own numbers are
-    # those of the BriStruNet forward, of the SSG train step for its backward
-    # kernels, of the ptv3_pooled forward for the flash-attention kernel and of
-    # the ptv3_pooled train step for its backward kernels (ROW_PATH). The SSG
-    # train step gives its forward kernels the shapes of the SSG forward, which
-    # stand under that path.
+    # 10, 11, 13, 15 and 16) beside the times and bound summed over exactly
+    # those launches' shapes (phases 3, 3b, 3c and 3d). The row's own numbers
+    # are those of the BriStruNet forward, of the SSG train step for its
+    # backward kernels, of the ptv3_pooled forward for the flash-attention
+    # kernel and of the ptv3_pooled train step for its backward kernels
+    # (ROW_PATH). The SSG and BriStruNet train steps give their forward
+    # kernels the shapes of their forwards, which stand under those paths.
     pass_counts = {SSG: fwd_counts, BRISTRUNET: BRISTRUNET_LAUNCHES, TRAIN: step_counts,
+                   BRISTRUNET_TRAIN: bristrunet_step_counts,
                    PTV3_POOLED: pooled_counts, PTV3: flat_counts,
                    PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
@@ -2203,7 +2447,8 @@ def main() -> None:
     for k in _kernels.KERNELS:
         paths = {path: res.row(k.name, path, counts[k.name])
                  for path, counts in pass_counts.items()
-                 if counts[k.name] and (path != TRAIN or k.name in SSG_BACKWARD_KERNELS)}
+                 if counts[k.name] and (path not in (TRAIN, BRISTRUNET_TRAIN)
+                                        or k.name in SSG_BACKWARD_KERNELS)}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "max_abs_err": res.err[k.name],

@@ -6,7 +6,8 @@
   - class_weights_from_counts: inverse-frequency weights clamped to
     [0.5, 3.0];
   - bridge_structure_loss: the z-hierarchy prior {abutment(1) < girder(2) <
-    deck(3) < parapet(4)} shaping the CE class weights;
+    deck(3) < parapet(4)} shaping the CE class weights
+    (bridge_structure_weights);
   - sol_loss: the structure-oriented loss (existence and pairwise z-order
     violation penalties on the CE weights);
   - dice_loss, combined_ce_dice_loss;
@@ -109,42 +110,58 @@ def bridge_structure_loss(
     base_weights: Optional[torch.Tensor] = None,
     num_classes: int = 5,
 ) -> torch.Tensor:
-    """Hierarchy-prior weighted CE (losses.py:127-182).
+    """Hierarchy-prior weighted CE (losses.py:127-182): the CE with label
+    smoothing 0.2 under the class weights that ``bridge_structure_weights``
+    gives for the logits' argmax predictions."""
+    with torch.no_grad():
+        final_w = bridge_structure_weights(logits.argmax(-1), labels, xyz, alpha, rel_margin,
+                                           base_weights, num_classes)
+    return weighted_cross_entropy(logits, labels.long(), final_w, label_smoothing=0.2)
+
+
+def bridge_structure_weights(
+    preds: torch.Tensor,
+    labels: torch.Tensor,
+    xyz: torch.Tensor,
+    alpha: float = 20.0,
+    rel_margin: float = 0.2,
+    base_weights: Optional[torch.Tensor] = None,
+    num_classes: int = 5,
+) -> torch.Tensor:
+    """The per-class weights of ``bridge_structure_loss`` for the predicted
+    classes preds [B, N] -> [num_classes].
 
     For each ordered pair (upper, lower) of the bridge hierarchy, a ReLU
     margin violation of the predicted z-centroids adds alpha-scaled weight
     to both classes; class 0 gets alpha * (1 - predicted-other fraction).
     The per-class weight is the batch mean times inverse-sqrt label
-    frequencies with classes 1 and 4 doubled; the CE uses label smoothing
-    0.2.
+    frequencies with classes 1 and 4 doubled. A step function of the
+    predictions: one point whose argmax changes moves the weights.
     """
-    with torch.no_grad():
-        labels = labels.long()
-        b = labels.shape[0]
-        dev = logits.device
-        if base_weights is None:
-            base_weights = torch.tensor([1.5, 1.0, 1.2, 1.5, 1.0])
-        preds = logits.argmax(-1)
-        xyz = xyz.float()
-        weights = base_weights.to(dev, torch.float32)[None, :].repeat(b, 1)
-        exists = {c: (labels == c).any(1) for c in (1, 2, 3, 4)}
-        rel = {c: _masked_norm_z_mean(xyz, preds == c) for c in (1, 2, 3, 4)}
-        for cid in (1, 2, 3, 4):
-            for lower in _BSL_ABOVE[cid]:
-                gate = (exists[cid] & exists[lower]).float()
-                violation = F.relu(-(rel[cid] - rel[lower]) + rel_margin) * gate
-                weights[:, cid] += alpha * violation
-                weights[:, lower] += alpha * violation * 0.5
-                weights[:, lower] += alpha * violation
-                weights[:, cid] += alpha * violation * 0.3
-        other_frac = (preds == 0).float().mean(1)
-        weights[:, 0] += alpha * (1.0 - other_frac)
-        counts = torch.bincount(labels.reshape(-1), minlength=num_classes)[:num_classes]
-        freq_w = 1.0 / torch.sqrt(torch.clamp(counts.float(), min=1.0))
-        freq_w[1] *= 2.0
-        freq_w[4] *= 2.0
-        final_w = weights.mean(0) * freq_w
-    return weighted_cross_entropy(logits, labels, final_w, label_smoothing=0.2)
+    labels = labels.long()
+    b = labels.shape[0]
+    dev = preds.device
+    if base_weights is None:
+        base_weights = torch.tensor([1.5, 1.0, 1.2, 1.5, 1.0])
+    xyz = xyz.float()
+    weights = base_weights.to(dev, torch.float32)[None, :].repeat(b, 1)
+    exists = {c: (labels == c).any(1) for c in (1, 2, 3, 4)}
+    rel = {c: _masked_norm_z_mean(xyz, preds == c) for c in (1, 2, 3, 4)}
+    for cid in (1, 2, 3, 4):
+        for lower in _BSL_ABOVE[cid]:
+            gate = (exists[cid] & exists[lower]).float()
+            violation = F.relu(-(rel[cid] - rel[lower]) + rel_margin) * gate
+            weights[:, cid] += alpha * violation
+            weights[:, lower] += alpha * violation * 0.5
+            weights[:, lower] += alpha * violation
+            weights[:, cid] += alpha * violation * 0.3
+    other_frac = (preds == 0).float().mean(1)
+    weights[:, 0] += alpha * (1.0 - other_frac)
+    counts = torch.bincount(labels.reshape(-1), minlength=num_classes)[:num_classes]
+    freq_w = 1.0 / torch.sqrt(torch.clamp(counts.float(), min=1.0))
+    freq_w[1] *= 2.0
+    freq_w[4] *= 2.0
+    return weights.mean(0) * freq_w
 
 
 def sol_loss(

@@ -15,8 +15,9 @@ raw pointers and PyTorch's current stream. The launch path is kept thin,
 because at the models' smaller shapes a call's host time exceeds its device
 time: each entry point is bound once (``Kernel.fn``), the stream is read as
 a raw handle, the C side sets the device only when it changes, and the FPS,
-ball-query, group, interpolation and k-NN kernels take their integers as one
-array laid out once a shape (ops/sampling.py, grouping.py, interpolate.py),
+ball-query, group, interpolation (both ways) and k-NN kernels take their
+integers as one array laid out once a shape (ops/sampling.py, grouping.py,
+interpolate.py),
 since ctypes converts every argument on every call.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -119,8 +120,8 @@ GROUP_BWD = Kernel(
 )
 INTERP_BWD = Kernel(
     "interp_bwd", "pcb_interpolate_backward",
-    # g, idx, w, df, B, N, S, D, k, device, stream
-    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # g, idx, w, df, plan (ops/interpolate.py INTERP_BWD_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/interp_bwd.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/interp3.py:115",
 )

@@ -35,6 +35,12 @@ INTERP_PLAN = ("b", "n", "s", "d", "k", "lanes", "chunk", "vec")
 _INTERP_THREADS = 256
 _CHUNK_FLOATS = 128
 _LANES_AT_WORK = 2**17
+# the integers of a backward launch, in the order pcb_interpolate_backward
+# (csrc/interp_bwd.cu) reads them
+INTERP_BWD_PLAN = ("b", "n", "s", "d", "k", "rows", "vec")
+# csrc/interp_bwd.cu: channels a block, the df rows a block may own
+_BWD_CHUNK = 128
+_BWD_ROWS = (64, 32, 16, 8)
 
 
 def three_nn_interpolate(
@@ -222,10 +228,42 @@ def interpolate_backward_plain(
     return out.scatter_add_(1, flat, src)
 
 
+def bwd_rows(b: int, s: int, d: int, sms: int) -> int:
+    """df rows a block of csrc/interp_bwd.cu owns: the most of 64, 32, 16
+    and 8 whose blocks (B x row groups x 128-channel chunks) still number
+    at least the card's SMs, else 8. Each block scans its batch element's
+    whole selection, so fewer rows a block cost more scanning."""
+    chunks = -(-d // _BWD_CHUNK)
+    for rows in _BWD_ROWS[:-1]:
+        if b * -(-s // rows) * chunks >= sms:
+            return rows
+    return _BWD_ROWS[-1]
+
+
+@functools.lru_cache(maxsize=1024)
+def _interp_bwd_plan(b: int, n: int, s: int, d: int, k: int, vec: bool, sms: int,
+                     rows: Optional[int] = None):
+    """pcb_interpolate_backward's plan (INTERP_BWD_PLAN), checked and laid
+    out once a shape: ``bwd_rows`` df rows a block (or ``rows``)."""
+    if b > 65535 or b * n * k >= 2**31 or n >= 2**25:
+        raise ValueError(f"interpolate backward kernel takes B <= 65535, N < 2^25 and "
+                         f"B * N * k < 2^31, got B={b}, N={n}, k={k}")
+    if not 1 <= k <= INTERP_MAX_K or s < 1 or d < 1:
+        raise ValueError(f"interpolate backward kernel takes 1 <= k <= 4, S >= 1 and D >= 1, "
+                         f"got k={k}, S={s}, D={d}")
+    rows = rows or bwd_rows(b, s, d, sms)
+    if rows not in _BWD_ROWS:
+        raise ValueError(f"interpolate backward kernel: 8, 16, 32 or 64 rows a block, got {rows}")
+    return (ctypes.c_int * len(INTERP_BWD_PLAN))(b, n, s, d, k, rows, vec)
+
+
 def interpolate_backward_cuda(
     g: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, s: int
 ) -> torch.Tensor:
-    """Interpolation-backward kernel wrapper: one launch (csrc/interp_bwd.cu)."""
+    """Interpolation-backward kernel wrapper: one launch (csrc/interp_bwd.cu),
+    which writes every element of df (no memset) and adds each row's terms
+    in ascending (query, slot) order, the same bits from call to call.
+    16-byte accesses where D is a multiple of 4 and g is 16-byte aligned."""
     _kernels.check_tensor("g", g, torch.float32, 3)
     _kernels.check_tensor("idx", idx, torch.int32, 3)
     _kernels.check_tensor("w", w, torch.float32, 3)
@@ -236,13 +274,13 @@ def interpolate_backward_cuda(
             f"interpolate backward: bad shapes g {tuple(g.shape)}, "
             f"idx {tuple(idx.shape)}, w {tuple(w.shape)}"
         )
-    df = torch.empty((b, s, d), dtype=torch.float32, device=g.device)
-    if g.numel() >= 2**31 or df.numel() >= 2**31:
+    if g.numel() >= 2**31 or b * s * d >= 2**31:
         raise ValueError("interpolate backward kernel takes < 2^31 elements")
-    if b * n == 0:
-        return df.zero_()
-    _kernels.INTERP_BWD.launch(
-        g.data_ptr(), idx.data_ptr(), w.data_ptr(), df.data_ptr(), b, n, s, d, k,
-        *_kernels.stream_args(g),
-    )
+    df = torch.empty((b, s, d), dtype=torch.float32, device=g.device)
+    if df.numel() == 0:
+        return df
+    vec = d % 4 == 0 and g.data_ptr() % 16 == 0 and df.data_ptr() % 16 == 0
+    plan = _interp_bwd_plan(b, n, s, d, k, vec, _kernels.sm_count(g.get_device()))
+    _kernels.INTERP_BWD.launch(g.data_ptr(), idx.data_ptr(), w.data_ptr(), df.data_ptr(), plan,
+                               *_kernels.stream_args(g))
     return df
