@@ -35,9 +35,15 @@ any failure raises and exits non-zero:
    (K5), indices and distances, also at N=S=4096 k=32 at B=16 (the serve's
    batch), N = 16384 with k = 64 (a ring of staged tiles), S != N, k = N, N
    no multiple of 32, and k = 1, 32, 40 and 64 on an integer grid (ties);
-   each timed K2 and K5 case adds its issue floor (9 instructions a pair
-   scanned over 128 lanes an SM a cycle at the SM clock that nvidia-smi
-   reads meanwhile). Interpolation (K4) also at the SSG levels at B=16, D=131, a
+   K5 also at DGCNN's xyz graphs (N = S = 4096, k = 20 and 64, B = 4 and
+   16); K5c, k-NN over C channels, indices and distances bit-identical, at
+   DGCNN's conv2-conv4 shapes (C = 64, N = S = 4096, k = 20 and 64, B = 4
+   and 16, three launches a forward), then at C = 5, 6, 67, 128 and 3, N
+   no multiple of its tile, S != N, rows off 16-byte alignment, integer
+   features (ties), duplicate points and k = N;
+   each timed K2, K5 and K5c case adds its issue floor (9 instructions a
+   pair scanned, 3C for K5c, over 128 lanes an SM a cycle at the SM clock
+   that nvidia-smi reads meanwhile). Interpolation (K4) also at the SSG levels at B=16, D=131, a
    feature view 4 bytes off alignment, S=2 with k=2, ties on an integer grid
    and S=2000, each case with the kept selection (indices bit for bit,
    weights within 1e-6) and the same output with and without it. The group
@@ -155,7 +161,25 @@ any failure raises and exits non-zero:
    ``--config configs/train_bristrunet.yaml`` (bridge_structure loss,
    weighted block sampling, the plateau scheduler, Adam), checked as in 7,
    the batch-16 step timed and profiled by kernel family, then
-   ``infer_cli blocks`` serving the checkpoint that run wrote.
+   ``infer_cli blocks`` serving the checkpoint that run wrote;
+18. the DGCNN (k = 20) and DGCNNGlobal (k = 64) forwards at full width,
+   B=4 x 4096, random weights and BatchNorm statistics, on the card against
+   the CPU: exactly 1 K5 and 3 K5c launches; each of the four graphs the
+   card built (recorded by wrapping the port's knn where models/dgcnn.py
+   calls it, ``GraphTap``) bit for bit against knn_plain on the card on
+   that stage's own input; the CPU forward with the card's graphs replayed,
+   logits within 2e-4 (conv2-conv4 build their graphs on features from
+   GEMMs, which the card and the CPU round differently, and a near tie at
+   the k-th neighbour may swap); then without the replay, the picks that
+   differ stage by stage with their gaps to the k-th distance; forward
+   time, points/s and device time by kernel family;
+19. one DGCNN train step at full width, B=4 x 4096, on the card against
+   the CPU, checked as in 6, the CPU taking the card's graphs of the same
+   mode: exactly 1 K5 and 3 K5c launches; milliseconds a step;
+20. two epochs of DGCNN at batch 16 through train_cli.main with
+   ``--config configs/train_dgcnn.yaml``, checked as in 7, the batch-16
+   step timed (ms, points/s, peak memory) and profiled, then ``infer_cli
+   blocks`` serving the checkpoint that run wrote.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
 K3b cases of phases 3 and 3b alone (``--interp-backward`` the K4b cases of
@@ -163,20 +187,22 @@ phase 3b, then K4b's designs side by side, pointcloud_bridge_tpu_torch/
 probes/k4b_probe.py; ``--attention`` phases 3c and 3d;
 ``--sampling`` the K1 and K4 cases of phase 3, then each kernel's launch
 choices side by side: FPS by threads a row, interpolation by lanes a query;
-``--neighbours`` the K2 and K5 cases of phase 3, then their launch choices
-side by side: warps a block and queries a warp, and K5's row staged as a
-ring of tiles), and prints no result line.
+``--neighbours`` the K2, K5 and K5c cases of phase 3, then their launch
+choices side by side: warps a block and queries a warp, and K5's row staged
+as a ring of tiles; ``--dgcnn`` the K2, K5 and K5c cases of phase 3 and
+phases 18-20), and prints no result line.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
 B=4 (phase 8; of one SSG train step, phase 6, for its backward kernels; of
-one ptv3_pooled forward, phase 10, for the flash-attention kernel; of one
+one DGCNN forward, phase 18, for K5c; of one ptv3_pooled forward, phase 10,
+for the flash-attention kernel; of one
 ptv3_pooled train step, phase 13, for the attention-backward kernels) beside
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
 those launches' shapes (phases 3, 3b, 3c, 3d), and for K1-K5, K3b and K4b
 the device times ``device_ms`` and ``library_device_ms`` (null for the
 other kernels and where no library call exists), for K2 and K5 the issue
-floor ``issue_floor_ms`` (null for the others); ``paths`` has the same for
+floor ``issue_floor_ms`` (and K5c; null for the others); ``paths`` has the same for
 the other passes (the BriStruNet train step, phase 16, among them for K3b
 and K4b), and
 ``launches_by_path`` the counts of the serves and the training runs through
@@ -207,6 +233,7 @@ from pointcloud_bridge_tpu_torch.data.dataset import _load_scene
 from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
 from pointcloud_bridge_tpu_torch.infer import run_block_inference, whole_scene_vote_predict
 from pointcloud_bridge_tpu_torch.config import Config, LossConfig
+from pointcloud_bridge_tpu_torch.models import dgcnn as dgcnn_models
 from pointcloud_bridge_tpu_torch.models import (
     BatchNorm,
     Dense,
@@ -255,6 +282,10 @@ def attention_launches(n: int) -> dict:
 # level for its two radii, a group a radius, an interpolation a decoder
 # level, a k-NN in bri_enc, geometric2 and geometric3
 BRISTRUNET_LAUNCHES = only(fps=3, ball_query=3, group=6, interpolate=3, knn=3)
+# launches of one DGCNN or DGCNNGlobal forward (and train step: the gather's
+# backward is PyTorch's): K5 over xyz in conv1, K5c over 64 channels in
+# conv2-conv4
+DGCNN_LAUNCHES = only(knn=1, knn_c=3)
 # the benched ptv3_pooled (configs/train_ptv3_pooled.yaml): an attention a block
 POOLED_BENCHED = dict(dims=(64, 128, 256), enc_depths=(2, 2, 6), dec_depths=(1, 1),
                       strides=(4, 4), window_size=1024)
@@ -360,9 +391,10 @@ SSG, BRISTRUNET, TRAIN = "ssg_forward", "bristrunet_forward", "ssg_train_step"
 BRISTRUNET_TRAIN = "bristrunet_train_step"
 PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
 PTV3_POOLED_TRAIN, PTV3_TRAIN = "ptv3_pooled_train_step", "ptv3_train_step"
+DGCNN, DGCNN_GLOBAL = "dgcnn_forward", "dgcnn_global_forward"
 # the path whose numbers stand in a kernel's own row of the summary
 # (BriStruNet's forward for the kernels not named here)
-ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "flash_attn": PTV3_POOLED,
+ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "knn_c": DGCNN, "flash_attn": PTV3_POOLED,
             "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN}
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms", "fma_bound_ms")
 # None unless measured: the library call's event time (cases with a library
@@ -440,7 +472,10 @@ class Results:
                 line += f"  library {case['library_ms']:.4f} ms"
             if split:
                 case["device_ms"] = device_ms(kernel_fn)
-                case["host_us"] = host_us(kernel_fn)
+                # about 0.1 s of calls a round (1000 for a kernel of 0.1 ms or
+                # less): where the device is the slower, this reads its pace
+                case["host_us"] = host_us(kernel_fn, calls=int(
+                    min(1000, max(20, 100 / max(case["device_ms"], 1e-6)))))
                 line += f"  | device: kernel {case['device_ms']:.4f} ms"
                 if library_fn is not None:
                     case["library_device_ms"] = device_ms(library_fn)
@@ -525,6 +560,7 @@ BRISTRUNET_BALLS = tuple((n, s, tuple((r, k) for n2, s2, k, r, _ in BRISTRUNET_L
                          for n, s in dict.fromkeys((n, s) for n, s, *_ in BRISTRUNET_LEVELS))
 # side paths: timed and summed on lines of their own, no pass of this script
 SSG_B16, TRAIN_B16 = "ssg_forward_b16", "ssg_train_step_b16"
+DGCNN_B16, DGCNN_GLOBAL_B16 = "dgcnn_forward_b16", "dgcnn_global_forward_b16"
 BRISTRUNET_TRAIN_B16 = "bristrunet_train_step_b16"
 
 
@@ -840,16 +876,29 @@ def compare_sampling_designs(dev: torch.device) -> None:
 # serve's batch of 16
 BRISTRUNET_KNN = ((4096, 32), (512, 16), (128, 16))
 KNN_B16 = "knn_b16"
+# (B, k, path) of the k-NN calls of a DGCNN forward (k = 20) and a
+# DGCNNGlobal one (k = 64), N = S = 4096: one K5 over xyz and three K5c over
+# conv2-conv4's 64 channels; at B = 16, the serve's and the recipe's batch
+DGCNN_KNN = ((B, 20, (DGCNN,)), (B, 64, (DGCNN_GLOBAL,)), (16, 20, (DGCNN_B16,)),
+             (16, 64, (DGCNN_GLOBAL_B16,)))
 # instructions a pair that K2 and K5 cannot go below: a distance (8 rounded
 # operations, no contraction) and its compare
 NEIGHBOUR_INSTRUCTIONS = 9
 
 
-def issue_floor_ms(pairs: int, mhz: float) -> float:
-    """The least time the card's float32 lanes take to issue
-    NEIGHBOUR_INSTRUCTIONS for each pair: 128 lanes an SM a cycle."""
+def issue_floor_ms(pairs: int, mhz: float, per_pair: int = NEIGHBOUR_INSTRUCTIONS) -> float:
+    """The least time the card's float32 lanes take to issue ``per_pair``
+    instructions for each pair (NEIGHBOUR_INSTRUCTIONS for K2 and K5, 3C
+    for K5c): 128 lanes an SM a cycle."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return pairs * NEIGHBOUR_INSTRUCTIONS / (SM_LANES * sms * mhz * 1e3)
+    return pairs * per_pair / (SM_LANES * sms * mhz * 1e3)
+
+
+def knn_c_instructions(c: int) -> int:
+    """What K5c cannot go below a pair: a distance over C channels (C
+    subtractions, C multiplications, C - 1 additions, each rounded) and its
+    compare."""
+    return 3 * c
 
 
 def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
@@ -862,7 +911,12 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
     and its first at B=16. Then K2 over empty balls, K > N, N no multiple of
     32, N = 16384 (a ring of tiles) and radius 0 over duplicate points; K5
     at N = 16384 with k = 64 (a ring of tiles), S != N, k = N, and k = 1,
-    32, 40 and 64 on an integer grid (ties)."""
+    32, 40 and 64 on an integer grid (ties). K5 and K5c at DGCNN's shapes
+    (N = S = 4096, k = 20 and 64, B = 4 and 16; K5c over 64 channels,
+    three launches a forward, beside 3C instructions a pair); then K5c at
+    C = 5, 6, 67, 128 and 3, N no multiple of its tile, S != N, rows off
+    16-byte alignment, integer features (ties), duplicate points and
+    k = N."""
 
     def cloud(b, n):
         return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
@@ -906,6 +960,25 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
                         library_fn=library, split=timed)
         return (b * s * n, got) if timed else None
 
+    def knn_c_case(label, xyz, query, k, paths=(), timed=False, times=1):
+        """K5c against knn_plain, indices and distances bit for bit; timed
+        beside 3C operations a pair and cdist + topk."""
+        b, n, c = xyz.shape
+        s = query.shape[1]
+        work = library = None
+        if timed:
+            work = (nbytes(xyz, query) + b * s * k * 8, knn_c_instructions(c) * b * s * n)
+            library = lambda: (torch.cdist(query, xyz) ** 2).topk(k, largest=False)  # noqa: E731
+        got = res.check("knn_c", label, lambda: grouping.knn_c_cuda(xyz, query, k),
+                        lambda: grouping.knn_plain(xyz, query, k), True, paths, work=work,
+                        library_fn=library, split=timed, times=times)
+        return (b * s * n, got) if timed else None
+
+    def features(b, n, c, side=0):
+        """Normal features, or integers in [0, side) (exact distances, ties)."""
+        a = rng.integers(0, side, (b, n, c)) if side else rng.normal(size=(b, n, c))
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
     timed = []
     with SmClock() as clock:
         for b, paths, levels in ((B, (SSG,), SSG_BALLS), (B, (BRISTRUNET,), BRISTRUNET_BALLS),
@@ -914,20 +987,28 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
                 xyz = cloud(b, n)
                 label = f"B={b} N={n} S={s} " + " and ".join(f"K={k} r={r}" for r, k in balls)
                 got = ball_case(label, balls, xyz, xyz[:, :s].contiguous(), paths, timed=True)
-                timed.append(("ball_query", label, paths, *got))
+                timed.append(("ball_query", label, paths, NEIGHBOUR_INSTRUCTIONS, *got))
         for b, paths, (n, k) in [(B, (BRISTRUNET,), nk) for nk in BRISTRUNET_KNN] + [
-                (16, (KNN_B16,), BRISTRUNET_KNN[0])]:
+                (16, (KNN_B16,), BRISTRUNET_KNN[0])] + [
+                (b, paths, (N, k)) for b, k, paths in DGCNN_KNN]:
             xyz = cloud(b, n)
-            timed.append(("knn", f"B={b} N=S={n} k={k}", paths,
+            timed.append(("knn", f"B={b} N=S={n} k={k}", paths, NEIGHBOUR_INSTRUCTIONS,
                           *knn_case(f"B={b} N=S={n} k={k}", xyz, xyz, k, paths, timed=True)))
-    for name, label, paths, pairs, got in timed:
-        floor_ms = issue_floor_ms(pairs, clock.mhz)
-        res.add(name, paths, "issue_ms", floor_ms)
+        # K5c at DGCNN's conv2-conv4 (64 channels), three launches a forward
+        for b, k, paths in DGCNN_KNN:
+            x = features(b, N, 64)
+            label = f"B={b} N=S={N} C=64 k={k}"
+            timed.append(("knn_c", label, paths, knn_c_instructions(64),
+                          *knn_c_case(label, x, x, k, paths, timed=True, times=3)))
+    for name, label, paths, per_pair, pairs, got in timed:
+        floor_ms = issue_floor_ms(pairs, clock.mhz, per_pair)
+        res.add(name, paths, "issue_ms", floor_ms * (3 if name == "knn_c" else 1))
         print(f"{name:18s} {label}: device {got['device_ms']:.4f} ms, {pairs} pairs, issue floor "
               f"{floor_ms:.5f} ms at {clock.mhz:.0f} MHz ({got['device_ms'] / floor_ms:.1f}x)",
               flush=True)
     res.print_sums("ball_query", (SSG, BRISTRUNET, SSG_B16))
-    res.print_sums("knn", (BRISTRUNET, KNN_B16))
+    res.print_sums("knn", (BRISTRUNET, KNN_B16, DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16))
+    res.print_sums("knn_c", (DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16))
 
     xyz = cloud(B, 4096)
     ball_case("empty balls", ((0.1, 32),), xyz, torch.full((B, 64, 3), 10.0, device=dev))
@@ -962,6 +1043,27 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
     for k in (64, 40, 32, 1):
         knn_case(f"integer grid (ties) N=S=2048 k={k}", ties, ties, k)
 
+    # K5c: other widths (the runtime-C paths, four channels a copy or one),
+    # N no multiple of the tile, S != N, ties, duplicates, k = N, C = 3
+    for c in (5, 6, 67, 128, 3):
+        x = features(B, 1000, c)
+        knn_c_case(f"C={c} N=S=1000 k=20", x, x, 20)
+    x = features(B, 4000, 64)  # 10 tiles of 384 and one of 160
+    knn_c_case("C=64 N=4000 S=1000 k=64", x, features(B, 1000, 64), 64)
+    knn_c_case("C=64 N=4000 S=700 k=33", x, x[:, ::5].contiguous(), 33)
+    x = features(B, 16384, 64)
+    knn_c_case("C=64 N=16384 S=512 k=20", x, x[:, :512].contiguous(), 20)
+    view = features(1, B * 1000 * 64 + 1, 1).reshape(-1)[1:].view(B, 1000, 64)
+    knn_c_case("C=64 rows off 16-byte alignment (4-byte copies)", view, view, 20)
+    for c, k in ((64, 20), (64, 64), (6, 64), (5, 1)):
+        g = features(B, 2048, c, side=3)
+        knn_c_case(f"integer grid (ties) C={c} N=S=2048 k={k}", g, g, k)
+    dup = features(B, 64, 64).repeat(1, 32, 1)  # 2048 points on 64 sites
+    knn_c_case("C=64 duplicate points N=S=2048 k=40", dup, dup, 40)
+    tiny = features(B, 64, 64)
+    knn_c_case("C=64 k = N = 64", tiny, features(B, 7, 64), 64)
+    knn_c_case("C=6 k = N = 37", features(B, 37, 6), features(B, 300, 6), 37)
+
 
 def knn_with(xyz, k: int, warps=None, tile=None) -> tuple:
     """csrc/knn.cu self-query at ``warps`` a block and ``tile`` points a
@@ -972,6 +1074,19 @@ def knn_with(xyz, k: int, warps=None, tile=None) -> tuple:
     plan = grouping._knn_plan(b, n, n, k, _kernels.sm_count(xyz.get_device()), warps, tile)
     _kernels.KNN.launch(xyz.data_ptr(), xyz.data_ptr(), idx.data_ptr(), d2.data_ptr(), plan,
                         *_kernels.stream_args(xyz))
+    return d2, idx
+
+
+def knn_c_with(x, k: int, warps: int) -> tuple:
+    """K5c self-query at ``warps`` a block (its tile re-planned for them),
+    in place of the wrapper's plan -> (d2, idx)."""
+    b, n, c = x.shape
+    idx = torch.empty(b, n, k, dtype=torch.int32, device=x.device)
+    d2 = torch.empty(b, n, k, device=x.device)
+    plan = grouping._knn_c_plan(b, n, n, k, c, _kernels.sm_count(x.get_device()),
+                                c % 4 == 0 and x.data_ptr() % 16 == 0, warps)
+    _kernels.KNN_C.launch(x.data_ptr(), x.data_ptr(), idx.data_ptr(), d2.data_ptr(), plan,
+                          *_kernels.stream_args(x))
     return d2, idx
 
 
@@ -991,9 +1106,10 @@ def ball_with(balls, xyz, centers, warps: int, queries: int) -> list:
 
 
 def compare_neighbour_designs(dev: torch.device) -> None:
-    """The launch choices of K2 and K5 side by side, device ms a call (CUDA
-    graph), each result held to the plain version: K5 at 4, 8, 16 and 32
-    warps a block and with its row staged as a ring of 1024-point tiles; K2
+    """The launch choices of K2, K5 and K5c side by side, device ms a call
+    (CUDA graph), each result held to the plain version: K5 at 4, 8, 16 and
+    32 warps a block and with its row staged as a ring of 1024-point tiles;
+    K5c at 4-32 warps (its tile follows) at DGCNN's shapes; K2
     at 1 and 4 queries a warp and 4-32 warps a block; at the model levels of
     both (B=4) and at B=16; then BriStruNet's levels as one scan of both
     radii against a launch a radius."""
@@ -1016,6 +1132,21 @@ def compare_neighbour_designs(dev: torch.device) -> None:
             line.append(f"{'plan, ring 1024' if tile else warps}: {device_ms(run):.4f}")
         print(f"{'knn':18s} B={b} N=S={n} k={k} device ms by warps a block (chosen "
               f"{grouping.neighbour_launch(b, n, sms)}): " + ", ".join(line), flush=True)
+    for b, k, _ in DGCNN_KNN:
+        x = torch.from_numpy(rng.normal(size=(b, N, 64)).astype(np.float32)).to(dev)
+        want = grouping.knn_plain(x, x, k)
+        line = []
+        for warps in (4, 8, 16, 32):
+            def run(warps=warps):
+                return knn_c_with(x, k, warps)
+            got = run()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"knn_c B={b} k={k} at {warps} warps: disagrees")
+            tile = grouping.knn_c_tile(N, 64, warps)
+            line.append(f"{warps} (tile {tile}): {device_ms(run):.4f}")
+        print(f"{'knn_c':18s} B={b} N=S={N} C=64 k={k} device ms by warps a block (chosen "
+              f"{grouping.neighbour_launch(b, N, sms)}): " + ", ".join(line), flush=True)
+        del x, want
     for b, levels in ((B, SSG_BALLS), (B, BRISTRUNET_BALLS), (16, SSG_BALLS)):
         for n, s, balls in levels:
             xyz = cloud(b, n)
@@ -1574,10 +1705,12 @@ def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw, loss_fn=No
 
 def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
                      launches: dict = None, label: str = "train step",
-                     zero_below: float = 0.0) -> dict:
+                     zero_below: float = 0.0,
+                     needed: tuple = FORWARD_KERNELS + SSG_BACKWARD_KERNELS) -> dict:
     """Phases 6 and 16: one train-mode forward and backward on the card
     (kernels) and on the CPU (plain versions) from the same weights and
-    batch; with ``launches``, exactly those launches of each kernel. With
+    batch; every kernel of ``needed`` launched and, with ``launches``,
+    exactly those launches of each kernel. With
     ``zero_below``, a bias whose gradient on the CPU step stays below that
     share of its layer weight's max|g| is held as an exactly zero one too:
     one that the batch statistics take out through a sum or a gate, not
@@ -1608,7 +1741,7 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
     _kernels.reset_launch_counts()
     loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw, loss_fn)
     torch.cuda.synchronize()
-    counts = counts_all_launched(label, FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+    counts = counts_all_launched(label, needed)
     if launches is not None and counts != launches:
         raise AssertionError(f"{label}: launches {counts}, expected {launches}")
     if not torch.isfinite(loss):
@@ -1977,13 +2110,232 @@ def train_bristrunet_through_cli(data_dir: Path, n_blocks: int, dev: torch.devic
     return by_path
 
 
+class GraphTap:
+    """DGCNN's four k-NN graphs, stage by stage, through a wrapper of the
+    port's ``knn`` where models/dgcnn.py calls it (the model has no hook
+    for this): a forward on the card runs the port's knn (K5, K5c) and
+    records each stage's input and graph in ``card``, unless ``frozen``; a
+    forward on the CPU replays the graphs the card recorded last, in the
+    same order, or with ``own`` builds its own with knn_plain and records
+    them in ``cpu``. For time, that knn_plain runs on the card: a fold of
+    rounded elementwise operations and a stable sort, the same bits on
+    either device (held on a slice by ``check_dgcnn_forward``)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev, self.card, self.cpu = dev, [], []
+        self.own = self.frozen = False
+        self.replayed = 0
+
+    def __enter__(self):
+        self.real = dgcnn_models.knn
+        dgcnn_models.knn = self.knn
+        return self
+
+    def __exit__(self, *exc):
+        dgcnn_models.knn = self.real
+
+    def knn(self, x, k):
+        if x.is_cuda:
+            idx = self.real(x, k=k)
+            if not self.frozen:
+                if len(self.card) == 4:
+                    self.card = []
+                self.card.append((x.detach().clone(), idx))
+            return idx
+        if self.own:
+            if len(self.cpu) == 4:
+                self.cpu = []
+            on_card = x.detach().to(self.dev)
+            idx = grouping.knn_plain(on_card, on_card, k)[1].cpu()
+            self.cpu.append((x.detach().clone(), idx))
+            return idx
+        stage = self.replayed % 4
+        self.replayed += 1
+        return self.card[stage][1].cpu()
+
+
+def check_card_graphs(label: str, tap: GraphTap) -> list:
+    """Each graph the card recorded against knn_plain on the card on the
+    stage's own input, bit for bit (what K5 and K5c promise) -> knn_plain's
+    (d2, idx) a stage."""
+    out = []
+    if len(tap.card) != 4:
+        raise AssertionError(f"{label}: {len(tap.card)} graphs recorded, expected 4")
+    for stage, (x, idx) in enumerate(tap.card):
+        d2, want = grouping.knn_plain(x, x, idx.shape[-1])
+        if not torch.equal(idx, want):
+            raise AssertionError(f"{label}: stage {stage + 1} graph (C={x.shape[-1]}) differs "
+                                 "from knn_plain on its own input")
+        out.append((d2, want))
+    return out
+
+
+def picks_that_differ(label: str, card: list, cpu: list, plain: list) -> list:
+    """Stage by stage, the picks of the card's graph that the CPU's own
+    graph (no replay) lacks, with each one's gap to the k-th distance on
+    the card's features, relative to that distance -> the counts."""
+    counts = []
+    for stage, ((x, idx), (_, own), (d2, _)) in enumerate(zip(card, cpu, plain)):
+        own = own.to(idx.device)
+        missing = ~(idx.unsqueeze(-1) == own.unsqueeze(-2)).any(-1)  # [B, N, k]
+        n = int(missing.sum())
+        counts.append(n)
+        line = (f"{label}: stage {stage + 1} (C={x.shape[-1]}, k={idx.shape[-1]}): {n} of "
+                f"{idx.numel()} picks differ between the card and the CPU without the replay")
+        if n:
+            gap = ((d2[..., -1:] - d2) / d2[..., -1:].clamp_min(1e-30))[missing].double()
+            line += (f"; gap to the k-th distance, relative: max {gap.max().item():.3g}, median "
+                     f"{gap.median().item():.3g}, min {gap.min().item():.3g}")
+        print(line, flush=True)
+    return counts
+
+
+def check_dgcnn_forward(name: str, ds: BlockDataset, dev: torch.device, seed: int) -> dict:
+    """Phase 18: ``name`` (dgcnn or dgcnn_global, full width) at B=4 x 4096,
+    random weights and BatchNorm statistics, on the card against the CPU:
+    exactly 1 K5 and 3 K5c launches; each of the card's four graphs bit for
+    bit against knn_plain on its own input; the CPU forward with the card's
+    graphs replayed, logits within 2e-4; then without the replay, the picks
+    that differ stage by stage and their gaps to the k-th distance;
+    forward ms and points/s by CUDA events, and device time by kernel
+    family -> the forward's milliseconds and counts."""
+    label = f"{name} forward"
+    model = seeded_model(name, seed)
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz_cpu = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb_cpu = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    xyz, rgb = xyz_cpu.to(dev), rgb_cpu.to(dev)
+    with torch.inference_mode(), GraphTap(dev) as tap:
+        _kernels.reset_launch_counts()
+        out = model(xyz, rgb)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        if counts != DGCNN_LAUNCHES:
+            raise AssertionError(f"{label}: launches {counts}, expected {DGCNN_LAUNCHES}")
+        plain = check_card_graphs(label, tap)
+        # knn_plain gives the same bits on either device: a slice of conv2's
+        x, idx = tap.card[1]
+        k = idx.shape[-1]
+        here = grouping.knn_plain(x[:1].cpu(), x[:1, :256].cpu(), k)
+        there = grouping.knn_plain(x[:1], x[:1, :256], k)
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(here, there)):
+            raise AssertionError(f"{label}: knn_plain differs between the CPU and the card")
+        t0 = time.perf_counter()
+        ref = cpu_model(xyz_cpu, rgb_cpu)
+        cpu_s = time.perf_counter() - t0
+        if tap.replayed != 4:
+            raise AssertionError(f"{label}: the CPU forward took {tap.replayed} graphs, not 4")
+        out = out.cpu()
+        err = max_abs_err(out, ref)
+        agree = (out.argmax(-1) == ref.argmax(-1)).double().mean().item()
+        print(f"{label}: logits {tuple(out.shape)} CUDA vs CPU (the card's graphs replayed) "
+              f"max|err| {err:.3g} (max|logit| {ref.abs().max().item():.3g}), argmax agreement "
+              f"{agree:.6f}, launches {counts}; the four graphs bit for bit against knn_plain "
+              f"on the card; CPU reference forward {cpu_s:.2f} s (host)", flush=True)
+        if out.shape != (B, N, NUM_CLASSES) or not torch.isfinite(out).all():
+            raise AssertionError(f"{label}: logits {tuple(out.shape)} not finite")
+        if not torch.allclose(out, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+            raise AssertionError(f"{label}: CUDA logits differ from CPU by {err}")
+        tap.own = True
+        own = cpu_model(xyz_cpu, rgb_cpu)
+        differ = picks_that_differ(label, tap.card, tap.cpu, plain)
+        print(f"{label}: without the replay, logits max|err| {max_abs_err(out, own):.3g}, "
+              f"argmax agreement {(out.argmax(-1) == own.argmax(-1)).double().mean().item():.6f}",
+              flush=True)
+        if differ[0]:
+            raise AssertionError(f"{label}: conv1's graphs over the same xyz differ")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(xyz, rgb))
+        print(f"{label}: B={B} N={N} {fwd_ms:.3f} ms, {B * N / fwd_ms * 1e3:.0f} points/s",
+              flush=True)
+        profile_by_family(label, "forward", lambda: model(xyz, rgb))
+    return counts
+
+
+def check_dgcnn_train_step(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 19: one DGCNN train step at full width, B=4 x 4096, random
+    weights and BatchNorm statistics, weighted CE with the dataset's class
+    weights, on the card against the CPU, checked as phase 6 checks SSG's
+    (frozen BatchNorms first, then train mode; ``pre_bn_biases``), the CPU
+    taking the card's graphs of the same mode (GraphTap), with exactly
+    DGCNN_LAUNCHES -> those launch counts."""
+    model = seeded_model("dgcnn", SEED + 19)
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
+    with GraphTap(dev) as tap:
+        model.eval()
+        with torch.no_grad():
+            model(xyz.to(dev), rgb.to(dev))
+        check_card_graphs("DGCNN eval-mode graphs", tap)
+        tap.frozen = True
+        check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw,
+                                  label="DGCNN frozen-BN gradients")
+        # train mode: the graphs of a train-mode forward of two copies (the
+        # batch statistics, not the running ones, set the features), the
+        # same bits twice, which the CPU step then replays
+        graphs = []
+        for _ in range(2):
+            tap.frozen = False
+            with torch.no_grad():
+                copy.deepcopy(model).train()(xyz.to(dev), rgb.to(dev))
+            graphs.append([idx for _, idx in tap.card])
+        if not all(map(torch.equal, *graphs)):
+            raise AssertionError("DGCNN train step: two train-mode forwards built other graphs")
+        check_card_graphs("DGCNN train-mode graphs", tap)
+        tap.frozen, tap.replayed = True, 0
+        # 3 of its 11 biases have an exactly zero gradient in train mode: 2
+        # straight in front of a BatchNorm and bn5's, whose shift moves every
+        # point's conv5 feature alike, passes the max over the points with
+        # slope 1 and reaches point_conv.1's batch mean (the JAX package's
+        # float64 step gives it 2e-15 of its weight's gradient;
+        # tests/test_torch_dgcnn_train.py): found by their CPU gradient below
+        # 1e-4 of their weight's
+        counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None, DGCNN_LAUNCHES,
+                                  "DGCNN train step", zero_below=1e-4, needed=("knn", "knn_c"))
+        if tap.replayed != 4:
+            raise AssertionError(f"DGCNN train step: the CPU took {tap.replayed} graphs, not 4")
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
+    print(f"DGCNN train step: forward and backward {step_ms:.3f} ms, "
+          f"{B * N / step_ms * 1e3:.0f} points/s", flush=True)
+    return counts
+
+
+def train_dgcnn_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) -> dict:
+    """Phase 20: two epochs of DGCNN at batch 16 x 4096 through
+    train_cli.main with configs/train_dgcnn.yaml (weighted CE, Adam 1e-3,
+    the plateau scheduler), checked as phase 7, the batch-16 step timed
+    (ms, points/s, peak memory) and profiled by kernel family; then
+    ``infer_cli blocks`` serves the checkpoint that run wrote, warm ->
+    launch counts by path."""
+    kernels = ("knn", "knn_c")
+    by_path = {}
+    by_path["dgcnn_train_cli"], exp_dir = train_through_cli(
+        "train dgcnn (configs/train_dgcnn.yaml)", "dgcnn", kernels, data_dir, dev,
+        profile=True, recipe=ROOT / "configs" / "train_dgcnn.yaml")
+    try:
+        counts = serve_blocks("serve trained dgcnn blocks", "dgcnn", exp_dir, kernels, data_dir,
+                              n_blocks, dev)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    if counts != only(knn=counts["knn"], knn_c=3 * counts["knn"]):
+        raise AssertionError(f"serve trained dgcnn blocks: launches {counts}")
+    by_path["dgcnn_serve_trained"] = counts
+    return by_path
+
+
 def kernel_family(name: str) -> str:
     """The row of PERF.md's breakdown that a device kernel's name goes to."""
     for key, family in (
         ("fps_kernel", "K1 FPS"), ("ballq_", "K2 ball query"),
         ("group_kernel", "K3 group"), ("group_bwd_kernel", "K3b group backward"),
         ("interp_kernel", "K4 interpolate"), ("interp_bwd_kernel", "K4b interpolation backward"),
-        ("knn_kernel", "K5 k-NN"), ("flash_attn_kernel", "K6 flash attention"),
+        ("knn_c_kernel", "K5c k-NN over C channels"), ("knn_kernel", "K5 k-NN"),
+        ("flash_attn_kernel", "K6 flash attention"),
         ("flash_attn_bwd", "K6b flash attention backward"),
         ("multi_tensor", "Adam (foreach)"),
         ("gemm", "GEMMs"), ("gemv", "GEMMs"), ("cutlass", "GEMMs"),
@@ -2298,6 +2650,20 @@ def main() -> None:
         compare_interp_backward(dev, Results(), np.random.default_rng(SEED + 1))
         k4b_probe.compare(dev)
         return
+    if sys.argv[1:] == ["--dgcnn"]:
+        # model work on DGCNN: phases 1, 2, K5c's cases of 3 and phases
+        # 18-20 alone, no result line
+        compare_neighbour_kernels(dev, Results(), np.random.default_rng(SEED))
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            ds = make_dataset(data_dir)
+            check_dgcnn_forward("dgcnn", ds, dev, SEED + 18)
+            check_dgcnn_forward("dgcnn_global", ds, dev, SEED + 28)
+            check_dgcnn_train_step(ds, dev)
+            train_dgcnn_through_cli(data_dir, len(ds), dev)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     res = compare_kernels(dev)
@@ -2428,20 +2794,29 @@ def main() -> None:
         # the checkpoint it wrote
         bristrunet_step_counts = check_bristrunet_train_step(ds, dev)
         by_path |= train_bristrunet_through_cli(data_dir, len(ds), dev, bristrunet_step_counts)
+
+        # 18. the DGCNN and DGCNNGlobal forwards against the CPU; 19. one DGCNN
+        # train step against the CPU; 20. configs/train_dgcnn.yaml through the
+        # training CLI, served from the checkpoint it wrote
+        dgcnn_counts = check_dgcnn_forward("dgcnn", ds, dev, SEED + 18)
+        dgcnn_global_counts = check_dgcnn_forward("dgcnn_global", ds, dev, SEED + 28)
+        by_path["dgcnn_train_step"] = check_dgcnn_train_step(ds, dev)
+        by_path |= train_dgcnn_through_cli(data_dir, len(ds), dev)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
-    # 10, 11, 13, 15 and 16) beside the times and bound summed over exactly
-    # those launches' shapes (phases 3, 3b, 3c and 3d). The row's own numbers
-    # are those of the BriStruNet forward, of the SSG train step for its
-    # backward kernels, of the ptv3_pooled forward for the flash-attention
-    # kernel and of the ptv3_pooled train step for its backward kernels
-    # (ROW_PATH). The SSG and BriStruNet train steps give their forward
+    # 10, 11, 13, 15, 16 and 18) beside the times and bound summed over
+    # exactly those launches' shapes (phases 3, 3b, 3c and 3d). The row's own
+    # numbers are those of the BriStruNet forward, of the SSG train step for
+    # its backward kernels, of the DGCNN forward for K5c, of the ptv3_pooled
+    # forward for the flash-attention kernel and of the ptv3_pooled train
+    # step for its backward kernels (ROW_PATH). The SSG and BriStruNet train steps give their forward
     # kernels the shapes of their forwards, which stand under those paths.
     pass_counts = {SSG: fwd_counts, BRISTRUNET: BRISTRUNET_LAUNCHES, TRAIN: step_counts,
                    BRISTRUNET_TRAIN: bristrunet_step_counts,
                    PTV3_POOLED: pooled_counts, PTV3: flat_counts,
-                   PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts}
+                   PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts,
+                   DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:

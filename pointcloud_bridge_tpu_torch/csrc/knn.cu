@@ -1,4 +1,5 @@
-// K5: exact k nearest neighbours, nearest first.
+// K5 and K5c: exact k nearest neighbours, nearest first, of 3-D points (K5)
+// and of points of any width C (K5c, DGCNN's feature-space graphs).
 //
 // Replaces: pointcloud_bridge_tpu/ops/pallas_kernels/knnset.py,
 // _knnset_kernel (called by _knnset_call; entry topk_set_from_buffer), and
@@ -48,8 +49,9 @@
 // seen, so a point it rejects has k better points: the list's first k are
 // exact. NaN distances (and the NaN pads of a staged tile) never enter. The
 // wrapper requires 1 <= k <= min(64, N), so with finite coordinates every
-// slot is filled. The point width C is a template parameter; only C = 3 is
-// wired. Measured and not kept (PERF.md, PR 9): 2 or 4 queries a warp
+// slot is filled. This kernel takes 3-D points; K5c below (pcb_knn_c) takes
+// points of any width with the same selection. Measured and not kept
+// (PERF.md, PR 9): 2 or 4 queries a warp
 // sharing each point's load (slower: the merges of a warp's queries queue
 // up behind each other); 2 or 8 steps between votes and 12-byte point loads
 // (no faster).
@@ -123,12 +125,76 @@ __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-template <int R, int C>
+// The k-th key's bound, the candidates in the warp's buffer and the sorted
+// list: the selection state of one query, the same in every lane but list.
+template <int R>
+struct Selection {
+  Key list[R];
+  unsigned bound;  // distance bits of the k-th key
+  int count;       // candidates in buf
+
+  __device__ __forceinline__ Selection() : bound(kNoBound), count(0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) list[r] = kEmpty;
+  }
+
+  // Offer a group of kUnroll steps: bits[u] is the distance of point
+  // first + u * 32 + lane. Candidates go to buf by ballot compaction, 32 at a
+  // time into the list. The whole warp calls it.
+  __device__ __forceinline__ void offer(const unsigned (&bits)[kUnroll], int first,
+                                        Key* buf, int k, int lane) {
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) any |= bits[u] < bound;
+    if (!__any_sync(kFull, any)) return;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool hit = bits[u] < bound;
+      const unsigned m = __ballot_sync(kFull, hit);
+      if (m == 0u) continue;
+      if (hit) {
+        buf[count + __popc(m & lanes_below(lane))] =
+            ((Key)bits[u] << 32) | (unsigned)(first + u * 32 + lane);
+      }
+      count += __popc(m);
+      if (count >= 32) {
+        __syncwarp();
+        count -= 32;
+        merge<R>(list, buf[count + lane], lane);
+        bound = kth_bits<R>(list, k);
+        __syncwarp();  // read before the next appends overwrite
+      }
+    }
+  }
+
+  // Merge what is left in buf and write the k nearest of query row `out`.
+  __device__ __forceinline__ void finish(const Key* buf, int k, int lane, size_t out,
+                                         int* __restrict__ idx_out,
+                                         float* __restrict__ d2_out) {
+    if (count > 0) {
+      __syncwarp();
+      merge<R>(list, lane < count ? buf[lane] : kEmpty, lane);
+    }
+    out *= k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = r * 32 + lane;
+      if (p < k) {
+        const bool filled = (unsigned)list[r] != 0xffffffffu;
+        idx_out[out + p] = filled ? (int)(unsigned)list[r] : 0;
+        d2_out[out + p] = filled ? __uint_as_float((unsigned)(list[r] >> 32))
+                                 : __int_as_float(0x7f800000);
+      }
+    }
+  }
+};
+
+template <int R>
 __global__ void __launch_bounds__(1024)
     knn_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
                int* __restrict__ idx_out, float* __restrict__ d2_out, int n,
                int s, int k, int tile) {
-  static_assert(C == 3, "only 3-D points are wired (ops/grouping.py::knn_cuda)");
+  constexpr int C = 3;  // 3-D points; knn_c_kernel takes any width
   static_assert(R == 1 || R == 2, "k <= 64");
   extern __shared__ __align__(16) unsigned char smem[];
   const int padded = round_up(tile, kGroup);
@@ -150,11 +216,7 @@ __global__ void __launch_bounds__(1024)
     qy = c[1];
     qz = c[2];
   }
-  Key list[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) list[r] = kEmpty;
-  unsigned bound = kNoBound;  // distance bits of the k-th key
-  int count = 0;              // candidates in buf, the same in every lane
+  Selection<R> sel;
 
   const int tiles_n = (n + tile - 1) / tile;
   {
@@ -175,50 +237,32 @@ __global__ void __launch_bounds__(1024)
     const float4* pts = tiles + (j & 1) * padded;
     for (int t0 = 0; t0 < lim; t0 += kGroup) {
       unsigned bits[kUnroll];
-      bool any = false;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const float4 p = pts[t0 + u * 32 + lane];
         bits[u] = __float_as_uint(sq_dist3(qx, qy, qz, p.x, p.y, p.z));
-        any |= bits[u] < bound;
       }
-      if (!__any_sync(kFull, any)) continue;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const bool hit = bits[u] < bound;
-        const unsigned m = __ballot_sync(kFull, hit);
-        if (m == 0u) continue;
-        if (hit) {
-          buf[count + __popc(m & lanes_below(lane))] =
-              ((Key)bits[u] << 32) | (unsigned)(base + t0 + u * 32 + lane);
-        }
-        count += __popc(m);
-        if (count >= 32) {
-          __syncwarp();
-          count -= 32;
-          merge<R>(list, buf[count + lane], lane);
-          bound = kth_bits<R>(list, k);
-          __syncwarp();  // read before the next appends overwrite
-        }
-      }
+      sel.offer(bits, base + t0, buf, k, lane);
     }
   }
   if (!active) return;
-  if (count > 0) {
-    __syncwarp();
-    merge<R>(list, lane < count ? buf[lane] : kEmpty, lane);
+  sel.finish(buf, k, lane, (size_t)b * s + q, idx_out, d2_out);
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory, once a
+// device: `opted` is the caller's own bit mask of devices.
+template <typename F>
+cudaError_t opt_in_smem(F* kernel, size_t smem, int device, unsigned& opted) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  if (device < 0 || device >= 32) return cudaErrorInvalidDevice;
+  if (!((opted >> device) & 1u)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted |= 1u << device;
   }
-  const size_t out = ((size_t)b * s + q) * k;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int p = r * 32 + lane;
-    if (p < k) {
-      const bool filled = (unsigned)list[r] != 0xffffffffu;
-      idx_out[out + p] = filled ? (int)(unsigned)list[r] : 0;
-      d2_out[out + p] = filled ? __uint_as_float((unsigned)(list[r] >> 32))
-                               : __int_as_float(0x7f800000);
-    }
-  }
+  return cudaSuccess;
 }
 
 template <int R>
@@ -228,25 +272,265 @@ cudaError_t launch_knn(const float* xyz, const float* query, int* idx_out,
   const int ring = tile < n ? 2 : 1;
   const size_t smem = (size_t)ring * round_up(tile, kGroup) * sizeof(float4) +
                       (size_t)warps * kBuf * sizeof(Key);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    // opt in once a device, to the most a block may have; a refusal raises
-    static unsigned opted = 0;
-    if (device < 0 || device >= 32) return cudaErrorInvalidDevice;
-    if (!((opted >> device) & 1u)) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          knn_kernel<R, 3>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-      if (err != cudaSuccess) return err;
-      opted |= 1u << device;
-    }
-  }
+  static unsigned opted = 0;
+  const cudaError_t err = opt_in_smem(knn_kernel<R>, smem, device, opted);
+  if (err != cudaSuccess) return err;
   const dim3 grid((s + warps - 1) / warps, b);
-  knn_kernel<R, 3><<<grid, warps * 32, smem, stream>>>(xyz, query, idx_out, d2_out,
-                                                       n, s, k, tile);
+  knn_kernel<R><<<grid, warps * 32, smem, stream>>>(xyz, query, idx_out, d2_out, n, s, k,
+                                                    tile);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5c: the same k nearest over points of C channels (DGCNN's EdgeConv builds
+// its graph over 64-channel features). The selection is K5's (Selection);
+// what changes is the staging, since a 64-channel point is 256 bytes and a
+// row of 4096 no longer fits shared memory.
+//
+// Distance: the left fold d0*d0, then + dc*dc for c = 1 .. C-1 with dc =
+// q_c - p_c, every operation rounded on its own, which is what
+// ops/core.py::pairwise_sq_dist computes: idx and d2 are the same bits as
+// knn_plain's. (C = 3 goes to knn_kernel, whose association is the same.)
+//
+// What bounds it on the H100: operations, 3C - 1 rounded float32 operations
+// and a compare a pair (0.39 ms of issue at B=4, N=S=4096, C=64 over 128
+// lanes x 132 SMs at 1.98 GHz), and beside them the shared-memory reads: a
+// lane reads every channel of its point, C * 4 bytes a pair, at 128 bytes an
+// SM a cycle. The bytes in and out (4.2 MB there) do not bound it.
+//
+// Design: a warp a query, as K5; a block stages the row through a ring of two
+// tiles (the whole row where it fits) with cp.async, channel-major, so that
+// the 32 lanes' reads of one channel of 32 neighbouring points are 32
+// consecutive words, free of bank conflicts:
+// - VEC (C a multiple of 4, 16-byte aligned rows): [C/4][tile] float4s, one
+//   16-byte load a lane for four channels; staged 16 bytes a copy, eight
+//   points a channel group at a time, so that a warp's copies read whole
+//   sectors and write whole 128-byte rows of shared memory;
+// - otherwise [C][tile] floats, 4 bytes a copy.
+// The query's C values sit in shared memory, one slice a warp, read as a
+// broadcast once for every kUnroll points. CC = 64, the width the models
+// use, is compiled with the channel loop unrolled; CC = 0 reads C from the
+// plan. The wrapper (ops/grouping.py::knn_c_cuda) picks the tile so that
+// the ring, the queries and the candidate buffers fit 227 KB, and refuses
+// what does not fit.
+
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// Points [0, count) of `pts` (C channels each) into `dst` channel-major with
+// row stride `padded`, NaN in slots [count, padded): their distance is NaN,
+// never a candidate. The caller waits and synchronises before reading.
+template <bool VEC>
+__device__ __forceinline__ void stage_channels(float* dst, const float* pts, int c,
+                                               int count, int padded) {
+  const float nan = __int_as_float(0x7fffffff);
+  if (VEC) {
+    const int c4 = c >> 2;
+    const int total = round_up(count, 8) * c4;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int rest = i >> 3;
+      const int g = rest % c4;
+      const int p = (rest / c4) * 8 + (i & 7);
+      if (p < count) cp_async_16(dst + ((size_t)g * padded + p) * 4, pts + (size_t)p * c + g * 4);
+    }
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const int pad = padded - count;
+    for (int i = threadIdx.x; i < pad * c4; i += blockDim.x) {
+      d4[(i / pad) * padded + count + i % pad] = make_float4(nan, nan, nan, nan);
+    }
+  } else {
+    const int total = round_up(count, 32) * c;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int rest = i >> 5;
+      const int ch = rest % c;
+      const int p = (rest / c) * 32 + (i & 31);
+      if (p < count) cp_async_f32(dst + (size_t)ch * padded + p, pts + (size_t)p * c + ch);
+    }
+    const int pad = padded - count;
+    for (int i = threadIdx.x; i < pad * c; i += blockDim.x) {
+      dst[(size_t)(i / pad) * padded + count + i % pad] = nan;
+    }
+  }
+}
+
+__device__ __forceinline__ float sq_add(float acc, float q, float p) {
+  const float d = __fsub_rn(q, p);
+  return __fadd_rn(acc, __fmul_rn(d, d));
+}
+
+// Shared memory of K5c, in bytes: the ring, the warps' queries (rounded to
+// 16 bytes) and their candidate slots. ops/grouping.py::knn_c_tile mirrors it.
+__host__ __device__ constexpr size_t knn_c_smem(int c, int tile, int ring, int warps) {
+  return (size_t)ring * c * round_up(tile, kGroup) * 4 +
+         (size_t)round_up(warps * c * 4, 16) + (size_t)warps * kBuf * sizeof(Key);
+}
+
+template <int R, int CC, bool VEC>
+__global__ void __launch_bounds__(1024)
+    knn_c_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
+                 int* __restrict__ idx_out, float* __restrict__ d2_out, int n, int s,
+                 int k, int c_plan, int tile) {
+  static_assert(R == 1 || R == 2, "k <= 64");
+  static_assert(CC % 4 == 0 || !VEC, "float4 staging needs whole groups of 4 channels");
+  const int c = CC ? CC : c_plan;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int padded = round_up(tile, kGroup);
+  const int ring = tile < n ? 2 : 1;
+  const int warps = blockDim.x >> 5;
+  float* tiles = reinterpret_cast<float*>(smem);
+  float* qs_all = tiles + (size_t)ring * c * padded;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* qs = qs_all + warp * c;
+  Key* buf = reinterpret_cast<Key*>(smem + knn_c_smem(c, tile, ring, warps) -
+                                    (size_t)warps * kBuf * sizeof(Key)) + warp * kBuf;
+  const int b = blockIdx.y;
+  const int q = blockIdx.x * warps + warp;
+  const bool active = q < s;  // uniform over the warp
+  const float* row = xyz + (size_t)b * n * c;
+
+  if (active) {
+    const float* src = query + ((size_t)b * s + q) * c;
+    for (int ch = lane; ch < c; ch += 32) qs[ch] = src[ch];
+  }
+  Selection<R> sel;
+
+  const int tiles_n = (n + tile - 1) / tile;
+  {
+    const int lim = min(tile, n);
+    stage_channels<VEC>(tiles, row, c, lim, padded);
+  }
+  for (int j = 0; j < tiles_n; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j (and the queries) are in; tile j - 1 is done
+    const int base = j * tile;
+    const int lim = min(tile, n - base);
+    if (j + 1 < tiles_n) {
+      const int next = min(tile, n - base - tile);
+      stage_channels<VEC>(tiles + (size_t)((j + 1) & 1) * c * padded,
+                          row + (size_t)(base + tile) * c, c, next, padded);
+    }
+    if (!active) continue;
+    const float* pts = tiles + (size_t)(j & 1) * c * padded;
+    for (int t0 = 0; t0 < lim; t0 += kGroup) {
+      float acc[kUnroll];
+      const int at = t0 + lane;
+      if (VEC) {
+        const float4* p4 = reinterpret_cast<const float4*>(pts) + at;
+        const float4* q4 = reinterpret_cast<const float4*>(qs);
+        {
+          const float4 qv = q4[0];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float4 p = p4[u * 32];
+            const float d = __fsub_rn(qv.x, p.x);
+            float a = __fmul_rn(d, d);
+            a = sq_add(a, qv.y, p.y);
+            a = sq_add(a, qv.z, p.z);
+            acc[u] = sq_add(a, qv.w, p.w);
+          }
+        }
+#pragma unroll 4
+        for (int g = 1; g < (c >> 2); ++g) {
+          const float4 qv = q4[g];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float4 p = p4[(size_t)g * padded + u * 32];
+            float a = sq_add(acc[u], qv.x, p.x);
+            a = sq_add(a, qv.y, p.y);
+            a = sq_add(a, qv.z, p.z);
+            acc[u] = sq_add(a, qv.w, p.w);
+          }
+        }
+      } else {
+        {
+          const float qv = qs[0];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float d = __fsub_rn(qv, pts[at + u * 32]);
+            acc[u] = __fmul_rn(d, d);
+          }
+        }
+#pragma unroll 4
+        for (int ch = 1; ch < c; ++ch) {
+          const float qv = qs[ch];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            acc[u] = sq_add(acc[u], qv, pts[(size_t)ch * padded + at + u * 32]);
+          }
+        }
+      }
+      unsigned bits[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) bits[u] = __float_as_uint(acc[u]);
+      sel.offer(bits, base + t0, buf, k, lane);
+    }
+  }
+  if (!active) return;
+  sel.finish(buf, k, lane, (size_t)b * s + q, idx_out, d2_out);
+}
+
+template <int R, int CC, bool VEC>
+cudaError_t launch_knn_c(const float* xyz, const float* query, int* idx_out,
+                         float* d2_out, int b, int n, int s, int k, int c, int warps,
+                         int tile, int device, cudaStream_t stream) {
+  const size_t smem = knn_c_smem(c, tile, tile < n ? 2 : 1, warps);
+  static unsigned opted = 0;
+  const cudaError_t err = opt_in_smem(knn_c_kernel<R, CC, VEC>, smem, device, opted);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + warps - 1) / warps, b);
+  knn_c_kernel<R, CC, VEC><<<grid, warps * 32, smem, stream>>>(xyz, query, idx_out,
+                                                               d2_out, n, s, k, c, tile);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_knn_c_width(const float* xyz, const float* query, int* idx_out,
+                               float* d2_out, int b, int n, int s, int k, int c, int warps,
+                               int tile, bool vec, int device, cudaStream_t stream) {
+  if (c == 64 && vec)
+    return launch_knn_c<R, 64, true>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
+                                     tile, device, stream);
+  if (vec)
+    return launch_knn_c<R, 0, true>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps, tile,
+                                    device, stream);
+  return launch_knn_c<R, 0, false>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps, tile,
+                                   device, stream);
+}
+
 }  // namespace
+
+// plan (ops/grouping.py KNN_C_PLAN): B, N, S, k, C, warps a block, points a
+// staged tile (N for the whole row, else a ring of two), vec (1: float4
+// staging; C a multiple of 4 and 16-byte aligned rows). The wrapper keeps
+// 1 <= k <= min(64, N), B <= 65535, N * C < 2^31, warps in {4, 8, 16, 32}
+// and a tile whose shared memory fits.
+PCB_API int pcb_knn_c(const float* xyz, const float* query, int* idx_out,
+                      float* d2_out, const int* plan, int device, void* stream) {
+  const int b = plan[0];
+  const int n = plan[1];
+  const int s = plan[2];
+  const int k = plan[3];
+  const int c = plan[4];
+  const int warps = plan[5];
+  const int tile = plan[6];
+  const int vec = plan[7];
+  cudaError_t err = pcb_use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (k < 1 || k > 64 || k > n || c < 1 || warps < 1 || warps > 32 || tile < 1 ||
+      (vec && c % 4 != 0) || knn_c_smem(c, tile, tile < n ? 2 : 1, warps) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  err = k > 32 ? launch_knn_c_width<2>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
+                                       tile, vec != 0, device, st)
+               : launch_knn_c_width<1>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
+                                       tile, vec != 0, device, st);
+  return (int)err;
+}
 
 // plan (ops/grouping.py KNN_PLAN): B, N, S, k, warps a block, points a
 // staged tile (N for the whole row, else a ring of two). The wrapper keeps

@@ -21,6 +21,7 @@ from .common import (
     SetAbstraction,
     SharedMLP,
 )
+from .dgcnn import DGCNN, DGCNNGlobal, EdgeConv
 from .pointnet2 import PointNet2SSG
 from .ptv3 import (
     GEGLU,
@@ -39,9 +40,12 @@ __all__ = [
     "BridgeStructureEncoding",
     "ColorFeatureExtraction",
     "CompositeFeatureFusion",
+    "DGCNN",
+    "DGCNNGlobal",
     "Dense",
     "DenseMLP",
     "Dropout",
+    "EdgeConv",
     "EnhancedFeaturePropagation",
     "FeaturePropagation",
     "FeedForward",

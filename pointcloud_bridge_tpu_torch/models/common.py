@@ -47,18 +47,20 @@ from ..ops.grouping import _query_ball_radii
 class PointConv(nn.Module):
     """The reference's kernel-size-1 Conv1d (kdims=1) or Conv2d (kdims=2),
     stored with its shape [out, in, 1(, 1)] and applied to channel-last
-    input as ``F.linear``. Initialised as torch initialises a convolution,
+    input as ``F.linear``; ``bias=False`` as the reference's bias-free
+    convolutions (DGCNN). Initialised as torch initialises a convolution,
     uniform in +-1/sqrt(in), from ``generator``."""
 
     def __init__(self, in_ch: int, out_ch: int, kdims: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty((out_ch, in_ch) + (1,) * kdims))
-        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
         bound = 1.0 / math.sqrt(in_ch)
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
-            self.bias.uniform_(-bound, bound, generator=generator)
+            if bias:
+                self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.flatten(1), self.bias)

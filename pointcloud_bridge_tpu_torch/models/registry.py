@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from .bristrunet import BriStruNet
+from .dgcnn import DGCNN, DGCNNGlobal
 from .pointnet2 import PointNet2SSG
 from .ptv3 import PointTransformerV3
 from .ptv3_pooled import PointTransformerV3Pooled
@@ -23,12 +24,14 @@ MODEL_REGISTRY = {
     "bridgeseg": BriStruNet,
     "ptv3": PointTransformerV3,  # the reference's flat transformer
     "ptv3_pooled": PointTransformerV3Pooled,  # serialized encoder-decoder
+    "dgcnn": DGCNN,  # the k=20 segmentation model of configs/train_dgcnn.yaml
+    "dgcnn_global": DGCNNGlobal,  # the k=64 variant, logits repeated per point
 }
 
 # names the JAX package's registry knows and the port does not yet
 NOT_PORTED = (
-    "pointnet2_msg", "pointnet", "pointnet_seg", "pointnet_global",
-    "dgcnn", "dgcnn_global", "randlanet", "randlanet_ss", "ptv3_moe",
+    "pointnet2_msg", "pointnet", "pointnet_seg", "pointnet_global", "randlanet",
+    "randlanet_ss", "ptv3_moe",
     "pointnet_cls", "pointnet2_cls_ssg", "pointnet2_cls_msg", "pointnet2_sem_seg",
     "pointnet_sem_seg", "spg", "superpoint_graph", "spt", "superpoint_transformer",
     "enhanced_pointnet2_ssg",

@@ -8,6 +8,7 @@ module: a CPU tensor takes the plain version, a CUDA tensor the kernel.
 
 from .core import index_points, pairwise_sq_dist, square_distance
 from .grouping import (
+    edge_conv_graph_feature,
     group_points,
     knn,
     knn_set,
@@ -26,6 +27,7 @@ from .structure import (
 )
 
 __all__ = [
+    "edge_conv_graph_feature",
     "eigh3x3",
     "eigvals3_from_entries",
     "farthest_point_sample",

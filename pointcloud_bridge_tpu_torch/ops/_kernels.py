@@ -15,7 +15,7 @@ raw pointers and PyTorch's current stream. The launch path is kept thin,
 because at the models' smaller shapes a call's host time exceeds its device
 time: each entry point is bound once (``Kernel.fn``), the stream is read as
 a raw handle, the C side sets the device only when it changes, and the FPS,
-ball-query, group, interpolation (both ways) and k-NN kernels take their
+ball-query, group, interpolation (both ways) and both k-NN kernels take their
 integers as one array laid out once a shape (ops/sampling.py, grouping.py,
 interpolate.py),
 since ctypes converts every argument on every call.
@@ -133,6 +133,14 @@ KNN = Kernel(
     "pointcloud_bridge_tpu_torch/csrc/knn.cu",
     "pointcloud_bridge_tpu/ops/pallas_kernels/knnset.py:77",
 )
+KNN_C = Kernel(
+    "knn_c", "pcb_knn_c",
+    # xyz, query, idx_out, d2_out, plan (ops/grouping.py KNN_C_PLAN), device,
+    # stream
+    (_P, _P, _P, _P, _P, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/knn.cu",
+    "pointcloud_bridge_tpu/ops/pallas_kernels/knnset.py:77",
+)
 FLASH_ATTN = Kernel(
     "flash_attn", "pcb_flash_attn",
     # q, k, v, out, lse (or null), B, N, H, D, ldq, ldk, ldv, device, stream
@@ -156,7 +164,7 @@ FLASH_ATTN_BWD_DKV = Kernel(
     "pointcloud_bridge_tpu_torch/csrc/flash_attn_bwd.cu",
     "pointcloud_bridge_tpu/models/ptv3.py:154",
 )
-KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN, FLASH_ATTN,
+KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN, KNN_C, FLASH_ATTN,
            FLASH_ATTN_BWD_DQ, FLASH_ATTN_BWD_DKV)
 
 

@@ -24,12 +24,22 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[B, M, 3] x [B, N, 3] -> [B, M, N] squared distances in the direct
-    form the kernels use: (dx*dx + dy*dy) + dz*dz, each step its own
-    elementwise op so that the rounding is the same on every device. (A
-    ``.sum(-1)`` over the coordinates leaves the order to the backend.)"""
-    d = [a[..., i].unsqueeze(2) - b[..., i].unsqueeze(1) for i in range(3)]
-    return (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    """[B, M, C] x [B, N, C] -> [B, M, N] squared distances in the direct
+    form the kernels use, a left fold over the channels: d0*d0, then
+    + dc*dc for c = 1 .. C-1, each step its own elementwise op so that the
+    rounding is the same on every device. For C = 3 that is
+    (dx*dx + dy*dy) + dz*dz. (A ``.sum(-1)`` over the channels leaves the
+    order to the backend.) The fold adds into its accumulator in place, so
+    a step holds three [B, M, N] buffers whatever C is."""
+    def diff(c: int) -> torch.Tensor:
+        return a[..., c].unsqueeze(2) - b[..., c].unsqueeze(1)
+
+    d = diff(0)
+    acc = d * d
+    for c in range(1, a.shape[-1]):
+        d = diff(c)
+        acc += d * d
+    return acc
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:

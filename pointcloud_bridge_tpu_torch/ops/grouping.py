@@ -4,9 +4,12 @@ pointcloud_bridge_tpu/ops/grouping.py).
 Only the exact semantics are ported: there is no ``approx`` and no
 ``recall_target``. A CPU tensor goes to the plain PyTorch version, a CUDA
 tensor to the kernel (csrc/ballq.cu, csrc/knn.cu, csrc/group.cu); both give
-the same result bit for bit. ``group_points`` is the autograd Function
+the same result bit for bit. k-NN takes points of any width C: 3-D points
+go to K5 (``knn_cuda``), any other width to K5c (``knn_c_cuda``); its
+indices carry no gradient. ``group_points`` is the autograd Function
 :class:`GroupPoints` on both devices; its backward is a scatter-add, the
-kernel csrc/group_bwd.cu on the card. k-NN indices carry no gradient.
+kernel csrc/group_bwd.cu on the card. ``edge_conv_graph_feature`` is
+DGCNN's (x_j - x_i, x_i) over a k-NN graph.
 """
 
 from __future__ import annotations
@@ -204,20 +207,29 @@ def knn_with_distance(
     """The k nearest points of every query by squared distance, the query
     itself included when it is one of the points (ops/grouping.py:191-209).
 
-    xyz [B, N, 3], query [B, S, 3] float32 (default xyz) -> (d2 [B, S, k]
-    float32, idx [B, S, k] int32), nearest first, equal distances to the
-    lower index. Distances are in the direct form of ``pairwise_sq_dist``.
+    xyz [B, N, C], query [B, S, C] float32 (default xyz), any C >= 1 ->
+    (d2 [B, S, k] float32, idx [B, S, k] int32), nearest first, equal
+    distances to the lower index. Distances are in the direct form of
+    ``pairwise_sq_dist``, over all C channels. Neither output carries a
+    gradient: the inputs are taken detached.
     """
     if query is None:
         query = xyz
     for name, t in (("xyz", xyz), ("query", query)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if xyz.dim() != 3 or query.dim() != 3 or query.shape[0] != xyz.shape[0] \
+            or query.shape[2] != xyz.shape[2] or xyz.shape[2] < 1:
+        raise ValueError(f"knn: expected [B, N, C] and [B, S, C] with C >= 1, got "
+                         f"{tuple(xyz.shape)} and {tuple(query.shape)}")
     if not 1 <= k <= xyz.shape[1]:
         raise ValueError(f"knn: expected 1 <= k <= N, got k={k}, N={xyz.shape[1]}")
+    xyz, query = xyz.detach(), query.detach()
     if xyz.device.type == "cpu":
         return knn_plain(xyz, query, k)
-    return knn_cuda(xyz.contiguous(), query.contiguous(), k)
+    if xyz.shape[2] == 3:
+        return knn_cuda(xyz.contiguous(), query.contiguous(), k)
+    return knn_c_cuda(xyz.contiguous(), query.contiguous(), k)
 
 
 def knn(xyz: torch.Tensor, query: Optional[torch.Tensor] = None, k: int = 20) -> torch.Tensor:
@@ -235,9 +247,9 @@ def knn_set(xyz: torch.Tensor, query: Optional[torch.Tensor] = None, k: int = 16
 def knn_plain(
     xyz: torch.Tensor, query: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch k-NN: all pairwise distances and a stable sort, which
-    keeps the lower index ahead on equal distances (``torch.topk`` promises
-    no tie order)."""
+    """Plain PyTorch k-NN over all C channels: all pairwise distances and a
+    stable sort, which keeps the lower index ahead on equal distances
+    (``torch.topk`` promises no tie order)."""
     d2, order = pairwise_sq_dist(query, xyz).sort(dim=-1, stable=True)
     return d2[..., :k].contiguous(), order[..., :k].to(torch.int32)
 
@@ -259,7 +271,8 @@ def _knn_plan(b: int, n: int, s: int, k: int, sms: int, warps: Optional[int] = N
 def knn_cuda(
     xyz: torch.Tensor, query: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k-NN kernel wrapper: one launch (csrc/knn.cu) -> (d2, idx)."""
+    """K5 wrapper, k-NN over 3-D points: one launch (csrc/knn.cu pcb_knn)
+    -> (d2, idx)."""
     _kernels.check_tensor("xyz", xyz, torch.float32, 3)
     _kernels.check_tensor("query", query, torch.float32, 3)
     b, n, c = xyz.shape
@@ -274,6 +287,79 @@ def knn_cuda(
         return d2, idx
     _kernels.KNN.launch(xyz.data_ptr(), query.data_ptr(), idx.data_ptr(), d2.data_ptr(), plan,
                         *stream)
+    return d2, idx
+
+
+# csrc/knn.cu's constants that K5c's shared memory is laid out by: points a
+# tile is padded to (kGroup), candidate slots a warp (kBuf, 8 bytes a slot)
+# and the most a block may opt into (kMaxSmem)
+KNN_GROUP = 128
+KNN_BUF = 64
+MAX_SMEM = 232_448
+# the integers of a K5c launch, in the order pcb_knn_c (csrc/knn.cu) reads them
+KNN_C_PLAN = ("b", "n", "s", "k", "c", "warps", "tile", "vec")
+
+
+def knn_c_smem(c: int, tile: int, ring: int, warps: int) -> int:
+    """Shared bytes of a K5c block (csrc/knn.cu knn_c_smem): ``ring`` tiles
+    of C channels, the warps' queries and their candidate slots."""
+    return (ring * c * -(-tile // KNN_GROUP) * KNN_GROUP * 4
+            + -(-warps * c * 4 // 16) * 16 + warps * KNN_BUF * 8)
+
+
+def knn_c_tile(n: int, c: int, warps: int) -> int:
+    """Points a staged tile of K5c: the whole row where it fits shared
+    memory, else the most whole groups of KNN_GROUP points that let a ring
+    of two fit (384 at C = 64 and 32 warps); 0 where not even one group
+    does."""
+    if knn_c_smem(c, n, 1, warps) <= MAX_SMEM:
+        return n
+    return (MAX_SMEM - knn_c_smem(c, 0, 0, warps)) // (2 * c * 4 * KNN_GROUP) * KNN_GROUP
+
+
+@functools.lru_cache(maxsize=1024)
+def _knn_c_plan(b: int, n: int, s: int, k: int, c: int, sms: int, vec: bool,
+                warps: Optional[int] = None, tile: Optional[int] = None):
+    """pcb_knn_c's plan (KNN_C_PLAN), checked and laid out once a shape:
+    ``neighbour_launch`` (or ``warps``) and ``knn_c_tile`` (or ``tile``);
+    ``vec`` stages four channels a copy (C a multiple of 4, rows on 16
+    bytes)."""
+    if not 1 <= k <= min(KNN_MAX_K, n):
+        raise ValueError(f"knn kernel takes 1 <= k <= min({KNN_MAX_K}, N), got k={k}, N={n}")
+    if c < 1 or n * c >= 2**31 or b > 65535 or b * s >= 2**31:
+        raise ValueError(f"knn kernel takes C >= 1, N * C < 2^31, B <= 65535 and "
+                         f"B * S < 2^31, got B={b}, N={n}, S={s}, C={c}")
+    if vec and c % 4:
+        raise ValueError(f"knn kernel stages four channels a copy only where 4 divides C={c}")
+    warps = warps or neighbour_launch(b, s, sms)
+    tile = tile or knn_c_tile(n, c, warps)
+    ring = 1 if tile >= n else 2
+    if warps not in (4, 8, 16, 32) or tile < 1 or knn_c_smem(c, tile, ring, warps) > MAX_SMEM:
+        raise ValueError(f"knn kernel: no block of {warps} warps with tiles of {tile} points "
+                         f"of C={c} channels fits {MAX_SMEM} bytes of shared memory")
+    return (ctypes.c_int * len(KNN_C_PLAN))(b, n, s, k, c, warps, tile, int(vec))
+
+
+def knn_c_cuda(
+    xyz: torch.Tensor, query: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5c wrapper, k-NN over points of any width C >= 1: one launch
+    (csrc/knn.cu pcb_knn_c) -> (d2, idx)."""
+    _kernels.check_tensor("xyz", xyz, torch.float32, 3)
+    _kernels.check_tensor("query", query, torch.float32, 3)
+    b, n, c = xyz.shape
+    s = query.shape[1]
+    if query.shape[0] != b or query.shape[2] != c:
+        raise ValueError(f"knn: bad shapes {tuple(xyz.shape)}, {tuple(query.shape)}")
+    stream = _kernels.stream_args(xyz)
+    vec = c % 4 == 0 and xyz.data_ptr() % 16 == 0
+    plan = _knn_c_plan(b, n, s, k, c, _kernels.sm_count(stream[0]), vec)
+    idx = torch.empty(b, s, k, dtype=torch.int32, device=xyz.device)
+    d2 = torch.empty(b, s, k, dtype=torch.float32, device=xyz.device)
+    if idx.numel() == 0:
+        return d2, idx
+    _kernels.KNN_C.launch(xyz.data_ptr(), query.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+                          plan, *stream)
     return d2, idx
 
 
@@ -490,3 +576,22 @@ def sample_and_group(
     new_xyz = index_points(xyz, fps_idx)
     idx = query_ball_point(radius, nsample, xyz, new_xyz)
     return new_xyz, group_points(xyz, new_xyz, idx, features), fps_idx
+
+
+def edge_conv_graph_feature(
+    x: torch.Tensor, k: int = 20, idx: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """DGCNN's dynamic-graph feature (ops/grouping.py:322-342): for each
+    point i and each of its k neighbours j in x's own space, (x_j - x_i,
+    x_i).
+
+    x [B, N, C], idx [B, N, k] (default ``knn(x, k=k)``) -> [B, N, k, 2C],
+    channel-last in that channel order. Differentiable in x: the gather is
+    ``index_points`` (torch.gather), whose backward is PyTorch's scatter-add,
+    as the JAX package gathers outside any Pallas kernel.
+    """
+    if idx is None:
+        idx = knn(x, k=k)
+    neighbours = index_points(x, idx)  # [B, N, k, C]
+    center = x.unsqueeze(2).expand_as(neighbours)
+    return torch.cat([neighbours - center, center], dim=-1)

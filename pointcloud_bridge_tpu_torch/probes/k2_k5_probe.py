@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Measure design variants of K2 (ball query) and K5 (exact k-NN) on the card.
+"""Measure design variants of K2 (ball query), K5 (exact k-NN) and K5c (k-NN
+over C channels) on the card.
 
     python3 pointcloud_bridge_tpu_torch/probes/k2_k5_probe.py
 
@@ -48,12 +49,23 @@ KNN_VARIANTS = (
         "const float2 xy = *reinterpret_cast<const float2*>(f); "
         "const float4 p = make_float4(xy.x, xy.y, f[2], 0.f);")]),
     ("no candidates: the scan alone (timing only)", False,
-     [("unsigned bound = kNoBound;", "unsigned bound = 0u;")]),
+     [(": bound(kNoBound), count(0)", ": bound(0u), count(0)")]),
+)
+
+# K5c (pcb_knn_c in knn.cu): the width the models use compiled in, or read
+# from the plan as any other width is; and its scan alone
+KNN_C_VARIANTS = (
+    ("kernel", True, []),
+    ("C = 64 read from the plan", True, [("if (c == 64 && vec)", "if (false)")]),
+    ("no candidates: the scan alone (timing only)", False,
+     [(": bound(kNoBound), count(0)", ": bound(0u), count(0)")]),
 )
 
 
-def variants(source: str, table) -> dict:
-    """name -> (exact, the library of that variant of csrc/<source>)."""
+def variants(source: str, table, tag: str = "") -> dict:
+    """name -> (exact, the library of that variant of csrc/<source>), built
+    as build/probes/<tag or the source's stem>_<i>.so: a library path is
+    loaded once a process, so each table needs a tag of its own."""
     text = (_kernels.CSRC / source).read_text().replace(
         '#include "common.cuh"', f'#include "{_kernels.CSRC / "common.cuh"}"')
     libs = {}
@@ -63,7 +75,7 @@ def variants(source: str, table) -> dict:
             if old not in variant:
                 raise SystemExit(f"{source} variant {name}: the text to edit is gone")
             variant = variant.replace(old, new)
-        stem = f"{Path(source).stem}_{len(libs)}"
+        stem = f"{tag or Path(source).stem}_{len(libs)}"
         OUT.mkdir(parents=True, exist_ok=True)
         (OUT / f"{stem}.cu").write_text(variant)
         libs[name] = (exact, build(OUT / f"{stem}.cu", stem))
@@ -123,6 +135,39 @@ def probe_knn(dev) -> None:
               + ", ".join(line), flush=True)
 
 
+def probe_knn_c(dev) -> None:
+    """K5c at DGCNN's shapes (C = 64, N = S = 4096): each variant of
+    KNN_C_VARIANTS, and the kernel with its tiles staged 4 bytes a copy as
+    [C][tile] floats (the plan's vec = 0, the path of widths not a multiple
+    of 4) in place of four channels a copy."""
+    libs = variants("knn.cu", KNN_C_VARIANTS, "knn_c")
+    for _, lib in libs.values():
+        lib.pcb_knn_c.argtypes = list(_kernels.KNN_C.argtypes)
+    gen = torch.Generator().manual_seed(4)
+    for b, k in ((4, 20), (4, 64), (16, 20)):
+        x = torch.randn(b, 4096, 64, generator=gen).to(dev)
+        want = grouping.knn_plain(x, x, k)
+        idx = torch.empty(b, 4096, k, dtype=torch.int32, device=dev)
+        d2 = torch.empty(b, 4096, k, device=dev)
+        sms = _kernels.sm_count(dev.index)
+        line = []
+        runs = [(name, exact, lib, True) for name, (exact, lib) in libs.items()]
+        runs.append(("4-byte staging", True, libs["kernel"][1], False))
+        for name, exact, lib, vec in runs:
+            plan = grouping._knn_c_plan(b, 4096, 4096, k, 64, sms, vec)
+
+            def run(lib=lib, plan=plan):
+                return lib.pcb_knn_c(x.data_ptr(), x.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+                                     plan, dev.index, stream())
+            if run() != 0:
+                raise SystemExit(f"knn_c {name}: launch failed")
+            torch.cuda.synchronize()
+            if exact and not (torch.equal(idx, want[1]) and torch.equal(d2, want[0])):
+                raise AssertionError(f"knn_c {name} B={b} k={k}: disagrees")
+            line.append(f"{name} {device_ms(run):.4f}")
+        print(f"knn_c B={b} N=S=4096 C=64 k={k}: device ms " + ", ".join(line), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("k2_k5_probe: no CUDA device")
@@ -132,6 +177,7 @@ def main() -> None:
     print(card, flush=True)
     probe_ball(dev)
     probe_knn(dev)
+    probe_knn_c(dev)
 
 
 if __name__ == "__main__":

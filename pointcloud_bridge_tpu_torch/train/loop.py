@@ -160,12 +160,14 @@ def _check_single_device(config: Config) -> None:
     if ndev > 1 or (ndev == -1 and n_avail > 1):
         raise NotImplementedError(
             f"parallel.mode '{config.parallel.mode}' over {ndev} devices is not "
-            "ported yet; ROADMAP.md Queue 1 item 12"
+            "ported yet; ROADMAP.md Queue 1, \"Parallel layer\""
         )
-    for knob in ("accum_steps", "steps_per_dispatch"):
+    # the ROADMAP.md Queue 1 item that holds each knob, by its title
+    for knob, item in (("accum_steps", "ptv3_moe and the PTv3 options"),
+                       ("steps_per_dispatch", "Engine options")):
         if int(getattr(tcfg, knob, 1)) > 1:
             raise NotImplementedError(
-                f"train.{knob} > 1 is not ported yet; ROADMAP.md Queue 1 item 5"
+                f"train.{knob} > 1 is not ported yet; ROADMAP.md Queue 1, \"{item}\""
             )
 
 

@@ -20,6 +20,12 @@ model says which flax module becomes which prefix of the state_dict:
     the flax modules too; one block table (``_ptv3_block``) serves both
     models. The tables depend on the depths: the registry names stand for
     the registry's default models, another depth passes its own table.
+  - DGCNN and DGCNNGlobal (``dgcnn_rules``, ``dgcnn_global_rules``) carry
+    the reference torch names of the JAX package's ``_rules_dgcnn``
+    (utils/torch_import.py:271-290) and ``_rules_dgcnn_global`` (:167-181):
+    an EdgeConv's Dense kernel [2C, F] -> Conv2d weight [F, 2C, 1, 1],
+    conv5 and the point head -> Conv1d [O, I, 1], linear1-3 -> Linear
+    [O, I] (kind "linear").
   - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
     running_mean/running_var, num_batches_tracked 0.
   - LayerNorm (kind "ln") scale/bias -> weight/bias; it has no statistics.
@@ -32,7 +38,8 @@ from typing import Any, Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-# (torch prefix, flax path, kind); kind is "conv2d", "conv1d", "dense", "bn"
+# (torch prefix, flax path, kind); kind is "conv2d", "conv1d", "dense",
+# "linear" (the reference's nn.Linear: a Dense under a reference name), "bn"
 # or "ln"
 Rule = Tuple[str, Tuple[str, ...], str]
 
@@ -125,6 +132,38 @@ def ptv3_pooled_rules(enc_depths: Sequence[int] = (2, 2, 2),
     return _by_flax_path(layers + _PTV3_HEAD)
 
 
+def _edgeconv_rules() -> List[Rule]:
+    """The trunk both DGCNNs share: each EdgeConv's bias-free Conv2d
+    ``conv{i}.0`` and standalone BatchNorm ``bn{i}`` (the reference's
+    duplicate ``conv{i}.1`` alias is not kept, as the JAX import ignores
+    it), then ``conv5.0`` and ``bn5``."""
+    r: List[Rule] = []
+    for i in range(1, 5):
+        r += [(f"conv{i}.0", (f"conv{i}", "conv"), "conv2d"), (f"bn{i}", (f"conv{i}", "bn"), "bn")]
+    return r + [("conv5.0", ("conv5",), "conv1d"), ("bn5", ("bn5",), "bn")]
+
+
+def dgcnn_rules() -> List[Rule]:
+    return _edgeconv_rules() + [
+        ("local_bn", ("local_bn",), "bn"),
+        ("point_conv.0", ("point_conv1",), "conv1d"),
+        ("point_conv.1", ("bn_p1",), "bn"),
+        ("point_conv.3", ("point_conv2",), "conv1d"),
+        ("point_conv.4", ("bn_p2",), "bn"),
+        ("point_conv.6", ("point_conv3",), "conv1d"),
+    ]
+
+
+def dgcnn_global_rules() -> List[Rule]:
+    return _edgeconv_rules() + [
+        ("linear1", ("linear1",), "linear"),
+        ("bn6", ("bn6",), "bn"),
+        ("linear2", ("linear2",), "linear"),
+        ("bn7", ("bn7",), "bn"),
+        ("linear3", ("linear3",), "linear"),
+    ]
+
+
 MODEL_RULES = {
     "pointnet2": pointnet2_ssg_rules,
     "pointnet2_ssg": pointnet2_ssg_rules,
@@ -133,6 +172,8 @@ MODEL_RULES = {
     "bridgeseg": bristrunet_rules,
     "ptv3": ptv3_rules,
     "ptv3_pooled": ptv3_pooled_rules,
+    "dgcnn": dgcnn_rules,
+    "dgcnn_global": dgcnn_global_rules,
 }
 
 
@@ -151,7 +192,7 @@ def _leaf(tree: Dict[str, Any], path: Tuple[str, ...]) -> np.ndarray:
     return np.asarray(tree, dtype=np.float32)
 
 
-_TRAILING = {"conv2d": (1, 1), "conv1d": (1,), "dense": ()}
+_TRAILING = {"conv2d": (1, 1), "conv1d": (1,), "dense": (), "linear": ()}
 
 
 def flax_to_state_dict(

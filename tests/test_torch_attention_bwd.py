@@ -191,7 +191,7 @@ def test_backward_kernel_wrappers_never_run_on_the_cpu(rng):
 def test_kernel_table_lists_the_attention_backward_kernels():
     names = [k.name for k in _kernels.KERNELS]
     assert names[-3:] == ["flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
-    assert len(set(names)) == len(names) == 10
+    assert len(set(names)) == len(names) == 11
     for k in (_kernels.FLASH_ATTN_BWD_DQ, _kernels.FLASH_ATTN_BWD_DKV):
         assert (_kernels._REPO / k.source).is_file()
         assert k.source.endswith("csrc/flash_attn_bwd.cu")
