@@ -40,7 +40,9 @@ any failure raises and exits non-zero:
    DGCNN's conv2-conv4 shapes (C = 64, N = S = 4096, k = 20 and 64, B = 4
    and 16, three launches a forward), then at C = 5, 6, 67, 128 and 3, N
    no multiple of its tile, S != N, rows off 16-byte alignment, integer
-   features (ties), duplicate points and k = N;
+   features (ties), duplicate points and k = N, and at the edges of a warp
+   of Q queries at every Q (S = 1, Q - 1 and 4097, B = 1 with S < Q, k = 1
+   and 64, C = 67 and 128, queries off 16-byte alignment);
    each timed K2, K5 and K5c case adds its issue floor (9 instructions a
    pair scanned, 3C for K5c, over 128 lanes an SM a cycle at the SM clock
    that nvidia-smi reads meanwhile). Interpolation (K4) also at the SSG levels at B=16, D=131, a
@@ -179,7 +181,10 @@ any failure raises and exits non-zero:
 20. two epochs of DGCNN at batch 16 through train_cli.main with
    ``--config configs/train_dgcnn.yaml``, checked as in 7, the batch-16
    step timed (ms, points/s, peak memory) and profiled, then ``infer_cli
-   blocks`` serving the checkpoint that run wrote.
+   blocks`` serving the checkpoint that run wrote, and once more with
+   ``--from-snapshot``: the run's code snapshot builds its own kernels under
+   <exp>/code_snapshot/build/, K5 and K5c launch from it (its own
+   counters), and its CSVs equal the first serve's.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
 K3b cases of phases 3 and 3b alone (``--interp-backward`` the K4b cases of
@@ -188,9 +193,13 @@ probes/k4b_probe.py; ``--attention`` phases 3c and 3d;
 ``--sampling`` the K1 and K4 cases of phase 3, then each kernel's launch
 choices side by side: FPS by threads a row, interpolation by lanes a query;
 ``--neighbours`` the K2, K5 and K5c cases of phase 3, then their launch
-choices side by side: warps a block and queries a warp, and K5's row staged
-as a ring of tiles; ``--dgcnn`` the K2, K5 and K5c cases of phase 3 and
-phases 18-20), and prints no result line.
+choices side by side: warps a block and queries a warp, K5's row staged
+as a ring of tiles, and K5c's grid of warps, queries a warp and tiles with
+the plan's pick beside the fastest, then K5c's first design (a warp a
+query) and the kernel in turns, probes/k2_k5_probe.py ``compare_k5c``;
+``--k5c-exit`` K5c's early exit on the features DGCNN's graphs are built
+over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
+K5c cases of phase 3 and phases 18-20), and prints no result line.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
@@ -915,8 +924,8 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
     (N = S = 4096, k = 20 and 64, B = 4 and 16; K5c over 64 channels,
     three launches a forward, beside 3C instructions a pair); then K5c at
     C = 5, 6, 67, 128 and 3, N no multiple of its tile, S != N, rows off
-    16-byte alignment, integer features (ties), duplicate points and
-    k = N."""
+    16-byte alignment, integer features (ties), duplicate points, k = N and
+    the edges of a warp of Q queries."""
 
     def cloud(b, n):
         return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
@@ -960,18 +969,26 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
                         library_fn=library, split=timed)
         return (b * s * n, got) if timed else None
 
-    def knn_c_case(label, xyz, query, k, paths=(), timed=False, times=1):
+    def knn_c_case(label, xyz, query, k, paths=(), timed=False, times=1, launch=None):
         """K5c against knn_plain, indices and distances bit for bit; timed
-        beside 3C operations a pair and cdist + topk."""
+        beside 3C operations a pair and cdist + topk. ``launch`` = (warps,
+        queries a warp) in place of the plan's."""
         b, n, c = xyz.shape
         s = query.shape[1]
         work = library = None
         if timed:
             work = (nbytes(xyz, query) + b * s * k * 8, knn_c_instructions(c) * b * s * n)
             library = lambda: (torch.cdist(query, xyz) ** 2).topk(k, largest=False)  # noqa: E731
-        got = res.check("knn_c", label, lambda: grouping.knn_c_cuda(xyz, query, k),
-                        lambda: grouping.knn_plain(xyz, query, k), True, paths, work=work,
-                        library_fn=library, split=timed, times=times)
+        if launch:
+            label += f" at {launch[0]}x{launch[1]}"
+
+            def kernel():
+                return knn_c_with(xyz, query, k, *launch)
+        else:
+            def kernel():
+                return grouping.knn_c_cuda(xyz, query, k)
+        got = res.check("knn_c", label, kernel, lambda: grouping.knn_plain(xyz, query, k), True,
+                        paths, work=work, library_fn=library, split=timed, times=times)
         return (b * s * n, got) if timed else None
 
     def features(b, n, c, side=0):
@@ -1064,6 +1081,28 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
     knn_c_case("C=64 k = N = 64", tiny, features(B, 7, 64), 64)
     knn_c_case("C=6 k = N = 37", features(B, 37, 6), features(B, 300, 6), 37)
 
+    # the edges of a warp of Q queries, at every Q K5c is compiled for (at
+    # 32 warps a block): S = 1, Q - 1, 4097 (a last block of one query),
+    # B = 1 with S < Q, at k = 1 and 64 over N = 4096 points of 64 channels; C = 67 (4-byte staging), C = 128 (C read from the plan);
+    # queries off 16-byte alignment beside aligned points
+    x = features(B, N, 64)
+    for queries in grouping.KNN_C_QUERIES:
+        launch = (32, queries)
+        shapes = dict.fromkeys((b, s) for b, s in ((B, 1), (B, queries - 1), (1, queries - 1),
+                                                   (B, 4097)) if s >= 1)
+        for b, s in shapes:
+            query = features(b, s, 64)
+            for k in (1, 64):
+                knn_c_case(f"C=64 B={b} N={N} S={s} k={k}", x[:b], query, k, launch=launch)
+        for c in (67, 128):
+            y = features(B, 1000, c)
+            knn_c_case(f"C={c} N=1000 S=300 k=20", y, y[:, :300].contiguous(), 20,
+                       launch=launch)
+        flat = features(1, B * 300 * 64 + 1, 1).reshape(-1)
+        off = flat[1:].view(B, 300, 64)  # 4 bytes past 16-byte alignment
+        knn_c_case("C=64 queries off 16-byte alignment N=4096 S=300 k=20", x, off, 20,
+                   launch=launch)
+
 
 def knn_with(xyz, k: int, warps=None, tile=None) -> tuple:
     """csrc/knn.cu self-query at ``warps`` a block and ``tile`` points a
@@ -1077,17 +1116,32 @@ def knn_with(xyz, k: int, warps=None, tile=None) -> tuple:
     return d2, idx
 
 
-def knn_c_with(x, k: int, warps: int) -> tuple:
-    """K5c self-query at ``warps`` a block (its tile re-planned for them),
-    in place of the wrapper's plan -> (d2, idx)."""
-    b, n, c = x.shape
-    idx = torch.empty(b, n, k, dtype=torch.int32, device=x.device)
-    d2 = torch.empty(b, n, k, device=x.device)
-    plan = grouping._knn_c_plan(b, n, n, k, c, _kernels.sm_count(x.get_device()),
-                                c % 4 == 0 and x.data_ptr() % 16 == 0, warps)
-    _kernels.KNN_C.launch(x.data_ptr(), x.data_ptr(), idx.data_ptr(), d2.data_ptr(), plan,
-                          *_kernels.stream_args(x))
+def knn_c_with(xyz, query, k: int, warps: int, queries: int, tile=None) -> tuple:
+    """K5c at ``warps`` a block of ``queries`` a warp and ``tile`` points a
+    staged tile (None: the most that fits), in place of the wrapper's plan
+    -> (d2, idx)."""
+    b, n, c = xyz.shape
+    s = query.shape[1]
+    idx = torch.empty(b, s, k, dtype=torch.int32, device=xyz.device)
+    d2 = torch.empty(b, s, k, device=xyz.device)
+    plan = grouping._knn_c_plan(b, n, s, k, c, _kernels.sm_count(xyz.get_device()),
+                                c % 4 == 0 and xyz.data_ptr() % 16 == 0, warps, tile, queries)
+    _kernels.KNN_C.launch(xyz.data_ptr(), query.data_ptr(), idx.data_ptr(), d2.data_ptr(), plan,
+                          *_kernels.stream_args(xyz))
     return d2, idx
+
+
+# K5c's launches side by side at DGCNN's shapes: (warps, queries a warp,
+# points a tile or None for the most that fits); 128-point tiles let two
+# blocks share an SM. Q = 4 and 8 are the probe's (k2_k5_probe.py).
+KNN_C_GRID = ((32, 1, None), (32, 2, None), (32, 2, 128), (16, 2, None), (16, 2, 128))
+# ... and at fewer queries, where the plan's choice between one and two
+# queries a warp is made: (B, S, k) over N = 4096, the rows a last partial
+# batch leaves (B = 1 to 3, S = 4096) and a few hundred queries
+KNN_C_SMALL = ((1, 4096, 20), (1, 4096, 64), (2, 4096, 20), (2, 4096, 64), (3, 4096, 20),
+               (1, 1024, 20), (1, 256, 20), (2, 64, 20))
+KNN_C_SMALL_GRID = ((32, 1, None), (32, 2, None), (16, 1, None), (16, 2, None), (16, 2, 128),
+                    (8, 1, None), (8, 2, None), (8, 2, 128), (4, 1, None), (4, 2, None))
 
 
 def ball_with(balls, xyz, centers, warps: int, queries: int) -> list:
@@ -1109,7 +1163,9 @@ def compare_neighbour_designs(dev: torch.device) -> None:
     """The launch choices of K2, K5 and K5c side by side, device ms a call
     (CUDA graph), each result held to the plain version: K5 at 4, 8, 16 and
     32 warps a block and with its row staged as a ring of 1024-point tiles;
-    K5c at 4-32 warps (its tile follows) at DGCNN's shapes; K2
+    K5c over KNN_C_GRID (warps, queries a warp, tile) at DGCNN's shapes and
+    over KNN_C_SMALL_GRID at KNN_C_SMALL's, the plan's pick beside the
+    fastest; K2
     at 1 and 4 queries a warp and 4-32 warps a block; at the model levels of
     both (B=4) and at B=16; then BriStruNet's levels as one scan of both
     radii against a launch a radius."""
@@ -1132,20 +1188,30 @@ def compare_neighbour_designs(dev: torch.device) -> None:
             line.append(f"{'plan, ring 1024' if tile else warps}: {device_ms(run):.4f}")
         print(f"{'knn':18s} B={b} N=S={n} k={k} device ms by warps a block (chosen "
               f"{grouping.neighbour_launch(b, n, sms)}): " + ", ".join(line), flush=True)
-    for b, k, _ in DGCNN_KNN:
+    knn_c_shapes = [(b, N, k, KNN_C_GRID) for b, k, _ in DGCNN_KNN]
+    knn_c_shapes += [(b, s, k, KNN_C_SMALL_GRID) for b, s, k in KNN_C_SMALL]
+    for b, s, k, grid in knn_c_shapes:
         x = torch.from_numpy(rng.normal(size=(b, N, 64)).astype(np.float32)).to(dev)
-        want = grouping.knn_plain(x, x, k)
-        line = []
-        for warps in (4, 8, 16, 32):
-            def run(warps=warps):
-                return knn_c_with(x, k, warps)
+        query = x[:, :s].contiguous()
+        want = grouping.knn_plain(x, query, k)
+        times = {}
+        for warps, queries, tile in grid:
+            def run(warps=warps, queries=queries, tile=tile):
+                return knn_c_with(x, query, k, warps, queries, tile)
             got = run()
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                raise AssertionError(f"knn_c B={b} k={k} at {warps} warps: disagrees")
-            tile = grouping.knn_c_tile(N, 64, warps)
-            line.append(f"{warps} (tile {tile}): {device_ms(run):.4f}")
-        print(f"{'knn_c':18s} B={b} N=S={N} C=64 k={k} device ms by warps a block (chosen "
-              f"{grouping.neighbour_launch(b, N, sms)}): " + ", ".join(line), flush=True)
+                raise AssertionError(f"knn_c B={b} k={k} at {warps}x{queries} tile {tile}: "
+                                     "disagrees")
+            tile = tile or grouping.knn_c_tile(N, 64, warps, queries)
+            times[(warps, queries, tile)] = device_ms(run, reps=5)
+        plan = grouping._knn_c_plan(b, N, s, k, 64, sms, True)
+        chosen = tuple(dict(zip(grouping.KNN_C_PLAN, plan))[f] for f in ("warps", "queries", "tile"))
+        best = min(times, key=times.get)
+        print(f"{'knn_c':18s} B={b} N={N} S={s} C=64 k={k} device ms by warps x queries a warp, "
+              f"tile: " + ", ".join(f"{w}x{q} {tl}: {ms:.4f}" for (w, q, tl), ms in times.items())
+              + f"; the plan's {chosen[0]}x{chosen[1]} {chosen[2]}"
+              + (f" {times[chosen]:.4f}" if chosen in times else "")
+              + f", the fastest {best[0]}x{best[1]} {best[2]} {times[best]:.4f}", flush=True)
         del x, want
     for b, levels in ((B, SSG_BALLS), (B, BRISTRUNET_BALLS), (16, SSG_BALLS)):
         for n, s, balls in levels:
@@ -2310,22 +2376,71 @@ def train_dgcnn_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) ->
     train_cli.main with configs/train_dgcnn.yaml (weighted CE, Adam 1e-3,
     the plateau scheduler), checked as phase 7, the batch-16 step timed
     (ms, points/s, peak memory) and profiled by kernel family; then
-    ``infer_cli blocks`` serves the checkpoint that run wrote, warm ->
-    launch counts by path."""
+    ``infer_cli blocks`` serves the checkpoint that run wrote, warm, and
+    once more with ``--from-snapshot`` (serve_from_snapshot) -> launch
+    counts by path."""
     kernels = ("knn", "knn_c")
     by_path = {}
     by_path["dgcnn_train_cli"], exp_dir = train_through_cli(
         "train dgcnn (configs/train_dgcnn.yaml)", "dgcnn", kernels, data_dir, dev,
         profile=True, recipe=ROOT / "configs" / "train_dgcnn.yaml")
+    label = "serve trained dgcnn blocks"
     try:
-        counts = serve_blocks("serve trained dgcnn blocks", "dgcnn", exp_dir, kernels, data_dir,
-                              n_blocks, dev)
+        counts = serve_blocks(label, "dgcnn", exp_dir, kernels, data_dir, n_blocks, dev)
+        by_path["dgcnn_serve_snapshot"] = serve_from_snapshot(
+            label + " from its code snapshot", "dgcnn", exp_dir, label, data_dir, dev)
     finally:
         shutil.rmtree(exp_dir, ignore_errors=True)
     if counts != only(knn=counts["knn"], knn_c=3 * counts["knn"]):
         raise AssertionError(f"serve trained dgcnn blocks: launches {counts}")
     by_path["dgcnn_serve_trained"] = counts
     return by_path
+
+
+def serve_from_snapshot(label: str, model_name: str, exp_dir: Path, plain_label: str,
+                        data_dir: Path, dev: torch.device) -> dict:
+    """``infer_cli blocks --from-snapshot --device cuda`` on the run of
+    ``exp_dir``: the model, its ops and their kernels come from the code
+    snapshot that training wrote, a package of its own with its own launch
+    counters, whose library nvcc builds under <exp>/code_snapshot/build/.
+    Served twice (the first call builds); the second call's counts are read
+    from the snapshot's counters and must show K5 and K5c (three K5c a K5)
+    and no kernel of this package; its CSVs must equal those of
+    ``plain_label``'s serve (serve_blocks) byte for byte -> the snapshot's
+    launch counts."""
+    out_dir = data_dir / "infer_out" / label.replace(" ", "_")
+    plain_dir = data_dir / "infer_out" / plain_label.replace(" ", "_")
+    argv = ["blocks", "--checkpoint", str(exp_dir), "--model", model_name,
+            "--data-dir", str(data_dir), "--out-dir", str(out_dir),
+            "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
+            "--batch-size", "16", "--device", dev.type, "--from-snapshot"]
+    first, _, _ = run_cli(label, argv, GLOBAL_LINE)
+    snapshot = exp_dir / "code_snapshot"
+    found = [m for name, m in sys.modules.items()
+             if name.startswith("pcb_snapshot_") and name.endswith(".ops._kernels")
+             and Path(m.__file__).resolve().is_relative_to(snapshot.resolve())]
+    if len(found) != 1:
+        raise AssertionError(f"{label}: {len(found)} kernel modules loaded from {snapshot}")
+    snap = found[0]
+    lib = snap.library_path()
+    if lib.parent != (snapshot / "build" / "pointcloud_bridge_tpu_torch").resolve() \
+            or not lib.exists():
+        raise AssertionError(f"{label}: the snapshot's library is {lib}")
+    snap.reset_launch_counts()
+    wall, lines, counts = run_cli(label, argv, GLOBAL_LINE)
+    snap_counts = snap.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: this package's kernels ran ({counts})")
+    if not snap_counts["knn"] or snap_counts != only(knn=snap_counts["knn"],
+                                                     knn_c=3 * snap_counts["knn"]):
+        raise AssertionError(f"{label}: the snapshot's launches {snap_counts}")
+    for name in ("confusion_matrix.csv", "metrics.csv"):
+        if (out_dir / name).read_bytes() != (plain_dir / name).read_bytes():
+            raise AssertionError(f"{label}: {name} differs from the plain serve's")
+    print(f"{label}: {wall:.3f} s wall warm, first call {first:.3f} s (the snapshot's kernels "
+          f"built into {lib.relative_to(exp_dir.resolve())}), launches from the snapshot "
+          f"{snap_counts}; CSVs equal the plain serve's; {lines[-1]}", flush=True)
+    return snap_counts
 
 
 def kernel_family(name: str) -> str:
@@ -2591,6 +2706,30 @@ def serve_ptv3_pooled_through_cli(data_dir: Path, n_blocks: int, dev: torch.devi
     return by_path
 
 
+def dgcnn_features(dev: torch.device) -> list:
+    """The inputs of K5c in seeded dgcnn and dgcnn_global forwards (random
+    weights and BatchNorm statistics, as phase 18 seeds them) over phase 4's
+    two synthetic bridge scenes: [(label, features [B, 4096, 64], k)], conv2
+    to conv4 of each, at B=4, and dgcnn's at B=16 too."""
+    data_dir = ROOT / "build" / "chip_smoke_data"
+    try:
+        ds = make_dataset(data_dir)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    out = []
+    for name, seed, k, batches in (("dgcnn", SEED + 18, 20, (4, 16)),
+                                   ("dgcnn_global", SEED + 28, 64, (4,))):
+        model = seeded_model(name, seed).to(dev)
+        for b in batches:
+            xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:b], np.float32)).to(dev)
+            rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:b], np.float32)).to(dev)
+            with torch.inference_mode(), GraphTap(dev) as tap:
+                model(xyz, rgb)
+            out += [(f"{name} B={b} conv{i + 2}", x.contiguous(), k)
+                    for i, (x, _) in enumerate(tap.card[1:])]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2637,10 +2776,21 @@ def main() -> None:
         compare_sampling_designs(dev)
         return
     if sys.argv[1:] == ["--neighbours"]:
-        # kernel work on K2 and K5: phases 1, 2 and their cases of 3, then
-        # their launch choices side by side, no result line
+        # kernel work on K2, K5 and K5c: phases 1, 2 and their cases of 3,
+        # then their launch choices side by side and K5c's first design in
+        # turns with the kernel (probes/k2_k5_probe.py), no result line
+        from pointcloud_bridge_tpu_torch.probes import k2_k5_probe
+
         compare_neighbour_kernels(dev, Results(), np.random.default_rng(SEED))
         compare_neighbour_designs(dev)
+        k2_k5_probe.compare_k5c(dev)
+        return
+    if sys.argv[1:] == ["--k5c-exit"]:
+        # K5c's early exit (probes/k2_k5_probe.py) on the features DGCNN's
+        # graphs are built over and on normal ones, no result line
+        from pointcloud_bridge_tpu_torch.probes import k2_k5_probe
+
+        k2_k5_probe.probe_knn_c_exit(dev, dgcnn_features(dev))
         return
     if sys.argv[1:] == ["--interp-backward"]:
         # kernel work on K4b: phases 1, 2 and its cases of 3b, then its two

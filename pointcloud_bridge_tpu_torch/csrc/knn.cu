@@ -251,14 +251,20 @@ __global__ void __launch_bounds__(1024)
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory, once a
 // device: `opted` is the caller's own bit mask of devices.
+// With `most_shared`, also prefer the largest shared-memory carveout, so that
+// two blocks that fit an SM together are not held to one by a smaller one.
 template <typename F>
-cudaError_t opt_in_smem(F* kernel, size_t smem, int device, unsigned& opted) {
+cudaError_t opt_in_smem(F* kernel, size_t smem, int device, unsigned& opted,
+                        bool most_shared = false) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem <= 48 * 1024 && !most_shared) return cudaSuccess;
   if (device < 0 || device >= 32) return cudaErrorInvalidDevice;
   if (!((opted >> device) & 1u)) {
-    const cudaError_t err = cudaFuncSetAttribute(
+    cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess && most_shared)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     opted |= 1u << device;
   }
@@ -283,9 +289,10 @@ cudaError_t launch_knn(const float* xyz, const float* query, int* idx_out,
 
 // ---------------------------------------------------------------------------
 // K5c: the same k nearest over points of C channels (DGCNN's EdgeConv builds
-// its graph over 64-channel features). The selection is K5's (Selection);
-// what changes is the staging, since a 64-channel point is 256 bytes and a
-// row of 4096 no longer fits shared memory.
+// its graph over 64-channel features). The selection is K5's (Selection, one
+// state a query); what changes is the staging, since a 64-channel point is
+// 256 bytes and a row of 4096 no longer fits shared memory, and the scan,
+// which takes several queries a warp.
 //
 // Distance: the left fold d0*d0, then + dc*dc for c = 1 .. C-1 with dc =
 // q_c - p_c, every operation rounded on its own, which is what
@@ -294,25 +301,50 @@ cudaError_t launch_knn(const float* xyz, const float* query, int* idx_out,
 //
 // What bounds it on the H100: operations, 3C - 1 rounded float32 operations
 // and a compare a pair (0.39 ms of issue at B=4, N=S=4096, C=64 over 128
-// lanes x 132 SMs at 1.98 GHz), and beside them the shared-memory reads: a
-// lane reads every channel of its point, C * 4 bytes a pair, at 128 bytes an
-// SM a cycle. The bytes in and out (4.2 MB there) do not bound it.
+// lanes x 132 SMs at 1.98 GHz). The bytes in and out (4.2 MB there) do not
+// bound it. Beside the arithmetic stand the shared-memory reads: a lane
+// reads every channel of its point, C * 4 bytes a pair, and an SM reads 128
+// bytes a cycle. With one query a warp (the first design, Q = 1 below) a
+// group of four channels costs 17 cycles of shared memory (four 512-byte
+// point loads and a broadcast) against 12 of arithmetic, so the loads bound
+// the scan.
 //
-// Design: a warp a query, as K5; a block stages the row through a ring of two
-// tiles (the whole row where it fits) with cp.async, channel-major, so that
-// the 32 lanes' reads of one channel of 32 neighbouring points are 32
-// consecutive words, free of bank conflicts:
-// - VEC (C a multiple of 4, 16-byte aligned rows): [C/4][tile] float4s, one
-//   16-byte load a lane for four channels; staged 16 bytes a copy, eight
-//   points a channel group at a time, so that a warp's copies read whole
-//   sectors and write whole 128-byte rows of shared memory;
-// - otherwise [C][tile] floats, 4 bytes a copy.
-// The query's C values sit in shared memory, one slice a warp, read as a
-// broadcast once for every kUnroll points. CC = 64, the width the models
-// use, is compiled with the channel loop unrolled; CC = 0 reads C from the
-// plan. The wrapper (ops/grouping.py::knn_c_cuda) picks the tile so that
-// the ring, the queries and the candidate buffers fit 227 KB, and refuses
-// what does not fit.
+// Design: Q queries a warp (1 or 2: the plan's `queries`), Q
+// consecutive queries of one row, `warps` warps a block; lanes over points,
+// kUnroll points a lane. For each group of four channels a lane loads each of
+// its points once, each of the Q queries' four channels as a broadcast, and
+// updates Q x kUnroll sums, so one point load feeds Q queries: 16 + Q
+// cycles of shared memory against 12Q of arithmetic. A pair's sum never
+// mixes with another's, so every distance keeps its bits. Each query has its
+// own Selection and its own kBuf candidate slots, and sees the points in
+// index order as before, so its candidates and merges are exactly those of
+// a warp a query; one vote over all Q queries skips a group that offers a
+// candidate to none of them. A warp past the last query does no scan; a
+// warp with fewer than Q queries left scans zeros for the missing ones and
+// writes nothing for them.
+// - The block stages the row through a ring of two tiles (the whole row
+//   where it fits) with cp.async, channel-major, so that the 32 lanes' reads
+//   of one channel of 32 neighbouring points are 32 consecutive words, free
+//   of bank conflicts:
+//   - VEC (C a multiple of 4, 16-byte aligned rows): [C/4][tile] float4s, one
+//     16-byte load a lane for four channels; staged 16 bytes a copy, eight
+//     points a channel group at a time, so that a warp's copies read whole
+//     sectors and write whole 128-byte rows of shared memory;
+//   - otherwise [C][tile] floats, 4 bytes a copy.
+// - The queries' C values sit in shared memory, Q slices a warp, read 4
+//   bytes at a time from device memory (no alignment asked of them).
+// CC = 64, the width the models use, is compiled with the channel loop
+// unrolled; CC = 0 reads C from the plan. The wrapper
+// (ops/grouping.py::knn_c_cuda) picks warps, Q and the tile by shape so that
+// the ring, the queries and the candidate slots fit 227 KB, and refuses what
+// does not fit.
+// Measured (PERF.md §6, DGCNN's four shapes): 32 warps of Q = 2 with
+// 256-point tiles is the fastest launch, 21-24% under a warp a query; the
+// warps an SM keep the scan fed more than Q does, so Q = 4 and Q = 8
+// (probes/k2_k5_probe.py compiles them: 16 or 8 warps a block, or 32 and 16
+// held to 64 registers a thread) were slower, as were 128-point tiles for
+// two blocks an SM, the channel loop unrolled 8 or fully, and an exact early
+// exit every 16 channels (no group left early on DGCNN's features).
 
 __device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -361,19 +393,31 @@ __device__ __forceinline__ float sq_add(float acc, float q, float p) {
   return __fadd_rn(acc, __fmul_rn(d, d));
 }
 
-// Shared memory of K5c, in bytes: the ring, the warps' queries (rounded to
-// 16 bytes) and their candidate slots. ops/grouping.py::knn_c_tile mirrors it.
-__host__ __device__ constexpr size_t knn_c_smem(int c, int tile, int ring, int warps) {
-  return (size_t)ring * c * round_up(tile, kGroup) * 4 +
-         (size_t)round_up(warps * c * 4, 16) + (size_t)warps * kBuf * sizeof(Key);
+// acc + the four channels of p against q, in channel order.
+__device__ __forceinline__ float sq_add4(float acc, const float4& q, const float4& p) {
+  acc = sq_add(acc, q.x, p.x);
+  acc = sq_add(acc, q.y, p.y);
+  acc = sq_add(acc, q.z, p.z);
+  return sq_add(acc, q.w, p.w);
 }
 
-template <int R, int CC, bool VEC>
+// Shared memory of K5c, in bytes: the ring, the warps' Q queries each
+// (rounded to 16 bytes) and their candidate slots. ops/grouping.py::knn_c_smem
+// mirrors it.
+__host__ __device__ constexpr size_t knn_c_smem(int c, int tile, int ring, int warps,
+                                                int queries) {
+  return (size_t)ring * c * round_up(tile, kGroup) * 4 +
+         (size_t)round_up(warps * queries * c * 4, 16) +
+         (size_t)warps * queries * kBuf * sizeof(Key);
+}
+
+template <int R, int CC, bool VEC, int Q>
 __global__ void __launch_bounds__(1024)
     knn_c_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
                  int* __restrict__ idx_out, float* __restrict__ d2_out, int n, int s,
                  int k, int c_plan, int tile) {
   static_assert(R == 1 || R == 2, "k <= 64");
+  static_assert(Q == 1 || Q == 2, "1 or 2 queries a warp");
   static_assert(CC % 4 == 0 || !VEC, "float4 staging needs whole groups of 4 channels");
   const int c = CC ? CC : c_plan;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -381,23 +425,24 @@ __global__ void __launch_bounds__(1024)
   const int ring = tile < n ? 2 : 1;
   const int warps = blockDim.x >> 5;
   float* tiles = reinterpret_cast<float*>(smem);
-  float* qs_all = tiles + (size_t)ring * c * padded;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* qs = qs_all + warp * c;
-  Key* buf = reinterpret_cast<Key*>(smem + knn_c_smem(c, tile, ring, warps) -
-                                    (size_t)warps * kBuf * sizeof(Key)) + warp * kBuf;
+  float* qs = tiles + (size_t)ring * c * padded + (size_t)warp * Q * c;
+  Key* bufs = reinterpret_cast<Key*>(smem + knn_c_smem(c, tile, ring, warps, Q) -
+                                     (size_t)warps * Q * kBuf * sizeof(Key)) +
+              warp * Q * kBuf;
   const int b = blockIdx.y;
-  const int q = blockIdx.x * warps + warp;
-  const bool active = q < s;  // uniform over the warp
+  const int q0 = (blockIdx.x * warps + warp) * Q;
+  const int live = min(Q, s - q0);  // this warp's queries, uniform; <= 0: none
   const float* row = xyz + (size_t)b * n * c;
 
-  if (active) {
-    const float* src = query + ((size_t)b * s + q) * c;
-    for (int ch = lane; ch < c; ch += 32) qs[ch] = src[ch];
+  if (live > 0) {
+    // the warp's queries are consecutive rows: one run of live * C floats
+    const float* src = query + ((size_t)b * s + q0) * c;
+    for (int t = lane; t < Q * c; t += 32) qs[t] = t < live * c ? src[t] : 0.f;
   }
-  Selection<R> sel;
+  Selection<R> sel[Q];
 
   const int tiles_n = (n + tile - 1) / tile;
   {
@@ -414,101 +459,148 @@ __global__ void __launch_bounds__(1024)
       stage_channels<VEC>(tiles + (size_t)((j + 1) & 1) * c * padded,
                           row + (size_t)(base + tile) * c, c, next, padded);
     }
-    if (!active) continue;
+    if (live <= 0) continue;
     const float* pts = tiles + (size_t)(j & 1) * c * padded;
     for (int t0 = 0; t0 < lim; t0 += kGroup) {
-      float acc[kUnroll];
+      float acc[Q][kUnroll];
       const int at = t0 + lane;
       if (VEC) {
+        const int c4 = c >> 2;
         const float4* p4 = reinterpret_cast<const float4*>(pts) + at;
         const float4* q4 = reinterpret_cast<const float4*>(qs);
         {
-          const float4 qv = q4[0];
+          float4 p[kUnroll];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const float4 p = p4[u * 32];
-            const float d = __fsub_rn(qv.x, p.x);
-            float a = __fmul_rn(d, d);
-            a = sq_add(a, qv.y, p.y);
-            a = sq_add(a, qv.z, p.z);
-            acc[u] = sq_add(a, qv.w, p.w);
+          for (int u = 0; u < kUnroll; ++u) p[u] = p4[u * 32];
+#pragma unroll
+          for (int i = 0; i < Q; ++i) {
+            const float4 qv = q4[i * c4];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              const float d = __fsub_rn(qv.x, p[u].x);
+              float a = __fmul_rn(d, d);
+              a = sq_add(a, qv.y, p[u].y);
+              a = sq_add(a, qv.z, p[u].z);
+              acc[i][u] = sq_add(a, qv.w, p[u].w);
+            }
           }
         }
 #pragma unroll 4
-        for (int g = 1; g < (c >> 2); ++g) {
-          const float4 qv = q4[g];
+        for (int g = 1; g < c4; ++g) {
+          float4 p[kUnroll];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const float4 p = p4[(size_t)g * padded + u * 32];
-            float a = sq_add(acc[u], qv.x, p.x);
-            a = sq_add(a, qv.y, p.y);
-            a = sq_add(a, qv.z, p.z);
-            acc[u] = sq_add(a, qv.w, p.w);
+          for (int u = 0; u < kUnroll; ++u) p[u] = p4[(size_t)g * padded + u * 32];
+#pragma unroll
+          for (int i = 0; i < Q; ++i) {
+            const float4 qv = q4[i * c4 + g];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) acc[i][u] = sq_add4(acc[i][u], qv, p[u]);
           }
         }
       } else {
         {
-          const float qv = qs[0];
+          float p[kUnroll];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const float d = __fsub_rn(qv, pts[at + u * 32]);
-            acc[u] = __fmul_rn(d, d);
+          for (int u = 0; u < kUnroll; ++u) p[u] = pts[at + u * 32];
+#pragma unroll
+          for (int i = 0; i < Q; ++i) {
+            const float qv = qs[i * c];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              const float d = __fsub_rn(qv, p[u]);
+              acc[i][u] = __fmul_rn(d, d);
+            }
           }
         }
 #pragma unroll 4
         for (int ch = 1; ch < c; ++ch) {
-          const float qv = qs[ch];
+          float p[kUnroll];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            acc[u] = sq_add(acc[u], qv, pts[(size_t)ch * padded + at + u * 32]);
+          for (int u = 0; u < kUnroll; ++u) p[u] = pts[(size_t)ch * padded + at + u * 32];
+#pragma unroll
+          for (int i = 0; i < Q; ++i) {
+            const float qv = qs[i * c + ch];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) acc[i][u] = sq_add(acc[i][u], qv, p[u]);
           }
         }
       }
-      unsigned bits[kUnroll];
+      // one vote for the group over all Q queries, then each query's own
+      unsigned bits[Q][kUnroll];
+      bool any = false;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) bits[u] = __float_as_uint(acc[u]);
-      sel.offer(bits, base + t0, buf, k, lane);
+      for (int i = 0; i < Q; ++i) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          bits[i][u] = __float_as_uint(acc[i][u]);
+          any |= bits[i][u] < sel[i].bound;
+        }
+      }
+      if (!__any_sync(kFull, any)) continue;
+#pragma unroll
+      for (int i = 0; i < Q; ++i) sel[i].offer(bits[i], base + t0, bufs + i * kBuf, k, lane);
     }
   }
-  if (!active) return;
-  sel.finish(buf, k, lane, (size_t)b * s + q, idx_out, d2_out);
+  if (live <= 0) return;
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    if (i < live) sel[i].finish(bufs + i * kBuf, k, lane, (size_t)b * s + q0 + i, idx_out, d2_out);
+  }
 }
 
-template <int R, int CC, bool VEC>
+template <int R, int CC, bool VEC, int Q>
 cudaError_t launch_knn_c(const float* xyz, const float* query, int* idx_out,
                          float* d2_out, int b, int n, int s, int k, int c, int warps,
                          int tile, int device, cudaStream_t stream) {
-  const size_t smem = knn_c_smem(c, tile, tile < n ? 2 : 1, warps);
+  const size_t smem = knn_c_smem(c, tile, tile < n ? 2 : 1, warps, Q);
   static unsigned opted = 0;
-  const cudaError_t err = opt_in_smem(knn_c_kernel<R, CC, VEC>, smem, device, opted);
+  // the most shared memory an SM can give: two blocks of up to ~113 KB share one
+  const cudaError_t err =
+      opt_in_smem(knn_c_kernel<R, CC, VEC, Q>, smem, device, opted, true);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + warps - 1) / warps, b);
-  knn_c_kernel<R, CC, VEC><<<grid, warps * 32, smem, stream>>>(xyz, query, idx_out,
-                                                               d2_out, n, s, k, c, tile);
+  const int per_block = warps * Q;
+  const dim3 grid((s + per_block - 1) / per_block, b);
+  knn_c_kernel<R, CC, VEC, Q><<<grid, warps * 32, smem, stream>>>(xyz, query, idx_out,
+                                                                  d2_out, n, s, k, c, tile);
   return cudaGetLastError();
+}
+
+template <int R, int CC, bool VEC>
+cudaError_t launch_knn_c_queries(const float* xyz, const float* query, int* idx_out,
+                                 float* d2_out, int b, int n, int s, int k, int c, int warps,
+                                 int queries, int tile, int device, cudaStream_t stream) {
+  switch (queries) {
+    case 1:
+      return launch_knn_c<R, CC, VEC, 1>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
+                                         tile, device, stream);
+    default:
+      return launch_knn_c<R, CC, VEC, 2>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
+                                         tile, device, stream);
+  }
 }
 
 template <int R>
 cudaError_t launch_knn_c_width(const float* xyz, const float* query, int* idx_out,
                                float* d2_out, int b, int n, int s, int k, int c, int warps,
-                               int tile, bool vec, int device, cudaStream_t stream) {
+                               int queries, int tile, bool vec, int device,
+                               cudaStream_t stream) {
   if (c == 64 && vec)
-    return launch_knn_c<R, 64, true>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
-                                     tile, device, stream);
+    return launch_knn_c_queries<R, 64, true>(xyz, query, idx_out, d2_out, b, n, s, k, c,
+                                             warps, queries, tile, device, stream);
   if (vec)
-    return launch_knn_c<R, 0, true>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps, tile,
-                                    device, stream);
-  return launch_knn_c<R, 0, false>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps, tile,
-                                   device, stream);
+    return launch_knn_c_queries<R, 0, true>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
+                                            queries, tile, device, stream);
+  return launch_knn_c_queries<R, 0, false>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
+                                           queries, tile, device, stream);
 }
 
 }  // namespace
 
-// plan (ops/grouping.py KNN_C_PLAN): B, N, S, k, C, warps a block, points a
-// staged tile (N for the whole row, else a ring of two), vec (1: float4
-// staging; C a multiple of 4 and 16-byte aligned rows). The wrapper keeps
-// 1 <= k <= min(64, N), B <= 65535, N * C < 2^31, warps in {4, 8, 16, 32}
-// and a tile whose shared memory fits.
+// plan (ops/grouping.py KNN_C_PLAN): B, N, S, k, C, warps a block, queries a
+// warp, points a staged tile (N for the whole row, else a ring of two), vec
+// (1: float4 staging; C a multiple of 4 and 16-byte aligned rows). The
+// wrapper keeps 1 <= k <= min(64, N), B <= 65535, N * C < 2^31, warps in
+// {4, 8, 16, 32}, queries in {1, 2} and a tile whose shared memory fits.
 PCB_API int pcb_knn_c(const float* xyz, const float* query, int* idx_out,
                       float* d2_out, const int* plan, int device, void* stream) {
   const int b = plan[0];
@@ -517,18 +609,20 @@ PCB_API int pcb_knn_c(const float* xyz, const float* query, int* idx_out,
   const int k = plan[3];
   const int c = plan[4];
   const int warps = plan[5];
-  const int tile = plan[6];
-  const int vec = plan[7];
+  const int queries = plan[6];
+  const int tile = plan[7];
+  const int vec = plan[8];
   cudaError_t err = pcb_use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (k < 1 || k > 64 || k > n || c < 1 || warps < 1 || warps > 32 || tile < 1 ||
-      (vec && c % 4 != 0) || knn_c_smem(c, tile, tile < n ? 2 : 1, warps) > kMaxSmem)
+      (queries != 1 && queries != 2) || (vec && c % 4 != 0) ||
+      knn_c_smem(c, tile, tile < n ? 2 : 1, warps, queries) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   err = k > 32 ? launch_knn_c_width<2>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
-                                       tile, vec != 0, device, st)
+                                       queries, tile, vec != 0, device, st)
                : launch_knn_c_width<1>(xyz, query, idx_out, d2_out, b, n, s, k, c, warps,
-                                       tile, vec != 0, device, st);
+                                       queries, tile, vec != 0, device, st);
   return (int)err;
 }
 

@@ -291,39 +291,59 @@ def knn_cuda(
 
 
 # csrc/knn.cu's constants that K5c's shared memory is laid out by: points a
-# tile is padded to (kGroup), candidate slots a warp (kBuf, 8 bytes a slot)
+# tile is padded to (kGroup), candidate slots a query (kBuf, 8 bytes a slot)
 # and the most a block may opt into (kMaxSmem)
 KNN_GROUP = 128
 KNN_BUF = 64
 MAX_SMEM = 232_448
 # the integers of a K5c launch, in the order pcb_knn_c (csrc/knn.cu) reads them
-KNN_C_PLAN = ("b", "n", "s", "k", "c", "warps", "tile", "vec")
+KNN_C_PLAN = ("b", "n", "s", "k", "c", "warps", "queries", "tile", "vec")
+# queries a warp that K5c is compiled for
+KNN_C_QUERIES = (1, 2)
 
 
-def knn_c_smem(c: int, tile: int, ring: int, warps: int) -> int:
+def knn_c_smem(c: int, tile: int, ring: int, warps: int, queries: int) -> int:
     """Shared bytes of a K5c block (csrc/knn.cu knn_c_smem): ``ring`` tiles
-    of C channels, the warps' queries and their candidate slots."""
+    of C channels, the warps' ``queries`` queries each and their candidate
+    slots."""
     return (ring * c * -(-tile // KNN_GROUP) * KNN_GROUP * 4
-            + -(-warps * c * 4 // 16) * 16 + warps * KNN_BUF * 8)
+            + -(-warps * queries * c * 4 // 16) * 16 + warps * queries * KNN_BUF * 8)
 
 
-def knn_c_tile(n: int, c: int, warps: int) -> int:
+def knn_c_tile(n: int, c: int, warps: int, queries: int) -> int:
     """Points a staged tile of K5c: the whole row where it fits shared
     memory, else the most whole groups of KNN_GROUP points that let a ring
-    of two fit (384 at C = 64 and 32 warps); 0 where not even one group
-    does."""
-    if knn_c_smem(c, n, 1, warps) <= MAX_SMEM:
+    of two fit (384 at C = 64, 32 warps and a query a warp; 256 at 32 warps
+    of 2 queries); 0 where not even one group does."""
+    if knn_c_smem(c, n, 1, warps, queries) <= MAX_SMEM:
         return n
-    return (MAX_SMEM - knn_c_smem(c, 0, 0, warps)) // (2 * c * 4 * KNN_GROUP) * KNN_GROUP
+    return (MAX_SMEM - knn_c_smem(c, 0, 0, warps, queries)) // (2 * c * 4 * KNN_GROUP) * KNN_GROUP
+
+
+@functools.lru_cache(maxsize=None)
+def knn_c_launch(b: int, s: int, sms: int) -> Tuple[int, int]:
+    """(warps a block, queries a warp) of K5c for B * S queries: 2 queries a
+    warp (one point load for the two) at the warps ``neighbour_launch``
+    gives pairs of queries (about one block an SM, 32 warps where there are
+    more) wherever every SM still gets a block of 4 warps (B * S >= 8 an
+    SM); else a query a warp at the warps it gives single queries. The
+    tile is then the most that fits (``knn_c_tile``: 256 points at C = 64,
+    32 warps). chip_smoke.py --neighbours times the choices (PERF.md §6):
+    at N = S = 4096, 32 x 2 is the fastest at B = 2, 4 and 16 and 16 x 2 at
+    B = 1, each 21-34% under a warp a query."""
+    if b * s >= 2 * 4 * sms:
+        return neighbour_launch(b, s, sms, 2), 2
+    return neighbour_launch(b, s, sms), 1
 
 
 @functools.lru_cache(maxsize=1024)
 def _knn_c_plan(b: int, n: int, s: int, k: int, c: int, sms: int, vec: bool,
-                warps: Optional[int] = None, tile: Optional[int] = None):
+                warps: Optional[int] = None, tile: Optional[int] = None,
+                queries: Optional[int] = None):
     """pcb_knn_c's plan (KNN_C_PLAN), checked and laid out once a shape:
-    ``neighbour_launch`` (or ``warps``) and ``knn_c_tile`` (or ``tile``);
-    ``vec`` stages four channels a copy (C a multiple of 4, rows on 16
-    bytes)."""
+    ``knn_c_launch`` (or ``warps`` and ``queries``) and ``knn_c_tile`` (or
+    ``tile``); ``vec`` stages four channels a copy (C a multiple of 4, rows
+    on 16 bytes)."""
     if not 1 <= k <= min(KNN_MAX_K, n):
         raise ValueError(f"knn kernel takes 1 <= k <= min({KNN_MAX_K}, N), got k={k}, N={n}")
     if c < 1 or n * c >= 2**31 or b > 65535 or b * s >= 2**31:
@@ -331,13 +351,19 @@ def _knn_c_plan(b: int, n: int, s: int, k: int, c: int, sms: int, vec: bool,
                          f"B * S < 2^31, got B={b}, N={n}, S={s}, C={c}")
     if vec and c % 4:
         raise ValueError(f"knn kernel stages four channels a copy only where 4 divides C={c}")
-    warps = warps or neighbour_launch(b, s, sms)
-    tile = tile or knn_c_tile(n, c, warps)
+    if warps is None or queries is None:
+        warps_planned, queries_planned = knn_c_launch(b, s, sms)
+        warps, queries = warps or warps_planned, queries or queries_planned
+    if queries not in KNN_C_QUERIES or warps not in (4, 8, 16, 32):
+        raise ValueError(f"knn kernel: no block of {warps} warps of {queries} queries "
+                         f"(4, 8, 16 or 32 warps of {' or '.join(map(str, KNN_C_QUERIES))})")
+    tile = tile or knn_c_tile(n, c, warps, queries)
     ring = 1 if tile >= n else 2
-    if warps not in (4, 8, 16, 32) or tile < 1 or knn_c_smem(c, tile, ring, warps) > MAX_SMEM:
-        raise ValueError(f"knn kernel: no block of {warps} warps with tiles of {tile} points "
-                         f"of C={c} channels fits {MAX_SMEM} bytes of shared memory")
-    return (ctypes.c_int * len(KNN_C_PLAN))(b, n, s, k, c, warps, tile, int(vec))
+    if tile < 1 or knn_c_smem(c, tile, ring, warps, queries) > MAX_SMEM:
+        raise ValueError(f"knn kernel: no block of {warps} warps of {queries} queries with "
+                         f"tiles of {tile} points of C={c} channels fits {MAX_SMEM} bytes of "
+                         "shared memory")
+    return (ctypes.c_int * len(KNN_C_PLAN))(b, n, s, k, c, warps, queries, tile, int(vec))
 
 
 def knn_c_cuda(

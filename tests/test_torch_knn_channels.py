@@ -20,9 +20,12 @@ for bit, ties to the lower index.
 The kernel runs only on the card, where chip_smoke.py holds it against
 ``knn_plain`` bit for bit. Here: its C entry point against the argument
 types the wrapper binds, the plan in the order C reads it, the shared
-memory the wrapper lays out against the C source's, the wrappers' routing
-and refusals with ``is_cuda`` patched, and a numpy emulation of the kernel's
-fold and tile ring held bit for bit against ``knn_plain``.
+memory the wrapper lays out against the C source's, the launch the plan
+picks by shape, the wrappers' routing and
+refusals with ``is_cuda`` patched, and a numpy emulation of the kernel's
+warps of Q queries (fold, tile ring, one selection and buffer a query, the
+group vote, a last warp partly active) held bit for bit against
+``knn_plain``.
 """
 
 import re
@@ -36,6 +39,7 @@ from pointcloud_bridge_tpu.ops import grouping as jgrouping
 from pointcloud_bridge_tpu.ops import square_distance
 from pointcloud_bridge_tpu_torch import ops
 from pointcloud_bridge_tpu_torch.ops import _kernels, grouping
+from pointcloud_bridge_tpu_torch.probes import k2_k5_probe
 
 from test_torch_neighbour_launch import (
     BUF,
@@ -185,36 +189,98 @@ def test_the_c_constants_are_the_wrappers():
     text = KNN_SRC[KNN_SRC.index("constexpr size_t knn_c_smem("):]
     text = text[:text.index("}")]
     assert "ring * c * round_up(tile, kGroup) * 4" in text
-    assert "round_up(warps * c * 4, 16)" in text and "warps * kBuf * sizeof(Key)" in text
-    # K5c is instantiated at the models' width and for any other
-    assert "launch_knn_c<R, 64, true>" in KNN_SRC and "launch_knn_c<R, 0, false>" in KNN_SRC
+    assert "round_up(warps * queries * c * 4, 16)" in text
+    assert "warps * queries * kBuf * sizeof(Key)" in text
+    # K5c is instantiated at the models' width and for any other, at each
+    # number of queries a warp the plan may ask for
+    assert "launch_knn_c_queries<R, 64, true>" in KNN_SRC
+    assert "launch_knn_c_queries<R, 0, false>" in KNN_SRC
+    body = KNN_SRC[KNN_SRC.index("cudaError_t launch_knn_c_queries("):]
+    body = body[:body.index("\n}\n")]
+    cases = [int(q) for q in re.findall(r"case (\d+):", body)]
+    assert cases + [int(re.search(r"default:\s*return launch_knn_c<R, CC, VEC, (\d+)>",
+                                  body).group(1))] == list(grouping.KNN_C_QUERIES)
+    entry = KNN_SRC[KNN_SRC.index("PCB_API int pcb_knn_c("):]
+    assert "(queries != 1 && queries != 2)" in entry and grouping.KNN_C_QUERIES == (1, 2)
+    assert 'static_assert(Q == 1 || Q == 2, "1 or 2 queries a warp");' in KNN_SRC
 
 
 @pytest.mark.parametrize("c", [1, 3, 5, 6, 8, 64, 67, 128, 187])
 @pytest.mark.parametrize("warps", [4, 8, 16, 32])
 def test_knn_c_tile_fits_shared_memory(c, warps):
-    for n in (1, 31, 127, 128, 129, 400, 700, 1000, 4096, 4097, 16384):
-        tile = grouping.knn_c_tile(n, c, warps)
-        ring = 1 if tile >= n else 2
-        assert tile >= 1
-        assert grouping.knn_c_smem(c, tile, ring, warps) <= grouping.MAX_SMEM
-        if ring == 2:  # the most whole groups that fit
-            assert tile % GROUP == 0
-            assert grouping.knn_c_smem(c, tile + GROUP, 2, warps) > grouping.MAX_SMEM
-        else:
-            assert tile == n
+    """At every number of queries a warp the kernel is compiled for; 0 (no
+    tile) only where not even a ring of two 128-point groups fits beside the
+    queries and buffers, which never happens at a query a warp up to
+    C = 187."""
+    for queries in grouping.KNN_C_QUERIES:
+        for n in (1, 31, 127, 128, 129, 400, 700, 1000, 4096, 4097, 16384):
+            tile = grouping.knn_c_tile(n, c, warps, queries)
+            ring = 1 if tile >= n else 2
+            if tile == 0:
+                assert queries > 1
+                assert grouping.knn_c_smem(c, n, 1, warps, queries) > grouping.MAX_SMEM
+                assert grouping.knn_c_smem(c, GROUP, 2, warps, queries) > grouping.MAX_SMEM
+                continue
+            assert tile >= 1
+            assert grouping.knn_c_smem(c, tile, ring, warps, queries) <= grouping.MAX_SMEM
+            if ring == 2:  # the most whole groups that fit
+                assert tile % GROUP == 0
+                assert grouping.knn_c_smem(c, tile + GROUP, 2, warps, queries) > grouping.MAX_SMEM
+            else:
+                assert tile == n
+
+
+@pytest.mark.parametrize("c,tile,ring,warps,queries", [
+    (64, 384, 2, 32, 1), (64, 256, 2, 32, 2), (64, 128, 2, 16, 2), (67, 1000, 1, 8, 2),
+    (5, 129, 1, 4, 1), (1, 7, 1, 16, 2)])
+def test_knn_c_smem_mirrors_the_c_layout_byte_for_byte(c, tile, ring, warps, queries):
+    """The three regions csrc/knn.cu lays out, each summed by hand: the ring
+    of channel-major tiles padded to whole groups, the warps' Q query slices
+    rounded to 16 bytes, Q candidate buffers of kBuf 8-byte keys a warp."""
+    ring_bytes = ring * c * (-(-tile // GROUP) * GROUP) * 4
+    query_bytes = -(-(warps * queries * c * 4) // 16) * 16
+    buf_bytes = warps * queries * BUF * 8
+    assert grouping.knn_c_smem(c, tile, ring, warps, queries) == ring_bytes + query_bytes + buf_bytes
 
 
 def test_the_dgcnn_shapes_stage_a_ring_of_384_point_tiles():
-    """C = 64 at 32 warps: two tiles of 384 points (196,608 bytes), the
-    warps' queries (8 KB) and candidate slots (16 KB) fit 227 KB."""
-    assert grouping.knn_c_tile(4096, 64, 32) == 384
-    assert grouping.knn_c_smem(64, 384, 2, 32) == 196_608 + 8192 + 16_384
+    """C = 64 at 32 warps of one query (the first design's launch, which
+    probes/k2_k5_probe.py compare_k5c times): two tiles of 384 points (196,608
+    bytes), the warps' queries (8 KB) and candidate slots (16 KB) fit 227 KB.
+    At 32 warps of two queries, the plan at every DGCNN shape (measured
+    fastest of the (warps, queries, tile) grid, PERF.md §6), the queries
+    (16 KB) and slots (32 KB) leave room for two tiles of 256."""
+    assert grouping.knn_c_tile(4096, 64, 32, 1) == 384
+    assert grouping.knn_c_smem(64, 384, 2, 32, 1) == 196_608 + 8192 + 16_384
+    assert grouping.knn_c_tile(4096, 64, 32, 2) == 256
+    assert grouping.knn_c_smem(64, 256, 2, 32, 2) == 131_072 + 16_384 + 32_768
     assert list(grouping._knn_c_plan(4, 4096, 4096, 20, 64, 132, True)) == [
-        4, 4096, 4096, 20, 64, 32, 384, 1]
-    assert list(grouping._knn_c_plan(16, 4096, 4096, 64, 64, 132, True))[5:] == [32, 384, 1]
-    # a row that fits is staged whole: N = 256 at C = 64
-    assert list(grouping._knn_c_plan(2, 256, 256, 20, 64, 132, True))[5:] == [4, 256, 1]
+        4, 4096, 4096, 20, 64, 32, 2, 256, 1]
+    for b, k in ((4, 64), (16, 20), (16, 64)):
+        assert list(grouping._knn_c_plan(b, 4096, 4096, k, 64, 132, True))[5:] == [32, 2, 256, 1]
+    # a row that fits is staged whole: N = 256 at C = 64, a query a warp
+    assert list(grouping._knn_c_plan(2, 256, 256, 20, 64, 132, True))[5:] == [4, 1, 256, 1]
+
+
+@pytest.mark.parametrize("b,s,sms,launch", [
+    (4, 4096, 132, (32, 2)), (16, 4096, 132, (32, 2)), (3, 4096, 132, (32, 2)),
+    (2, 4096, 132, (32, 2)), (1, 4096, 132, (16, 2)), (2, 600, 132, (8, 2)),
+    (1, 1056, 132, (4, 2)), (1, 1055, 132, (8, 1)), (1, 1024, 132, (8, 1)), (1, 256, 132, (4, 1)),
+    (2, 64, 132, (4, 1)), (2, 100, 132, (4, 1)), (1, 1, 132, (4, 1)), (4, 4096, 78, (32, 2)),
+    (4, 4096, 300, (32, 2))])
+def test_knn_c_launch_by_the_number_of_queries(b, s, sms, launch):
+    """Two queries a warp at the warps neighbour_launch gives pairs of
+    queries wherever every SM still gets a block of 4 warps (B * S >= 8 per
+    SM); else a warp a query at the warps neighbour_launch gives single
+    queries. Each launch the plan picks here was the fastest of the grid
+    chip_smoke.py --neighbours times at N = 4096 (B = 1, 2, 4, 16 at
+    S = 4096; S = 1024, 256, 64), and B = 3 the one it times behind 16 x 2 at
+    128-point tiles. Every launch it picks is one the kernel is compiled for
+    and fits at C = 64."""
+    assert grouping.knn_c_launch(b, s, sms) == launch
+    warps, queries = launch
+    assert queries in grouping.KNN_C_QUERIES
+    assert grouping.knn_c_tile(4096, 64, warps, queries) >= grouping.KNN_GROUP
 
 
 @pytest.mark.parametrize("args", [
@@ -222,7 +288,10 @@ def test_the_dgcnn_shapes_stage_a_ring_of_384_point_tiles():
     (4, 16, 16, 17, 64, 132, True), (65536, 64, 64, 4, 64, 132, True),
     (4, 64, 64, 4, 6, 132, True), (4, 64, 64, 4, 0, 132, False),
     (4, 2**25, 64, 4, 64, 132, True), (4, 4096, 4096, 20, 188, 132, False),
-    (4, 4096, 4096, 20, 64, 132, True, 12), (4, 4096, 4096, 20, 64, 132, True, 32, 1024)])
+    (4, 4096, 4096, 20, 64, 132, True, 12), (4, 4096, 4096, 20, 64, 132, True, 32, 1024),
+    (4, 4096, 4096, 20, 64, 132, True, 32, None, 3), (4, 4096, 4096, 20, 64, 132, True, 32, None, 4),
+    (4, 4096, 4096, 20, 64, 132, True, 16, None, 8), (4, 4096, 4096, 20, 64, 132, True, 32, 384, 2),
+    (4, 4096, 4096, 20, 187, 132, False, 32, None, 2)])
 def test_knn_c_plan_refuses(args):
     with pytest.raises(ValueError):
         grouping._knn_c_plan(*args)
@@ -248,7 +317,7 @@ def test_knn_c_cuda_hands_over_its_plan(as_if_on_the_card):
     (kernel, args), = as_if_on_the_card
     assert kernel is _kernels.KNN_C and len(args) == len(kernel.argtypes)
     assert args[2:4] == (idx.data_ptr(), d2.data_ptr())
-    assert list(args[4]) == [2, 600, 100, 33, 64, 4, 600, 1]  # 200 queries: 4 warps
+    assert list(args[4]) == [2, 600, 100, 33, 64, 4, 1, 600, 1]  # 200 queries: 4 warps of 1
 
 
 @pytest.mark.parametrize("c,offset,vec", [(64, 0, 1), (64, 1, 0), (6, 0, 0), (5, 0, 0),
@@ -332,22 +401,29 @@ def test_knn_c_cuda_refuses_cpu_tensors():
 # ------------------------------------------ K5c's fold and ring, as the card runs it
 
 
-def knn_c_emulated(xyz: np.ndarray, query: np.ndarray, k: int, tile: int):
-    """csrc/knn.cu knn_c_kernel in numpy, a warp a query: tiles of ``tile``
-    points padded with NaN to a whole group; each distance the left fold
-    over the channels in float32; groups of UNROLL 32-point steps against
-    the k-th key's bits, candidates appended by ballot order and merged 32
-    at a time (csrc/knn.cu Selection). -> (d2, idx)."""
+def knn_c_emulated(xyz: np.ndarray, query: np.ndarray, k: int, tile: int, queries: int = 1):
+    """csrc/knn.cu knn_c_kernel in numpy, ``queries`` consecutive queries a
+    warp: a warp with fewer left scans zeros for the rest and writes nothing
+    for them; tiles of ``tile`` points padded with NaN to a whole group;
+    each distance the left fold over the channels in float32; groups of
+    UNROLL 32-point steps, one vote for the group over the warp's queries,
+    then each query's own vote against its k-th key's bits; each query's
+    candidates appended by ballot order to its own buffer and merged 32 at a
+    time (csrc/knn.cu Selection). -> (d2, idx)."""
     b, n, c = xyz.shape
     s = query.shape[1]
+    warps = -(-s // queries)
+    slots = warps * queries  # the warps' query slots; those past S scan zeros
     r_regs = 1 if k <= 32 else 2
     d2_out = np.empty((b, s, k), F32)
     idx_out = np.empty((b, s, k), np.int32)
     for bi in range(b):
-        lst = np.full((s, r_regs, 32), EMPTY, np.uint64)
-        bound = np.full(s, NO_BOUND, np.uint64)
-        buf = np.zeros((s, BUF), np.uint64)
-        count = np.zeros(s, np.int64)
+        q = np.zeros((slots, c), F32)
+        q[:s] = query[bi]
+        lst = np.full((slots, r_regs, 32), EMPTY, np.uint64)
+        bound = np.full(slots, NO_BOUND, np.uint64)
+        buf = np.zeros((slots, BUF), np.uint64)
+        count = np.zeros(slots, np.int64)
         for base in range(0, n, tile):
             lim = min(tile, n - base)
             pts = np.full((-(-lim // GROUP) * GROUP, c), np.nan, F32)
@@ -355,16 +431,19 @@ def knn_c_emulated(xyz: np.ndarray, query: np.ndarray, k: int, tile: int):
             acc = None
             with np.errstate(invalid="ignore"):
                 for ch in range(c):
-                    d = query[bi, :, None, ch] - pts[None, :, ch]
+                    d = q[:, None, ch] - pts[None, :, ch]
                     acc = d * d if acc is None else acc + d * d
             bits = acc.view(np.uint32).astype(np.uint64)
             for t0 in range(0, lim, GROUP):
                 group = bits[:, t0:t0 + GROUP]
-                if not (group < bound[:, None]).any():
+                own = (group < bound[:, None]).any(1)  # each query's vote
+                warp_vote = own.reshape(warps, queries).any(1)  # one for the warp's group
+                offered = np.repeat(warp_vote, queries) & own
+                if not offered.any():
                     continue
                 for u in range(UNROLL):
                     v = group[:, u * 32:(u + 1) * 32]
-                    hit = v < bound[:, None]
+                    hit = (v < bound[:, None]) & offered[:, None]
                     slot = count[:, None] + np.cumsum(hit, 1) - hit
                     key = (v << np.uint64(32)) | (base + t0 + u * 32 + LANES).astype(np.uint64)
                     qs, ls = np.nonzero(hit)
@@ -380,10 +459,16 @@ def knn_c_emulated(xyz: np.ndarray, query: np.ndarray, k: int, tile: int):
         if left.any():
             cand = np.where(LANES < count[left][:, None], buf[left][:, :32], EMPTY)
             lst[left] = merge(lst[left], cand)
-        flat = lst.reshape(s, -1)[:, :k]
+        flat = lst[:s].reshape(s, -1)[:, :k]  # the slots past S write nothing
         idx_out[bi] = (flat & np.uint64(0xFFFFFFFF)).astype(np.int64)
         d2_out[bi] = (flat >> np.uint64(32)).astype(np.uint32).view(F32)
     return d2_out, idx_out
+
+
+def plan_launch(b, n, s, k, c, vec=True):
+    """(warps, queries, tile) of the wrapper's plan at this shape, 132 SMs."""
+    fields = dict(zip(grouping.KNN_C_PLAN, grouping._knn_c_plan(b, n, s, k, c, 132, vec)))
+    return fields["warps"], fields["queries"], fields["tile"]
 
 
 @pytest.mark.parametrize("kind,c,n,s,k", [
@@ -391,14 +476,74 @@ def knn_c_emulated(xyz: np.ndarray, query: np.ndarray, k: int, tile: int):
     ("uniform", 128, 400, 20, 33), ("uniform", 5, 129, 129, 1), ("grid", 64, 900, 40, 20),
     ("grid", 8, 300, 60, 64), ("grid", 67, 256, 30, 32)])
 def test_knn_c_selection_matches_plain(kind, c, n, s, k):
-    """Bit for bit, indices and distances, with the tile the wrapper picks
-    at 32 warps (384 points at C = 64: N = 1000 takes three tiles, the last
-    232 points) and with the row whole."""
+    """Bit for bit, indices and distances, at the launch the wrapper plans
+    for this shape (its queries a warp and its tile) and with the row whole;
+    and at 32 warps of 2 queries with the tile that leaves them (256 points
+    at C = 64: N = 1000 takes four tiles, the last 232 points)."""
     rng = np.random.default_rng(c * n + k)
     xyz = features(rng, kind, 2, n, c)
     query = np.ascontiguousarray(xyz[:, :s] if kind == "uniform" else features(rng, kind, 2, s, c))
     pd2, pidx = grouping.knn_plain(_t(xyz), _t(query), k)
-    for tile in {grouping.knn_c_tile(n, c, 32), n}:
-        d2, idx = knn_c_emulated(xyz, query, k, tile)
+    _, queries, tile = plan_launch(2, n, s, k, c, c % 4 == 0)
+    for q, tl in {(queries, tile), (queries, n), (2, grouping.knn_c_tile(n, c, 32, 2))}:
+        d2, idx = knn_c_emulated(xyz, query, k, tl, q)
         np.testing.assert_array_equal(idx, pidx.numpy())
         np.testing.assert_array_equal(d2.view(np.uint32), pd2.numpy().view(np.uint32))
+
+
+def warp_edge_cases():
+    """(queries, kind, c, n, s, k): S = 1, S = Q - 1 and odd S (a last warp
+    of one query at Q = 2, as 4095 leaves), k = 1, 20, 33 and 64, on uniform
+    and integer-grid features."""
+    cases = []
+    for q in grouping.KNN_C_QUERIES:
+        for kind, c, n, s, k in (("uniform", 64, 600, 1, 20), ("uniform", 64, 600, q - 1, 64),
+                                 ("uniform", 64, 700, 37, 33), ("uniform", 5, 300, 45, 1),
+                                 ("uniform", 64, 900, 255, 20), ("uniform", 128, 400, 33, 64),
+                                 ("grid", 64, 500, 23, 20), ("grid", 8, 300, 19, 64),
+                                 ("grid", 67, 256, 37, 1), ("grid", 64, 400, 63, 33)):
+            if s >= 1:
+                cases.append((q, kind, c, n, s, k))
+    return cases
+
+
+@pytest.mark.parametrize("queries,kind,c,n,s,k", warp_edge_cases())
+def test_knn_c_warps_of_q_queries_match_plain(queries, kind, c, n, s, k):
+    """Every Q the kernel is compiled for, with the tile the plan gives at
+    32 warps, cut to 256 points (a ring wherever the row does not fit),
+    bit for bit against knn_plain: the last warp partly active, B = 1 and
+    B = 2."""
+    rng = np.random.default_rng(queries * 1000 + c * n + s + k)
+    for b in (1, 2):
+        xyz = features(rng, kind, b, n, c)
+        query = features(rng, kind, b, s, c)
+        pd2, pidx = grouping.knn_plain(_t(xyz), _t(query), k)
+        tile = min(grouping.knn_c_tile(n, c, 32, queries), 2 * GROUP)
+        d2, idx = knn_c_emulated(xyz, query, k, tile, queries)
+        np.testing.assert_array_equal(idx, pidx.numpy())
+        np.testing.assert_array_equal(d2.view(np.uint32), pd2.numpy().view(np.uint32))
+
+
+# ------------------------------- the probe's designs, held to the kernel's source
+
+@pytest.mark.parametrize("table", ["KNN_C_VARIANTS", "KNN_C_LAUNCH_VARIANTS", "EXIT_VARIANT"])
+def test_the_probes_edits_still_apply_to_the_kernel(table):
+    """Every text the probe's K5c variants replace occurs in csrc/knn.cu
+    exactly once, so that a variant is the kernel with one part changed."""
+    rows = getattr(k2_k5_probe, table)
+    rows = [rows] if table == "EXIT_VARIANT" else rows
+    assert rows
+    for row in rows:
+        for old, new in row[2]:
+            assert KNN_SRC.count(old) == 1, (row[0], old)
+            assert old != new
+
+
+@pytest.mark.parametrize("b,n,s,k,c,vec,want", [
+    (4, 4096, 4096, 20, 64, True, [4, 4096, 4096, 20, 64, 32, 1, 384, 1]),
+    (16, 4096, 4096, 64, 64, True, [16, 4096, 4096, 64, 64, 32, 1, 384, 1]),
+    (2, 600, 100, 33, 64, False, [2, 600, 100, 33, 64, 4, 1, 600, 0])])
+def test_the_first_designs_plan_is_the_one_it_ran_with(b, n, s, k, c, vec, want):
+    """A warp a query at the warps of neighbour_launch and the most tile
+    that leaves: 32 warps and 384-point tiles at DGCNN's shapes."""
+    assert list(k2_k5_probe.first_design_plan(b, n, s, k, c, 132, vec)) == want
