@@ -55,7 +55,17 @@ any failure raises and exits non-zero:
    by side. Each timed K1, K2, K3, K4 and K5 case adds the split of its
    time: device time a call of the kernel and of the library call (a CUDA
    graph of 20 calls between two events) and the wrapper's host time a call
-   (1000 calls);
+   (1000 calls). Then K1-K4 at every shape that the PointNet++ MSG family's
+   forwards give them at B=4 (pointnet2_msg with 9 channels: FPS 4096 ->
+   1024 -> 256 -> 64 -> 16, one ball-query scan a level of two radii with K
+   16 and 32, groups of widths 12, 99, 259 and 515, interpolation fp4-fp1 of
+   1024, 256, 256 and 128 channels; pointnet2_sem_seg's four SSG levels;
+   the classifiers' 4096 -> 512 -> 128 with three radii and K up to 128 for
+   pointnet2_cls_msg), each timed with the split of its time, then their
+   edge cases (compare_msg_family_kernels): FPS with one warp and past N, a
+   scan where one radius finds nothing and the other everything, K > N, K =
+   128 at S = 16, 128, 512 and 1024, groups at K = 128 and over padded
+   balls, D = 1024 from S = 16 at B = 1 and 16;
 3b. the backward kernels against their plain versions at the SSG train
    shapes (B=4): group backward (K3b: sa2, sa3) and interpolation backward
    (fp3, fp2, fp1, on the selection the forward kernel saved), within 1e-5
@@ -71,7 +81,11 @@ any failure raises and exits non-zero:
    (S=2 with k=2; N=4096 with every slot on one row), sources that no query
    chose (exactly 0), D = 1, 3, 131 and 1024, a g view 4 bytes off 16-byte
    alignment, S = 16384, N * k around the 4096-entry windows and k = 1..4,
-   each case the same bits from one call to the next;
+   each case the same bits from one call to the next; both also at the
+   pointnet2_msg train step's shapes (K3b at sa2-sa4, C = 96, 256, 512 at K
+   16 and 32; K4b at fp4-fp1, D = 1024 from S = 16 down to 128 from 1024),
+   timed, and K3b at K = 128 and over padded balls, K4b at D = 1024, S = 16
+   at B = 1 and 16 (compare_msg_family_backward);
 3c. the flash-attention kernel against the plain attention at every shape
    that the PTv3 family gives it at B=4 x 4096 (the windows of level 0 folded
    to [16,1024,2,32], the global levels [4,1024,4,32] and [4,256,8,32], the
@@ -184,7 +198,27 @@ any failure raises and exits non-zero:
    blocks`` serving the checkpoint that run wrote, and once more with
    ``--from-snapshot``: the run's code snapshot builds its own kernels under
    <exp>/code_snapshot/build/, K5 and K5c launch from it (its own
-   counters), and its CSVs equal the first serve's.
+   counters), and its CSVs equal the first serve's;
+21. the pointnet2_msg forward at full width, B=4 x 4096, with 9 feature
+   channels in the Partsize column order (bench.py's shape), random weights
+   and BatchNorm statistics, on the card against the CPU: logits within
+   2e-4, exactly 4 FPS, 4 ball-query, 8 group and 4 interpolation launches;
+   forward time, points/s and device time by kernel family;
+22. the pointnet2_sem_seg forward (colours; 4/4/4/4 launches) and both
+   classifiers with xyz alone (in_features=0, their default) and with
+   colours (pointnet2_cls_ssg 2/2/2, pointnet2_cls_msg 2/2/6 launches of
+   FPS, ball query and group), B=4 x 4096, on the card against the CPU:
+   logits within 2e-4, launches exact; forward time and points/s;
+23. one pointnet2_msg train step as configs/train_partsize_msg.yaml builds
+   it (colours), B=4 x 4096, dropout 0, weighted CE, on the card against
+   the CPU, checked as in 6: the forward's launches and exactly 6 group
+   backward (sa2-sa4, two radii each) and 4 interpolation backward;
+   milliseconds a step;
+24. two epochs of configs/train_partsize_msg.yaml (the sol loss, step
+   decay, Adam) at batch 16 x 4096 through train_cli.main, checked as in 7,
+   the batch-16 step timed (ms, points/s, peak memory) and profiled, then
+   ``infer_cli blocks --model pointnet2_msg`` serving the checkpoint that
+   run wrote, warm, with exactly the forward's launches a batch.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
 K3b cases of phases 3 and 3b alone (``--interp-backward`` the K4b cases of
@@ -199,7 +233,8 @@ the plan's pick beside the fastest, then K5c's first design (a warp a
 query) and the kernel in turns, probes/k2_k5_probe.py ``compare_k5c``;
 ``--k5c-exit`` K5c's early exit on the features DGCNN's graphs are built
 over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
-K5c cases of phase 3 and phases 18-20), and prints no result line.
+K5c cases of phase 3 and phases 18-20; ``--msg`` the MSG family's cases of
+phases 3 and 3b and phases 21-24), and prints no result line.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
@@ -213,7 +248,8 @@ the device times ``device_ms`` and ``library_device_ms`` (null for the
 other kernels and where no library call exists), for K2 and K5 the issue
 floor ``issue_floor_ms`` (and K5c; null for the others); ``paths`` has the same for
 the other passes (the BriStruNet train step, phase 16, among them for K3b
-and K4b), and
+and K4b; the four forwards of the MSG family, phases 21-22, and the
+pointnet2_msg train step, phase 23), and
 ``launches_by_path`` the counts of the serves and the training runs through
 the CLIs. The last line is {"ok": true, "device": {...}}.
 """
@@ -291,6 +327,16 @@ def attention_launches(n: int) -> dict:
 # level for its two radii, a group a radius, an interpolation a decoder
 # level, a k-NN in bri_enc, geometric2 and geometric3
 BRISTRUNET_LAUNCHES = only(fps=3, ball_query=3, group=6, interpolate=3, knn=3)
+# launches of one forward of the PointNet++ MSG family: an FPS and a
+# ball-query scan a level (every radius of a level in one scan), a group a
+# radius, an interpolation a decoder level; the MSG train step adds a group
+# backward a radius of sa2-sa4 (sa1 groups the inputs, which need no
+# gradient) and an interpolation backward a decoder level
+MSG_LAUNCHES = only(fps=4, ball_query=4, group=8, interpolate=4)
+MSG_STEP_LAUNCHES = MSG_LAUNCHES | {"group_bwd": 6, "interp_bwd": 4}
+SEM_SEG_LAUNCHES = only(fps=4, ball_query=4, group=4, interpolate=4)
+CLS_SSG_LAUNCHES = only(fps=2, ball_query=2, group=2)
+CLS_MSG_LAUNCHES = only(fps=2, ball_query=2, group=6)
 # launches of one DGCNN or DGCNNGlobal forward (and train step: the gather's
 # backward is PyTorch's): K5 over xyz in conv1, K5c over 64 channels in
 # conv2-conv4
@@ -401,6 +447,9 @@ BRISTRUNET_TRAIN = "bristrunet_train_step"
 PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
 PTV3_POOLED_TRAIN, PTV3_TRAIN = "ptv3_pooled_train_step", "ptv3_train_step"
 DGCNN, DGCNN_GLOBAL = "dgcnn_forward", "dgcnn_global_forward"
+MSG, MSG_TRAIN = "pointnet2_msg_forward", "pointnet2_msg_train_step"
+SEM_SEG, CLS_SSG, CLS_MSG = ("pointnet2_sem_seg_forward", "pointnet2_cls_ssg_forward",
+                             "pointnet2_cls_msg_forward")
 # the path whose numbers stand in a kernel's own row of the summary
 # (BriStruNet's forward for the kernels not named here)
 ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "knn_c": DGCNN, "flash_attn": PTV3_POOLED,
@@ -549,6 +598,8 @@ def compare_kernels(dev: torch.device) -> Results:
     compare_interp_kernel(dev, res, rng)
     # K2 ball query and K5 exact k-NN
     compare_neighbour_kernels(dev, res, rng)
+    # K1-K4 at the shapes of the PointNet++ MSG family
+    compare_msg_family_kernels(dev, res, rng)
     return res
 
 
@@ -573,6 +624,25 @@ DGCNN_B16, DGCNN_GLOBAL_B16 = "dgcnn_forward_b16", "dgcnn_global_forward_b16"
 BRISTRUNET_TRAIN_B16 = "bristrunet_train_step_b16"
 
 
+def check_group(res: Results, label, xyz, centers, idx, feats, paths=(), timed=False) -> None:
+    b, n, _ = xyz.shape
+    _, s, k = idx.shape
+    c = 0 if feats is None else feats.shape[2]
+    work = library = None
+    if timed:
+        work = (nbytes(xyz, centers, idx, feats) + b * s * k * (3 + c) * 4, 3 * b * s * k)
+        if c:  # the feature channels only, on a ready int64 index
+            flat = idx.reshape(b, -1, 1).clamp(0, n - 1).long().expand(-1, -1, c).contiguous()
+            library = lambda: torch.gather(feats, 1, flat)  # noqa: E731
+    first = grouping.group_cuda(xyz, centers, idx, feats)
+    if not torch.equal(first, grouping.group_cuda(xyz, centers, idx, feats)):
+        raise AssertionError(f"group {label}: the bits differ from one call to the next")
+    res.check("group", label,
+              lambda: grouping.group_cuda(xyz, centers, idx, feats),
+              lambda: grouping.group_plain(xyz, centers, idx, feats), True, paths,
+              work=work, library_fn=library, split=timed)
+
+
 def compare_group_kernel(dev: torch.device, res: Results, rng) -> None:
     """K3 against group_plain, bit for bit, at every level of SSG and
     BriStruNet at B=4 (on ball-query indices), SSG's
@@ -587,30 +657,12 @@ def compare_group_kernel(dev: torch.device, res: Results, rng) -> None:
     def normal(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    def group_case(label, xyz, centers, idx, feats, paths=(), timed=False):
-        b, n, _ = xyz.shape
-        _, s, k = idx.shape
-        c = 0 if feats is None else feats.shape[2]
-        work = library = None
-        if timed:
-            work = (nbytes(xyz, centers, idx, feats) + b * s * k * (3 + c) * 4, 3 * b * s * k)
-            # the feature channels only, on a ready int64 index
-            flat = idx.reshape(b, -1, 1).clamp(0, n - 1).long().expand(-1, -1, c).contiguous()
-            library = lambda: torch.gather(feats, 1, flat)  # noqa: E731
-        first = grouping.group_cuda(xyz, centers, idx, feats)
-        if not torch.equal(first, grouping.group_cuda(xyz, centers, idx, feats)):
-            raise AssertionError(f"group {label}: the bits differ from one call to the next")
-        res.check("group", label,
-                  lambda: grouping.group_cuda(xyz, centers, idx, feats),
-                  lambda: grouping.group_plain(xyz, centers, idx, feats), True, paths,
-                  work=work, library_fn=library, split=timed)
-
     def level(paths, b, n, s, k, r, c):
         xyz = cloud(b, n)
         centers = xyz[:, :s].contiguous()
         idx = grouping.ball_query_cuda(r, k, xyz, centers)
-        group_case(f"B={b} N={n} S={s} K={k} C={c}", xyz, centers, idx, normal(b, n, c),
-                   paths, timed=True)
+        check_group(res, f"B={b} N={n} S={s} K={k} C={c}", xyz, centers, idx,
+                    normal(b, n, c), paths, timed=True)
 
     for lv in SSG_LEVELS:
         level((SSG,), B, *lv)
@@ -647,22 +699,22 @@ def compare_group_kernel(dev: torch.device, res: Results, rng) -> None:
     centers = xyz[:, :256].contiguous()
     idx = grouping.ball_query_cuda(0.2, 32, xyz, centers)
     for c in (0, 1, 13):  # widths 3, 4 and 16
-        group_case(f"N=1024 S=256 K=32 C={c}", xyz, centers, idx,
-                   normal(B, 1024, c) if c else None)
+        check_group(res, f"N=1024 S=256 K=32 C={c}", xyz, centers, idx,
+                    normal(B, 1024, c) if c else None)
     far = torch.full((B, 64, 3), 10.0, device=dev)
     empty = grouping.ball_query_cuda(0.1, 32, xyz, far)  # every slot N
     for c in (3, 128):
-        group_case(f"empty balls C={c}", xyz, far, empty, normal(B, 1024, c))
+        check_group(res, f"empty balls C={c}", xyz, far, empty, normal(B, 1024, c))
     one = cloud(B, 1)
-    group_case("N=1 S=1 K=32 C=5", one, one, grouping.ball_query_cuda(0.5, 32, one, one),
-               normal(B, 1, 5))
+    check_group(res, "N=1 S=1 K=32 C=5", one, one,
+                grouping.ball_query_cuda(0.5, 32, one, one), normal(B, 1, 5))
     # S*K = 35 a batch: no multiple of any group's rows; indices from -2 to
     # N + 2 (a miss is N, and the clamp takes both sides)
     for c in (0, 3, 13, 128, 509):
         wild = torch.from_numpy(rng.integers(-2, 1027, (3, 7, 5)).astype(np.int32)).to(dev)
         xyz3 = cloud(3, 1024)
-        group_case(f"S=7 K=5 C={c}, indices -2..N+2", xyz3, cloud(3, 7), wild,
-                   normal(3, 1024, c) if c else None)
+        check_group(res, f"S=7 K=5 C={c}, indices -2..N+2", xyz3, cloud(3, 7), wild,
+                    normal(3, 1024, c) if c else None)
 
 
 def ball_scan_lengths(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -717,6 +769,15 @@ class SmClock:
         self.mhz = max(readings) if readings else float("nan")
 
 
+def check_fps(res: Results, label, xyz, npoint, start, paths=(), timed=False):
+    b, n, _ = xyz.shape
+    # a step is a distance (8 flops), a min and a compare of each point
+    work = (nbytes(xyz, start) + b * npoint * 4, 10 * b * npoint * n) if timed else None
+    return res.check("fps", label, lambda: sampling.fps_cuda(xyz, npoint, start),
+                     lambda: sampling.fps_plain(xyz, npoint, start), True, paths,
+                     work=work, split=timed)
+
+
 def compare_fps_kernel(dev: torch.device, res: Results, rng) -> None:
     """K1 against fps_plain, bit for bit: the SA levels of SSG and BriStruNet
     at B=4 and SSG's at B=16, timed three ways (events; device time from a
@@ -728,19 +789,11 @@ def compare_fps_kernel(dev: torch.device, res: Results, rng) -> None:
     def cloud(b, n):
         return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
 
-    def case(label, xyz, npoint, start, paths=(), timed=False):
-        b, n, _ = xyz.shape
-        # a step is a distance (8 flops), a min and a compare of each point
-        work = (nbytes(xyz, start) + b * npoint * 4, 10 * b * npoint * n) if timed else None
-        return res.check("fps", label, lambda: sampling.fps_cuda(xyz, npoint, start),
-                         lambda: sampling.fps_plain(xyz, npoint, start), True, paths,
-                         work=work, split=timed)
-
     timed = []
     with SmClock() as clock:
         for b, n, npoint, paths in FPS_LEVELS:
-            got = case(f"B={b} {n}->{npoint}", cloud(b, n), npoint,
-                       torch.zeros(b, dtype=torch.int32, device=dev), paths, timed=True)
+            got = check_fps(res, f"B={b} {n}->{npoint}", cloud(b, n), npoint,
+                            torch.zeros(b, dtype=torch.int32, device=dev), paths, timed=True)
             timed.append((b, n, npoint, paths, got["device_ms"]))
     sums = {}
     for b, n, npoint, paths, ms in timed:
@@ -760,16 +813,28 @@ def compare_fps_kernel(dev: torch.device, res: Results, rng) -> None:
 
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
     start = torch.from_numpy(rng.integers(0, 4096, B).astype(np.int32)).to(dev)
-    case("4096->1024 start [B]", cloud(B, 4096), 1024, start)
+    check_fps(res, "4096->1024 start [B]", cloud(B, 4096), 1024, start)
     grid = torch.from_numpy(rng.integers(0, 8, (B, 4096, 3)).astype(np.float32)).to(dev)
-    case("4096->256 duplicated points", grid, 256, zero)
+    check_fps(res, "4096->256 duplicated points", grid, 256, zero)
     same = cloud(B, 4096)
     same[1] = 0.5
-    case("4096->256, row 1 one point 4096 times", same, 256, zero)
+    check_fps(res, "4096->256, row 1 one point 4096 times", same, 256, zero)
     for n, npoint in ((1000, 300), (200, 50), (33, 33), (2048, 2048), (100, 300)):
-        case(f"{n}->{npoint}", cloud(B, n), npoint, zero)
+        check_fps(res, f"{n}->{npoint}", cloud(B, n), npoint, zero)
     start = torch.from_numpy(rng.integers(0, 16384, B).astype(np.int32)).to(dev)
-    case("16384->2500 (the cap), start [B]", cloud(B, 16384), 2500, start)
+    check_fps(res, "16384->2500 (the cap), start [B]", cloud(B, 16384), 2500, start)
+
+
+def check_interp(res: Results, label, dst, src, f, k, paths=(), timed=False) -> None:
+    out, idx, w = interpolate.interpolate_cuda(dst, src, f, k, True)
+    _, pidx, pw = interpolate.interpolate_plain(dst, src, f, k, True)
+    if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
+        raise AssertionError(f"interpolate {label}: kept selection differs from plain")
+    if not torch.equal(out, interpolate.interpolate_cuda(dst, src, f, k)[0]):
+        raise AssertionError(f"interpolate {label}: keep on and off give other outputs")
+    res.check("interpolate", label, lambda: interpolate.interpolate_cuda(dst, src, f, k)[0],
+              lambda: interpolate.interpolate_plain(dst, src, f, k)[0], False, paths,
+              work=interp_work(dst, src, f, k) if timed else None, split=timed)
 
 
 def compare_interp_kernel(dev: torch.device, res: Results, rng) -> None:
@@ -787,37 +852,27 @@ def compare_interp_kernel(dev: torch.device, res: Results, rng) -> None:
     def normal(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    def case(label, dst, src, f, k, paths=(), timed=False):
-        out, idx, w = interpolate.interpolate_cuda(dst, src, f, k, True)
-        _, pidx, pw = interpolate.interpolate_plain(dst, src, f, k, True)
-        if not torch.equal(idx, pidx) or not torch.allclose(w, pw, rtol=1e-6, atol=1e-7):
-            raise AssertionError(f"interpolate {label}: kept selection differs from plain")
-        if not torch.equal(out, interpolate.interpolate_cuda(dst, src, f, k)[0]):
-            raise AssertionError(f"interpolate {label}: keep on and off give other outputs")
-        res.check("interpolate", label, lambda: interpolate.interpolate_cuda(dst, src, f, k)[0],
-                  lambda: interpolate.interpolate_plain(dst, src, f, k)[0], False, paths,
-                  work=interp_work(dst, src, f, k) if timed else None, split=timed)
-
     for b, paths, k, levels in ((B, (SSG,), 3, SSG_INTERP), (B, (BRISTRUNET,), 4, BRISTRUNET_INTERP),
                                 (16, (SSG_B16,), 3, SSG_INTERP)):
         for n, s, d in levels:
             dst = cloud(b, n)
-            case(f"B={b} N={n} S={s} D={d} k={k}", dst, dst[:, :s].contiguous(), normal(b, s, d),
-                 k, paths, timed=True)
+            check_interp(res, f"B={b} N={n} S={s} D={d} k={k}", dst, dst[:, :s].contiguous(),
+                         normal(b, s, d), k, paths, timed=True)
     res.print_sums("interpolate", (SSG, BRISTRUNET, SSG_B16))
 
     dst = cloud(B, 1024)
     src = dst[:, :256].contiguous()
-    case("N=1024 S=256 D=131 k=3", dst, src, normal(B, 256, 131), 3)
+    check_interp(res, "N=1024 S=256 D=131 k=3", dst, src, normal(B, 256, 131), 3)
     flat = normal(B * 256 * 256 + 1)
     view = flat[1:].view(B, 256, 256)  # contiguous, 4 bytes past 16-byte alignment
-    case("N=1024 S=256 D=256 k=3, feats 4 bytes off", dst, src, view, 3)
-    case("N=1000 S=2 D=64 k=2", cloud(B, 1000), cloud(B, 2), normal(B, 2, 64), 2)
+    check_interp(res, "N=1024 S=256 D=256 k=3, feats 4 bytes off", dst, src, view, 3)
+    check_interp(res, "N=1000 S=2 D=64 k=2", cloud(B, 1000), cloud(B, 2), normal(B, 2, 64), 2)
     grid = torch.from_numpy(rng.integers(0, 5, (B, 2048, 3)).astype(np.float32)).to(dev)
     for k in (4, 1):
-        case(f"integer grid (ties) N=2048 S=512 D=64 k={k}", grid, grid[:, ::4].contiguous(),
-             normal(B, 512, 64), k)
-    case("N=300 S=2000 D=64 k=3", cloud(B, 300), cloud(B, 2000), normal(B, 2000, 64), 3)
+        check_interp(res, f"integer grid (ties) N=2048 S=512 D=64 k={k}", grid,
+                     grid[:, ::4].contiguous(), normal(B, 512, 64), k)
+    check_interp(res, "N=300 S=2000 D=64 k=3", cloud(B, 300), cloud(B, 2000),
+                 normal(B, 2000, 64), 3)
 
 
 def fps_with(xyz, npoint: int, start, threads: int) -> torch.Tensor:
@@ -910,6 +965,30 @@ def knn_c_instructions(c: int) -> int:
     return 3 * c
 
 
+def check_ball(res: Results, label, balls, xyz, centers, paths=(), timed=False):
+    """K2 at each (radius, K) of ``balls`` over the same points: one launch
+    (ops.grouping.ball_query_radii_cuda), or one a radius where the
+    package has no such launch (a parent's)."""
+    b, n, _ = xyz.shape
+    work = None
+    if timed:
+        # a scan goes on until its last radius has K hits
+        pairs = int(torch.stack([ball_scan_lengths(grouping.ball_query_plain(r, k, xyz, centers),
+                                                    n) for r, k in balls]).amax(0).sum())
+        work = (nbytes(xyz, centers) + sum(b * centers.shape[1] * k * 4 for _, k in balls),
+                9 * pairs)
+    if hasattr(grouping, "ball_query_radii_cuda"):
+        def kernel():
+            return tuple(grouping.ball_query_radii_cuda(balls, xyz, centers))
+    else:
+        def kernel():
+            return tuple(grouping.ball_query_cuda(r, k, xyz, centers) for r, k in balls)
+    got = res.check("ball_query", label, kernel,
+                    lambda: tuple(grouping.ball_query_plain(r, k, xyz, centers)
+                                  for r, k in balls), True, paths, work=work, split=timed)
+    return (pairs, got) if timed else None
+
+
 def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
     """K2 against ball_query_plain and K5 against knn_plain, bit for bit
     (K5: indices and distances). Timed three ways (events; device time from
@@ -932,29 +1011,6 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
 
     def grid(b, n, side):
         return torch.from_numpy(rng.integers(0, side, (b, n, 3)).astype(np.float32)).to(dev)
-
-    def ball_case(label, balls, xyz, centers, paths=(), timed=False):
-        """K2 at each (radius, K) of ``balls`` over the same points: one launch
-        (ops.grouping.ball_query_radii_cuda), or one a radius where the
-        package has no such launch (a parent's)."""
-        b, n, _ = xyz.shape
-        work = None
-        if timed:
-            # a scan goes on until its last radius has K hits
-            pairs = int(torch.stack([ball_scan_lengths(grouping.ball_query_plain(r, k, xyz, centers),
-                                                        n) for r, k in balls]).amax(0).sum())
-            work = (nbytes(xyz, centers) + sum(b * centers.shape[1] * k * 4 for _, k in balls),
-                    9 * pairs)
-        if hasattr(grouping, "ball_query_radii_cuda"):
-            def kernel():
-                return tuple(grouping.ball_query_radii_cuda(balls, xyz, centers))
-        else:
-            def kernel():
-                return tuple(grouping.ball_query_cuda(r, k, xyz, centers) for r, k in balls)
-        got = res.check("ball_query", label, kernel,
-                        lambda: tuple(grouping.ball_query_plain(r, k, xyz, centers)
-                                      for r, k in balls), True, paths, work=work, split=timed)
-        return (pairs, got) if timed else None
 
     def knn_case(label, xyz, query, k, paths=(), timed=False):
         b, n, _ = xyz.shape
@@ -1003,7 +1059,7 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
             for n, s, balls in levels:
                 xyz = cloud(b, n)
                 label = f"B={b} N={n} S={s} " + " and ".join(f"K={k} r={r}" for r, k in balls)
-                got = ball_case(label, balls, xyz, xyz[:, :s].contiguous(), paths, timed=True)
+                got = check_ball(res, label, balls, xyz, xyz[:, :s].contiguous(), paths, timed=True)
                 timed.append(("ball_query", label, paths, NEIGHBOUR_INSTRUCTIONS, *got))
         for b, paths, (n, k) in [(B, (BRISTRUNET,), nk) for nk in BRISTRUNET_KNN] + [
                 (16, (KNN_B16,), BRISTRUNET_KNN[0])] + [
@@ -1028,26 +1084,26 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
     res.print_sums("knn_c", (DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16))
 
     xyz = cloud(B, 4096)
-    ball_case("empty balls", ((0.1, 32),), xyz, torch.full((B, 64, 3), 10.0, device=dev))
+    check_ball(res, "empty balls", ((0.1, 32),), xyz, torch.full((B, 64, 3), 10.0, device=dev))
     small = cloud(B, 16)
-    ball_case("K=32 > N=16", ((0.5, 32),), small, small[:, :8].contiguous())
+    check_ball(res, "K=32 > N=16", ((0.5, 32),), small, small[:, :8].contiguous())
     dup = grid(B, 40, 2)  # 40 points on 8 sites
-    ball_case("K=64 > N=40, duplicate points", ((0.5, 64),), dup, dup[:, :10].contiguous())
+    check_ball(res, "K=64 > N=40, duplicate points", ((0.5, 64),), dup, dup[:, :10].contiguous())
     xyz = cloud(B, 1000)
-    ball_case("N=1000 S=300 K=32 r=0.15", ((0.15, 32),), xyz, cloud(B, 300))
+    check_ball(res, "N=1000 S=300 K=32 r=0.15", ((0.15, 32),), xyz, cloud(B, 300))
     xyz = cloud(B, 16384)
-    ball_case("N=16384 S=1024 K=32 r=0.05", ((0.05, 32),), xyz, xyz[:, ::16].contiguous())
+    check_ball(res, "N=16384 S=1024 K=32 r=0.05", ((0.05, 32),), xyz, xyz[:, ::16].contiguous())
     dup = grid(B, 4096, 6)
-    ball_case("radius 0 over duplicate points K=16", ((0.0, 16),), dup,
-              dup[:, :512].contiguous())
+    check_ball(res, "radius 0 over duplicate points K=16", ((0.0, 16),), dup,
+               dup[:, :512].contiguous())
     # one scan of three radii, a ring of tiles among them, and of two where
     # the smaller radius asks for more points
     xyz = cloud(B, 9000)
-    ball_case("N=9000 S=700 three radii", ((0.05, 8), (0.1, 16), (0.2, 64)), xyz,
-              xyz[:, :700].contiguous())
+    check_ball(res, "N=9000 S=700 three radii", ((0.05, 8), (0.1, 16), (0.2, 64)), xyz,
+               xyz[:, :700].contiguous())
     xyz = cloud(B, 1000)
-    ball_case("N=1000 S=256 K=64 r=0.1 and K=4 r=0.3", ((0.1, 64), (0.3, 4)), xyz,
-              xyz[:, :256].contiguous())
+    check_ball(res, "N=1000 S=256 K=64 r=0.1 and K=4 r=0.3", ((0.1, 64), (0.3, 4)), xyz,
+               xyz[:, :256].contiguous())
 
     xyz = cloud(B, 16384)
     knn_case("N=16384 S=1000 k=64", xyz, cloud(B, 1000), 64)
@@ -1242,12 +1298,173 @@ def compare_neighbour_designs(dev: torch.device) -> None:
                       f"launch a radius {device_ms(apart):.4f} ms (device, together)", flush=True)
 
 
+# (N, S, ((radius, K), ...), C) of each set-abstraction level of a forward
+# of the MSG family at B=4 x 4096: pointnet2_msg with 9 feature channels
+# (phase 21), pointnet2_sem_seg with colours, the classifiers with xyz alone
+# (their registry default); one ball-query scan and one FPS a level, a group
+# a radius
+MSG_SA = ((4096, 1024, ((0.05, 16), (0.1, 32)), 9), (1024, 256, ((0.1, 16), (0.2, 32)), 96),
+          (256, 64, ((0.2, 16), (0.4, 32)), 256), (64, 16, ((0.4, 16), (0.8, 32)), 512))
+SEM_SEG_SA = ((4096, 1024, ((0.1, 32),), 3), (1024, 256, ((0.2, 32),), 64),
+              (256, 64, ((0.4, 32),), 128), (64, 16, ((0.8, 32),), 256))
+CLS_SSG_SA = ((4096, 512, ((0.2, 32),), 0), (512, 128, ((0.4, 64),), 128))
+CLS_MSG_SA = ((4096, 512, ((0.1, 16), (0.2, 32), (0.4, 128)), 0),
+              (512, 128, ((0.2, 32), (0.4, 64), (0.8, 128)), 320))
+MSG_FAMILY_SA = ((MSG, MSG_SA), (SEM_SEG, SEM_SEG_SA), (CLS_SSG, CLS_SSG_SA),
+                 (CLS_MSG, CLS_MSG_SA))
+# (N, S, D) of each interpolation (k=3), fp4 to fp1; the MSG train step's
+# interpolation backward runs at MSG's, its group backward at sa2-sa4
+MSG_INTERP = ((64, 16, 1024), (256, 64, 256), (1024, 256, 256), (4096, 1024, 128))
+SEM_SEG_INTERP = ((64, 16, 512), (256, 64, 256), (1024, 256, 256), (4096, 1024, 128))
+
+
+def compare_msg_family_kernels(dev: torch.device, res: Results, rng) -> None:
+    """Phase 3, the MSG family's cases: K1, K2 and K3 bit for bit and K4
+    within INTERP_TOL at every shape that the pointnet2_msg,
+    pointnet2_sem_seg, pointnet2_cls_ssg and pointnet2_cls_msg forwards give
+    them at B=4 x 4096 (MSG_FAMILY_SA, MSG_INTERP, SEM_SEG_INTERP), each
+    timed three ways (events; device time from a CUDA graph; host time a
+    call) beside its bound and summed a path; then their edge cases: FPS
+    64 -> 16 (one warp) and npoint > N (512 -> 1024, 64 -> 100); a scan of
+    two radii where one finds no point and the other every point, centres
+    in and out of the cloud; K > N (N = 20 at K 16 and 32, N = 100 at K up
+    to 128); three radii with K = 128 at S = 16, 128 and 512 and at B=16
+    with S = 1024 (four queries a warp); groups of widths 12, 99, 259 and
+    515 at K = 128 and at K 16 and 32 over balls the padding fills;
+    interpolation of D = 1024 from S = 16 at B = 1 and 16 and of D = 515."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def zeros(b):
+        return torch.zeros(b, dtype=torch.int32, device=dev)
+
+    for path, levels in MSG_FAMILY_SA:
+        for n, s, balls, c in levels:
+            xyz = cloud(B, n)
+            check_fps(res, f"B={B} {n}->{s}", xyz, s, zeros(B), (path,), timed=True)
+            centers = xyz[:, :s].contiguous()
+            check_ball(res, f"B={B} N={n} S={s} " + " and ".join(f"K={k} r={r}" for r, k in balls),
+                       balls, xyz, centers, (path,), timed=True)
+            feats = normal(B, n, c) if c else None
+            for (r, k), idx in zip(balls, grouping.ball_query_radii_cuda(balls, xyz, centers)):
+                check_group(res, f"B={B} N={n} S={s} K={k} r={r} C={c}", xyz, centers, idx,
+                            feats, (path,), timed=True)
+    for path, levels in ((MSG, MSG_INTERP), (SEM_SEG, SEM_SEG_INTERP)):
+        for n, s, d in levels:
+            dst = cloud(B, n)
+            check_interp(res, f"B={B} N={n} S={s} D={d} k=3", dst, dst[:, :s].contiguous(),
+                         normal(B, s, d), 3, (path,), timed=True)
+    for name in ("fps", "ball_query", "group"):
+        res.print_sums(name, [path for path, _ in MSG_FAMILY_SA])
+    res.print_sums("interpolate", (MSG, SEM_SEG))
+
+    # K1: one warp at 64 -> 16 from a [B] start; npoint > N, where the plain
+    # version takes index 0 again once every point is taken
+    start = torch.from_numpy(rng.integers(0, 64, B).astype(np.int32)).to(dev)
+    check_fps(res, "64->16 start [B]", cloud(B, 64), 16, start)
+    for n, npoint in ((512, 1024), (64, 100), (1000, 1024)):
+        check_fps(res, f"{n}->{npoint} (npoint > N)", cloud(B, n), npoint, zeros(B))
+
+    # K2: no hit at one radius beside every point at the other, in one scan,
+    # over centres in and out of the cloud; K > N; K = 128 at three radii
+    xyz = cloud(B, 256)
+    centers = torch.cat([xyz[:, :32], xyz[:, :32] + 3.0], dim=1).contiguous()
+    check_ball(res, "N=256 S=64 r=0.05 K=16 (half out of the cloud) and r=8 K=32",
+               ((0.05, 16), (8.0, 32)), xyz, centers)
+    far = torch.full((B, 16, 3), 1.6, device=dev)
+    check_ball(res, "N=64 S=16 r=0.4 K=16 (no hit) and r=3 K=32 (every point)",
+               ((0.4, 16), (3.0, 32)), cloud(B, 64), far)
+    small = cloud(B, 20)
+    check_ball(res, "K=16 and 32 > N=20", ((0.4, 16), (0.8, 32)), small,
+               small[:, :8].contiguous())
+    small = cloud(B, 100)
+    check_ball(res, "K=32, 64 and 128 > N=100", ((0.2, 32), (0.4, 64), (0.8, 128)), small,
+               small[:, :50].contiguous())
+    for b, n, s in ((B, 4096, 16), (B, 4096, 128), (B, 4096, 512), (B, 512, 128),
+                    (16, 4096, 1024)):
+        xyz = cloud(b, n)
+        check_ball(res, f"B={b} N={n} S={s} K=16, 32 and 128",
+                   ((0.1, 16), (0.2, 32), (0.4, 128)), xyz, xyz[:, :s].contiguous())
+
+    # K3 at the MSG family's widths (12, 99, 259, 515; 3 and 323) at K = 128,
+    # and at K 16 and 32 over balls the padding fills
+    xyz = cloud(B, 1024)
+    centers = xyz[:, :128].contiguous()
+    idx128 = grouping.ball_query_cuda(0.3, 128, xyz, centers)
+    for c in (9, 96, 256, 512, 0, 320):
+        check_group(res, f"N=1024 S=128 K=128 C={c}", xyz, centers, idx128,
+                    normal(B, 1024, c) if c else None)
+    xyz = cloud(B, 64)
+    centers = xyz[:, :16].contiguous()
+    balls = ((0.4, 16), (0.8, 32))
+    for (r, k), idx in zip(balls, grouping.ball_query_radii_cuda(balls, xyz, centers)):
+        check_group(res, f"sa4 N=64 S=16 K={k} r={r} C=512 (padded balls)", xyz, centers, idx,
+                    normal(B, 64, 512))
+
+    # K4: D = 1024 from S = 16 at B = 1 and 16 (the serve's batch), D = 515
+    for b in (1, 16):
+        dst = cloud(b, 64)
+        check_interp(res, f"B={b} N=64 S=16 D=1024 k=3", dst, dst[:, :16].contiguous(),
+                     normal(b, 16, 1024), 3)
+    check_interp(res, "N=256 S=16 D=515 k=3", cloud(B, 256), cloud(B, 16), normal(B, 16, 515), 3)
+
+
+def compare_msg_family_backward(dev: torch.device, res: Results, rng) -> None:
+    """Phase 3b, the MSG family's cases: K3b within BWD_TOL * max|plain| at
+    the MSG train step's group backward (sa2-sa4, both radii: C = 96, 256,
+    512 at K 16 and 32) and K4b on the kept selection at its four
+    interpolations (D = 1024 from S = 16 to 128 from 1024), timed with the
+    split of their time beside index_add_; then K3b at K = 128 over C = 320
+    and 96 and over balls the padding fills, and K4b at D = 1024, S = 16 at
+    B = 1 and 16, each the same bits from one call to the next."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    for n, s, balls, c in MSG_SA[1:]:
+        xyz = cloud(B, n)
+        centers = xyz[:, :s].contiguous()
+        for (r, k), idx in zip(balls, grouping.ball_query_radii_cuda(balls, xyz, centers)):
+            check_group_bwd(res, f"g [{B},{s},{k},{3 + c}] -> [{B},{n},{c}] r={r}",
+                            normal(B, s, k, 3 + c), idx, n, 3, 3 + c, (MSG_TRAIN,), timed=True)
+    for n, s, d in MSG_INTERP:
+        dst = cloud(B, n)
+        idx, w = kept_selection(dst, dst[:, :s].contiguous(), 3)
+        check_interp_bwd(res, f"g [{B},{n},{d}] -> [{B},{s},{d}] k=3", normal(B, n, d), idx, w,
+                         s, (MSG_TRAIN,), timed=True)
+    res.print_sums("group_bwd", (MSG_TRAIN,))
+    res.print_sums("interp_bwd", (MSG_TRAIN,))
+
+    xyz = cloud(B, 512)
+    centers = xyz[:, :128].contiguous()
+    for r, c in ((0.8, 320), (0.2, 96)):
+        idx = grouping.ball_query_cuda(r, 128, xyz, centers)
+        check_group_bwd(res, f"K=128 r={r} C={c}", normal(B, 128, 128, 3 + c), idx, 512, 3,
+                        3 + c)
+    xyz = cloud(B, 64)
+    idx = grouping.ball_query_cuda(0.4, 32, xyz, xyz[:, :16].contiguous())  # padded balls
+    check_group_bwd(res, "sa4 N=64 S=16 K=32 r=0.4 C=512 (padded balls)",
+                    normal(B, 16, 32, 515), idx, 64, 3, 515)
+    for b in (1, 16):
+        dst = cloud(b, 64)
+        idx, w = kept_selection(dst, dst[:, :16].contiguous(), 3)
+        check_interp_bwd(res, f"B={b} N=64 S=16 D=1024 k=3", normal(b, 64, 1024), idx, w, 16)
+
+
 def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     """Phase 3b: the backward kernels against their plain versions at the
     train steps' shapes."""
     rng = np.random.default_rng(SEED + 1)
     compare_group_backward(dev, res, rng)
     compare_interp_backward(dev, res, rng)
+    compare_msg_family_backward(dev, res, rng)
 
 
 def kept_selection(dst, src, k: int) -> tuple:
@@ -1260,6 +1477,30 @@ def kept_selection(dst, src, k: int) -> tuple:
         raise AssertionError(f"interpolate N={dst.shape[1]} S={src.shape[1]}: kept selection "
                              "differs from plain")
     return idx, w
+
+
+def check_interp_bwd(res: Results, label, g, idx, w, s, paths=(), timed=False,
+                     deterministic: bool = True) -> torch.Tensor:
+    b, n, d = g.shape
+    k = idx.shape[2]
+    kernel = lambda: interpolate.interpolate_backward_cuda(g, idx, w, s)  # noqa: E731
+    if deterministic and not torch.equal(kernel(), kernel()):
+        raise AssertionError(f"interp_bwd {label}: two calls give other bits")
+    work = library = None
+    if timed:
+        # library: one index_add_ of rows that are weighted already,
+        # zeroing included, on a ready index
+        rows = (w.unsqueeze(-1) * g.unsqueeze(2)).reshape(-1, d)
+        offs = torch.arange(b, device=g.device).view(b, 1, 1) * s
+        flat = (idx.long() + offs).reshape(-1)
+        acc = torch.empty((b * s, d), device=g.device)
+        work = (nbytes(g, idx, w) + b * s * d * 4, 2 * k * b * n * d)
+        library = lambda: acc.zero_().index_add_(0, flat, rows)  # noqa: E731
+    res.check("interp_bwd", label, kernel,
+              lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
+              False, paths, scaled=(BWD_TOL, 0.0), work=work, library_fn=library,
+              split=timed)
+    return kernel()
 
 
 def compare_interp_backward(dev: torch.device, res: Results, rng,
@@ -1284,27 +1525,8 @@ def compare_interp_backward(dev: torch.device, res: Results, rng,
     def normal(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    def case(label, g, idx, w, s, paths=(), timed=False):
-        b, n, d = g.shape
-        k = idx.shape[2]
-        kernel = lambda: interpolate.interpolate_backward_cuda(g, idx, w, s)  # noqa: E731
-        if deterministic and not torch.equal(kernel(), kernel()):
-            raise AssertionError(f"interp_bwd {label}: two calls give other bits")
-        work = library = None
-        if timed:
-            # library: one index_add_ of rows that are weighted already,
-            # zeroing included, on a ready index
-            rows = (w.unsqueeze(-1) * g.unsqueeze(2)).reshape(-1, d)
-            offs = torch.arange(b, device=dev).view(b, 1, 1) * s
-            flat = (idx.long() + offs).reshape(-1)
-            acc = torch.empty((b * s, d), device=dev)
-            work = (nbytes(g, idx, w) + b * s * d * 4, 2 * k * b * n * d)
-            library = lambda: acc.zero_().index_add_(0, flat, rows)  # noqa: E731
-        res.check("interp_bwd", label, kernel,
-                  lambda: interpolate.interpolate_backward_plain(g, idx, w, s),
-                  False, paths, scaled=(BWD_TOL, 0.0), work=work, library_fn=library,
-                  split=timed)
-        return kernel()
+    def case(*args, **kwargs):
+        return check_interp_bwd(res, *args, deterministic=deterministic, **kwargs)
 
     for b, k, levels, path in ((B, 3, SSG_INTERP, TRAIN), (16, 3, SSG_INTERP, TRAIN_B16),
                                (B, 4, BRISTRUNET_INTERP, BRISTRUNET_TRAIN),
@@ -1349,6 +1571,25 @@ def compare_interp_backward(dev: torch.device, res: Results, rng,
         case(f"N={n} S=100 D=36 k={k} (N * k = {n * k})", normal(B, n, 36), idx, w, 100)
 
 
+def check_group_bwd(res: Results, label, g, idx, n, c0, c1, paths=(), timed=False) -> None:
+    b, s, k, _ = g.shape
+    work = library = None
+    if timed:
+        # library: one index_add_ over the batch-flattened rows (zeroing
+        # included, as in the kernel's time), on a ready index and slice
+        rows = g[..., c0:c1].reshape(-1, c1 - c0).contiguous()
+        offs = torch.arange(b, device=g.device).view(b, 1, 1) * n
+        flat = (idx.clamp(0, n - 1).long() + offs).reshape(-1)
+        acc = torch.empty((b * n, c1 - c0), device=g.device)
+        work = (nbytes(rows, idx) + b * n * (c1 - c0) * 4, b * s * k * (c1 - c0))
+        library = lambda: acc.zero_().index_add_(0, flat, rows)  # noqa: E731
+    res.check("group_bwd", label,
+              lambda: grouping.group_backward_cuda(g, idx, n, c0, c1),
+              lambda: grouping.group_backward_plain(g, idx, n, c0, c1),
+              False, paths, scaled=(BWD_TOL, 0.0), work=work, library_fn=library,
+              split=timed)
+
+
 def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
     """K3b against group_backward_plain within BWD_TOL * max|plain|: the
     feature channels of g [B,S,K,3+C] -> [B,N,C] over ball-query indices
@@ -1366,30 +1607,12 @@ def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
     def normal(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    def bwd_case(label, g, idx, n, c0, c1, paths=(), timed=False):
-        b, s, k, _ = g.shape
-        work = library = None
-        if timed:
-            # library: one index_add_ over the batch-flattened rows (zeroing
-            # included, as in the kernel's time), on a ready index and slice
-            rows = g[..., c0:c1].reshape(-1, c1 - c0).contiguous()
-            offs = torch.arange(b, device=dev).view(b, 1, 1) * n
-            flat = (idx.clamp(0, n - 1).long() + offs).reshape(-1)
-            acc = torch.empty((b * n, c1 - c0), device=dev)
-            work = (nbytes(rows, idx) + b * n * (c1 - c0) * 4, b * s * k * (c1 - c0))
-            library = lambda: acc.zero_().index_add_(0, flat, rows)  # noqa: E731
-        res.check("group_bwd", label,
-                  lambda: grouping.group_backward_cuda(g, idx, n, c0, c1),
-                  lambda: grouping.group_backward_plain(g, idx, n, c0, c1),
-                  False, paths, scaled=(BWD_TOL, 0.0), work=work, library_fn=library,
-                  split=timed)
-
     def level(paths, b, n, s, k, r, c):
         xyz = cloud(b, n)
         idx = grouping.ball_query_cuda(r, k, xyz, xyz[:, :s].contiguous())
         g = normal(b, s, k, 3 + c)
-        bwd_case(f"g [{b},{s},{k},{3 + c}] -> [{b},{n},{c}]", g, idx, n, 3, 3 + c, paths,
-                 timed=True)
+        check_group_bwd(res, f"g [{b},{s},{k},{3 + c}] -> [{b},{n},{c}]", g, idx, n, 3, 3 + c,
+                        paths, timed=True)
 
     for lv in SSG_LEVELS[1:]:
         level((TRAIN,), B, *lv)
@@ -1402,25 +1625,25 @@ def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
     xyz = cloud(B, 1024)
     idx = grouping.ball_query_cuda(0.2, 32, xyz, xyz[:, :256].contiguous())
     for c, c0, c1 in ((16, 0, 19), (16, 0, 3), (1, 0, 4), (13, 0, 16), (1, 3, 4), (128, 0, 131)):
-        bwd_case(f"g [{B},256,32,{3 + c}] channels [{c0},{c1})", normal(B, 256, 32, 3 + c),
-                 idx, 1024, c0, c1)
+        check_group_bwd(res, f"g [{B},256,32,{3 + c}] channels [{c0},{c1})",
+                        normal(B, 256, 32, 3 + c), idx, 1024, c0, c1)
     far = torch.full((B, 64, 3), 10.0, device=dev)
     empty = grouping.ball_query_cuda(0.1, 32, xyz, far)  # every slot N
     for c, c0 in ((16, 0), (128, 3)):
-        bwd_case(f"empty balls C={c} channels [{c0},{3 + c})", normal(B, 64, 32, 3 + c),
-                 empty, 1024, c0, 3 + c)
+        check_group_bwd(res, f"empty balls C={c} channels [{c0},{3 + c})",
+                        normal(B, 64, 32, 3 + c), empty, 1024, c0, 3 + c)
     one = cloud(B, 1)
-    bwd_case("N=1 S=1 K=32 C=8", normal(B, 1, 32, 11),
-             grouping.ball_query_cuda(0.5, 32, one, one), 1, 0, 11)
+    check_group_bwd(res, "N=1 S=1 K=32 C=8", normal(B, 1, 32, 11),
+                    grouping.ball_query_cuda(0.5, 32, one, one), 1, 0, 11)
     # K=64: a ball of 0.1 holds a few points of 1024 (its run starts early),
     # one of 0.3 most of 64 (its run starts late or not at all)
     for r in (0.1, 0.3):
         idx64 = grouping.ball_query_cuda(r, 64, xyz, xyz[:, :128].contiguous())
-        bwd_case(f"K=64 r={r} C=128", normal(B, 128, 64, 131), idx64, 1024, 3, 131)
+        check_group_bwd(res, f"K=64 r={r} C=128", normal(B, 128, 64, 131), idx64, 1024, 3, 131)
     for c, c0 in ((3, 0), (13, 3), (128, 3), (128, 0)):
         wild = torch.from_numpy(rng.integers(-2, 1027, (3, 7, 5)).astype(np.int32)).to(dev)
-        bwd_case(f"S=7 K=5 C={c} channels [{c0},{3 + c}), indices -2..N+2",
-                 normal(3, 7, 5, 3 + c), wild, 1024, c0, 3 + c)
+        check_group_bwd(res, f"S=7 K=5 C={c} channels [{c0},{3 + c}), indices -2..N+2",
+                        normal(3, 7, 5, 3 + c), wild, 1024, c0, 3 + c)
 
 
 def packed_qkv_maker(dev: torch.device, seed: int):
@@ -2495,17 +2718,21 @@ def profile_by_family(label: str, what: str, fn, reps: int = 10) -> None:
 
 
 def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
-                        dev: torch.device, launches: dict, profile: bool = True) -> tuple:
+                        dev: torch.device, launches: dict, profile: bool = True,
+                        features="colors", out_shape: tuple = (B, N, NUM_CLASSES)) -> tuple:
     """``model`` (eval mode, on the CPU) at B=4 x 4096 on the card against
-    a copy on the CPU (plain versions): logits within 2e-4, exactly
-    ``launches`` of each kernel in one forward; forward time and points/s;
-    device time by kernel family from one torch.profiler run -> (the model
-    on the card, the forward's milliseconds)."""
+    a copy on the CPU (plain versions): logits of ``out_shape`` within 2e-4,
+    exactly ``launches`` of each kernel in one forward; forward time and
+    points/s; device time by kernel family from one torch.profiler run ->
+    (the model on the card, the forward's milliseconds). ``features`` is
+    "colors" (the blocks' colours), a [B, N, C] CPU tensor or None."""
     cpu_model = copy.deepcopy(model)
     model.to(dev)
     xyz_cpu = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
-    rgb_cpu = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
-    xyz, rgb = xyz_cpu.to(dev), rgb_cpu.to(dev)
+    if isinstance(features, str):
+        features = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    rgb_cpu = features
+    xyz, rgb = xyz_cpu.to(dev), None if features is None else features.to(dev)
     with torch.inference_mode():
         t0 = time.perf_counter()
         ref = cpu_model(xyz_cpu, rgb_cpu)
@@ -2522,7 +2749,7 @@ def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
         print(f"{label}: logits {tuple(out.shape)} CUDA vs CPU max|err| {err:.3g} "
               f"(max|logit| {ref.abs().max().item():.3g}), argmax agreement {agree:.6f}, "
               f"launches {counts}, CPU reference forward {cpu_s:.2f} s (host)", flush=True)
-        if out.shape != (B, N, NUM_CLASSES) or not torch.isfinite(out).all():
+        if out.shape != out_shape or not torch.isfinite(out).all():
             raise AssertionError(f"{label}: logits {tuple(out.shape)} not finite")
         if not torch.allclose(out, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL):
             raise AssertionError(f"{label}: CUDA logits differ from CPU by {err}")
@@ -2532,6 +2759,101 @@ def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
         if profile:
             profile_by_family(label, "forward", lambda: model(xyz, rgb))
     return model, fwd_ms
+
+
+def partsize_features(ds: BlockDataset, b: int) -> torch.Tensor:
+    """The first b blocks' 9 feature channels in the Partsize column order
+    [x, y, z, r, g, b, x_norm, y_norm, z_norm]: the block's coordinates,
+    its colours and its coordinates scaled to [0, 1] over the block, on the
+    CPU, [b, 4096, 9]."""
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:b], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:b], np.float32))
+    lo, hi = xyz.amin(1, keepdim=True), xyz.amax(1, keepdim=True)
+    return torch.cat([xyz, rgb, (xyz - lo) / (hi - lo).clamp(min=1e-9)], dim=-1).contiguous()
+
+
+def check_msg_family_forwards(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phases 21 and 22: pointnet2_msg with 9 feature channels (bench.py's
+    shape; profiled by kernel family), then pointnet2_sem_seg with colours
+    and both classifiers with xyz alone and with colours, each at full
+    width, B=4 x 4096, random weights and BatchNorm statistics, on the card
+    against the CPU: logits within 2e-4, exactly each forward's launches;
+    ms and points/s -> launch counts by path."""
+    forward_against_cpu("pointnet2_msg forward (9 channels)",
+                        seeded_model("pointnet2_msg", SEED + 21, in_features=9), ds, dev,
+                        MSG_LAUNCHES, features=partsize_features(ds, B))
+    forward_against_cpu("pointnet2_sem_seg forward", seeded_model("pointnet2_sem_seg", SEED + 22),
+                        ds, dev, SEM_SEG_LAUNCHES, profile=False)
+    for name, launches in (("pointnet2_cls_ssg", CLS_SSG_LAUNCHES),
+                           ("pointnet2_cls_msg", CLS_MSG_LAUNCHES)):
+        for in_features in (0, 3):
+            forward_against_cpu(f"{name} forward, in_features={in_features}",
+                                seeded_model(name, SEED + 22, in_features=in_features), ds, dev,
+                                launches, profile=False,
+                                features="colors" if in_features else None,
+                                out_shape=(B, NUM_CLASSES))
+    return {MSG: MSG_LAUNCHES, SEM_SEG: SEM_SEG_LAUNCHES, CLS_SSG: CLS_SSG_LAUNCHES,
+            CLS_MSG: CLS_MSG_LAUNCHES}
+
+
+def check_msg_train_step(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 23: one pointnet2_msg train step as configs/train_partsize_msg.yaml
+    builds the model (colours, in_features 3), full width, B=4 x 4096,
+    random weights and BatchNorm statistics, dropout 0, weighted CE with the
+    dataset's class weights, on the card against the CPU, checked as phase 6
+    checks SSG's (frozen BatchNorms first, then train mode; the biases in
+    front of a BatchNorm held structurally, ``pre_bn_biases``), with exactly
+    MSG_STEP_LAUNCHES -> those launch counts."""
+    model = seeded_model("pointnet2_msg", SEED + 23, dropout_rate=0.0)
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
+    check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw,
+                              label="pointnet2_msg frozen-BN gradients")
+    counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None, MSG_STEP_LAUNCHES,
+                              "pointnet2_msg train step")
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
+    print(f"pointnet2_msg train step: forward and backward {step_ms:.3f} ms, "
+          f"{B * N / step_ms * 1e3:.0f} points/s", flush=True)
+    return counts
+
+
+def train_msg_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) -> dict:
+    """Phase 24: two epochs of configs/train_partsize_msg.yaml (pointnet2_msg,
+    the sol loss, step decay, Adam) at batch 16 x 4096 through
+    train_cli.main, checked as phase 7 (the reload of latest_checkpoint
+    gives the trained model's logits exactly), the batch-16 step timed (ms,
+    points/s, peak memory) and profiled by kernel family; then ``infer_cli
+    blocks --model pointnet2_msg`` serves the checkpoint that run wrote,
+    warm, with exactly MSG_LAUNCHES a batch -> launch counts by path."""
+    by_path = {}
+    by_path["pointnet2_msg_train_cli"], exp_dir = train_through_cli(
+        "train pointnet2_msg (configs/train_partsize_msg.yaml)", "pointnet2_msg",
+        FORWARD_KERNELS + SSG_BACKWARD_KERNELS, data_dir, dev, profile=True,
+        recipe=ROOT / "configs" / "train_partsize_msg.yaml")
+    label = "serve trained pointnet2_msg blocks"
+    try:
+        counts = serve_blocks(label, "pointnet2_msg", exp_dir, FORWARD_KERNELS, data_dir,
+                              n_blocks, dev)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    batches = -(-n_blocks // 16)
+    if counts != {k: batches * v for k, v in MSG_LAUNCHES.items()}:
+        raise AssertionError(f"{label}: launches {counts}, {batches} batches")
+    by_path["pointnet2_msg_serve_trained"] = counts
+    return by_path
+
+
+def run_msg_family_phases(ds: BlockDataset, data_dir: Path, dev: torch.device) -> tuple:
+    """Phases 21-24 on the blocks of the two synthetic scenes of data_dir ->
+    (launch counts of one pass by path, launch counts of the CLI runs by
+    path)."""
+    passes = check_msg_family_forwards(ds, dev)
+    passes[MSG_TRAIN] = check_msg_train_step(ds, dev)
+    return passes, train_msg_through_cli(data_dir, len(ds), dev)
 
 
 def seeded_model(name: str, seed: int, **kwargs) -> torch.nn.Module:
@@ -2814,6 +3136,18 @@ def main() -> None:
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         return
+    if sys.argv[1:] == ["--msg"]:
+        # model work on the PointNet++ MSG family: phases 1, 2, the family's
+        # cases of 3 and 3b and phases 21-24 alone, no result line
+        res = Results()
+        compare_msg_family_kernels(dev, res, np.random.default_rng(SEED))
+        compare_msg_family_backward(dev, res, np.random.default_rng(SEED + 1))
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            run_msg_family_phases(make_dataset(data_dir), data_dir, dev)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     res = compare_kernels(dev)
@@ -2952,6 +3286,13 @@ def main() -> None:
         dgcnn_global_counts = check_dgcnn_forward("dgcnn_global", ds, dev, SEED + 28)
         by_path["dgcnn_train_step"] = check_dgcnn_train_step(ds, dev)
         by_path |= train_dgcnn_through_cli(data_dir, len(ds), dev)
+
+        # 21. the pointnet2_msg forward with 9 channels; 22. the sem_seg and
+        # classifier forwards; 23. one pointnet2_msg train step against the
+        # CPU; 24. configs/train_partsize_msg.yaml through the training CLI,
+        # served from the checkpoint it wrote
+        msg_passes, msg_by_path = run_msg_family_phases(ds, data_dir, dev)
+        by_path |= msg_by_path
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
@@ -2966,13 +3307,13 @@ def main() -> None:
                    BRISTRUNET_TRAIN: bristrunet_step_counts,
                    PTV3_POOLED: pooled_counts, PTV3: flat_counts,
                    PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts,
-                   DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts}
+                   DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts, **msg_passes}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:
         paths = {path: res.row(k.name, path, counts[k.name])
                  for path, counts in pass_counts.items()
-                 if counts[k.name] and (path not in (TRAIN, BRISTRUNET_TRAIN)
+                 if counts[k.name] and (path not in (TRAIN, BRISTRUNET_TRAIN, MSG_TRAIN)
                                         or k.name in SSG_BACKWARD_KERNELS)}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

@@ -8,6 +8,7 @@ from .attention import (
     MultiScaleFeatureFusion,
 )
 from .bristrunet import BriStruNet
+from .cls_models import PointNet2ClsMSG, PointNet2ClsSSG, PointNet2SSGPartsize
 from .common import (
     BatchNorm,
     Dense,
@@ -15,14 +16,16 @@ from .common import (
     Dropout,
     EnhancedFeaturePropagation,
     FeaturePropagation,
+    GroupAllAbstraction,
     MultiScaleSetAbstraction,
+    MultiScaleSetAbstractionMsg,
     PointConv,
     SegHead,
     SetAbstraction,
     SharedMLP,
 )
 from .dgcnn import DGCNN, DGCNNGlobal, EdgeConv
-from .pointnet2 import PointNet2SSG
+from .pointnet2 import PointNet2MSG, PointNet2SSG
 from .ptv3 import (
     GEGLU,
     FeedForward,
@@ -51,12 +54,18 @@ __all__ = [
     "FeedForward",
     "GEGLU",
     "GeometricFeatureExtraction",
+    "GroupAllAbstraction",
     "MODEL_REGISTRY",
     "MultiScaleFeatureFusion",
     "MultiScaleSetAbstraction",
+    "MultiScaleSetAbstractionMsg",
     "PointAttention",
     "PointConv",
+    "PointNet2ClsMSG",
+    "PointNet2ClsSSG",
+    "PointNet2MSG",
     "PointNet2SSG",
+    "PointNet2SSGPartsize",
     "PointTransformerBlock",
     "PointTransformerV3",
     "PointTransformerV3Pooled",

@@ -13,6 +13,11 @@ flat, a set-abstraction or feature-propagation layer *is* a SharedMLP with
 its sampling and grouping added, and a segmentation model *is* a SegHead
 with its encoder and decoder added.
 
+The Partsize MSG layer (:class:`MultiScaleSetAbstractionMsg`) carries the
+reference's ``conv_blocks.{b}.{j}`` and ``bn_blocks.{b}.{j}``, and the first
+conv of each branch keeps the reference's input order [features, rel-xyz]
+(:class:`FeatFirstConv` rolls it at the call).
+
 The BriStruNet family has no mappable reference torch model, so its layers
 (:class:`Dense`, :class:`DenseMLP`, :class:`MultiScaleSetAbstraction`,
 :class:`EnhancedFeaturePropagation` and models/attention.py) are named after
@@ -27,6 +32,7 @@ draws from a ``torch.Generator`` that the trainer sets (:class:`Dropout`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -244,6 +250,19 @@ class DenseMLP(nn.Module):
         return x
 
 
+def multi_scale_abstraction(xyz: torch.Tensor, features: Optional[torch.Tensor],
+                            npoint: int, balls, branches) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loop of every MSG set abstraction: one FPS, every (radius, K) of
+    ``balls`` in one ball-query launch on the card (each the same bits as
+    its own query_ball_point), then for each scale a grouping, its branch
+    (a shared MLP) and a max over the neighbours; the scales concatenated
+    -> ([B, npoint, 3], [B, npoint, sum of the branches' widths])."""
+    new_xyz = index_points(xyz, farthest_point_sample(xyz, npoint))
+    scales = [torch.amax(branch(group_points(xyz, new_xyz, idx, features)), dim=2)
+              for branch, idx in zip(branches, _query_ball_radii(balls, xyz, new_xyz))]
+    return new_xyz, torch.cat(scales, dim=-1)
+
+
 class MultiScaleSetAbstraction(nn.Module):
     """PointNet++ MSG set abstraction (models/common.py:131-169): one FPS,
     then for each radius a ball query (all radii in one launch on the card),
@@ -265,16 +284,79 @@ class MultiScaleSetAbstraction(nn.Module):
     def forward(
         self, xyz: torch.Tensor, features: Optional[torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        fps_idx = farthest_point_sample(xyz, self.npoint)
-        new_xyz = index_points(xyz, fps_idx)
-        scales = []
-        # every radius in one scan on the card; each the same bits as its own
-        # query_ball_point
         balls = tuple(zip(self.radius_list, self.nsample_list))
-        for i, idx in enumerate(_query_ball_radii(balls, xyz, new_xyz)):
-            grouped = group_points(xyz, new_xyz, idx, features)
-            scales.append(torch.amax(getattr(self, f"mlp_{i}")(grouped), dim=2))
-        return new_xyz, torch.cat(scales, dim=-1)
+        branches = [getattr(self, f"mlp_{i}") for i in range(len(balls))]
+        return multi_scale_abstraction(xyz, features, self.npoint, balls, branches)
+
+
+class FeatFirstConv(PointConv):
+    """The first Conv2d of a reference MSG branch: its weight [O, C + 3, 1,
+    1] is stored over the reference's input order [features, rel-xyz]
+    (pointnet_util.py:265-267) and applied to grouped input in the order
+    group_points gives, [rel-xyz, features]: the last 3 columns move to the
+    front, one small copy a forward. With no features (C = 0) the order is
+    the same."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.flatten(1)
+        return F.linear(x, torch.cat([w[:, -3:], w[:, :-3]], dim=1), self.bias)
+
+
+class MultiScaleSetAbstractionMsg(nn.Module):
+    """The Partsize MSG set abstraction with a DIFFERENT width list a scale
+    (models/common.py:172-206; the reference's PointNetSetAbstractionMsg,
+    pointnet_util.py:222-284): the loop of :func:`multi_scale_abstraction`,
+    branch ``b`` a stack of Conv2d ``conv_blocks.{b}.{j}`` + BatchNorm
+    ``bn_blocks.{b}.{j}`` + ReLU. The output is the sum of the branches'
+    last widths. ``in_ch`` counts the 3 relative coordinates. The first
+    conv of a branch (:class:`FeatFirstConv`) is stored in the reference's
+    [features, rel-xyz] order, so a reference checkpoint's weights load
+    unchanged."""
+
+    def __init__(self, npoint: int, radius_list: Sequence[float],
+                 nsample_list: Sequence[int], in_ch: int, mlp_list: Sequence[Sequence[int]],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.npoint = npoint
+        self.balls = tuple(zip(radius_list, nsample_list))
+        self.conv_blocks = nn.ModuleList()
+        self.bn_blocks = nn.ModuleList()
+        for mlp in mlp_list:
+            convs, bns, c = nn.ModuleList(), nn.ModuleList(), in_ch
+            for w in mlp:
+                convs.append((PointConv if len(convs) else FeatFirstConv)(c, w, 2, generator))
+                bns.append(BatchNorm(w))
+                c = w
+            self.conv_blocks.append(convs)
+            self.bn_blocks.append(bns)
+
+    def branch(self, b: int, x: torch.Tensor) -> torch.Tensor:
+        """Branch ``b``'s shared MLP over grouped [B, S, K, 3 + C]."""
+        for conv, bn in zip(self.conv_blocks[b], self.bn_blocks[b]):
+            x = F.relu(bn(conv(x)))
+        return x
+
+    def forward(
+        self, xyz: torch.Tensor, features: Optional[torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        branches = [functools.partial(self.branch, b) for b in range(len(self.balls))]
+        return multi_scale_abstraction(xyz, features, self.npoint, self.balls, branches)
+
+
+class GroupAllAbstraction(SharedMLP):
+    """The ``group_all`` set abstraction of the classifiers
+    (cls_models.py:27-43): every point in one group, [xyz, features]
+    concatenated, a shared MLP of the reference's Conv2d over
+    [B, 1, N, 3 + C] and a max over the points -> [B, mlp[-1]]. No kernel
+    runs here. ``in_ch`` counts the 3 coordinates."""
+
+    def __init__(self, in_ch: int, mlp: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, mlp, kdims=2, generator=generator)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]) -> torch.Tensor:
+        grouped = xyz if features is None else torch.cat([xyz, features], dim=-1)
+        return torch.amax(super().forward(grouped[:, None]), dim=2)[:, 0]
 
 
 class EnhancedFeaturePropagation(nn.Module):

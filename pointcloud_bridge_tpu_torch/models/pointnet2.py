@@ -1,5 +1,6 @@
-"""PointNet++ SSG segmentation in PyTorch (counterpart of
-pointcloud_bridge_tpu/models/pointnet2.py::PointNet2SSG)."""
+"""PointNet++ segmentation in PyTorch (counterpart of
+pointcloud_bridge_tpu/models/pointnet2.py): SSG (``PointNet2SSG``) and the
+Partsize 9-channel MSG model (``PointNet2MSG``)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ from typing import Optional
 
 import torch
 
-from .common import FeaturePropagation, SegHead, SetAbstraction
+from .common import FeaturePropagation, MultiScaleSetAbstractionMsg, SegHead, SetAbstraction
+from .ptv3 import only_defaults
 
 
 class PointNet2SSG(SegHead):
@@ -52,6 +54,69 @@ class PointNet2SSG(SegHead):
         l1_xyz, l1 = self.sa1(xyz, features)
         l2_xyz, l2 = self.sa2(l1_xyz, l1)
         l3_xyz, l3 = self.sa3(l2_xyz, l2)
+        l2 = self.fp3(l2_xyz, l3_xyz, l2, l3)
+        l1 = self.fp2(l1_xyz, l2_xyz, l1, l2)
+        l0 = self.fp1(xyz, l1_xyz, None, l1)
+        return super().forward(l0)
+
+
+class PointNet2MSG(SegHead):
+    """The Partsize PointNet++ MSG segmentation model
+    (Partsize-identical/models/pointnet2_sem_seg_msg.py:7-42;
+    models/pointnet2.py:90-144 of the JAX package), the repo's north star.
+
+    forward(xyz [B, N, 3], features [B, N, in_features] or None) -> logits
+    [B, N, num_classes] (the reference returns log-probs). Four MSG levels,
+    each two radii with K 16 and 32: 1024 centres at (0.05, 0.1), 256 at
+    (0.1, 0.2), 64 at (0.2, 0.4), 16 at (0.4, 0.8); FP widths (256, 256)
+    twice, (256, 128), (128, 128, 128) with no skip into fp1; a head of 128
+    with dropout 0.5. Flax reads the input width from the first call;
+    PyTorch needs it up front: ``in_features`` is 3 for the colours that
+    both CLIs feed a model, 9 for the Partsize column contract [x_c, y_c, z,
+    r, g, b, x_norm, y_norm, z_norm] (bench.py's ``feature_dim=9``).
+    ``axis_name`` and ``sp_axis`` are accepted and raise unless None. On CUDA
+    it expects full float32 matmuls, as PointNet2SSG does.
+    """
+
+    BRANCHES = (
+        ((16, 16, 32), (32, 32, 64)),
+        ((64, 64, 128), (64, 96, 128)),
+        ((128, 196, 256), (128, 196, 256)),
+        ((256, 256, 512), (256, 384, 512)),
+    )
+    LEVELS = ((1024, (0.05, 0.1)), (256, (0.1, 0.2)), (64, (0.2, 0.4)), (16, (0.4, 0.8)))
+    NSAMPLES = (16, 32)
+
+    def __init__(
+        self,
+        num_classes: int = 5,
+        dropout_rate: float = 0.5,
+        in_features: int = 3,
+        axis_name: Optional[str] = None,
+        sp_axis: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        only_defaults("PointNet2MSG", axis_name=(axis_name, None), sp_axis=(sp_axis, None))
+        super().__init__(128, num_classes, 128, dropout_rate, generator)
+        c = in_features
+        for i, ((npoint, radii), mlps) in enumerate(zip(self.LEVELS, self.BRANCHES), start=1):
+            setattr(self, f"sa{i}", MultiScaleSetAbstractionMsg(
+                npoint, radii, self.NSAMPLES, 3 + c, mlps, generator))
+            c = sum(m[-1] for m in mlps)
+        g = generator
+        self.fp4 = FeaturePropagation(512 + 1024, (256, 256), g)
+        self.fp3 = FeaturePropagation(256 + 256, (256, 256), g)
+        self.fp2 = FeaturePropagation(96 + 256, (256, 128), g)
+        self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+
+    def forward(
+        self, xyz: torch.Tensor, features: Optional[torch.Tensor]
+    ) -> torch.Tensor:
+        l1_xyz, l1 = self.sa1(xyz, features)
+        l2_xyz, l2 = self.sa2(l1_xyz, l1)
+        l3_xyz, l3 = self.sa3(l2_xyz, l2)
+        l4_xyz, l4 = self.sa4(l3_xyz, l3)
+        l3 = self.fp4(l3_xyz, l4_xyz, l3, l4)
         l2 = self.fp3(l2_xyz, l3_xyz, l2, l3)
         l1 = self.fp2(l1_xyz, l2_xyz, l1, l2)
         l0 = self.fp1(xyz, l1_xyz, None, l1)

@@ -11,14 +11,19 @@ import torch
 from torch import nn
 
 from .bristrunet import BriStruNet
+from .cls_models import PointNet2ClsMSG, PointNet2ClsSSG, PointNet2SSGPartsize
 from .dgcnn import DGCNN, DGCNNGlobal
-from .pointnet2 import PointNet2SSG
+from .pointnet2 import PointNet2MSG, PointNet2SSG
 from .ptv3 import PointTransformerV3
 from .ptv3_pooled import PointTransformerV3Pooled
 
 MODEL_REGISTRY = {
     "pointnet2": PointNet2SSG,  # reference name for the SSG seg model
     "pointnet2_ssg": PointNet2SSG,
+    "pointnet2_msg": PointNet2MSG,  # Partsize 9-channel MSG, the north star
+    "pointnet2_sem_seg": PointNet2SSGPartsize,  # Partsize 4-level SSG seg
+    "pointnet2_cls_ssg": PointNet2ClsSSG,
+    "pointnet2_cls_msg": PointNet2ClsMSG,
     "bristrunet": BriStruNet,  # EnhancedPointNet2 / BridgeSeg (paper model)
     "enhanced_pointnet2": BriStruNet,
     "bridgeseg": BriStruNet,
@@ -30,10 +35,8 @@ MODEL_REGISTRY = {
 
 # names the JAX package's registry knows and the port does not yet
 NOT_PORTED = (
-    "pointnet2_msg", "pointnet", "pointnet_seg", "pointnet_global", "randlanet",
-    "randlanet_ss", "ptv3_moe",
-    "pointnet_cls", "pointnet2_cls_ssg", "pointnet2_cls_msg", "pointnet2_sem_seg",
-    "pointnet_sem_seg", "spg", "superpoint_graph", "spt", "superpoint_transformer",
+    "pointnet", "pointnet_seg", "pointnet_global", "randlanet", "randlanet_ss", "ptv3_moe",
+    "pointnet_cls", "pointnet_sem_seg", "spg", "superpoint_graph", "spt", "superpoint_transformer",
     "enhanced_pointnet2_ssg",
 )
 

@@ -26,6 +26,17 @@ model says which flax module becomes which prefix of the state_dict:
     an EdgeConv's Dense kernel [2C, F] -> Conv2d weight [F, 2C, 1, 1],
     conv5 and the point head -> Conv1d [O, I, 1], linear1-3 -> Linear
     [O, I] (kind "linear").
+  - The PointNet++ MSG family carries the reference torch names too:
+    ``pointnet2_msg_rules`` is the inverse of the JAX package's
+    ``_rules_pointnet2_msg`` (utils/torch_import.py:228-268),
+    ``pointnet2_sem_seg_rules`` of ``_rules_pointnet2_sem_seg`` (:208-225).
+    The JAX package has no torch rules for the two classifiers
+    (``pointnet2_cls_ssg_rules``, ``pointnet2_cls_msg_rules``): they take
+    the names of the reference's modules, which the port's layers carry,
+    and ``fc1``-``fc3`` as Linear. The first conv of an MSG branch is kind
+    "conv2d_featfirst": the reference's input order is [features, rel-xyz]
+    and the flax kernel's [rel-xyz, features], so the kernel's first 3
+    input rows go to the end of the torch weight's columns (and back).
   - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
     running_mean/running_var, num_batches_tracked 0.
   - LayerNorm (kind "ln") scale/bias -> weight/bias; it has no statistics.
@@ -38,28 +49,83 @@ from typing import Any, Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-# (torch prefix, flax path, kind); kind is "conv2d", "conv1d", "dense",
+# (torch prefix, flax path, kind); kind is "conv2d", "conv2d_featfirst" (a
+# Conv2d whose input columns are [features, rel-xyz]), "conv1d", "dense",
 # "linear" (the reference's nn.Linear: a Dense under a reference name), "bn"
 # or "ln"
 Rule = Tuple[str, Tuple[str, ...], str]
 
 
-def pointnet2_ssg_rules() -> List[Rule]:
+def _shared_mlp(tprefix: str, fprefix: Tuple[str, ...], depth: int, conv: str) -> List[Rule]:
+    """A shared MLP's ``mlp_convs.{j}``/``mlp_bns.{j}`` <-> flax
+    ``dense_{j}``/``bn_{j}`` under ``fprefix``."""
     r: List[Rule] = []
-    for i in (1, 2, 3):
-        for j in range(3):
-            r.append((f"sa{i}.mlp_convs.{j}", (f"sa{i}", "mlp", f"dense_{j}"), "conv2d"))
-            r.append((f"sa{i}.mlp_bns.{j}", (f"sa{i}", "mlp", f"bn_{j}"), "bn"))
-    for fp, layers in (("fp3", 2), ("fp2", 2), ("fp1", 3)):
-        for j in range(layers):
-            r.append((f"{fp}.mlp_convs.{j}", (fp, "mlp", f"dense_{j}"), "conv1d"))
-            r.append((f"{fp}.mlp_bns.{j}", (fp, "mlp", f"bn_{j}"), "bn"))
-    r += [
-        ("conv1", ("head", "dense0"), "conv1d"),
-        ("bn1", ("head", "bn0"), "bn"),
-        ("conv2", ("head", "dense1"), "conv1d"),
-    ]
+    for j in range(depth):
+        r.append((f"{tprefix}.mlp_convs.{j}", fprefix + (f"dense_{j}",), conv))
+        r.append((f"{tprefix}.mlp_bns.{j}", fprefix + (f"bn_{j}",), "bn"))
     return r
+
+
+def _msg_level(i: int, branches: int) -> List[Rule]:
+    """MSG level ``sa{i}`` of three-layer branches: branch b's
+    ``conv_blocks.{b}.{j}`` and ``bn_blocks.{b}.{j}`` <-> flax ``mlp_{b}``'s
+    ``dense_{j}``/``bn_{j}``; the first conv of a branch is
+    "conv2d_featfirst"."""
+    r: List[Rule] = []
+    for b in range(branches):
+        for j in range(3):
+            path = (f"sa{i}", f"mlp_{b}")
+            r.append((f"sa{i}.conv_blocks.{b}.{j}", path + (f"dense_{j}",),
+                      "conv2d_featfirst" if j == 0 else "conv2d"))
+            r.append((f"sa{i}.bn_blocks.{b}.{j}", path + (f"bn_{j}",), "bn"))
+    return r
+
+
+def _ssg_levels(count: int) -> List[Rule]:
+    """Set-abstraction levels sa1 to sa{count}, a three-layer shared MLP of
+    Conv2d each."""
+    return [x for i in range(1, count + 1)
+            for x in _shared_mlp(f"sa{i}", (f"sa{i}", "mlp"), 3, "conv2d")]
+
+
+def _decoder(*depths: int) -> List[Rule]:
+    """Feature-propagation levels from the coarsest down to fp1, ``depths``
+    Conv1d each in that order."""
+    return [x for k, depth in zip(range(len(depths), 0, -1), depths)
+            for x in _shared_mlp(f"fp{k}", (f"fp{k}", "mlp"), depth, "conv1d")]
+
+
+_SEG_HEAD: List[Rule] = [
+    ("conv1", ("head", "dense0"), "conv1d"),
+    ("bn1", ("head", "bn0"), "bn"),
+    ("conv2", ("head", "dense1"), "conv1d"),
+]
+# the classifiers' group-all level and FC head
+_CLS_HEAD: List[Rule] = _shared_mlp("sa3", ("sa3", "mlp"), 3, "conv2d") + [
+    ("fc1", ("fc1",), "linear"), ("bn1", ("bn1",), "bn"),
+    ("fc2", ("fc2",), "linear"), ("bn2", ("bn2",), "bn"),
+    ("fc3", ("fc3",), "linear"),
+]
+
+
+def pointnet2_ssg_rules() -> List[Rule]:
+    return _ssg_levels(3) + _decoder(2, 2, 3) + _SEG_HEAD
+
+
+def pointnet2_msg_rules() -> List[Rule]:
+    return [x for i in (1, 2, 3, 4) for x in _msg_level(i, 2)] + _decoder(2, 2, 2, 3) + _SEG_HEAD
+
+
+def pointnet2_sem_seg_rules() -> List[Rule]:
+    return _ssg_levels(4) + _decoder(2, 2, 2, 3) + _SEG_HEAD
+
+
+def pointnet2_cls_ssg_rules() -> List[Rule]:
+    return _ssg_levels(2) + _CLS_HEAD
+
+
+def pointnet2_cls_msg_rules() -> List[Rule]:
+    return [x for i in (1, 2) for x in _msg_level(i, 3)] + _CLS_HEAD
 
 
 _Layers = List[Tuple[Tuple[str, ...], str]]  # (flax path, kind)
@@ -174,6 +240,10 @@ MODEL_RULES = {
     "ptv3_pooled": ptv3_pooled_rules,
     "dgcnn": dgcnn_rules,
     "dgcnn_global": dgcnn_global_rules,
+    "pointnet2_msg": pointnet2_msg_rules,
+    "pointnet2_sem_seg": pointnet2_sem_seg_rules,
+    "pointnet2_cls_ssg": pointnet2_cls_ssg_rules,
+    "pointnet2_cls_msg": pointnet2_cls_msg_rules,
 }
 
 
@@ -192,7 +262,8 @@ def _leaf(tree: Dict[str, Any], path: Tuple[str, ...]) -> np.ndarray:
     return np.asarray(tree, dtype=np.float32)
 
 
-_TRAILING = {"conv2d": (1, 1), "conv1d": (1,), "dense": (), "linear": ()}
+_TRAILING = {"conv2d": (1, 1), "conv2d_featfirst": (1, 1), "conv1d": (1,), "dense": (),
+             "linear": ()}
 
 
 def flax_to_state_dict(
@@ -212,6 +283,8 @@ def flax_to_state_dict(
                 sd[f"{tp}.num_batches_tracked"] = np.zeros((), np.int64)
         else:
             kernel = _leaf(params, fp + ("kernel",))  # [I, O]
+            if kind == "conv2d_featfirst":  # [rel-xyz, features] -> [features, rel-xyz]
+                kernel = np.concatenate([kernel[3:], kernel[:3]], axis=0)
             sd[f"{tp}.weight"] = kernel.T.reshape(kernel.shape[::-1] + _TRAILING[kind])
             try:
                 sd[f"{tp}.bias"] = _leaf(params, fp + ("bias",))
@@ -246,7 +319,10 @@ def state_dict_to_flax(
         else:
             if f"{tp}.weight" in sd:
                 w = sd[f"{tp}.weight"]
-                put(out["params"], fp + ("kernel",), w.reshape(w.shape[0], w.shape[1]).T)
+                w = w.reshape(w.shape[0], w.shape[1])
+                if kind == "conv2d_featfirst":  # [features, rel-xyz] -> [rel-xyz, features]
+                    w = torch.cat([w[:, -3:], w[:, :-3]], dim=1)
+                put(out["params"], fp + ("kernel",), w.T)
             if f"{tp}.bias" in sd:
                 put(out["params"], fp + ("bias",), sd[f"{tp}.bias"])
     return out
