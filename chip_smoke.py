@@ -104,6 +104,18 @@ any failure raises and exits non-zero:
    backward against autograd;
    times beside the bound and beside the backward of
    F.scaled_dot_product_attention;
+3e. the bf16 flash-attention kernels (forward; dq with delta; dk and dv)
+   against attention_plain and attention_backward_plain in bf16 on bf16
+   packed-qkv views, at the shapes the bf16 paths give them (the
+   configs/train_ptv3_big_prod.yaml microbatch [4,4096,6,64]; ptv3 and
+   ptv3_moe [4,4096,2,192]; ptv3_pooled's three levels), then at ragged N,
+   N = 1, D = 96 to 256, scores of 55, contiguous q, k, v, a row stride
+   padded by 8 elements, a view and a gradient off 16-byte alignment; bands
+   in bf16 roundings (eps = 2^-8) scaled by the plain values: O within
+   2 eps * max|plain|, dq, dk, dv within 4 eps * max|plain|, the rms of
+   each error within eps * rms(plain), lse 1e-5 relative, each backward
+   kernel the same bits from call to call; times beside the bound over the dense bf16 tensor rate
+   (989 TFLOP/s) and F.scaled_dot_product_attention in bf16;
 4. the SSG forward at B=4 x 4096 on the card against the same model on the
    CPU (plain versions), logits within 2e-4; every forward kernel must have
    been launched; forward time and points/s;
@@ -218,7 +230,30 @@ any failure raises and exits non-zero:
    decay, Adam) at batch 16 x 4096 through train_cli.main, checked as in 7,
    the batch-16 step timed (ms, points/s, peak memory) and profiled, then
    ``infer_cli blocks --model pointnet2_msg`` serving the checkpoint that
-   run wrote, warm, with exactly the forward's launches a batch.
+   run wrote, warm, with exactly the forward's launches a batch;
+25. ptv3_moe at the registry's width (8 blocks of 384, 8 experts, top 2,
+   blocks 1, 3, 5, 7 MoE), B=4 x 4096: the eval forward on the card
+   against the CPU with the card's expert picks replayed there
+   (RoutingTap), logits within 2e-4, exactly 8 flash-attention launches, a
+   pick that differs without the replay a tie within 1e-4; one train step
+   against the CPU checked as 15; two epochs through train_cli at the
+   defaults, the batch-16 step timed (peak memory) and profiled, then
+   ``infer_cli blocks --model ptv3_moe`` on that checkpoint;
+26. the options of ptv3 and ptv3_pooled: stream_dtype and compute_dtype
+   bfloat16 forwards (ptv3 at its default width, ptv3_pooled at the benched
+   depths), B=4, against the same weights in float32 on the card and
+   against the CPU's bf16 plain path at B=1 (logits within 0.1 of float32,
+   the JAX package's own contract, and within 2e-2 * max(1, max|logits|) of
+   the CPU; argmax agreement 0.97), every Dense of a block giving bf16,
+   exactly 8 and 12 bf16 forward launches; remat=True on a ptv3_pooled step with dropout giving
+   remat=False's loss, logits and gradients bit for bit (24 forward, 12 of
+   each backward launches, peak memory of both); one ptv3 bf16-stream train
+   step, 8 launches of each bf16 kernel;
+27. configs/train_ptv3_big_prod.yaml through train_cli.main as the file
+   stands, two epochs; its checkpoint reloaded through the config's
+   model_extra gives the same logits; the batch-16 step (4 microbatches of
+   4) timed, profiled, with its launches (96 bf16 forward, 48 of each
+   backward) and peak memory, then without remat.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
 K3b cases of phases 3 and 3b alone (``--interp-backward`` the K4b cases of
@@ -231,8 +266,8 @@ choices side by side: warps a block and queries a warp, K5's row staged
 as a ring of tiles, and K5c's grid of warps, queries a warp and tiles with
 the plan's pick beside the fastest, then K5c's first design (a warp a
 query) and the kernel in turns, probes/k2_k5_probe.py ``compare_k5c``;
-``--k5c-exit`` K5c's early exit on the features DGCNN's graphs are built
-over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
+``--attention-bf16`` phase 3e; ``--k5c-exit`` K5c's early exit on the
+features DGCNN's graphs are built over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
 K5c cases of phase 3 and phases 18-20; ``--msg`` the MSG family's cases of
 phases 3 and 3b and phases 21-24), and prints no result line.
 
@@ -249,7 +284,9 @@ other kernels and where no library call exists), for K2 and K5 the issue
 floor ``issue_floor_ms`` (and K5c; null for the others); ``paths`` has the same for
 the other passes (the BriStruNet train step, phase 16, among them for K3b
 and K4b; the four forwards of the MSG family, phases 21-22, and the
-pointnet2_msg train step, phase 23), and
+pointnet2_msg train step, phase 23; for the bf16 attention kernels the
+configs/train_ptv3_big_prod.yaml step at batch 16, phase 27, beside the
+bf16 forwards of ptv3 and ptv3_pooled, phase 26), and
 ``launches_by_path`` the counts of the serves and the training runs through
 the CLIs. The last line is {"ok": true, "device": {...}}.
 """
@@ -282,6 +319,7 @@ from pointcloud_bridge_tpu_torch.models import dgcnn as dgcnn_models
 from pointcloud_bridge_tpu_torch.models import (
     BatchNorm,
     Dense,
+    Dropout,
     MultiScaleSetAbstraction,
     get_model,
 )
@@ -453,7 +491,10 @@ SEM_SEG, CLS_SSG, CLS_MSG = ("pointnet2_sem_seg_forward", "pointnet2_cls_ssg_for
 # the path whose numbers stand in a kernel's own row of the summary
 # (BriStruNet's forward for the kernels not named here)
 ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "knn_c": DGCNN, "flash_attn": PTV3_POOLED,
-            "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN}
+            "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN,
+            "flash_attn_bf16": "ptv3_big_prod_train_step",
+            "flash_attn_bwd_dq_bf16": "ptv3_big_prod_train_step",
+            "flash_attn_bwd_dkv_bf16": "ptv3_big_prod_train_step"}
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms", "fma_bound_ms")
 # None unless measured: the library call's event time (cases with a library
 # call), device times from a CUDA graph and host time (cases with ``split``),
@@ -1646,11 +1687,12 @@ def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
                         normal(3, 7, 5, 3 + c), wild, 1024, c0, 3 + c)
 
 
-def packed_qkv_maker(dev: torch.device, seed: int):
+def packed_qkv_maker(dev: torch.device, seed: int, dtype=torch.float32):
     """-> make(n, h, d, fold=1, b=B): q, k and v [b * fold, n / fold, h, d]
     as PointAttention makes them, the strided slices of one packed qkv
-    projection (row stride 3*h*d) of LayerNorm output; ``fold`` is the number
-    of windows a cloud, folded into the batch by a reshape of those views."""
+    projection (row stride 3*h*d) of LayerNorm output, in ``dtype``;
+    ``fold`` is the number of windows a cloud, folded into the batch by a
+    reshape of those views."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
 
@@ -1659,7 +1701,7 @@ def packed_qkv_maker(dev: torch.device, seed: int):
         x = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dev)
         qkv = Dense(c, 3 * c, generator=gen).to(dev)
         with torch.no_grad():
-            out = qkv(torch.nn.functional.layer_norm(x, (c,)))
+            out = qkv(torch.nn.functional.layer_norm(x, (c,))).to(dtype)
         views = out.reshape(b, n, 3, h, d).unbind(2)
         q, k, v = (t.reshape(b * fold, n // fold, h, d) for t in views)
         if n > fold and q.stride(1) != 3 * c:
@@ -1862,6 +1904,220 @@ def compare_attention_backward(dev: torch.device, res: Results) -> None:
     err = band("attention Function", "gradient of a packed qkv", *grads)
     print(f"{'attention':18s} {'Function on a folded packed qkv':34s} max|err| {err:.3g}",
           flush=True)
+
+
+# the bf16 flavours of K6 and K6b (phase 3e): bands in bf16 roundings,
+# eps = 2^-8 (the spacing of bf16 is eps to 2 eps of a value, a rounding is
+# within half of it), scaled by the plain version's own values: a result
+# that rounds to the neighbouring bf16 of the plain one parts by one
+# spacing, at most 2 eps * max|plain|
+BF16_EPS = 2.0 ** -8
+BF16_OUT_TOL = 2 * BF16_EPS  # of max|plain|: O, one spacing at its largest value
+BF16_GRAD_TOL = 4 * BF16_EPS  # of max|plain|: dq, dk, dv, two spacings
+BF16_RMS_TOL = BF16_EPS  # of the plain's root mean square: the error's, every output
+# absolute, beside both: the float32 noise of dS = P (dP - delta) where the
+# two nearly cancel (at N = 1 they cancel exactly, and dq and dk are that
+# noise, ~1e-7 at inputs of unit scale)
+BF16_ATOL = 2.0 ** -20
+BF16_LSE_TOL = 1e-5  # relative: lse is float32 from exact bf16 products
+# dense bf16 tensor-core rate of the H100 SXM at 700 W (NVIDIA data sheet)
+PEAK_FLOPS_BF16 = 989e12
+# paths of the bf16 kernels: the configs/train_ptv3_big_prod.yaml step
+# (batch 16 as 4 microbatches of 4, 12 blocks of 6 heads of 64, remat: the
+# forward kernel runs twice a block and microbatch, the backward once), the
+# bf16-stream forwards of ptv3 (8 blocks, 2 heads of 192) and ptv3_pooled
+PROD_TRAIN = "ptv3_big_prod_train_step"
+PTV3_BF16, POOLED_BF16 = "ptv3_bf16_forward", "ptv3_pooled_bf16_forward"
+PROD_DEPTH, PROD_ACCUM = 12, 4
+# (label, n, h, d, fold, batch, [(path, forward launches a pass, backward
+# launches a pass)], timed) of phase 3e
+ATTENTION_BF16_CASES = (
+    ("[4,4096,6,64] prod microbatch", 4096, 6, 64, 1, B,
+     [(PROD_TRAIN, 2 * PROD_DEPTH * PROD_ACCUM, PROD_DEPTH * PROD_ACCUM)], True),
+    ("[4,4096,2,192] ptv3, ptv3_moe", 4096, 2, 192, 1, B, [(PTV3_BF16, 8, 0)], True),
+    ("[16,1024,2,32] pooled level 0 windows", 4096, 2, 32, 4, B, [(POOLED_BF16, 3, 0)], True),
+    ("[4,1024,4,32] pooled level 1", 1024, 4, 32, 1, B, [(POOLED_BF16, 3, 0)], True),
+    ("[4,256,8,32] pooled level 2", 256, 8, 32, 1, B, [(POOLED_BF16, 6, 0)], True),
+    ("[4,200,2,32] ragged", 200, 2, 32, 1, B, [], False),
+    ("[4,1000,4,64] ragged", 1000, 4, 64, 1, B, [], False),
+    ("[4,1,2,32] one row", 1, 2, 32, 1, B, [], False),
+    ("[2,333,2,256] ragged, D=256", 333, 2, 256, 1, 2, [], False),
+) + tuple((f"[2,{n},2,{d}] ragged", n, 2, d, 1, 2, [], False)
+          for d in (96, 128, 160, 224) for n in (65, 4095))
+
+
+def compare_attention_bf16(dev: torch.device, res: Results) -> None:
+    """Phase 3e: the bf16 flash-attention kernels (forward; dq and delta;
+    dk and dv) against attention_plain and attention_backward_plain in bf16
+    at the shapes the bf16 paths give them (ATTENTION_BF16_CASES), on bf16
+    packed-qkv views: O within BF16_OUT_TOL * max|plain|, dq, dk, dv within
+    BF16_GRAD_TOL * max|plain|, each also with the root mean square of its
+    error within BF16_RMS_TOL of the plain's (both bands plus BF16_ATOL);
+    lse within 1e-5 relative of torch.logsumexp over the float32 scores,
+    delta within ATTN_TOL * max(1, max|plain|); each backward kernel the
+    same bits from one call to the next. Then every row stride and
+    alignment that the checks accept: contiguous q, k, v, a row stride
+    padded by 8 elements, and a view off 16-byte alignment (copied by the
+    wrapper), with a gradient off alignment too (copied by
+    attention_backward_cuda, refused by the kernels' wrappers). A timed case times the
+    kernels beside the bound (4 B H N^2 D operations forward, 6 for dq, 8
+    for dk and dv, over the dense bf16 tensor rate; the bytes over 3.35
+    TB/s) and beside F.scaled_dot_product_attention in bf16, forward and its
+    backward on a kept graph."""
+    packed_qkv = packed_qkv_maker(dev, SEED + 5, torch.bfloat16)
+    rng = np.random.default_rng(SEED + 5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def band(name, label, got, want, tol):
+        """-> (max|err|, max|err| over its band, rms(err) over its band)."""
+        err = max_abs_err(got, want)
+        diff = got.float() - want.float()
+        rms_err = diff.square().mean().sqrt().item()
+        rms = want.float().square().mean().sqrt().item()
+        bands = (tol * want.abs().max().item() + BF16_ATOL, BF16_RMS_TOL * rms + BF16_ATOL)
+        if err > bands[0] or rms_err > bands[1]:
+            raise AssertionError(f"{name} {label}: max |err| {err} (band {bands[0]}), "
+                                 f"rms(err) {rms_err} (band {bands[1]})")
+        return err, err / bands[0], rms_err / bands[1]
+
+    def case(label, q, k, v, paths=(), timed=False):
+        b, n, h, d = q.shape
+        g = torch.from_numpy(rng.normal(size=(b, n, h, d)).astype(np.float32)).to(dev)
+        g = g.to(torch.bfloat16)
+        out, lse = attention.attention_cuda(q, k, v, need_lse=True)
+        if out.dtype != torch.bfloat16 or not torch.equal(out, attention.attention_cuda(q, k, v)):
+            raise AssertionError(f"flash_attn_bf16 {label}: writing lse changed the output")
+        want_out, scores = attention._forward_plain(q, k, v)
+        want_lse = torch.logsumexp(scores, dim=-1)
+        del scores
+        out_err = band("flash_attn_bf16", label, out, want_out, BF16_OUT_TOL)
+        lse_err = (lse - want_lse).abs().div(want_lse.abs().clamp(min=1.0)).max().item()
+        if lse_err > BF16_LSE_TOL:
+            raise AssertionError(f"flash_attn_bf16 {label}: lse differs by {lse_err} relative")
+        # delta of the kernel's own output, which the dq kernel reads
+        want_delta = (out.float() * g.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, delta = attention.attention_backward_dq_cuda(q, k, v, out, lse, g)
+        dk, dv = attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g)
+        again = (attention.attention_backward_dq_cuda(q, k, v, out, lse, g)
+                 + attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g))
+        for name, a, b2 in (("dq", dq, again[0]), ("delta", delta, again[1]),
+                            ("dk", dk, again[2]), ("dv", dv, again[3])):
+            if not torch.equal(a, b2):
+                raise AssertionError(f"flash_attn_bwd_bf16 {label}: {name} differs from run to run")
+        del again
+        want = attention.attention_backward_plain(q, k, v, out, lse, g)
+        errs = [band(f"flash_attn_bwd_bf16 {name}", label, got, w, BF16_GRAD_TOL)
+                for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+        del want
+        delta_err = max_abs_err(delta, want_delta)
+        if delta_err > ATTN_TOL * max(1.0, want_delta.abs().max().item()):
+            raise AssertionError(f"flash_attn_bwd_dq_bf16 delta {label}: max |err| {delta_err}")
+        print(f"{'attention bf16':18s} {label:34s} max|err| [of its band, rms(err) of its "
+              "band]: " + ", ".join(f"{name} {e[0]:.3g} [{e[1]:.3f}, {e[2]:.3f}]" for name, e in
+                                    zip(("O", "dq", "dk", "dv"), [out_err] + errs))
+              + f"; lse rel {lse_err:.3g}, delta {delta_err:.3g}", flush=True)
+        if not timed:
+            return
+        size, ops, stats = nbytes(q), b * h * n * n * d, nbytes(lse)
+        qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+        lib_out, gt = sdpa(qt, kt, vt), g.transpose(1, 2)
+
+        def lib_grad(*wrt):
+            return lambda: torch.autograd.grad(lib_out, wrt, gt, retain_graph=True)
+
+        for path, fwd_times, bwd_times in paths or [(None, 1, 1)]:
+            pp = (path,) if path else ()
+            need_lse = bool(bwd_times) and path is not None
+            res.check("flash_attn_bf16", label + (" +lse" if need_lse else ""),
+                      lambda: attention.attention_cuda(q, k, v, need_lse=need_lse),
+                      lambda: attention.attention_plain(q, k, v) if not need_lse else (
+                          attention.attention_plain(q, k, v),
+                          torch.logsumexp(attention._scores(q.float(), k.float()), dim=-1)),
+                      False, pp, scaled=(BF16_OUT_TOL, 0.0),
+                      work=(4 * size + (stats if need_lse else 0), 4 * ops), times=fwd_times,
+                      peak_flops=PEAK_FLOPS_BF16, library_fn=lambda: sdpa(qt, kt, vt))
+            bp = pp if bwd_times else ()
+            bt = bwd_times or 1
+            res.check("flash_attn_bwd_dq_bf16", label,
+                      lambda: attention.attention_backward_dq_cuda(q, k, v, out, lse, g)[0],
+                      lambda: attention.attention_backward_plain(q, k, v, out, lse, g)[0],
+                      False, bp, scaled=(BF16_GRAD_TOL, 0.0),
+                      work=(6 * size + 2 * stats, 6 * ops), times=bt,
+                      peak_flops=PEAK_FLOPS_BF16, library_fn=lib_grad(qt))
+            res.check("flash_attn_bwd_dkv_bf16", label,
+                      lambda: attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g),
+                      lambda: attention.attention_backward_plain(q, k, v, out, lse, g)[1:],
+                      False, bp, scaled=(BF16_GRAD_TOL, 0.0),
+                      work=(6 * size + 2 * stats, 8 * ops), times=bt,
+                      peak_flops=PEAK_FLOPS_BF16, library_fn=lib_grad(kt, vt))
+            # device time a call: 20 calls in a CUDA graph between two events
+            dev_ms = {
+                "flash_attn_bf16": (device_ms(
+                    lambda: attention.attention_cuda(q, k, v, need_lse=need_lse)), fwd_times, pp),
+                "flash_attn_bwd_dq_bf16": (device_ms(
+                    lambda: attention.attention_backward_dq_cuda(q, k, v, out, lse, g)), bt, bp),
+                "flash_attn_bwd_dkv_bf16": (device_ms(
+                    lambda: attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g)), bt, bp),
+            }
+            for name, (ms, times, on) in dev_ms.items():
+                res.add(name, on, "device_ms", times * ms)
+            print(f"{'attention bf16':18s} {label:34s} device ms a call: " + ", ".join(
+                f"{name} {ms:.4f}" for name, (ms, _, _) in dev_ms.items()), flush=True)
+        both = time_ms(lambda: attention.attention_backward_cuda(q, k, v, out, lse, g))
+        bound = max((10 * size + 2 * stats) / PEAK_BYTES_S, 10 * ops / PEAK_FLOPS_BF16) * 1e3
+        print(f"{'attention bf16':18s} {label:34s} dq, dk and dv together: kernels {both:.4f} ms"
+              f"  bound {bound:.5f} ms  library backward "
+              f"{time_ms(lib_grad(qt, kt, vt)):.4f} ms", flush=True)
+
+    for label, n, h, d, fold, b, paths, timed in ATTENTION_BF16_CASES:
+        case(label, *packed_qkv(n, h, d, fold, b), paths, timed)
+    q, k, v, top = large_scores(*(t.float() for t in packed_qkv(1024, 2, 192)))
+    case(f"[4,1024,2,192] max|S| {top:.1f}", *(t.to(torch.bfloat16) for t in (q, k, v)))
+    # every layout the checks accept: contiguous; a row stride of H*D + 8
+    # (rows 16 bytes apart, read in place); a view 2 bytes off 16-byte
+    # alignment (copied by the wrapper)
+    q, k, v = (t.contiguous() for t in packed_qkv(130, 2, 64))
+    case("[4,130,2,64] contiguous", q, k, v)
+    wide = torch.from_numpy(rng.normal(size=(3, B, 130, 2 * 64 + 8)).astype(np.float32))
+    wide = wide.to(dev, torch.bfloat16)
+    q, k, v = (t[..., :128].unflatten(-1, (2, 64)) for t in wide)
+    if q.stride(1) != 136:
+        raise AssertionError("padded rows: not a view")
+    case("[4,130,2,64] row stride 136", q, k, v)
+    flat = torch.from_numpy(rng.normal(size=(3, B * 130 * 128 + 1)).astype(np.float32))
+    flat = flat.to(dev, torch.bfloat16)
+    q, k, v = (t[1:].view(B, 130, 2, 64) for t in flat)
+    if q.data_ptr() % 16 == 0:
+        raise AssertionError("misaligned view: aligned")
+    case("[4,130,2,64] 2 bytes off alignment", q, k, v)
+    # a gradient 2 bytes off alignment: the Function's backward copies it,
+    # the kernels' wrappers refuse it
+    out, lse = attention.attention_cuda(q, k, v, need_lse=True)
+    g_flat = torch.from_numpy(rng.normal(size=B * 130 * 128 + 1).astype(np.float32))
+    g_off = g_flat.to(dev, torch.bfloat16)[1:].view(B, 130, 2, 64)
+    if g_off.data_ptr() % 16 == 0:
+        raise AssertionError("misaligned gradient: aligned")
+    for wrapper in (lambda: attention.attention_backward_dq_cuda(q, k, v, out, lse, g_off),
+                    lambda: attention.attention_backward_dkv_cuda(q, k, v, lse, lse, g_off)):
+        try:
+            wrapper()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("attention backward: a gradient off alignment was taken")
+    got = attention.attention_backward_cuda(q, k, v, out, lse, g_off)
+    want = attention.attention_backward_cuda(q, k, v, out, lse, g_off.clone())
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("attention backward: a gradient off alignment changed the result")
+    print(f"{'attention bf16':18s} {'[4,130,2,64] gradient off alignment':34s} refused by the "
+          "wrappers, copied by the Function: the same bits", flush=True)
+    # mixed types raise
+    try:
+        attention.attention(q, k.float(), v)
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("attention: bf16 q with float32 k did not raise")
 
 
 def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -2208,7 +2464,7 @@ PRE_BN_BIASES = ("norm.bias", "head_fc1.bias")
 
 
 def check_attention_train_step(label: str, model: torch.nn.Module, ds: BlockDataset,
-                               dev: torch.device, launches: dict) -> float:
+                               dev: torch.device, launches: dict, tap=None) -> float:
     """Phases 13 and 15: one train-mode forward and backward (weighted CE,
     dropout 0) of a PTv3 model at B=4 x 4096 on the card against the same
     model on the CPU (plain versions), from the same weights and batch.
@@ -2222,21 +2478,29 @@ def check_attention_train_step(label: str, model: torch.nn.Module, ds: BlockData
     two biases that feed that BatchNorm (PRE_BN_BIASES) shift every row of
     its input alike, the batch mean takes them out again and their gradient
     is exactly 0: both sides must keep it below 1e-3 * max|g| of
-    head_fc1.weight. -> the milliseconds of one forward and backward on the
-    card."""
+    head_fc1.weight. With ``tap`` (RoutingTap), the card's step runs first
+    and the CPU takes its expert picks. -> the milliseconds of one forward
+    and backward on the card."""
     cpu_model = copy.deepcopy(model).train()
     model.to(dev).train()
     xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
     rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
     labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
     cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
-    t0 = time.perf_counter()
-    cpu_loss, cpu_grads, cpu_logits = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
-    cpu_s = time.perf_counter() - t0
+    recorder = tap(model) if tap else None
     _kernels.reset_launch_counts()
     loss, grads, logits = loss_and_grads(model, xyz, rgb, labels, cw)
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
+    report = recorder.replay(cpu_model) if recorder is not None else None
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads, cpu_logits = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
+    cpu_s = time.perf_counter() - t0
+    if report is not None:
+        print(f"{label}: picks that the CPU's router would make otherwise (count, largest "
+              f"probability gap): {report}", flush=True)
+        if sorted(report) != sorted(recorder.picks) or any(g > 1e-4 for _, g in report.values()):
+            raise AssertionError(f"{label}: a pick differs beyond a tie: {report}")
     if counts != launches:
         raise AssertionError(f"{label}: launches {counts}, expected {launches}")
     loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
@@ -2673,10 +2937,13 @@ def kernel_family(name: str) -> str:
         ("group_kernel", "K3 group"), ("group_bwd_kernel", "K3b group backward"),
         ("interp_kernel", "K4 interpolate"), ("interp_bwd_kernel", "K4b interpolation backward"),
         ("knn_c_kernel", "K5c k-NN over C channels"), ("knn_kernel", "K5 k-NN"),
+        ("flash_attn_bf16_kernel", "K6 flash attention (bf16)"),
+        ("flash_attn_bwd_dq_bf16", "K6b flash attention backward (bf16)"),
+        ("flash_attn_bwd_dkv_bf16", "K6b flash attention backward (bf16)"),
         ("flash_attn_kernel", "K6 flash attention"),
         ("flash_attn_bwd", "K6b flash attention backward"),
         ("multi_tensor", "Adam (foreach)"),
-        ("gemm", "GEMMs"), ("gemv", "GEMMs"), ("cutlass", "GEMMs"),
+        ("gemm", "GEMMs"), ("gemv", "GEMMs"), ("cutlass", "GEMMs"), ("nvjet", "GEMMs"),
         ("batch_norm", "BatchNorm"), ("layer_norm", "LayerNorm"), ("Sort", "sort"),
         ("sort", "sort"), ("reduce", "reductions"),
         ("gather", "gather, index, cat"), ("index", "gather, index, cat"),
@@ -3052,6 +3319,318 @@ def dgcnn_features(dev: torch.device) -> list:
     return out
 
 
+# ------------------------------------------------------------ phases 25-27
+# ptv3_moe at the registry's width: 8 blocks of 384 (2 heads of 192), 8
+# experts, top 2, in blocks 1, 3, 5 and 7
+MOE_BLOCKS = (1, 3, 5, 7)
+PROD_CONFIG = ROOT / "configs" / "train_ptv3_big_prod.yaml"
+BF16_KERNELS = ("flash_attn_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16")
+# the JAX package's own contract for a bf16 model against its float32 self
+# (tests/test_models.py:160-181): logits within 0.1, argmax agreement 0.97;
+# the card's bf16 model against the CPU's, the same code at the same
+# precision, within the CPU tests' band for two bf16 chains (2e-2 of
+# max(1, max|logits|), tests/test_torch_ptv3_options.py)
+BF16_LOGIT_TOL, BF16_AGREE = 0.1, 0.97
+BF16_CPU_TOL = 2e-2
+
+
+class RoutingTap:
+    """Records the expert picks of every MoE block of a model on the card
+    and replays them on a copy on the CPU (the way GraphTap replays k-NN
+    graphs): the router's float32 logits are GEMMs that the card and the
+    CPU round differently, so a token whose top choices nearly tie may go
+    to another expert on each. The CPU copy keeps its own router
+    probabilities and gates and takes the card's picks; the picks that
+    differ without the replay are reported with the gap of their
+    probabilities."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.picks = {}
+        self.moes = {name: m for name, m in model.named_modules()
+                     if type(m).__name__ == "MoEFeedForward"}
+        for name, m in self.moes.items():
+            m.register_forward_hook(
+                lambda mod, i, o, name=name: self.picks.__setitem__(
+                    name, mod.routing["sel"].cpu()))
+
+    def replay(self, cpu_model: torch.nn.Module) -> dict:
+        """Make cpu_model's MoE blocks take the recorded picks -> per block,
+        the number of picks its own router would make otherwise and the
+        largest probability gap among them."""
+        report = {}
+        for name, m in cpu_model.named_modules():
+            if name not in self.moes:
+                continue
+            own_route = m.route
+
+            def route(xt, own_route=own_route, name=name):
+                sel, _, probs = own_route(xt)
+                card = self.picks[name]
+                differ = sel != card
+                gaps = (probs.gather(-1, sel) - probs.gather(-1, card)).abs()[differ]
+                report[name] = (int(differ.sum()), float(gaps.max()) if gaps.numel() else 0.0)
+                gate = probs.gather(-1, card)
+                return card, gate / gate.sum(-1, keepdim=True).clamp(min=1e-9), probs
+
+            m.route = route
+        return report
+
+
+def check_moe_forward(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 25a: the ptv3_moe eval forward at B=4 x 4096 on the card
+    against the CPU, the CPU taking the card's expert picks (RoutingTap):
+    logits within 2e-4, exactly 8 flash-attention launches; a pick that
+    differs without the replay must be a near tie (probabilities within
+    1e-4). -> launch counts."""
+    model = seeded_model("ptv3_moe", SEED + 25)
+    cpu_model = copy.deepcopy(model)
+    tap = RoutingTap(model.to(dev))
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    with torch.inference_mode():
+        _kernels.reset_launch_counts()
+        out = model(xyz.to(dev), rgb.to(dev))
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        own = copy.deepcopy(cpu_model)(xyz, rgb)
+        differ = tap.replay(cpu_model)
+        ref = cpu_model(xyz, rgb)
+    if counts != only(flash_attn=8):
+        raise AssertionError(f"ptv3_moe forward: launches {counts}")
+    if sorted(tap.picks) != [f"block{i}.moe_mlp" for i in MOE_BLOCKS]:
+        raise AssertionError(f"ptv3_moe forward: MoE blocks {sorted(tap.picks)}")
+    out = out.cpu()
+    err, own_err = max_abs_err(out, ref), max_abs_err(out, own)
+    n_differ = sum(d for d, _ in differ.values())
+    print(f"ptv3_moe forward: logits {tuple(out.shape)} CUDA vs CPU with the card's picks "
+          f"max|err| {err:.3g}; picks that differ without the replay (of {B * N * 2} a block): "
+          f"{differ}, logits then {own_err:.3g}; launches {counts}", flush=True)
+    if not torch.isfinite(out).all() or err > LOGIT_TOL:
+        raise AssertionError(f"ptv3_moe forward: CUDA logits differ from the CPU's by {err}")
+    if any(gap > 1e-4 for _, gap in differ.values()):
+        raise AssertionError(f"ptv3_moe forward: a pick differs beyond a tie: {differ}")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(xyz.to(dev), rgb.to(dev)))
+        print(f"ptv3_moe forward: B={B} N={N} {fwd_ms:.3f} ms, "
+              f"{B * N / fwd_ms * 1e3:.0f} points/s ({n_differ} picks differ)", flush=True)
+        xyz_d, rgb_d = xyz.to(dev), rgb.to(dev)
+        profile_by_family("ptv3_moe forward", "forward", lambda: model(xyz_d, rgb_d))
+    return counts
+
+
+def check_moe_train_step(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 25b: one ptv3_moe train step (dropout 0) at B=4 x 4096 on the
+    card against the CPU with the card's picks replayed, checked as phase
+    15: exactly 8 launches of each float32 attention kernel."""
+    model = seeded_model("ptv3_moe", SEED + 26, drop_rate=0.0, head_drop_rate=0.0)
+    launches = attention_launches(8)
+    check_attention_train_step("ptv3_moe train step", model, ds, dev, launches, tap=RoutingTap)
+    return launches
+
+
+def bf16_against(label: str, name: str, kwargs: dict, ds: BlockDataset, dev: torch.device,
+                 launches: int, seed: int) -> dict:
+    """Phase 26a: ``name`` with a bfloat16 option on the card against the
+    same weights in float32 on the card (the JAX package's contract: logits
+    within 0.1, argmax agreement 0.97) and against its plain bf16 path on
+    the CPU (B=1: within BF16_CPU_TOL * max(1, max|logits|), argmax
+    agreement 0.97); exactly ``launches`` of the bf16 forward kernel and no
+    other kernel; every Dense of a block but the router giving bf16 on the
+    card (a model that stayed float32 would pass the logit bands) -> the
+    launch counts of the forward."""
+    f32 = seeded_model(name, seed, **{k: v for k, v in kwargs.items()
+                                      if k not in ("stream_dtype", "compute_dtype")})
+    model = seeded_model(name, seed, **kwargs)
+    model.load_state_dict(f32.state_dict())
+    cpu_model = copy.deepcopy(model)
+    f32.to(dev)
+    model.to(dev)
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32)).to(dev)
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32)).to(dev)
+    dense_types, hooks = {}, []
+    for mod_name, m in model.named_modules():
+        if (type(m).__name__ == "Dense" and "block" in mod_name
+                and not mod_name.endswith("router")):
+            hooks.append(m.register_forward_hook(
+                lambda mod, i, o, mod_name=mod_name: dense_types.__setitem__(mod_name, o.dtype)))
+    with torch.inference_mode():
+        want = f32(xyz, rgb)
+        _kernels.reset_launch_counts()
+        got = model(xyz, rgb)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        for h in hooks:
+            h.remove()
+        cpu = cpu_model(xyz[:1].cpu(), rgb[:1].cpu())
+        fwd_ms = time_ms(lambda: model(xyz, rgb))
+        f32_ms = time_ms(lambda: f32(xyz, rgb))
+    if counts != only(flash_attn_bf16=launches):
+        raise AssertionError(f"{label}: launches {counts}, expected {launches} bf16")
+    if not dense_types or set(dense_types.values()) != {torch.bfloat16}:
+        raise AssertionError(f"{label}: the blocks' Dense layers give {dense_types}")
+    faults = []
+    for what, ref, out, tol in (("float32 on the card", want, got, BF16_LOGIT_TOL),
+                                ("bf16 on the CPU", cpu, got[:1].cpu(), BF16_CPU_TOL * max(
+                                    1.0, cpu.abs().max().item()))):
+        err = max_abs_err(out, ref)
+        agree = (out.argmax(-1) == ref.argmax(-1)).double().mean().item()
+        print(f"{label}: against {what}: max|err| {err:.3g} (band {tol:.3g}, max|logit| "
+              f"{ref.abs().max().item():.3g}), argmax agreement {agree:.6f}", flush=True)
+        if not torch.isfinite(out).all() or err > tol or agree < BF16_AGREE:
+            faults.append(f"{what}: max|err| {err}, argmax agreement {agree}")
+    print(f"{label}: B={B} N={N} {fwd_ms:.3f} ms ({B * N / fwd_ms * 1e3:.0f} points/s), "
+          f"float32 {f32_ms:.3f} ms; launches {counts}; {len(dense_types)} block Dense "
+          f"layers in bf16", flush=True)
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults))
+    return counts
+
+
+def check_remat_exact(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 26b: one ptv3_pooled train step at the benched configuration,
+    B=4, dropout 0.1 from a generator of the card, with remat=True against
+    remat=False: the same loss, logits and every gradient bit for bit, the
+    generator in the same state after; the forward kernel runs twice a
+    block (forward and recompute), each backward kernel once -> the remat
+    step's launches."""
+    runs = []
+    for remat in (False, True):
+        model = seeded_model("ptv3_pooled", SEED + 27, remat=remat, **POOLED_BENCHED)
+        model.to(dev).train()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.generator = gen
+        xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32)).to(dev)
+        rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32)).to(dev)
+        labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
+        cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads, logits = loss_and_grads(model, xyz, rgb, labels, cw)
+        torch.cuda.synchronize()
+        runs.append((loss, grads, logits, gen.get_state(), _kernels.launch_counts(),
+                     torch.cuda.max_memory_allocated()))
+    (l0, g0, o0, s0, c0, m0), (l1, g1, o1, s1, c1, m1) = runs
+    same = (torch.equal(l0, l1) and torch.equal(o0, o1) and torch.equal(s0, s1)
+            and all(torch.equal(g0[k], g1[k]) for k in g0))
+    worst = max(max_abs_err(g0[k], g1[k]) for k in g0)
+    print(f"remat ptv3_pooled step: remat=True against remat=False: identical {same} (worst "
+          f"gradient max|err| {worst:.3g}); launches {c1} (without remat {c0}); peak device "
+          f"memory {m1 / 2**20:.1f} MiB (without remat {m0 / 2**20:.1f} MiB)", flush=True)
+    if not same:
+        raise AssertionError("remat ptv3_pooled step: remat changed the step")
+    if c0 != attention_launches(12) or c1 != attention_launches(12) | {"flash_attn": 24}:
+        raise AssertionError(f"remat ptv3_pooled step: launches {c0}, {c1}")
+    return c1
+
+
+def check_bf16_train_step(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 26c: one flat ptv3 train step with the bf16 stream at its
+    default width, B=4: finite loss and gradients, every parameter float32,
+    exactly 8 launches of each bf16 attention kernel; the gradient against
+    the float32 step of the same weights (cosine of the whole gradient)."""
+    f32 = seeded_model("ptv3", SEED + 28, drop_rate=0.0, head_drop_rate=0.0).to(dev).train()
+    model = seeded_model("ptv3", SEED + 28, drop_rate=0.0, head_drop_rate=0.0,
+                         stream_dtype="bfloat16").to(dev).train()
+    model.load_state_dict(f32.state_dict())
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
+    want_loss, want, _ = loss_and_grads(f32, xyz, rgb, labels, cw)
+    _kernels.reset_launch_counts()
+    loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    flat = torch.cat([grads[k].flatten() for k in want])
+    ref = torch.cat([want[k].flatten() for k in want])
+    cos = (flat @ ref / (flat.norm() * ref.norm())).item()
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
+    print(f"ptv3 bf16-stream train step: loss {loss.item():.6f} (float32 {want_loss.item():.6f}), "
+          f"gradient cosine to the float32 step {cos:.6f}; launches {counts}; forward and "
+          f"backward {step_ms:.3f} ms", flush=True)
+    expected = only(flash_attn_bf16=8, flash_attn_bwd_dq_bf16=8, flash_attn_bwd_dkv_bf16=8)
+    if counts != expected:
+        raise AssertionError(f"ptv3 bf16-stream train step: launches {counts}")
+    if not torch.isfinite(loss) or not torch.isfinite(flat).all() or cos < 0.99:
+        raise AssertionError(f"ptv3 bf16-stream train step: loss {loss.item()}, cosine {cos}")
+    return counts
+
+
+def train_prod_through_cli(data_dir: Path, dev: torch.device) -> dict:
+    """Phase 27: configs/train_ptv3_big_prod.yaml through train_cli.main as
+    the file stands (ptv3 384 wide, 12 blocks of 6 heads, bf16 stream, remat,
+    batch 16 as 4 microbatches of 4, EMA 0.999, 5 warm-up epochs) for two
+    epochs; the checkpoint reloads through the trainer's own model build
+    (the config's model_extra) to the same eval logits; then the batch-16
+    step timed (points/s trained, peak memory) and profiled, with its
+    launches, and the same step without remat -> launch counts by path."""
+    out, wall, counts, mem = run_train_cli("train ptv3_big_prod", data_dir,
+                                           ["--config", str(PROD_CONFIG)], 2, BF16_KERNELS)
+    exp_dir = Path(out["exp_dir"]).resolve()
+    cfg = Config.from_yaml(str(PROD_CONFIG))
+    try:
+        model = out["model"]
+        ds = BlockDataset.from_files([str(data_dir / "bridge_0.las")], num_points=N,
+                                     num_classes=NUM_CLASSES)
+        xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:16], np.float32)).to(dev)
+        rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:16], np.float32)).to(dev)
+        labels = torch.from_numpy(ds.labels[:16].astype(np.int64)).to(dev)
+        reloaded = get_model(cfg.model.name, cfg.model.num_classes, **cfg.model.extra).to(dev)
+        reloaded.load_state_dict(
+            restore_checkpoint(str(exp_dir / "latest_checkpoint"), map_location=dev)["model"])
+        model.eval()
+        reloaded.eval()
+        with torch.inference_mode():
+            same = torch.equal(model(xyz[:4], rgb[:4]), reloaded(xyz[:4], rgb[:4]))
+        if not same:
+            raise AssertionError("train ptv3_big_prod: the reloaded checkpoint gives other logits")
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    hist = out["history"]
+    print(f"train ptv3_big_prod: 2 epochs through train_cli in {wall:.2f} s wall (epochs "
+          f"{[round(r['epoch_time_s'], 4) for r in hist]} s, lr {[r['lr'] for r in hist]}), "
+          f"train loss {[round(r['train_loss'], 4) for r in hist]}, val OA "
+          f"{[round(r['val_acc'], 4) for r in hist]}, launches {counts}, peak device memory "
+          f"{mem / 2**20:.1f} MiB; reloaded latest_checkpoint through the config's model: "
+          f"eval logits identical", flush=True)
+    del model, out
+    by_path = {"ptv3_big_prod_train_cli": counts}
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES)).to(dev)
+    batch = {"points": xyz, "colors": rgb, "labels": labels}
+    for remat in (True, False):
+        extra = dict(cfg.model.extra, remat=remat)
+        step_model = get_model(cfg.model.name, cfg.model.num_classes,
+                               generator=torch.Generator().manual_seed(SEED), **extra).to(dev)
+        step = make_train_step(step_model, cfg.loss, make_optimizer(step_model.parameters()),
+                               cfg.train.accum_steps)
+        step(batch, 1e-4, cw)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        step(batch, 1e-4, cw)
+        torch.cuda.synchronize()
+        step_counts = _kernels.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: step(batch, 1e-4, cw), reps=10, warmup=2)
+        step_mem = torch.cuda.max_memory_allocated()
+        tag = "remat" if remat else "no remat"
+        print(f"ptv3_big_prod step ({tag}): batch 16 x {N} as {cfg.train.accum_steps} "
+              f"microbatches {step_ms:.3f} ms, {16 * N / step_ms * 1e3:.0f} points/s trained, "
+              f"peak device memory {step_mem / 2**20:.1f} MiB; launches {step_counts}",
+              flush=True)
+        want = PROD_DEPTH * PROD_ACCUM
+        expected = only(flash_attn_bf16=want * (2 if remat else 1), flash_attn_bwd_dq_bf16=want,
+                        flash_attn_bwd_dkv_bf16=want)
+        if step_counts != expected:
+            raise AssertionError(f"ptv3_big_prod step ({tag}): launches {step_counts}")
+        if remat:
+            by_path[PROD_TRAIN] = step_counts
+            profile_by_family("ptv3_big_prod step", "step", lambda: step(batch, 1e-4, cw), reps=5)
+        del step_model, step
+    return by_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3080,6 +3659,11 @@ def main() -> None:
         res = Results()
         compare_attention_kernel(dev, res)
         compare_attention_backward(dev, res)
+        return
+    if sys.argv[1:] == ["--attention-bf16"]:
+        # kernel work on the bf16 K6 and K6b: phases 1, 2 and 3e alone, no
+        # result line
+        compare_attention_bf16(dev, Results())
         return
     if sys.argv[1:] == ["--grouping"]:
         # kernel work on K3 and K3b: phases 1, 2 and their cases of 3 and 3b
@@ -3154,6 +3738,8 @@ def main() -> None:
     compare_backward_kernels(dev, res)
     compare_attention_kernel(dev, res)
     compare_attention_backward(dev, res)
+    # 3e. the bf16 flash-attention kernels
+    compare_attention_bf16(dev, res)
 
     # 4. the SSG forward on the card against the CPU
     data_dir = ROOT / "build" / "chip_smoke_data"
@@ -3293,6 +3879,40 @@ def main() -> None:
         # served from the checkpoint it wrote
         msg_passes, msg_by_path = run_msg_family_phases(ds, data_dir, dev)
         by_path |= msg_by_path
+
+        # 25. ptv3_moe: the forward and a train step against the CPU, then
+        # trained at its defaults through the training CLI and served
+        by_path["ptv3_moe_forward"] = check_moe_forward(ds, dev)
+        by_path["ptv3_moe_train_step"] = check_moe_train_step(ds, dev)
+        by_path["ptv3_moe_train_cli"], moe_exp = train_through_cli(
+            "train ptv3_moe", "ptv3_moe", ("flash_attn",) + ATTN_BACKWARD_KERNELS, data_dir,
+            dev, profile=True)
+        try:
+            by_path["ptv3_moe_serve_trained"] = serve_blocks(
+                "serve trained ptv3_moe blocks", "ptv3_moe", moe_exp, ("flash_attn",),
+                data_dir, len(ds), dev)
+        finally:
+            shutil.rmtree(moe_exp, ignore_errors=True)
+
+        # 26. the options of ptv3 and ptv3_pooled: bf16 forwards, remat, a
+        # bf16-stream train step
+        ptv3_bf16_counts = bf16_against("ptv3 bf16 stream", "ptv3", {"stream_dtype": "bfloat16"},
+                                        ds, dev, 8, SEED + 31)
+        by_path["ptv3_bf16_compute_forward"] = bf16_against(
+            "ptv3 bf16 compute", "ptv3", {"compute_dtype": "bfloat16"}, ds, dev, 8, SEED + 31)
+        pooled_bf16_counts = bf16_against(
+            "ptv3_pooled bf16 stream", "ptv3_pooled",
+            dict(POOLED_BENCHED, stream_dtype="bfloat16"), ds, dev, 12, SEED + 32)
+        by_path["ptv3_pooled_bf16_compute_forward"] = bf16_against(
+            "ptv3_pooled bf16 compute", "ptv3_pooled",
+            dict(POOLED_BENCHED, compute_dtype="bfloat16"), ds, dev, 12, SEED + 32)
+        by_path["ptv3_pooled_remat_train_step"] = check_remat_exact(ds, dev)
+        by_path["ptv3_bf16_train_step"] = check_bf16_train_step(ds, dev)
+
+        # 27. configs/train_ptv3_big_prod.yaml through the training CLI
+        prod_by_path = train_prod_through_cli(data_dir, dev)
+        prod_counts = prod_by_path.pop(PROD_TRAIN)
+        by_path |= prod_by_path
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
@@ -3307,7 +3927,9 @@ def main() -> None:
                    BRISTRUNET_TRAIN: bristrunet_step_counts,
                    PTV3_POOLED: pooled_counts, PTV3: flat_counts,
                    PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts,
-                   DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts, **msg_passes}
+                   DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts, **msg_passes,
+                   PROD_TRAIN: prod_counts, PTV3_BF16: ptv3_bf16_counts,
+                   POOLED_BF16: pooled_bf16_counts}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:

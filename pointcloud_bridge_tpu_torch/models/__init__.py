@@ -25,6 +25,7 @@ from .common import (
     SharedMLP,
 )
 from .dgcnn import DGCNN, DGCNNGlobal, EdgeConv
+from .moe import MoEFeedForward, upcycle_dense_to_moe
 from .pointnet2 import PointNet2MSG, PointNet2SSG
 from .ptv3 import (
     GEGLU,
@@ -54,6 +55,7 @@ __all__ = [
     "FeedForward",
     "GEGLU",
     "GeometricFeatureExtraction",
+    "MoEFeedForward",
     "GroupAllAbstraction",
     "MODEL_REGISTRY",
     "MultiScaleFeatureFusion",
@@ -76,4 +78,5 @@ __all__ = [
     "SharedMLP",
     "get_model",
     "morton_code",
+    "upcycle_dense_to_moe",
 ]

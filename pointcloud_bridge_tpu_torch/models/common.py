@@ -118,12 +118,21 @@ class BatchNorm(nn.Module):
         return out.reshape(x.shape)
 
 
+def rounded_to(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as a value of ``dtype`` takes it: what flax's
+    weakly typed constants become in a half-precision operation. float32
+    constants pass as they are (PyTorch takes a Python scalar at the
+    tensor's precision)."""
+    return value if dtype == torch.float32 else torch.tensor(value, dtype=dtype).item()
+
+
 class Dropout(nn.Module):
     """Inverted dropout as flax's ``nn.Dropout``: in train mode keep each
     element with probability 1 - p and divide the kept ones by 1 - p.
     The keep mask draws from ``generator`` (a ``torch.Generator`` on the
     input's device, which the trainer seeds), or from torch's default
-    generator when it is None."""
+    generator when it is None. In a half type the divisor 1 - p is rounded
+    to that type first, as flax's weakly typed constant is."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
@@ -136,7 +145,7 @@ class Dropout(nn.Module):
         if self.p >= 1.0:
             return torch.zeros_like(x)
         keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
-        return x * keep / (1.0 - self.p)
+        return x * keep / rounded_to(1.0 - self.p, x.dtype)
 
 
 class SharedMLP(nn.Module):
@@ -213,13 +222,18 @@ class FeaturePropagation(SharedMLP):
 class Dense(nn.Module):
     """flax's ``nn.Dense`` over the last axis, its weight stored as
     [out, in] (the flax kernel transposed). Initialised as :class:`PointConv`
-    is, uniform in +-1/sqrt(in), from ``generator``."""
+    is, uniform in +-1/sqrt(in), from ``generator``. With ``dtype`` (a
+    compute type, as flax's ``Dense(dtype=...)``) the input, weight and bias
+    are cast to it, the product is rounded to it and the bias added in it,
+    as flax computes; the parameters stay float32."""
 
     def __init__(self, in_ch: int, out_ch: int, bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.dtype = dtype
         bound = 1.0 / math.sqrt(in_ch)
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
@@ -227,7 +241,11 @@ class Dense(nn.Module):
                 self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if self.dtype is None:
+            return F.linear(x, self.weight, self.bias)
+        dt = self.dtype
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class DenseMLP(nn.Module):

@@ -9,10 +9,13 @@ from there down. Blocks, Morton keys and head are the flat model's
 (models/ptv3.py), so every attention call goes through ``ops.attention``.
 
 Layers carry the flax names (``enc1_block0.mlp.geglu.proj``, ``pool0.proj``,
-``unpool0.proj_skip``, ``enc2_pos``, ``head_bn``). Only the single-device
-float32 model is ported: ``sp_axis``, ``axis_name``, ``compute_dtype``,
-``stream_dtype`` and ``remat`` raise NotImplementedError unless left at their
-default.
+``unpool0.proj_skip``, ``enc2_pos``, ``head_bn``). ``compute_dtype``,
+``stream_dtype`` and ``remat`` act as in the flat model (models/ptv3.py): a
+level's x and positional encoding enter the stream before its blocks and
+leave it after them, and the pooling and unpooling projections compute in
+``compute_dtype`` with their LayerNorms in float32
+(ptv3_pooled.py:59-98, 243-307). ``sp_axis`` and ``axis_name`` raise
+NotImplementedError unless left at their default.
 """
 
 from __future__ import annotations
@@ -29,8 +32,11 @@ from .ptv3 import (
     SegmentationHead,
     input_channels,
     only_defaults,
+    run_block,
     serialize,
     take_rows,
+    torch_dtype,
+    widen,
 )
 
 
@@ -40,10 +46,11 @@ class SerializedPool(nn.Module):
     segment mean (ptv3_pooled.py:59-80)."""
 
     def __init__(self, stride: int, dim_in: int, dim_out: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride = stride
-        self.proj = Dense(dim_in, dim_out, generator=generator)
+        self.proj = Dense(dim_in, dim_out, generator=generator, dtype=dtype)
         self.norm = nn.LayerNorm(dim_out, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor,
@@ -52,7 +59,7 @@ class SerializedPool(nn.Module):
         g, s = n // self.stride, self.stride
         h = self.proj(x)
         h = h.reshape(b, g, s, h.shape[-1]).amax(dim=2)
-        return self.norm(h), xyz.reshape(b, g, s, 3).mean(dim=2)
+        return self.norm(widen(h)), xyz.reshape(b, g, s, 3).mean(dim=2)
 
 
 class SerializedUnpool(nn.Module):
@@ -63,16 +70,17 @@ class SerializedUnpool(nn.Module):
     quarter of them are computed."""
 
     def __init__(self, stride: int, dim_in: int, dim_out: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride = stride
-        self.proj_up = Dense(dim_in, dim_out, generator=generator)
-        self.proj_skip = Dense(dim_out, dim_out, generator=generator)
+        self.proj_up = Dense(dim_in, dim_out, generator=generator, dtype=dtype)
+        self.proj_skip = Dense(dim_out, dim_out, generator=generator, dtype=dtype)
         self.norm = nn.LayerNorm(dim_out, eps=LN_EPS)
 
     def forward(self, x_coarse: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         up = self.proj_up(x_coarse).repeat_interleave(self.stride, dim=1)
-        return self.norm(up + self.proj_skip(skip))
+        return self.norm(widen(up + self.proj_skip(skip)))
 
 
 class PointTransformerV3Pooled(SegmentationHead):
@@ -108,8 +116,10 @@ class PointTransformerV3Pooled(SegmentationHead):
         dims, strides = tuple(dims), tuple(strides)
         super().__init__(dims[0], num_classes, head_drop_rate, generator)
         only_defaults("PointTransformerV3Pooled", axis_name=(axis_name, None),
-                      sp_axis=(sp_axis, None), compute_dtype=(compute_dtype, None),
-                      stream_dtype=(stream_dtype, None), remat=(remat, False))
+                      sp_axis=(sp_axis, None))
+        cdt = torch_dtype(compute_dtype)
+        self.stream_dtype = torch_dtype(stream_dtype)
+        self.remat = remat
         if not (len(dims) == len(enc_depths) and len(strides) == len(dims) - 1
                 and len(dec_depths) == len(dims) - 1):
             raise ValueError("dims/enc_depths must share a length L and strides/dec_depths "
@@ -122,22 +132,25 @@ class PointTransformerV3Pooled(SegmentationHead):
         self.strides = strides
         self.head_dim = head_dim
         self.window_size = window_size
-        self.patch_embed = Dense(d_in, dims[0], generator=g)
+        self.patch_embed = Dense(d_in, dims[0], generator=g, dtype=cdt)
         self.patch_norm = nn.LayerNorm(dims[0], eps=LN_EPS)
 
         def add_blocks(tag: str, lv: int, count: int) -> None:
-            setattr(self, f"{tag}_pos", Dense(3, dims[lv], generator=g))
+            setattr(self, f"{tag}_pos", Dense(3, dims[lv], generator=g, dtype=cdt))
             for i in range(count):
                 setattr(self, f"{tag}_block{i}", PointTransformerBlock(
                     dims[lv], max(1, dims[lv] // head_dim), mlp_ratio, qkv_bias,
-                    drop_rate, attn_drop_rate, window_size, generator=g))
+                    drop_rate, attn_drop_rate, window_size, dtype=cdt,
+                    stream_dtype=self.stream_dtype, generator=g))
 
         for lv in range(len(dims)):
             add_blocks(f"enc{lv}", lv, self.enc_depths[lv])
             if lv < len(dims) - 1:
-                setattr(self, f"pool{lv}", SerializedPool(strides[lv], dims[lv], dims[lv + 1], g))
+                setattr(self, f"pool{lv}",
+                        SerializedPool(strides[lv], dims[lv], dims[lv + 1], g, cdt))
         for lv in range(len(dims) - 2, -1, -1):
-            setattr(self, f"unpool{lv}", SerializedUnpool(strides[lv], dims[lv + 1], dims[lv], g))
+            setattr(self, f"unpool{lv}",
+                    SerializedUnpool(strides[lv], dims[lv + 1], dims[lv], g, cdt))
             add_blocks(f"dec{lv}", lv, self.dec_depths[lv])
 
     def _level_window(self, level_n: int) -> int:
@@ -157,9 +170,12 @@ class PointTransformerV3Pooled(SegmentationHead):
                     count: int) -> torch.Tensor:
         self._level_window(x.shape[1])
         pos = getattr(self, f"{tag}_pos")(xyz)
+        sdt = self.stream_dtype
+        if sdt is not None:  # the level enters the stream
+            x, pos = x.to(sdt), pos.to(sdt)
         for i in range(count):
-            x = getattr(self, f"{tag}_block{i}")(x, pos)
-        return x
+            x = run_block(getattr(self, f"{tag}_block{i}"), x, pos, self.remat)
+        return widen(x)
 
     def forward(self, xyz: torch.Tensor,
                 features: Optional[torch.Tensor]) -> torch.Tensor:
@@ -177,7 +193,7 @@ class PointTransformerV3Pooled(SegmentationHead):
         # the first 3 channels of x are xyz, sorted with it
         xyz_lv = [x[..., :3] if self.d_in >= 3 else take_rows(xyz, order)]
 
-        x = self.patch_norm(self.patch_embed(x))
+        x = self.patch_norm(widen(self.patch_embed(x)))
         levels = len(self.dims)
         skips = []
         for lv in range(levels):

@@ -5,6 +5,7 @@ which raise an error that points at ROADMAP.md."""
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -28,6 +29,8 @@ MODEL_REGISTRY = {
     "enhanced_pointnet2": BriStruNet,
     "bridgeseg": BriStruNet,
     "ptv3": PointTransformerV3,  # the reference's flat transformer
+    # every other block's feed-forward routes to 8 experts (models/moe.py)
+    "ptv3_moe": partial(PointTransformerV3, num_experts=8),
     "ptv3_pooled": PointTransformerV3Pooled,  # serialized encoder-decoder
     "dgcnn": DGCNN,  # the k=20 segmentation model of configs/train_dgcnn.yaml
     "dgcnn_global": DGCNNGlobal,  # the k=64 variant, logits repeated per point
@@ -35,7 +38,7 @@ MODEL_REGISTRY = {
 
 # names the JAX package's registry knows and the port does not yet
 NOT_PORTED = (
-    "pointnet", "pointnet_seg", "pointnet_global", "randlanet", "randlanet_ss", "ptv3_moe",
+    "pointnet", "pointnet_seg", "pointnet_global", "randlanet", "randlanet_ss",
     "pointnet_cls", "pointnet_sem_seg", "spg", "superpoint_graph", "spt", "superpoint_transformer",
     "enhanced_pointnet2_ssg",
 )

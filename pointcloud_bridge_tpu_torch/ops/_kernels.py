@@ -164,8 +164,32 @@ FLASH_ATTN_BWD_DKV = Kernel(
     "pointcloud_bridge_tpu_torch/csrc/flash_attn_bwd.cu",
     "pointcloud_bridge_tpu/models/ptv3.py:154",
 )
+# the same three in bfloat16 (the blocks of a model that computes or streams
+# in bfloat16): their own entry points, sources and counters
+FLASH_ATTN_BF16 = Kernel(
+    "flash_attn_bf16", "pcb_flash_attn_bf16",
+    # q, k, v, out, lse (or null), B, N, H, D, ldq, ldk, ldv, device, stream
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/flash_attn_bf16.cu",
+    "pointcloud_bridge_tpu/models/ptv3.py:74",
+)
+FLASH_ATTN_BWD_DQ_BF16 = Kernel(
+    "flash_attn_bwd_dq_bf16", "pcb_flash_attn_bwd_dq_bf16",
+    # q, k, v, o, do, lse, dq, delta, B, N, H, D, ldq, ldk, ldv, device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/flash_attn_bwd_bf16.cu",
+    "pointcloud_bridge_tpu/models/ptv3.py:156",
+)
+FLASH_ATTN_BWD_DKV_BF16 = Kernel(
+    "flash_attn_bwd_dkv_bf16", "pcb_flash_attn_bwd_dkv_bf16",
+    # q, k, v, do, lse, delta, dk, dv, B, N, H, D, ldq, ldk, ldv, device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/flash_attn_bwd_bf16.cu",
+    "pointcloud_bridge_tpu/models/ptv3.py:154",
+)
 KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN, KNN_C, FLASH_ATTN,
-           FLASH_ATTN_BWD_DQ, FLASH_ATTN_BWD_DKV)
+           FLASH_ATTN_BWD_DQ, FLASH_ATTN_BWD_DKV, FLASH_ATTN_BF16, FLASH_ATTN_BWD_DQ_BF16,
+           FLASH_ATTN_BWD_DKV_BF16)
 
 
 def reset_launch_counts() -> None:

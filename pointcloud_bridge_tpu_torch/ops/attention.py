@@ -6,17 +6,29 @@ what ``jax.nn.dot_product_attention`` computes on the CPU; a CUDA tensor
 takes the flash-attention kernels (csrc/flash_attn.cu, flash_attn_bwd.cu),
 which keep the [B, H, N, N] scores out of device memory, at every length and
 for global and windowed attention alike (a window fold is a larger batch of
-shorter rows). The kernels multiply on the tensor cores in 3xTF32, float32
-in and out at float32 accuracy; :func:`split_tf32` and
-:func:`einsum_3xtf32` are that arithmetic in plain PyTorch, for the tests. The JAX function's environment switches, its pad of D = 192
-to 256 and its quiet fallback are the TPU kernel's and are not carried over.
+shorter rows). q, k and v are all float32 or all bfloat16. In float32 the
+kernels multiply on the tensor cores in 3xTF32, float32 in and out at
+float32 accuracy; :func:`split_tf32` and :func:`einsum_3xtf32` are that
+arithmetic in plain PyTorch, for the tests. In bfloat16 (a model that
+computes or streams in bf16) their bf16 flavours (csrc/flash_attn_bf16.cu,
+flash_attn_bwd_bf16.cu) compute what ``jax.nn.dot_product_attention`` does
+in bf16: scores from bf16 operands summed in float32, the softmax in
+float32, the probabilities rounded to bf16 before they multiply v, the
+output rounded to bf16; the plain versions do the same in float32 from the
+bf16 inputs, rounding where the kernels round (a product of two bf16
+numbers is exact in float32). The JAX function's environment switches, its
+pad of D = 192 to 256 and its quiet fallback are the TPU kernel's and are
+not carried over.
 
 :class:`Attention` is an autograd Function on both devices, so the CPU tests
 build the graph that the card runs. Where an input needs a gradient, the
 forward also keeps each row's log-sum-exp of the scaled scores, and the
 backward recomputes the probabilities from it: the plain formulas of
 :func:`attention_backward_plain` on the CPU, the two backward kernels on the
-card.
+card. In bf16 the backward follows the same contract: dP = dO . v^T and
+delta = rowsum(dO * O) in float32, dS = P * (dP - delta) in float32 and
+rounded to bf16 as an operand, as P is for dv; dq, dk and dv summed in
+float32 and returned in bf16.
 """
 
 from __future__ import annotations
@@ -29,14 +41,21 @@ from . import _kernels
 
 # head widths the kernels are instantiated for
 FLASH_HEAD_DIMS = tuple(range(32, 257, 32))
+# the types the kernels take, with their entry points (forward, dq, dk/dv)
+_KERNELS_BY_DTYPE = {
+    torch.float32: (_kernels.FLASH_ATTN, _kernels.FLASH_ATTN_BWD_DQ,
+                    _kernels.FLASH_ATTN_BWD_DKV),
+    torch.bfloat16: (_kernels.FLASH_ATTN_BF16, _kernels.FLASH_ATTN_BWD_DQ_BF16,
+                     _kernels.FLASH_ATTN_BWD_DKV_BF16),
+}
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q . k^T / sqrt(D)) . v a batch row and head.
 
-    q, k, v [B, N, H, D] float32, the JAX layout; any strides (the three
-    slices of a packed qkv projection are read in place) -> [B, N, H, D]
-    float32, contiguous. Differentiable in q, k and v.
+    q, k, v [B, N, H, D], all float32 or all bfloat16, the JAX layout; any
+    strides (the three slices of a packed qkv projection are read in place)
+    -> [B, N, H, D] in their type, contiguous. Differentiable in q, k and v.
     """
     _check(q, k, v)
     return Attention.apply(q, k, v)
@@ -51,8 +70,7 @@ class Attention(torch.autograd.Function):
     def forward(ctx, q, k, v):
         need_grad = any(ctx.needs_input_grad)
         if q.device.type == "cpu":
-            scores = _scores(q, k)
-            out = _weighted_sum(torch.softmax(scores, dim=-1), v)
+            out, scores = _forward_plain(q, k, v)
             if need_grad:
                 lse = torch.logsumexp(scores, dim=-1)
         elif need_grad:
@@ -73,9 +91,11 @@ class Attention(torch.autograd.Function):
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"attention: {name}: expected float32, got {t.dtype}")
+    if q.dtype not in _KERNELS_BY_DTYPE:
+        raise TypeError(f"attention: q: expected float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"attention: {name}: expected {q.dtype} as q, got {t.dtype}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"attention: expected three [B, N, H, D] tensors of one shape, got "
@@ -92,13 +112,32 @@ def _weighted_sum(p: torch.Tensor, v: torch.Tensor, einsum=torch.einsum) -> torc
     return einsum("bhqk,bkhd->bqhd", p, v).contiguous()
 
 
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to bf16 (nearest even) and back: an operand of a
+    bf16 product."""
+    return x.to(torch.bfloat16).float()
+
+
+def _forward_plain(q, k, v, einsum=torch.einsum):
+    """(output, the float32 scaled scores) of the plain attention."""
+    if q.dtype != torch.bfloat16:
+        scores = _scores(q, k, einsum)
+        return _weighted_sum(torch.softmax(scores, dim=-1), v, einsum), scores
+    scores = _scores(q.float(), k.float(), einsum)
+    p = _bf16_round(torch.softmax(scores, dim=-1))
+    return _weighted_sum(p, v.float(), einsum).to(torch.bfloat16), scores
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     einsum=torch.einsum) -> torch.Tensor:
     """Plain PyTorch attention: the [B, H, N, N] scores, scaled by 1/sqrt(D),
-    a softmax over the keys, and the weighted sum of v, all in the inputs'
-    type. ``einsum`` computes the two products (the tests pass
-    :func:`einsum_3xtf32`, the kernels' arithmetic)."""
-    return _weighted_sum(torch.softmax(_scores(q, k, einsum), dim=-1), v, einsum)
+    a softmax over the keys, and the weighted sum of v. float32 inputs are
+    computed in float32; bfloat16 inputs as ``jax.nn.dot_product_attention``
+    computes them: in float32 from the bf16 values, with the probabilities
+    rounded to bf16 before the second product and the output rounded to
+    bf16. ``einsum`` computes the two products (the tests pass
+    :func:`einsum_3xtf32`, the float32 kernels' arithmetic)."""
+    return _forward_plain(q, k, v, einsum)[0]
 
 
 def attention_backward_plain(q, k, v, out, lse, grad_out, einsum=torch.einsum):
@@ -109,7 +148,13 @@ def attention_backward_plain(q, k, v, out, lse, grad_out, einsum=torch.einsum):
     scaled scores, ``grad_out`` [B, N, H, D]. With P = exp(S - lse),
     delta_i = sum_d out * grad_out, dP = grad_out . v^T and
     dS = P * (dP - delta): dv = P^T . grad_out, dq = dS . k / sqrt(D),
-    dk = dS^T . q / sqrt(D). ``einsum`` computes the five products."""
+    dk = dS^T . q / sqrt(D). ``einsum`` computes the five products.
+
+    bfloat16 inputs are computed in float32 from their values; P and dS are
+    rounded to bf16 where they enter a product, as the kernels round them,
+    and dq, dk, dv to bf16 at the end."""
+    if q.dtype == torch.bfloat16:
+        return _backward_plain_bf16(q, k, v, out, lse, grad_out, einsum)
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(_scores(q, k, einsum) - lse.unsqueeze(-1))
     dv = einsum("bhqk,bqhd->bkhd", p, grad_out)
@@ -119,6 +164,19 @@ def attention_backward_plain(q, k, v, out, lse, grad_out, einsum=torch.einsum):
     dq = einsum("bhqk,bkhd->bqhd", ds, k) * scale
     dk = einsum("bhqk,bqhd->bkhd", ds, q) * scale
     return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+def _backward_plain_bf16(q, k, v, out, lse, grad_out, einsum=torch.einsum):
+    q, k, v, out, g = (t.float() for t in (q, k, v, out, grad_out))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, einsum) - lse.unsqueeze(-1))
+    dv = einsum("bhqk,bqhd->bkhd", _bf16_round(p), g)
+    dp = einsum("bqhd,bkhd->bhqk", g, v)
+    delta = (out * g).sum(-1).transpose(1, 2)  # [B, H, N]
+    ds = _bf16_round(p * (dp - delta.unsqueeze(-1)))
+    dq = einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    return tuple(t.to(torch.bfloat16).contiguous() for t in (dq, dk, dv))
 
 
 def _tf32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -154,15 +212,18 @@ def einsum_3xtf32(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """t as the kernel reads it: [H, D] contiguous inside a row, the batch
-    stride N rows, rows 16-byte aligned. A packed-qkv slice and its window
-    fold pass as they are; anything else is copied."""
+    stride N rows, rows 16-byte aligned (a row stride of a multiple of 4
+    float32 or 8 bf16 elements). A packed-qkv slice and its window fold pass
+    as they are; anything else is copied into a fresh, aligned buffer (a
+    contiguous view off 16-byte alignment too, which ``.contiguous()`` would
+    hand back as it is)."""
     _, n, h, d = t.shape
     ok = (
         t.stride(3) == 1 and t.stride(2) == d and t.stride(1) >= h * d
-        and t.stride(0) == n * t.stride(1) and t.stride(1) % 4 == 0
+        and t.stride(0) == n * t.stride(1) and t.stride(1) * t.element_size() % 16 == 0
         and t.data_ptr() % 16 == 0
     )
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -176,21 +237,23 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(
             f"attention kernel takes a head width of {FLASH_HEAD_DIMS}, got D={d}"
         )
-    if b * h * ((n + 63) // 64) >= 2**31:
+    # the bf16 dk/dv kernel splits a key tile's channels over up to 4 blocks
+    if b * h * ((n + 63) // 64) * 4 >= 2**31:
         raise ValueError(f"attention kernel takes < 2^31 blocks, got {tuple(q.shape)}")
 
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    need_lse: bool = False):
-    """Flash-attention kernel wrapper: one launch (csrc/flash_attn.cu) ->
-    the output, or with ``need_lse`` (output, lse [B, H, N] float32)."""
+    """Flash-attention kernel wrapper: one launch (csrc/flash_attn.cu in
+    float32, flash_attn_bf16.cu in bfloat16) -> the output in q's type, or
+    with ``need_lse`` (output, lse [B, H, N] float32)."""
     _check_cuda(q, k, v)
     b, n, h, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if need_lse else None
     if out.numel():
         q, k, v = _rows(q), _rows(k), _rows(v)
-        _kernels.FLASH_ATTN.launch(
+        _KERNELS_BY_DTYPE[q.dtype][0].launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if need_lse else None, b, n, h, d,
             q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
@@ -198,29 +261,41 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if need_lse else out
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned, as the backward kernels read the
+    output and its gradient (16-byte loads and ``cp.async``): t itself where
+    it is, else a copy (``.contiguous()`` would hand back a contiguous view
+    off alignment as it is)."""
+    ok = t.is_contiguous() and t.data_ptr() % 16 == 0
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_saved(**tensors) -> None:
-    """Raise unless each name=(tensor, shape) is a contiguous float32 CUDA
-    tensor of that shape."""
-    for name, (t, shape) in tensors.items():
-        _kernels.check_tensor(f"attention backward: {name}", t, torch.float32, len(shape))
+    """Raise unless each name=(tensor, shape, dtype) is a contiguous, 16-byte
+    aligned CUDA tensor of that shape and type."""
+    for name, (t, shape, dtype) in tensors.items():
+        _kernels.check_tensor(f"attention backward: {name}", t, dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(
                 f"attention backward: {name}: expected {shape}, got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"attention backward: {name}: expected 16-byte alignment")
 
 
 def attention_backward_dq_cuda(q, k, v, out, lse, grad_out):
-    """The dq kernel's wrapper: one launch (csrc/flash_attn_bwd.cu) ->
-    (dq [B, N, H, D], delta [B, H, N]), delta_i = sum_d out * grad_out, which
-    the dk/dv kernel reads."""
+    """The dq kernel's wrapper: one launch (csrc/flash_attn_bwd.cu, or
+    flash_attn_bwd_bf16.cu in bfloat16) -> (dq [B, N, H, D] in q's type,
+    delta [B, H, N] float32), delta_i = sum_d out * grad_out, which the dk/dv
+    kernel reads."""
     _check_cuda(q, k, v)
     b, n, h, d = q.shape
-    _check_saved(out=(out, (b, n, h, d)), grad_out=(grad_out, (b, n, h, d)),
-                 lse=(lse, (b, h, n)))
-    dq = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    _check_saved(out=(out, (b, n, h, d), q.dtype), grad_out=(grad_out, (b, n, h, d), q.dtype),
+                 lse=(lse, (b, h, n), torch.float32))
+    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     if dq.numel():
         q, k, v = _rows(q), _rows(k), _rows(v)
-        _kernels.FLASH_ATTN_BWD_DQ.launch(
+        _KERNELS_BY_DTYPE[q.dtype][1].launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), b, n, h, d,
             q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
@@ -229,17 +304,18 @@ def attention_backward_dq_cuda(q, k, v, out, lse, grad_out):
 
 
 def attention_backward_dkv_cuda(q, k, v, lse, delta, grad_out):
-    """The dk/dv kernel's wrapper: one launch (csrc/flash_attn_bwd.cu) ->
-    (dk, dv), each [B, N, H, D]; ``delta`` is the dq kernel's."""
+    """The dk/dv kernel's wrapper: one launch (csrc/flash_attn_bwd.cu, or
+    flash_attn_bwd_bf16.cu in bfloat16) -> (dk, dv), each [B, N, H, D] in
+    q's type; ``delta`` is the dq kernel's."""
     _check_cuda(q, k, v)
     b, n, h, d = q.shape
-    _check_saved(grad_out=(grad_out, (b, n, h, d)), lse=(lse, (b, h, n)),
-                 delta=(delta, (b, h, n)))
-    dk = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
-    dv = torch.empty((b, n, h, d), dtype=torch.float32, device=q.device)
+    _check_saved(grad_out=(grad_out, (b, n, h, d), q.dtype),
+                 lse=(lse, (b, h, n), torch.float32), delta=(delta, (b, h, n), torch.float32))
+    dk = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     if dk.numel():
         q, k, v = _rows(q), _rows(k), _rows(v)
-        _kernels.FLASH_ATTN_BWD_DKV.launch(
+        _KERNELS_BY_DTYPE[q.dtype][2].launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, d,
             q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
@@ -250,7 +326,7 @@ def attention_backward_dkv_cuda(q, k, v, lse, delta, grad_out):
 def attention_backward_cuda(q, k, v, out, lse, grad_out):
     """Backward of attention on the card: the dq kernel, then the dk/dv
     kernel on the delta it wrote -> (dq, dk, dv)."""
-    grad_out = grad_out.contiguous()
+    out, grad_out = _dense(out), _dense(grad_out)
     dq, delta = attention_backward_dq_cuda(q, k, v, out, lse, grad_out)
     dk, dv = attention_backward_dkv_cuda(q, k, v, lse, delta, grad_out)
     return dq, dk, dv

@@ -6,12 +6,14 @@ scalar writer, code snapshot, Adam(wd=1e-4) with L2 in the gradient,
 lr schedulers with warmup, optional EMA of the weights, class weights from
 the label histogram, per-epoch validation with the metric suite, and
 best/latest checkpoints. Metrics stay on the device during an epoch and are
-fetched once at its end. The model computes in full float32: TF32 is turned
-off on CUDA.
+fetched once at its end. The model computes in full float32 (TF32 is
+turned off on CUDA) unless its own options say otherwise (the PTv3 family's
+``compute_dtype`` and ``stream_dtype``). ``train.accum_steps`` > 1 splits
+each batch into that many equal microbatches with one optimizer step
+(:func:`make_train_step`).
 
-Not ported yet (ROADMAP.md): a device mesh (``parallel``), gradient
-accumulation (``accum_steps``) and multi-step dispatch
-(``steps_per_dispatch``); each raises NotImplementedError.
+Not ported yet (ROADMAP.md): a device mesh (``parallel``) and multi-step
+dispatch (``steps_per_dispatch``); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,12 +65,21 @@ def loss_fn_for(loss_cfg) -> Callable:
     return fn
 
 
-def make_train_step(model: torch.nn.Module, loss_cfg, optimizer) -> Callable:
+def make_train_step(model: torch.nn.Module, loss_cfg, optimizer,
+                    accum_steps: int = 1) -> Callable:
     """step(batch, lr, class_weights) -> {"loss", "acc"} as device tensors.
 
     One forward in train mode (BatchNorm batch statistics, running stats
     updated, dropout on), one backward, one optimizer step at ``lr``. The
     gradients stay in each parameter's ``.grad`` until the next step.
+
+    With ``accum_steps`` > 1 (the counterpart of the JAX package's
+    ``make_accum_train_step``, loop.py:257-322) the batch splits into that
+    many equal microbatches, each a forward and a backward in turn: the
+    BatchNorm running statistics chain from one microbatch to the next, the
+    gradient is the mean of the microbatch gradients (each backward adds
+    its loss's gradient over ``accum_steps``), and one optimizer step
+    follows. The loss and accuracy are the means over the microbatches.
     """
     loss_fn = loss_fn_for(loss_cfg)
 
@@ -76,15 +87,24 @@ def make_train_step(model: torch.nn.Module, loss_cfg, optimizer) -> Callable:
         model.train()
         for group in optimizer.param_groups:
             group["lr"] = lr
-        xyz, labels = batch["points"], batch["labels"]
-        logits = model(xyz, batch["colors"])
-        loss = loss_fn(logits, labels, xyz, class_weights)
+        xyz, colors, labels = batch["points"], batch["colors"], batch["labels"]
+        if xyz.shape[0] % accum_steps:
+            raise ValueError(
+                f"batch of {xyz.shape[0]} does not split into {accum_steps} microbatches")
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        losses, accs = [], []
+        for mb in range(accum_steps):
+            rows = slice(mb * xyz.shape[0] // accum_steps, (mb + 1) * xyz.shape[0] // accum_steps)
+            logits = model(xyz[rows], colors[rows])
+            loss = loss_fn(logits, labels[rows], xyz[rows], class_weights)
+            (loss if accum_steps == 1 else loss / accum_steps).backward()
+            losses.append(loss.detach())
+            with torch.no_grad():
+                accs.append((logits.argmax(-1) == labels[rows]).float().mean())
         optimizer.step()
-        with torch.no_grad():
-            acc = (logits.argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "acc": acc}
+        if accum_steps == 1:
+            return {"loss": losses[0], "acc": accs[0]}
+        return {"loss": torch.stack(losses).mean(), "acc": torch.stack(accs).mean()}
 
     return step
 
@@ -162,13 +182,13 @@ def _check_single_device(config: Config) -> None:
             f"parallel.mode '{config.parallel.mode}' over {ndev} devices is not "
             "ported yet; ROADMAP.md Queue 1, \"Parallel layer\""
         )
-    # the ROADMAP.md Queue 1 item that holds each knob, by its title
-    for knob, item in (("accum_steps", "ptv3_moe and the PTv3 options"),
-                       ("steps_per_dispatch", "Engine options")):
-        if int(getattr(tcfg, knob, 1)) > 1:
-            raise NotImplementedError(
-                f"train.{knob} > 1 is not ported yet; ROADMAP.md Queue 1, \"{item}\""
-            )
+    if int(getattr(tcfg, "steps_per_dispatch", 1)) > 1:
+        if int(getattr(tcfg, "accum_steps", 1)) > 1:  # as the JAX trainer (loop.py:404-406)
+            raise ValueError("steps_per_dispatch and accum_steps are mutually exclusive")
+        raise NotImplementedError(
+            "train.steps_per_dispatch > 1 is not ported yet; ROADMAP.md Queue 1, "
+            "\"Engine options\""
+        )
 
 
 def train(
@@ -252,7 +272,8 @@ def train(
     class_weights = L.class_weights_from_counts(counts).to(device)
     logger.info(f"class weights: {class_weights.cpu().numpy()}")
 
-    train_step = make_train_step(model, config.loss, optimizer)
+    train_step = make_train_step(model, config.loss, optimizer,
+                                 max(1, int(getattr(tcfg, "accum_steps", 1))))
     eval_step = make_eval_step(model, mcfg.num_classes)
 
     def put_batch(b):

@@ -16,10 +16,15 @@ model says which flax module becomes which prefix of the state_dict:
     so the port names its layers after the flax modules and a prefix is the
     flax path joined with dots. Dense kernel [I, O] -> weight [O, I]; a
     Dense without a bias has none on either side.
-  - The PTv3 family (``ptv3_rules``, ``ptv3_pooled_rules``) is named after
-    the flax modules too; one block table (``_ptv3_block``) serves both
-    models. The tables depend on the depths: the registry names stand for
-    the registry's default models, another depth passes its own table.
+  - The PTv3 family (``ptv3_rules``, ``ptv3_pooled_rules``,
+    ``ptv3_moe_rules``) is named after the flax modules too; one block table
+    (``_ptv3_block``) serves all three models. The tables depend on the
+    depths: the registry names stand for the registry's default models,
+    another depth passes its own table. A MoE block's ``moe_mlp`` keeps its
+    stacked ``experts_*`` leaves as stored (kind "experts") and its
+    ``router`` is a Dense without a bias. ``remat`` and the dtype options
+    change no name: the flax tree is the same under ``nn.remat``, and the
+    parameters stay float32.
   - DGCNN and DGCNNGlobal (``dgcnn_rules``, ``dgcnn_global_rules``) carry
     the reference torch names of the JAX package's ``_rules_dgcnn``
     (utils/torch_import.py:271-290) and ``_rules_dgcnn_global`` (:167-181):
@@ -51,9 +56,11 @@ import torch
 
 # (torch prefix, flax path, kind); kind is "conv2d", "conv2d_featfirst" (a
 # Conv2d whose input columns are [features, rel-xyz]), "conv1d", "dense",
-# "linear" (the reference's nn.Linear: a Dense under a reference name), "bn"
-# or "ln"
+# "linear" (the reference's nn.Linear: a Dense under a reference name), "bn",
+# "ln" or "experts" (a MoE feed-forward's stacked expert leaves, as stored)
 Rule = Tuple[str, Tuple[str, ...], str]
+EXPERT_LEAVES = ("experts_proj_kernel", "experts_proj_bias", "experts_out_kernel",
+                 "experts_out_bias")
 
 
 def _shared_mlp(tprefix: str, fprefix: Tuple[str, ...], depth: int, conv: str) -> List[Rule]:
@@ -164,23 +171,31 @@ def bristrunet_rules() -> List[Rule]:
     return _by_flax_path(layers)
 
 
-def _ptv3_block(name: str) -> _Layers:
-    """The layers of one PointTransformerBlock called ``name``."""
+def _ptv3_block(name: str, moe: bool = False) -> _Layers:
+    """The layers of one PointTransformerBlock called ``name``, its
+    feed-forward a Mixture of Experts where ``moe``."""
+    mlp = ([((name, "moe_mlp"), "experts"), ((name, "moe_mlp", "router"), "dense")] if moe
+           else [((name, "mlp", "geglu", "proj"), "dense"), ((name, "mlp", "out"), "dense")])
     return [((name, "norm1"), "ln"), ((name, "attn", "qkv"), "dense"),
-            ((name, "attn", "proj"), "dense"), ((name, "norm2"), "ln"),
-            ((name, "mlp", "geglu", "proj"), "dense"), ((name, "mlp", "out"), "dense")]
+            ((name, "attn", "proj"), "dense"), ((name, "norm2"), "ln")] + mlp
 
 
 _PTV3_HEAD: _Layers = [(("norm",), "ln"), (("head_fc1",), "dense"), (("head_bn",), "bn"),
                        (("head_fc2",), "dense")]
 
 
-def ptv3_rules(depth: int = 8) -> List[Rule]:
+def ptv3_rules(depth: int = 8, moe_every: int = 0) -> List[Rule]:
+    """The flat model; with ``moe_every`` > 0 block i is MoE where
+    i % moe_every == moe_every - 1 (models/ptv3.py)."""
     layers: _Layers = [(("patch_embed",), "dense"), (("patch_norm",), "ln"),
                        (("pos_embed",), "dense")]
     for i in range(depth):
-        layers += _ptv3_block(f"block{i}")
+        layers += _ptv3_block(f"block{i}", moe_every > 0 and i % moe_every == moe_every - 1)
     return _by_flax_path(layers + _PTV3_HEAD)
+
+
+def ptv3_moe_rules(depth: int = 8, moe_every: int = 2) -> List[Rule]:
+    return ptv3_rules(depth, moe_every)
 
 
 def ptv3_pooled_rules(enc_depths: Sequence[int] = (2, 2, 2),
@@ -238,6 +253,7 @@ MODEL_RULES = {
     "bridgeseg": bristrunet_rules,
     "ptv3": ptv3_rules,
     "ptv3_pooled": ptv3_pooled_rules,
+    "ptv3_moe": ptv3_moe_rules,
     "dgcnn": dgcnn_rules,
     "dgcnn_global": dgcnn_global_rules,
     "pointnet2_msg": pointnet2_msg_rules,
@@ -274,7 +290,10 @@ def flax_to_state_dict(
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
     for tp, fp, kind in rules_for(model):
-        if kind in ("bn", "ln"):
+        if kind == "experts":
+            for leaf in EXPERT_LEAVES:
+                sd[f"{tp}.{leaf}"] = _leaf(params, fp + (leaf,))
+        elif kind in ("bn", "ln"):
             sd[f"{tp}.weight"] = _leaf(params, fp + ("scale",))
             sd[f"{tp}.bias"] = _leaf(params, fp + ("bias",))
             if kind == "bn":
@@ -309,7 +328,11 @@ def state_dict_to_flax(
 
     names = {"weight": "scale", "bias": "bias"}
     for tp, fp, kind in rules_for(model):
-        if kind in ("bn", "ln"):
+        if kind == "experts":
+            for leaf in EXPERT_LEAVES:
+                if f"{tp}.{leaf}" in sd:
+                    put(out["params"], fp + (leaf,), sd[f"{tp}.{leaf}"])
+        elif kind in ("bn", "ln"):
             for key, leaf in names.items():
                 if f"{tp}.{key}" in sd:
                     put(out["params"], fp + (leaf,), sd[f"{tp}.{key}"])

@@ -383,7 +383,7 @@ def test_infer_cli_refuses_a_model_not_ported(cli_run):
     from pointcloud_bridge_tpu_torch import infer_cli
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        infer_cli.main(["blocks", "--checkpoint", cli_run["ptv3_pooled"], "--model", "ptv3_moe",
+        infer_cli.main(["blocks", "--checkpoint", cli_run["ptv3_pooled"], "--model", "randlanet",
                         "--data-dir", str(cli_run["data"]), "--device", "cpu"])
 
 

@@ -364,25 +364,59 @@ def test_registry_rules_cover_the_registry_default_model(name):
 @pytest.mark.parametrize("cls,kwargs", [
     (PointTransformerV3, {"sp_axis": "sp"}),
     (PointTransformerV3, {"axis_name": "data"}),
-    (PointTransformerV3, {"compute_dtype": "bfloat16"}),
-    (PointTransformerV3, {"stream_dtype": "bfloat16"}),
-    (PointTransformerV3, {"remat": True}),
-    (PointTransformerV3, {"num_experts": 8}),
-    (PointTransformerV3, {"moe_every": 1}),
     (PointTransformerV3Pooled, {"sp_axis": "sp"}),
-    (PointTransformerV3Pooled, {"stream_dtype": "bfloat16"}),
-    (PointTransformerV3Pooled, {"remat": True}),
-    (PointTransformerBlock, {"dim": 32, "num_heads": 2, "num_experts": 4}),
-    (PointTransformerBlock, {"dim": 32, "num_heads": 2, "dtype": "bfloat16"}),
 ], ids=lambda v: v.__name__ if isinstance(v, type) else "-".join(v))
 def test_unported_arguments_raise(cls, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cls(**kwargs)
 
 
+def _shapes(module):
+    return {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
+@pytest.mark.parametrize("cls,kwargs", [
+    (PointTransformerV3, {"compute_dtype": "bfloat16"}),
+    (PointTransformerV3, {"stream_dtype": "bfloat16"}),
+    (PointTransformerV3, {"remat": True}),
+    (PointTransformerV3, {"num_experts": 8}),
+    (PointTransformerV3, {"moe_every": 1}),
+    (PointTransformerV3Pooled, {"stream_dtype": "bfloat16"}),
+    (PointTransformerV3Pooled, {"remat": True}),
+    (PointTransformerBlock, {"dim": 32, "num_heads": 2, "num_experts": 4}),
+    (PointTransformerBlock, {"dim": 32, "num_heads": 2, "dtype": "bfloat16"}),
+], ids=lambda v: v.__name__ if isinstance(v, type) else "-".join(v))
+def test_ported_arguments_keep_the_parameters(cls, kwargs):
+    """Each option constructs and keeps the float32 model's parameter names
+    and shapes, all float32; a MoE block trades ``mlp`` for ``moe_mlp``."""
+    base = {k: v for k, v in kwargs.items() if k in ("dim", "num_heads")}
+    small = {} if cls is PointTransformerBlock else (
+        dict(embed_dim=32, depth=2, num_heads=2) if cls is PointTransformerV3 else POOLED)
+    got = _shapes(cls(**small, **kwargs))
+    want = _shapes(cls(**small, **base))
+    if "num_experts" not in kwargs:
+        assert got == want
+    else:
+        moe = {k for k in got if ".moe_mlp." in k or k.startswith("moe_mlp.")}
+        assert moe and not any(".mlp." in k or k.startswith("mlp.") for k in moe)
+        assert {k: v for k, v in got.items() if k not in moe} == {
+            k: v for k, v in want.items() if k in got or "mlp" not in k}
+        e = kwargs["num_experts"]
+        assert {v[0] for k, v in got.items() if "experts_" in k} == {e}
+    assert all(p.dtype == torch.float32 for p in cls(**small, **kwargs).parameters())
+
+
 def test_ptv3_moe_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("ptv3_moe", 5)
+    """``ptv3_moe`` is the flat model with 8 experts, top 2, in every other
+    block (1, 3, 5, 7 of 8), at the registry's default width."""
+    model = get_model("ptv3_moe", 5, generator=torch.Generator().manual_seed(0))
+    assert isinstance(model, PointTransformerV3)
+    for i in range(8):
+        block = getattr(model, f"block{i}")
+        assert hasattr(block, "moe_mlp") == (i % 2 == 1), i
+        if i % 2:
+            assert block.moe_mlp.num_experts == 8 and block.moe_mlp.top_k == 2
+            assert block.moe_mlp.capacity_factor == 1.25
 
 
 def test_pooled_refuses_shapes_it_cannot_pool():

@@ -436,11 +436,14 @@ def test_the_family_configs_build_their_models(config, kwargs):
 
 
 def test_remat_in_a_config_goes_on_raising_by_name():
+    """configs/train_ptv3_big_prod.yaml's model_extra builds: 12 blocks of 6
+    heads over 384 channels, a bfloat16 stream and remat, float32
+    parameters; its train section asks for 4 microbatches a step."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = Config.from_yaml(os.path.join(repo, "configs", "train_ptv3_big_prod.yaml"))
-    assert cfg.model.extra["remat"] is True
-    with pytest.raises(NotImplementedError, match="stream_dtype|remat"):
-        get_model(cfg.model.name, cfg.model.num_classes, **cfg.model.extra)
-    extra = {k: v for k, v in cfg.model.extra.items() if k != "stream_dtype"}
-    with pytest.raises(NotImplementedError, match="remat=True"):
-        get_model(cfg.model.name, cfg.model.num_classes, **extra)
+    assert cfg.model.extra["remat"] is True and cfg.train.accum_steps == 4
+    model = get_model(cfg.model.name, cfg.model.num_classes, **cfg.model.extra)
+    assert model.remat and model.stream_dtype == torch.bfloat16 and model.depth == 12
+    assert model.block11.attn.num_heads == 6 and model.block11.norm1.out_dtype == torch.bfloat16
+    assert model.block0.attn.qkv.dtype == torch.bfloat16 and model.patch_embed.dtype is None
+    assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -24,22 +24,27 @@ from pointcloud_bridge_tpu_torch.utils.weights import MODEL_RULES, flax_to_state
 
 from test_torch_ssg import randomize_bn
 
-# the classes the port has, by the name both packages give them
-PORTED_CLASSES = {cls.__name__ for cls in MODEL_REGISTRY.values()}
 SA_NPOINTS = (64, 32, 16)
 
 
 def _jax_class_name(ctor):
-    """The class name behind a JAX registry entry; None for a partial, which
-    is a configuration of a class and not the class itself."""
-    return None if isinstance(ctor, functools.partial) else ctor.__name__
+    """The class name behind a registry entry; a partial, a configuration of
+    a class, by its class and its arguments."""
+    if isinstance(ctor, functools.partial):
+        return ctor.func.__name__, tuple(sorted(ctor.keywords.items()))
+    return ctor.__name__
+
+
+# the classes (and configurations of classes) the port has, by the name
+# both packages give them
+PORTED_CLASSES = {_jax_class_name(ctor) for ctor in MODEL_REGISTRY.values()}
 
 
 @pytest.mark.parametrize("name", sorted(JAX_REGISTRY))
 def test_every_jax_registry_name_resolves_or_raises(name):
     jax_name = _jax_class_name(JAX_REGISTRY[name])
     if jax_name in PORTED_CLASSES:
-        assert MODEL_REGISTRY[name].__name__ == jax_name
+        assert _jax_class_name(MODEL_REGISTRY[name]) == jax_name
         assert name in MODEL_RULES and name not in NOT_PORTED
     else:
         assert name in NOT_PORTED and name not in MODEL_REGISTRY

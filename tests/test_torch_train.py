@@ -280,8 +280,16 @@ def test_train_warm_starts_from_weights_only_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("knob", ["accum_steps", "steps_per_dispatch"])
 def test_unported_engine_options_raise(tmp_path, knob):
+    """steps_per_dispatch is not ported; accum_steps is, and with
+    steps_per_dispatch > 1 it raises as the JAX trainer does
+    (loop.py:404-406)."""
     cfg = _tiny_config(1)
-    setattr(cfg.train, knob, 2)
+    cfg.train.steps_per_dispatch = 2
+    if knob == "accum_steps":
+        cfg.train.accum_steps = 2
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            train(cfg, _tiny_dataset(0), None, exp_dir=str(tmp_path))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train(cfg, _tiny_dataset(0), None, exp_dir=str(tmp_path))
 
