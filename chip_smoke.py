@@ -1975,7 +1975,7 @@ def compare_attention_bf16(dev: torch.device, res: Results) -> None:
         rms_err = diff.square().mean().sqrt().item()
         rms = want.float().square().mean().sqrt().item()
         bands = (tol * want.abs().max().item() + BF16_ATOL, BF16_RMS_TOL * rms + BF16_ATOL)
-        if err > bands[0] or rms_err > bands[1]:
+        if not (err <= bands[0] and rms_err <= bands[1]):  # NaN fails too
             raise AssertionError(f"{name} {label}: max |err| {err} (band {bands[0]}), "
                                  f"rms(err) {rms_err} (band {bands[1]})")
         return err, err / bands[0], rms_err / bands[1]
@@ -2061,8 +2061,19 @@ def compare_attention_bf16(dev: torch.device, res: Results) -> None:
             }
             for name, (ms, times, on) in dev_ms.items():
                 res.add(name, on, "device_ms", times * ms)
+            # host time a call: checks, three or four tensor maps encoded, launch
+            host = {
+                "flash_attn_bf16": host_us(
+                    lambda: attention.attention_cuda(q, k, v, need_lse=need_lse), calls=200),
+                "flash_attn_bwd_dq_bf16": host_us(
+                    lambda: attention.attention_backward_dq_cuda(q, k, v, out, lse, g), calls=200),
+                "flash_attn_bwd_dkv_bf16": host_us(
+                    lambda: attention.attention_backward_dkv_cuda(q, k, v, lse, delta, g),
+                    calls=200),
+            }
             print(f"{'attention bf16':18s} {label:34s} device ms a call: " + ", ".join(
-                f"{name} {ms:.4f}" for name, (ms, _, _) in dev_ms.items()), flush=True)
+                f"{name} {ms:.4f}" for name, (ms, _, _) in dev_ms.items()) + "; host us a call: "
+                + ", ".join(f"{name} {us:.1f}" for name, us in host.items()), flush=True)
         both = time_ms(lambda: attention.attention_backward_cuda(q, k, v, out, lse, g))
         bound = max((10 * size + 2 * stats) / PEAK_BYTES_S, 10 * ops / PEAK_FLOPS_BF16) * 1e3
         print(f"{'attention bf16':18s} {label:34s} dq, dk and dv together: kernels {both:.4f} ms"

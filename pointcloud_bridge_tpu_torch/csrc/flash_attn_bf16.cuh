@@ -1,36 +1,61 @@
 // What the bfloat16 flash-attention forward (flash_attn_bf16.cu) and
-// backward (flash_attn_bwd_bf16.cu) share: the asynchronous staging of a
-// tile of bf16 rows into shared memory and the two tensor-core products
-// over staged tiles, in bf16 with float32 accumulators.
+// backward (flash_attn_bwd_bf16.cu) share: the tile plan, the Hopper copy
+// engine (TMA loads of tiles under mbarriers, the tensor maps that describe
+// them) and the warpgroup products (wgmma) over the tiles.
 //
-// Arithmetic. Every product is mma.sync.aligned.m16n8k16 with bf16 operands
+// Arithmetic. Every product is wgmma.mma_async m64nNk16 with bf16 operands
 // and float32 accumulators: a product of two bf16 numbers is exact in
 // float32, so what a product adds to the float32 rounding of its sum is
-// nothing. No operand is split. Where an operand is computed in float32 (the
-// probabilities P, the gradient dS), it is rounded to bf16, to nearest even,
-// as it enters the second product.
+// nothing. Where an operand is computed in float32 (the probabilities P, the
+// gradient dS), it is rounded to bf16, to nearest even, in registers as it
+// enters the second product.
 //
-// Fragments (PTX ISA, m16n8k16 .bf16; g = lane / 4, t = lane % 4; a 32-bit
-// register holds two bf16, the lower k in the lower half):
-//   A 16 x 16 row-major: a0 = A[g][2t, 2t+1],   a1 = A[g+8][2t, 2t+1],
-//                        a2 = A[g][2t+8, 2t+9], a3 = A[g+8][2t+8, 2t+9]
-//   B 16 x 8 "col":      b0 = B[2t, 2t+1][g],   b1 = B[2t+8, 2t+9][g]
-//   C 16 x 8 float32:    c0 = C[g][2t], c1 = C[g][2t+1], c2 = C[g+8][2t],
-//                        c3 = C[g+8][2t+1]
-// A warp owns 16 rows. In a product of rows by rows (q . k^T), A is a
-// staged tile of 16 rows and B[k][n] row n of the other staged tile at
-// channel k: both fragments are 32-bit loads from the rows as they lie. In
-// the second product (p . v) the C fragments of the first are the A
-// fragment without leaving the registers: the 16 keys of a k-step are the
-// C fragments j = 2s and 2s + 1, so a0 = (c0, c1) of 2s, a1 = (c2, c3) of 2s,
-// a2 = (c0, c1) of 2s + 1, a3 = (c2, c3) of 2s + 1. Its B fragment, B[k][n]
-// = row k of a staged tile at channel n, is the transpose of what lies in
-// shared memory: ldmatrix .trans reads it, four 8 x 8 matrices a call (two
-// channel tiles of 8). A staged row has D + 8 bf16, 4 words more than a
-// multiple of 16 words: the 32-bit loads of a fragment and the eight rows
-// of an ldmatrix matrix then touch 32 different banks.
+// Roles. A block has one or two consumer warpgroups of 64 rows each (warps
+// 0-3 and 4-7), which run the products, and a producer warpgroup after them,
+// of which one thread issues every TMA load (and, in dk/dv, one warp stages
+// the row statistics). A block of 384 threads starts at 168 registers a
+// thread; the producer gives its registers up to the consumers (setmaxnreg:
+// 24 against 240), whose sums need more than 168 from D = 96 up. With the
+// producer in front of the consumers instead, ptxas kept the consumers to
+// 168: they spilled and their products were serialized.
+//
+// Pipeline. Each consumer loop runs a step behind on its second products:
+// step j asks for its first products, then for the second products of step
+// j - 1, and computes step j's softmax or gradient while those run, from
+// the first products' accumulators, which it only reads (ptxas serializes
+// the products where ordinary instructions write an accumulator while a
+// product is in flight, and where a wait is conditional: step 0 is peeled
+// off). A stage goes back to the producer once its second products are
+// done.
+//
+// Tiles in shared memory. A tile of R rows by D bf16 channels lies as D / 32
+// column blocks of R rows by 32 channels (64 bytes a row), each block
+// R * 64 bytes after the one before, with the 64-byte swizzle (the 16-byte
+// chunk c of row r at chunk c ^ ((r / 2) % 4)). One layout serves every D
+// in 32..256: a multiple of 32 is all it asks. A TMA box is {32 channels, R
+// rows, 1 batch row} and lands one column block; the tensor map clips rows
+// past N to zeros. Every tile starts 1024-byte aligned, so the swizzle is
+// the one a wgmma descriptor with base offset 0 reads.
+//
+// Products (PTX ISA, wgmma; g = lane / 4, t = lane % 4, warp w of the
+// warpgroup owns rows 16 w .. 16 w + 15):
+//   accumulator m64nN float32: d[4 j + 2 i + e] = D[16 w + g + 8 i][8 j + 2 t + e]
+//   A from registers, m64k16 bf16: a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1],
+//                                 a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9]
+// so the accumulator of a first product is the A operand of the second
+// without leaving the registers: the 16 keys of a k-step are the column
+// tiles j = 2s and 2s + 1, a = (d[8s], d[8s+1]), (d[8s+2], d[8s+3]),
+// (d[8s+4], d[8s+5]), (d[8s+6], d[8s+7]) rounded to bf16 pairs.
+//  - rows by rows (q . k^T): A and B are tiles as they lie, K-major (the
+//    channels are the contraction); a k-step of 16 channels is 32 bytes
+//    into a 64-byte row, two k-steps a column block.
+//  - weights by rows (p . v): B = the tile of rows is K x N with N (the
+//    channels) contiguous, MN-major: 8 rows of 64 bytes are 512 bytes (the
+//    stride byte offset), the next 32 channels a column block further (the
+//    leading byte offset); a k-step of 16 rows is 1024 bytes.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -41,49 +66,351 @@ namespace flash_bf16 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kPad = 8;  // bf16 added to a staged row (16 bytes)
+constexpr int kRows = 64;         // rows a consumer warpgroup owns
+constexpr int kBox = 32;          // channels a TMA box and a column block
+constexpr int kGroup = 128;       // threads a warpgroup
+constexpr int kMaxThreads = 3 * kGroup;  // two consumer warpgroups and the producer
+constexpr int kAlign = 1024;      // bytes a tile's start is aligned to
 
-// 16 bytes from device to shared memory without passing through registers;
-// zeros where !valid (src must be readable all the same).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+// The tile plan, a row a head width D: keys a forward step, forward ring
+// stages; keys a dq step, dq stages; queries a dk/dv step, dk/dv stages, and
+// whether dk/dv splits its two sums between the consumer warpgroups (1).
+// ops/attention.py BF16_PLAN mirrors it, and the CPU tests hold the two
+// equal and every row within the shared memory a block may have.
+// Registers bound the plan: a consumer thread holds D/2 floats of its
+// output sum a 64-row sum, and BN/2 floats a first product of BN keys.
+// Each kernel's loop runs a step behind on its second products, so a stage
+// is held for two steps and a ring needs three stages for the producer to
+// load ahead.
+//  - forward: the sum O and S: 128 keys a step to D = 96, 64 beyond, 32 at
+//    D = 256 (whose tiles fit four stages only so).
+//  - dq: dq, S and dP: 64 keys to D = 160, 32 beyond.
+//  - dk/dv: dK and dV together are D floats a thread for 64 keys. They fit
+//    beside S^T and dP^T to D = 128 (32 queries a step at 128). From
+//    D = 160 up they do not, and the block's two warpgroups share 64 keys:
+//    one sums dV (it computes S^T and P), the other dK (S^T, dP^T and dS),
+//    D/2 floats each; S^T is computed twice, five products for four.
+#define PCB_BF16_PLAN(X)                  \
+  X(32, 128, 4, 64, 4, 64, 4, 0)         \
+  X(64, 128, 4, 64, 4, 64, 4, 0)         \
+  X(96, 128, 3, 64, 4, 64, 4, 0)         \
+  X(128, 64, 4, 64, 4, 32, 4, 0)         \
+  X(160, 64, 4, 64, 3, 64, 4, 1)         \
+  X(192, 64, 3, 32, 4, 64, 3, 1)         \
+  X(224, 64, 3, 32, 4, 32, 4, 1)         \
+  X(256, 32, 4, 32, 3, 32, 4, 1)
+
+template <int D>
+struct Plan;
+#define PCB_BF16_PLAN_ROW(d, fbn, fst, qbn, qst, kbq, kst, ksplit)  \
+  template <>                                                      \
+  struct Plan<d> {                                                 \
+    static constexpr int fwd_bn = fbn, fwd_stages = fst;           \
+    static constexpr int dq_bn = qbn, dq_stages = qst;             \
+    static constexpr int dkv_bq = kbq, dkv_stages = kst;           \
+    static constexpr bool dkv_split = ksplit != 0;                 \
+  };
+PCB_BF16_PLAN(PCB_BF16_PLAN_ROW)
+#undef PCB_BF16_PLAN_ROW
+
+// bytes of a tile of `rows` rows by d channels
+__host__ __device__ constexpr uint32_t tile_bytes(int rows, int d) {
+  return (uint32_t)rows * d * sizeof(bf16);
 }
 
-// Ask for ROWS rows of D bf16 from row0 on, rows past n as zeros, into dst
-// with row stride D + kPad, by the THREADS threads of the block. src rows
-// are ld elements apart and 16-byte aligned. The caller commits and waits.
-// A thread keeps one column of 8 bf16 and walks down the rows, THREADS /
-// (D / 8) rows a pass.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void stage_tile_async(bf16* __restrict__ dst,
-                                                 const bf16* __restrict__ src,
-                                                 int row0, int n,
-                                                 long long ld) {
-  constexpr int V8 = D / 8;
-  constexpr int LD = D + kPad;
-  constexpr int RP = THREADS / V8;  // rows a pass
-  static_assert(RP >= 1, "a row a pass at least");
-  const int r = threadIdx.x / V8;
-  const int c = (threadIdx.x % V8) * 8;
-  if (r >= RP) return;
-  const bf16* from = src + (size_t)(row0 + r) * ld + c;
-  bf16* to = dst + r * LD + c;
+// Dynamic shared memory of a block: `resident` tiles of 64 rows, a ring of
+// `stages` x 2 tiles of `bn` rows, `stats` floats, the mbarriers (a full and
+// an empty one a stage, one for the resident tiles) and the slack that
+// aligns the first tile.
+__host__ __device__ constexpr size_t smem_bytes(int d, int resident, int bn, int stages,
+                                                int stats) {
+  return kAlign + (size_t)resident * tile_bytes(kRows, d) +
+         (size_t)stages * 2 * tile_bytes(bn, d) + (size_t)stats * sizeof(float) +
+         (size_t)(2 * stages + 1) * sizeof(uint64_t);
+}
+
+// ------------------------------------------------------------ host side
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// The tensor map of one [B, N, H, D] bf16 view with row stride ld (elements;
+// the batch stride is N rows): dims {H * D, N, B}, boxes of {32, rows, 1},
+// the 64-byte swizzle, rows past N read as zeros. A failed encode returns
+// its CUresult (which shares cudaError_t's numbers where both name an
+// error).
+inline cudaError_t rows_map(CUtensorMap* map, const void* base, int b, int n, int hd,
+                            long long ld, int rows) {
+  EncodeTiled fn = nullptr;
+  cudaError_t err = encode_tiled(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)b};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(bf16),
+                                 (cuuint64_t)n * ld * sizeof(bf16)};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : (cudaError_t)res;
+}
+
+// streaming multiprocessors of `device`, read once a device
+inline int sm_count(int device) {
+  static int counts[flash::kDevices] = {};
+  if (device < flash::kDevices && counts[device] > 0) return counts[device];
+  int c = 0;
+  if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) c = 1;
+  if (device < flash::kDevices) counts[device] = c;
+  return c;
+}
+
+// Consumer warpgroups a block: two (128 rows a block) where the grid of
+// 128-row tiles fills every SM at least once, else one (64 rows), so that a
+// small grid (the pooled model's levels) spreads over twice the SMs.
+inline int consumer_groups(int b, int heads, int n, int device) {
+  const long long tiles = (long long)b * heads * ((n + 2 * kRows - 1) / (2 * kRows));
+  return tiles >= sm_count(device) ? 2 : 1;
+}
+
+// ---------------------------------------------------------- device side
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the first kAlign-aligned shared address of the dynamic shared memory
+__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
+  return (smem_u32(smem) + kAlign - 1) & ~(uint32_t)(kAlign - 1);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA copies to come
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// Wait until the phase of parity `parity` has completed. A wait past 2^34
+// cycles (about 9 s) traps: a copy or an arrival that never comes raises a
+// launch error in the caller instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// Ask for the tile of `rows` rows (the map's box) by D channels from
+// (column col, row row, batch row b) into dst, a column block a box, with
+// completion on bar.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int col, int row, int b) {
 #pragma unroll
-  for (int k = 0; k < (ROWS + RP - 1) / RP; ++k) {
-    if (r + k * RP < ROWS) {
-      const bool valid = row0 + r + k * RP < n;
-      // src itself stands in for a row past n: nothing is read from it
-      cp_async16(to + k * RP * LD, valid ? from + (size_t)(k * RP) * ld : src, valid);
+  for (int c = 0; c < D / kBox; ++c) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(dst + c * tile_bytes(ROWS, kBox)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(bar), "r"(col + c * kBox), "r"(row), "r"(b)
+        : "memory");
+  }
+}
+
+// the producer's and the consumers' share of the register file
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+// The backward kernels' two consumer warpgroups issue their products in
+// turns, so that one's gradient runs under the other's products: warpgroup
+// wg waits on named barrier 1 + wg (both warpgroups' 256 threads: its own
+// wait and the other's arrival), issues, and passes the turn to the other.
+// Warpgroup 1 passes once before its loop, warpgroup 0 waits once after its
+// loop, so that every arrival is matched. (In the forward the turns cost
+// 2.5% at the prod shape and are left out.)
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wg) : "memory");
+}
+
+// wgmma shared-memory descriptor, 64-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
+// k-step ks (channels 16 ks .. 16 ks + 15) of a K-major tile of `rows` rows
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int ks) {
+  return descriptor(tile + (ks >> 1) * tile_bytes(rows, kBox) + (ks & 1) * 32, 16);
+}
+
+// k-step ks (rows 16 ks .. 16 ks + 15) of an MN-major tile of `rows` rows
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int ks) {
+  return descriptor(tile + ks * 16 * 64, tile_bytes(rows, kBox));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most PENDING committed groups of products are in flight
+template <int PENDING = 0>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products (after wgmma_wait, before the next use).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define PCB_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define PCB_D16(i) PCB_D4(i), PCB_D4(i + 4), PCB_D4(i + 8), PCB_D4(i + 12)
+#define PCB_R16                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define PCB_R32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define PCB_R64                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d = (acc ? d : 0) + A . B, A and B K-major in shared memory; d holds N/2
+// floats a thread
+__device__ __forceinline__ void ss_n32(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " PCB_R16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : PCB_D16(0)
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void ss_n64(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PCB_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PCB_D16(0), PCB_D16(16)
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void ss_n128(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PCB_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PCB_D16(0), PCB_D16(16), PCB_D16(32), PCB_D16(48)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A . B, A in registers (four bf16 pairs), B MN-major in shared memory
+__device__ __forceinline__ void rs_n32(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " PCB_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : PCB_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void rs_n64(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PCB_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PCB_D16(0), PCB_D16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef PCB_D4
+#undef PCB_D16
+#undef PCB_R16
+#undef PCB_R32
+#undef PCB_R64
+
+// s (N/2 floats) = a . b^T over D channels: a the warpgroup's 64 rows, b a
+// tile of N rows, both K-major tiles in shared memory. Issued, not waited.
+template <int D, int N>
+__device__ __forceinline__ void dot_rows(float (&s)[N / 2], uint32_t a, uint32_t b) {
+  static_assert(N == 32 || N == 64 || N == 128, "N = 32, 64 or 128");
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint64_t da = k_major(a, kRows, ks), db = k_major(b, N, ks);
+    if constexpr (N == 128) {
+      ss_n128(s, da, db, ks > 0);
+    } else if constexpr (N == 64) {
+      ss_n64(s, da, db, ks > 0);
+    } else {
+      ss_n32(s, da, db, ks > 0);
     }
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// 2^x in float32 on the SFU (ex2.approx.ftz: within 2 ulp, as exp2f; a
+// result below 2^-126 is 0, where exp2f would take extra instructions to
+// keep it subnormal)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two float32 -> two bf16 in one register, lo in the lower half (nearest even)
@@ -92,78 +419,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices, transposed: lane l names row l % 8 of matrix
-// l / 8 by its address (16-byte aligned); r[m] is then, for every lane,
-// (M_m[2t][g], M_m[2t + 1][g]), a B fragment half of m16n8k16.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// acc[j] = rows 0..15 of sa times rows 8j..8j+7 of sb, transposed, over the
-// channels [0, KD): the 16 x 8 tile C[r][c] = sum_d sa[r][d] * sb[8j + c][d].
-// sa and sb point at the first row and channel to use; LD is the row stride.
-template <int LD, int NT, int KD>
-__device__ __forceinline__ void dot_rows(const bf16* __restrict__ sa,
-                                         const bf16* __restrict__ sb, int g,
-                                         int t, float (&acc)[NT][4]) {
-  static_assert(KD % 16 == 0, "channels in steps of 16");
-  const bf16* pa = sa + g * LD + 2 * t;
-  const bf16* pb = sb + g * LD + 2 * t;
+// The A operand of a second product from the accumulator of a first one
+// (K/2 floats a thread over K columns), rounded to bf16: a[s] is k-step s.
+template <int K>
+__device__ __forceinline__ void to_operand(const float (&w)[K / 2], uint32_t (&a)[K / 16][4]) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int s = 0; s < K / 16; ++s) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < KD; k += 16) {
-    const uint32_t a[4] = {ld32(pa + k), ld32(pa + 8 * LD + k), ld32(pa + k + 8),
-                           ld32(pa + 8 * LD + k + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* b = pb + 8 * j * LD + k;
-      mma_bf16(acc[j], a, ld32(b), ld32(b + 8));
-    }
+    for (int r = 0; r < 4; ++r) a[s][r] = pack_bf16(w[8 * s + 2 * r], w[8 * s + 2 * r + 1]);
   }
 }
 
-// acc[c] += w . x: w is 16 rows by 8 * NT weights as the C fragments of
-// dot_rows hold them (w[j] covers the staged rows 8j..8j+7 of sx), rounded
-// here to bf16; sx the staged tile of those rows, from its first channel
-// to use; acc[c] the 16 x 8 tile of channels 8c..8c+7, NCH tiles (even).
-template <int LD, int NT, int NCH>
-__device__ __forceinline__ void weighted_rows(const float (&w)[NT][4],
-                                              const bf16* __restrict__ sx,
-                                              int lane, float (&acc)[NCH][4]) {
-  static_assert(NT % 2 == 0 && NCH % 2 == 0, "k-steps of 16 rows, pairs of tiles");
-  // lane l addresses row l % 16 of a k-step, channel tile 2c + l / 16
-  const bf16* px = sx + (lane & 15) * LD + 8 * (lane >> 4);
+// acc (N/2 floats a thread over N channels) += w . x: w the A operand of K
+// rows (to_operand), x the MN-major tile of those K rows (`rows` rows in
+// all) from its first channel on. Issued after a fence; the caller commits
+// (a group, empty where a fault planted by probes/bf16_fault_probe.py
+// skips the call) and waits.
+template <int N, int K>
+__device__ __forceinline__ void weighted_rows(float (&acc)[N / 2], const uint32_t (&w)[K / 16][4],
+                                              uint32_t x, int rows) {
+  wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < NT / 2; ++s) {
-    const uint32_t a[4] = {pack_bf16(w[2 * s][0], w[2 * s][1]),
-                           pack_bf16(w[2 * s][2], w[2 * s][3]),
-                           pack_bf16(w[2 * s + 1][0], w[2 * s + 1][1]),
-                           pack_bf16(w[2 * s + 1][2], w[2 * s + 1][3])};
+  for (int s = 0; s < K / 16; ++s) {
+    const uint64_t b = mn_major(x, rows, s);
+    const uint64_t block = tile_bytes(rows, kBox) >> 4;  // a column block, in 16 bytes
 #pragma unroll
-    for (int c = 0; c < NCH; c += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, px + 16 * s * LD + 8 * c);
-      mma_bf16(acc[c], a, b[0], b[1]);
-      mma_bf16(acc[c + 1], a, b[2], b[3]);
-    }
+    for (int c = 0; c < N / 64; ++c) rs_n64(acc + 32 * c, w[s], b + 2 * c * block);
+    if constexpr (N % 64 != 0) rs_n32(acc + 32 * (N / 64), w[s], b + 2 * (N / 64) * block);
   }
 }
 

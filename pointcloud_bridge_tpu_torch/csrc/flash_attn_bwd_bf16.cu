@@ -28,36 +28,38 @@
 // 18*B*N*H*D bytes); at the dense bf16 tensor rate the arithmetic is the
 // floor from N = 530 up.
 //
-// Design: the float32 kernels' owner design (flash_attn_bwd.cu): two
-// kernels and no atomics, so the result is the same bits from run to run;
-// each block owns its output rows and loops over the other side, which
-// arrives in a ring of two buffers filled by cp.async under the arithmetic
-// of the step before; a warp owns 16 rows; every product runs on the tensor
-// cores, the second product of a step straight from the float32 fragments
-// of the first, rounded to bf16.
-//  - pcb_flash_attn_bwd_dq_bf16: a block owns a (batch, head) and 64 query
-//    rows, keeps their q and do tiles in shared memory and loops over the
-//    key tiles (k and v in the ring). Its prologue computes delta for its
-//    rows (o against do, a warp a row) and writes it for the dk/dv kernel,
-//    which therefore runs after it on the same stream. A step: S = q . k^T
-//    and dP = do . v^T as float32 fragments, dS = P * (dP - delta) in
-//    place, dq += bf16(dS) . k.
-//  - pcb_flash_attn_bwd_dkv_bf16: a block owns a (batch, head), 64 keys and
-//    DH = D / CS of the output channels; it keeps the k and v tiles in
-//    shared memory and loops over the query tiles (q and do in the ring,
-//    with their lse and delta). It computes the transposed tiles
-//    S^T = k . q^T and dP^T = v . do^T over all D channels, then
-//    dv += bf16(P^T) . do and dk += bf16(dS^T) . q over its DH channels.
-//    Where D > 64 the CS blocks of a key tile each recompute S and dP
-//    (CS = 2 to D = 224, 4 at 256), so that a thread holds D/CS sums and no
-//    block needs another's scores: the two first products are done CS
-//    times, a price paid for sums that fit the registers without the
-//    float32 kernels' exchange between warps.
-// The streamed side is 64 rows a step at D <= 64 and 32 beyond.
+// Design: the owner design of the float32 kernels (flash_attn_bwd.cu), two
+// kernels and no atomics, so the result is the same bits from run to run,
+// on the forward's machinery (flash_attn_bf16.cuh): a producer warpgroup
+// whose one thread asks the TMA for the block's resident tiles once and for
+// the streamed tiles into a ring of stages under full and empty mbarriers,
+// and consumer warpgroups of 64 rows that run every product as wgmma, the
+// first products from shared memory, the second from the float32
+// accumulators of the first rounded to bf16 in registers, a step behind
+// (the second products of step j - 1 run while step j's P and dS are
+// computed), the two consumer warpgroups of a block issuing their products
+// in turns (flash_attn_bf16.cuh).
+//  - pcb_flash_attn_bwd_dq_bf16: a block owns a (batch, head) and 128 query
+//    rows (64 where the grid of 128-row tiles would not fill the SMs), keeps
+//    their q and do tiles and streams k and v. Each consumer warp first
+//    computes delta for its 16 rows (o against do, a row at a time, 8
+//    channels a lane) and writes it for the dk/dv kernel, which therefore
+//    runs after it on the same stream. A step: S = q . k^T and dP = do . v^T,
+//    dS = P * (dP - delta) in place, dq += bf16(dS) . k (k MN-major).
+//  - pcb_flash_attn_bwd_dkv_bf16: a block owns a (batch, head) and keys, and
+//    streams q and do; the producer's second warp puts each step's lse
+//    (+inf past N, so that P = exp2(-inf) = 0) and delta into the stage
+//    beside them, under the same full barrier. A step: S^T = k . q^T and dP^T = v . do^T, then
+//    dv += bf16(P^T) . do and dk += bf16(dS^T) . q. To D = 128 a consumer
+//    warpgroup owns 64 keys and both sums (a block 128 keys or 64). From
+//    D = 160 up the two sums (D floats a thread) do not fit its registers
+//    beside S^T and dP^T: a block's two warpgroups share 64 keys, one sums
+//    dv (S^T, P^T), the other dk (S^T, dP^T, dS^T), and S^T is the one
+//    product computed twice (the tile plan, flash_attn_bf16.cuh).
 //
-// Ragged N: staged rows past N are zeros. In dq, keys past N get P = 0 and
-// rows past N are not stored. In dk/dv, query rows past N get lse = +inf,
-// hence P = exp2(-inf) = 0, and key rows past N are not stored.
+// Ragged N: the TMA reads rows past N as zeros. In dq, keys past N get P =
+// 0 and rows past N are not stored. In dk/dv, query rows past N get P = 0
+// from their lse and key rows past N are not stored.
 //
 // The library is built with -fmad=false; a fused operation here is written
 // as fmaf().
@@ -68,349 +70,531 @@
 namespace {
 
 using flash_bf16::bf16;
-using flash_bf16::kPad;
+using flash_bf16::kGroup;
+using flash_bf16::kRows;
+using flash_bf16::Plan;
+using flash_bf16::tile_bytes;
 
-constexpr int kBM = 64;        // rows a block owns (queries in dq, keys in dk/dv)
-constexpr int kThreads = 128;  // a warp a 16 rows
-constexpr int kStages = 2;     // buffers in the ring
-
-constexpr int bwd_step(int d) { return d <= 64 ? 64 : 32; }  // streamed rows a step
-constexpr int dkv_split(int d) { return d <= 64 ? 1 : d <= 224 ? 2 : 4; }
-
-// resident tiles (two of kBM rows) and the ring, in bf16; (dk/dv) the ring
-// of row statistics in float32
-constexpr size_t bwd_smem_bytes(int d, bool stats) {
-  const int bn = bwd_step(d);
-  return (size_t)(2 * kBM + 2 * kStages * bn) * (d + kPad) * sizeof(bf16) +
-         (stats ? (size_t)2 * kStages * bn * sizeof(float) : 0);
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return flash_bf16::smem_bytes(D, 4, Plan<D>::dq_bn, Plan<D>::dq_stages, 0);
 }
 
-template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              const bf16* __restrict__ o,
-                              const bf16* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              bf16* __restrict__ dq, float* __restrict__ delta,
-                              int n, int heads, int tiles, long long ldq,
-                              long long ldk, long long ldv, float scale) {
-  constexpr int LD = D + kPad;
-  constexpr int WARPS = kThreads / 32;
-  constexpr int NT = BN / 8;   // score fragments a warp and step
-  constexpr int NCH = D / 8;   // output fragments a warp
-  constexpr int TILE = BN * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdo = sq + kBM * LD;
-  bf16* ring = sdo + kBM * LD;  // kStages x (k tile, v tile)
+// the resident k and v tiles (two of each without the split, one with it),
+// the ring, and a stage's (lse, delta) of its queries
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return flash_bf16::smem_bytes(D, Plan<D>::dkv_split ? 2 : 4, Plan<D>::dkv_bq,
+                                Plan<D>::dkv_stages, Plan<D>::dkv_stages * 2 * Plan<D>::dkv_bq);
+}
 
+template <int D>
+__global__ void __launch_bounds__(flash_bf16::kMaxThreads, 1)
+flash_attn_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                              const float* __restrict__ lse, bf16* __restrict__ dq,
+                              float* __restrict__ delta, int n, int heads, int tiles,
+                              float scale) {
+  constexpr int BN = Plan<D>::dq_bn;
+  constexpr int STAGES = Plan<D>::dq_stages;
+  constexpr uint32_t kQ = tile_bytes(kRows, D);
+  constexpr uint32_t kKV = tile_bytes(BN, D);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = flash_bf16::aligned_base(smem_raw);  // 2 q tiles
+  const uint32_t sdo = sq + 2 * kQ;                          // 2 do tiles
+  const uint32_t ring = sdo + 2 * kQ;                        // STAGES x (k, v)
+  const uint32_t bars = ring + STAGES * 2 * kKV;
+  const uint32_t resbar = bars + 2 * STAGES * 8;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int groups = blockDim.x / kGroup - 1;
   const int tile = blockIdx.x % tiles;
   const int bh = blockIdx.x / tiles;
   const int b = bh / heads;
   const int h = bh % heads;
-  const int i0 = tile * kBM;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16;  // the warp's first row in the tile
-  const bool active = i0 + r0 < n;
-  const long long ldo = (long long)heads * D;
-
-  const bf16* qb = q + (size_t)b * n * ldq + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * n * ldk + (size_t)h * D;
-  const bf16* vb = v + (size_t)b * n * ldv + (size_t)h * D;
-  const bf16* ob = o + (size_t)b * n * ldo + (size_t)h * D;
-  const bf16* dob = dout + (size_t)b * n * ldo + (size_t)h * D;
-  const size_t stat0 = (size_t)bh * n;
+  const int i0 = tile * kRows * groups;
   const int steps = (n + BN - 1) / BN;
 
-  // the q and do tiles travel with the first k and v tiles
-  flash_bf16::stage_tile_async<D, kBM, kThreads>(sq, qb, i0, n, ldq);
-  flash_bf16::stage_tile_async<D, kBM, kThreads>(sdo, dob, i0, n, ldo);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) {
-      flash_bf16::stage_tile_async<D, BN, kThreads>(ring + 2 * s * TILE, kb, s * BN, n, ldk);
-      flash_bf16::stage_tile_async<D, BN, kThreads>(ring + (2 * s + 1) * TILE, vb, s * BN, n,
-                                                    ldv);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      flash_bf16::mbar_init(full(s), 1);
+      flash_bf16::mbar_init(empty(s), 4 * groups);
     }
-    flash::cp_async_commit();
-  }
-
-  // delta of the block's rows, a warp a row, 8 channels a lane, while the
-  // copies fly; each thread then keeps the statistics of its two rows
-  __shared__ float sdelta[kBM];
-  for (int r = warp; r < kBM; r += WARPS) {
-    const int row = i0 + r;
-    float part = 0.f;
-    if (row < n) {
-      for (int c = 8 * lane; c < D; c += 256) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(ob + (size_t)row * ldo + c);
-        const uint4 gv = *reinterpret_cast<const uint4*>(dob + (size_t)row * ldo + c);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 of = __bfloat1622float2(o2[e]);
-          const float2 gf = __bfloat1622float2(g2[e]);
-          part = fmaf(of.x, gf.x, part);
-          part = fmaf(of.y, gf.y, part);
-        }
-      }
-    }
-#pragma unroll
-    for (int w = 16; w >= 1; w >>= 1) {
-      part += __shfl_xor_sync(0xffffffffu, part, w);
-    }
-    if (lane == 0) {
-      sdelta[r] = part;
-      if (row < n) delta[stat0 + row] = part;
-    }
+    flash_bf16::mbar_init(resbar, 1);
+    flash_bf16::mbar_init_fence();
   }
   __syncthreads();
 
-  // delta and the base-2 lse of rows g and g + 8 of the warp's 16
-  float dl[2], ls[2], acc[NCH][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = i0 + r0 + g + 8 * r;
-    dl[r] = sdelta[r0 + g + 8 * r];
-    ls[r] = row < n ? lse[stat0 + row] * flash::kLog2e : 0.f;
-  }
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-  }
-  const float scale_log2e = scale * flash::kLog2e;
-
-  for (int step = 0; step < steps; ++step) {
-    flash::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int ahead = step + kStages - 1;
-    if (ahead < steps) {
-      bf16* dst = ring + 2 * (ahead % kStages) * TILE;
-      flash_bf16::stage_tile_async<D, BN, kThreads>(dst, kb, ahead * BN, n, ldk);
-      flash_bf16::stage_tile_async<D, BN, kThreads>(dst + TILE, vb, ahead * BN, n, ldv);
-    }
-    flash::cp_async_commit();
-    if (!active) continue;
-
-    const bf16* sk = ring + 2 * (step % kStages) * TILE;
-    const bf16* sv = sk + TILE;
-    const int j0 = step * BN;
-
-    // rows g, g + 8 against keys j0 + 8 j + 2 t, + 1: S = q . k^T, dP = do . v^T
-    float s[NT][4], dp[NT][4];
-    flash_bf16::dot_rows<LD, NT, D>(sq + r0 * LD, sk, g, t, s);
-    flash_bf16::dot_rows<LD, NT, D>(sdo + r0 * LD, sv, g, t, dp);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = j0 + 8 * j + 2 * t + (e & 1) < n;
-        const float p = valid ? exp2f(fmaf(s[j][e], scale_log2e, -ls[e >> 1])) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[e >> 1]);  // dS
+  if (threadIdx.x >= groups * kGroup) {
+    flash_bf16::producer_registers();
+    if (threadIdx.x == groups * kGroup) {
+      flash_bf16::mbar_expect(resbar, 2 * groups * kQ);
+      for (int w = 0; w < groups; ++w) {
+        flash_bf16::load_tile<D, kRows>(sq + w * kQ, &tq, resbar, h * D, i0 + w * kRows, b);
+        flash_bf16::load_tile<D, kRows>(sdo + w * kQ, &tdo, resbar, h * D, i0 + w * kRows, b);
+      }
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % STAGES;
+        flash_bf16::mbar_wait(empty(s), ((step / STAGES) & 1) ^ 1);
+        flash_bf16::mbar_expect(full(s), 2 * kKV);
+        const uint32_t dst = ring + s * 2 * kKV;
+        flash_bf16::load_tile<D, BN>(dst, &tk, full(s), h * D, step * BN, b);
+        flash_bf16::load_tile<D, BN>(dst + kKV, &tv, full(s), h * D, step * BN, b);
       }
     }
-
-    // acc += bf16(dS) . k, from the registers
-    flash_bf16::weighted_rows<LD, NT, NCH>(s, sk, lane, acc);
+    return;
   }
+  flash_bf16::consumer_registers();
+
+  const int wg = threadIdx.x / kGroup;
+  const int warp = threadIdx.x % kGroup / 32;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = i0 + wg * kRows + warp * 16;  // the warp's first row
+  const long long ldo = (long long)heads * D;
+  const size_t stat0 = (size_t)bh * n;
+
+  // delta of the warp's 16 rows, a row at a time, 8 channels a lane, while
+  // the copies fly; each thread keeps those of its rows g and g + 8
+  float dl[2] = {0.f, 0.f};
+  {
+    const bf16* ob = o + (size_t)b * n * ldo + (size_t)h * D;
+    const bf16* dob = dout + (size_t)b * n * ldo + (size_t)h * D;
+    for (int r = 0; r < 16; ++r) {
+      const int row = r0 + r;
+      float part = 0.f;
+      if (row < n) {
+        for (int c = 8 * lane; c < D; c += 256) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(ob + (size_t)row * ldo + c);
+          const uint4 gv = *reinterpret_cast<const uint4*>(dob + (size_t)row * ldo + c);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 gf = __bfloat1622float2(g2[e]);
+            part = fmaf(of.x, gf.x, part);
+            part = fmaf(of.y, gf.y, part);
+          }
+        }
+      }
+#pragma unroll
+      for (int w = 16; w >= 1; w >>= 1) part += __shfl_xor_sync(0xffffffffu, part, w);
+      if (r == g) dl[0] = part;
+      if (r == g + 8) dl[1] = part;
+      if (lane == 0 && row < n) delta[stat0 + row] = part;
+    }
+  }
+  // the base-2 lse of rows g and g + 8
+  float ls[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    ls[r] = row < n ? lse[stat0 + row] * flash::kLog2e : 0.f;
+  }
+  const float scale_log2e = scale * flash::kLog2e;
+  const bool turns = groups == 2;  // the warpgroups' products in turns
+  const uint32_t my_q = sq + wg * kQ;
+  const uint32_t my_do = sdo + wg * kQ;
+  float acc[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+
+  // S = q . k^T and dP = do . v^T of a step (rows g + 8 r against keys j0 +
+  // 8 j + 2 t + e), asked for once the step's tiles are in, not waited
+  auto firsts = [&](int step, float (&s)[BN / 2], float (&dp)[BN / 2]) {
+    const int stage = step % STAGES;
+    const uint32_t sk = ring + stage * 2 * kKV;
+    flash_bf16::mbar_wait(full(stage), (step / STAGES) & 1);
+    if (turns) flash_bf16::turn_wait(wg);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+    flash_bf16::wgmma_fence();
+    flash_bf16::dot_rows<D, BN>(s, my_q, sk);
+    flash_bf16::dot_rows<D, BN>(dp, my_do, sk + kKV);
+    flash_bf16::wgmma_commit();
+  };
+  // dS = P * (dP - delta) of a step into x (s and dp are only read, as in
+  // the forward's softmax)
+  auto grad = [&](int step, const float (&s)[BN / 2], const float (&dp)[BN / 2],
+                  float (&x)[BN / 2], bool ragged) {  // a constant where it is called
+    const int j0 = step * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = !ragged || j0 + 8 * j + 2 * t + (e & 1) < n;
+        const float p =
+            valid ? flash_bf16::exp2_ftz(fmaf(s[4 * j + e], scale_log2e, -ls[e >> 1])) : 0.f;
+        x[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+      }
+    }
+  };
+
+  // The loop runs a step behind on dq += bf16(dS) . k, as the forward does
+  // on p . v: step j asks for S_j and dP_j, then for the second product of
+  // step j - 1, and computes dS_j while that product runs.
+  uint32_t ds[BN / 16][4];  // dS of the step before, bf16, the A operand
+  flash_bf16::mbar_wait(resbar, 0);
+  if (turns && wg == 1) flash_bf16::turn_pass(wg);
+  {
+    float s[BN / 2], dp[BN / 2], x[BN / 2];
+    firsts(0, s, dp);
+    if (turns) flash_bf16::turn_pass(wg);
+    flash_bf16::wgmma_wait<0>();
+    flash_bf16::fence_regs(s);
+    flash_bf16::fence_regs(dp);
+    if (BN > n) {
+      grad(0, s, dp, x, true);
+    } else {
+      grad(0, s, dp, x, false);
+    }
+    flash_bf16::to_operand<BN>(x, ds);
+  }
+  for (int step = 1; step < steps; ++step) {
+    const int prev = (step - 1) % STAGES;
+    const uint32_t sk_prev = ring + prev * 2 * kKV;
+    float s[BN / 2], dp[BN / 2], x[BN / 2];
+    firsts(step, s, dp);
+    // acc += bf16(dS) . k of the step before, from the registers
+    flash_bf16::weighted_rows<D, BN>(acc, ds, sk_prev, BN);
+    flash_bf16::wgmma_commit();
+    if (turns) flash_bf16::turn_pass(wg);
+    flash_bf16::wgmma_wait<1>();
+    flash_bf16::fence_regs(s);
+    flash_bf16::fence_regs(dp);
+    if ((step + 1) * BN > n) {  // keys past N in the step
+      grad(step, s, dp, x, true);
+    } else {
+      grad(step, s, dp, x, false);
+    }
+    flash_bf16::wgmma_wait<0>();
+    flash_bf16::fence_regs(acc);
+    if (lane == 0) flash_bf16::mbar_arrive(empty(prev));
+    flash_bf16::to_operand<BN>(x, ds);
+  }
+  if (turns && wg == 0) flash_bf16::turn_wait(wg);
+  // the last step's second product
+  const uint32_t sk_last = ring + ((steps - 1) % STAGES) * 2 * kKV;
+  flash_bf16::weighted_rows<D, BN>(acc, ds, sk_last, BN);
+  flash_bf16::wgmma_commit();
+  flash_bf16::wgmma_wait<0>();
+  flash_bf16::fence_regs(acc);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = i0 + r0 + g + 8 * r;
+    const int row = r0 + g + 8 * r;
     if (row >= n) continue;
     bf16* dst = dq + (size_t)b * n * ldo + (size_t)row * ldo + (size_t)h * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
+    for (int c = 0; c < D / 8; ++c) {
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
-          __floats2bfloat162_rn(acc[c][2 * r] * scale, acc[c][2 * r + 1] * scale);
+          __floats2bfloat162_rn(acc[4 * c + 2 * r] * scale, acc[4 * c + 2 * r + 1] * scale);
     }
   }
 }
 
-template <int D, int BQ, int CS>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
-                               const bf16* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               bf16* __restrict__ dk, bf16* __restrict__ dv,
-                               int n, int heads, int tiles, long long ldq,
-                               long long ldk, long long ldv, float scale) {
-  constexpr int LD = D + kPad;
-  constexpr int NT = BQ / 8;    // score fragments a warp and step
-  constexpr int DH = D / CS;    // output channels a block
-  constexpr int NCH = DH / 8;   // output fragments a warp and output
-  constexpr int TILE = BQ * LD;
-  static_assert(2 * BQ <= kThreads, "a thread a row statistic");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sv = sk + kBM * LD;
-  bf16* ring = sv + kBM * LD;  // kStages x (q tile, do tile)
-  float* sstat = reinterpret_cast<float*>(ring + 2 * kStages * TILE);  // (lse, delta)
+// What a dk/dv consumer warpgroup needs: its keys' tiles, the ring, its
+// statistics buffers, the barriers and the block's coordinates.
+struct DkvArgs {
+  uint32_t sk, sv, ring, bars, resbar;
+  const float* stats;  // a stage's (lse, delta) of the step's queries, in the ring
+  bf16* dk;
+  bf16* dv;
+  int n, heads, b, h, key0, steps, wg;
+  bool turns;  // two consumer warpgroups, their products in turns
+  float scale;
+};
 
-  const int cs = blockIdx.x % CS;
-  const int tile = blockIdx.x / CS % tiles;
-  const int bh = blockIdx.x / CS / tiles;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int j0 = tile * kBM;
-  const int c0 = cs * DH;  // the block's first output channel
-  const int warp = threadIdx.x >> 5;
+// One consumer warpgroup of the dk/dv kernel over the keys key0 .. key0 +
+// 63: dv's sum where DV, dk's where DK (both without the split).
+template <int D, bool DV, bool DK>
+__device__ __forceinline__ void dkv_consumer(const DkvArgs& a) {
+  constexpr int BQ = Plan<D>::dkv_bq;
+  constexpr int STAGES = Plan<D>::dkv_stages;
+  constexpr uint32_t kQ = tile_bytes(BQ, D);
+  const int warp = threadIdx.x % kGroup / 32;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int r0 = warp * 16;  // the warp's first key in the tile
-  const bool active = j0 + r0 < n;
-  const long long ldo = (long long)heads * D;
+  const float scale_log2e = a.scale * flash::kLog2e;
+  float accv[DV ? D / 2 : 2], acck[DK ? D / 2 : 2];
+#pragma unroll
+  for (int c = 0; c < (DV ? D / 2 : 2); ++c) accv[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < (DK ? D / 2 : 2); ++c) acck[c] = 0.f;
 
-  const bf16* qb = q + (size_t)b * n * ldq + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * n * ldk + (size_t)h * D;
-  const bf16* vb = v + (size_t)b * n * ldv + (size_t)h * D;
-  const bf16* dob = dout + (size_t)b * n * ldo + (size_t)h * D;
-  const size_t stat0 = (size_t)bh * n;
-  const int steps = (n + BQ - 1) / BQ;
-
-  // Ask for the q and do tiles of a step and store its row statistics: the
-  // base-2 lse (+inf for a row past N, so that P = exp2(-inf) = 0) by the
-  // first BQ threads, delta by the next BQ. A plain store: it is read a
-  // __syncthreads() later at the earliest.
-  auto stage = [&](int step) {
-    bf16* dst = ring + 2 * (step % kStages) * TILE;
-    flash_bf16::stage_tile_async<D, BQ, kThreads>(dst, qb, step * BQ, n, ldq);
-    flash_bf16::stage_tile_async<D, BQ, kThreads>(dst + TILE, dob, step * BQ, n, ldo);
-    float* st = sstat + 2 * (step % kStages) * BQ;
-    if (threadIdx.x < BQ) {
-      const int row = step * BQ + threadIdx.x;
-      st[threadIdx.x] = row < n ? lse[stat0 + row] * flash::kLog2e : INFINITY;
-    } else if (threadIdx.x < 2 * BQ) {
-      const int row = step * BQ + threadIdx.x - BQ;
-      st[threadIdx.x] = row < n ? delta[stat0 + row] : 0.f;
+  // S^T = k . q^T and dP^T = v . do^T of a step (keys g + 8 r against
+  // queries 8 j + 2 t + e of the step), asked for once the step's tiles
+  // and statistics are in, not waited
+  auto firsts = [&](int step, float (&s)[BQ / 2], float (&dp)[DK ? BQ / 2 : 2]) {
+    const int stage = step % STAGES;
+    const uint32_t sq = a.ring + stage * 2 * kQ;
+    flash_bf16::mbar_wait(a.bars + 8 * stage, (step / STAGES) & 1);
+    if (a.turns) flash_bf16::turn_wait(a.wg);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = 0.f;
+    if constexpr (DK) {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) dp[i] = 0.f;
+    }
+    flash_bf16::wgmma_fence();
+    flash_bf16::dot_rows<D, BQ>(s, a.sk, sq);
+    if constexpr (DK) flash_bf16::dot_rows<D, BQ>(dp, a.sv, sq + kQ);
+    flash_bf16::wgmma_commit();
+  };
+  // P^T into x, dS^T = P^T * (dP^T - delta) into y (s and dp are only read)
+  auto grads = [&](int step, const float (&s)[BQ / 2], const float (&dp)[DK ? BQ / 2 : 2],
+                   float (&x)[BQ / 2], float (&y)[DK ? BQ / 2 : 2]) {
+    const float* st = a.stats + (step % STAGES) * 2 * BQ;  // lse, delta
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+      const float2 dlq = *reinterpret_cast<const float2*>(st + BQ + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = flash_bf16::exp2_ftz(fmaf(s[4 * j + e], scale_log2e, e & 1 ? -lq.y : -lq.x));
+        x[4 * j + e] = p;
+        if constexpr (DK) y[4 * j + e] = p * (dp[4 * j + e] - (e & 1 ? dlq.y : dlq.x));
+      }
     }
   };
 
-  // the k and v tiles travel with the first q and do tiles
-  flash_bf16::stage_tile_async<D, kBM, kThreads>(sk, kb, j0, n, ldk);
-  flash_bf16::stage_tile_async<D, kBM, kThreads>(sv, vb, j0, n, ldv);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) stage(s);
-    flash::cp_async_commit();
+  // The loop runs a step behind on the second products, as the forward and
+  // dq do: step j asks for S^T_j and dP^T_j, then for dv += bf16(P^T) . do
+  // and dk += bf16(dS^T) . q of step j - 1 (do and q MN-major), and
+  // computes P^T_j and dS^T_j while those run.
+  uint32_t pt[DV ? BQ / 16 : 1][4], dst[DK ? BQ / 16 : 1][4];  // the step before's
+  flash_bf16::mbar_wait(a.resbar, 0);
+  if (a.turns && a.wg == 1) flash_bf16::turn_pass(a.wg);
+  {
+    float s[BQ / 2], dp[DK ? BQ / 2 : 2], x[BQ / 2], y[DK ? BQ / 2 : 2];
+    firsts(0, s, dp);
+    if (a.turns) flash_bf16::turn_pass(a.wg);
+    flash_bf16::wgmma_wait<0>();
+    flash_bf16::fence_regs(s);
+    flash_bf16::fence_regs(dp);
+    grads(0, s, dp, x, y);
+    if constexpr (DV) flash_bf16::to_operand<BQ>(x, pt);
+    if constexpr (DK) flash_bf16::to_operand<BQ>(y, dst);
+  }
+  for (int step = 1; step < a.steps; ++step) {
+    const int prev = (step - 1) % STAGES;
+    const uint32_t sq = a.ring + prev * 2 * kQ;
+    const uint32_t sdo = sq + kQ;
+    float s[BQ / 2], dp[DK ? BQ / 2 : 2], x[BQ / 2], y[DK ? BQ / 2 : 2];
+    firsts(step, s, dp);
+    if constexpr (DV) flash_bf16::weighted_rows<D, BQ>(accv, pt, sdo, BQ);
+    if constexpr (DK) flash_bf16::weighted_rows<D, BQ>(acck, dst, sq, BQ);
+    flash_bf16::wgmma_commit();
+    if (a.turns) flash_bf16::turn_pass(a.wg);
+    flash_bf16::wgmma_wait<1>();
+    flash_bf16::fence_regs(s);
+    flash_bf16::fence_regs(dp);
+    grads(step, s, dp, x, y);
+    flash_bf16::wgmma_wait<0>();
+    flash_bf16::fence_regs(accv);
+    flash_bf16::fence_regs(acck);
+    if (lane == 0) flash_bf16::mbar_arrive(a.bars + 8 * (STAGES + prev));
+    if constexpr (DV) flash_bf16::to_operand<BQ>(x, pt);
+    if constexpr (DK) flash_bf16::to_operand<BQ>(y, dst);
+  }
+  if (a.turns && a.wg == 0) flash_bf16::turn_wait(a.wg);
+  {
+    // the last step's second products
+    const uint32_t sq_last = a.ring + ((a.steps - 1) % STAGES) * 2 * kQ;
+    if constexpr (DV) flash_bf16::weighted_rows<D, BQ>(accv, pt, sq_last + kQ, BQ);
+    if constexpr (DK) flash_bf16::weighted_rows<D, BQ>(acck, dst, sq_last, BQ);
+    flash_bf16::wgmma_commit();
+    flash_bf16::wgmma_wait<0>();
+    flash_bf16::fence_regs(accv);
+    flash_bf16::fence_regs(acck);
   }
 
-  float acck[NCH][4], accv[NCH][4];  // keys g and g + 8 of the warp's 16
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acck[c][e] = 0.f;
-      accv[c][e] = 0.f;
-    }
-  }
-  const float scale_log2e = scale * flash::kLog2e;
-
-  for (int step = 0; step < steps; ++step) {
-    flash::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (step + kStages - 1 < steps) stage(step + kStages - 1);
-    flash::cp_async_commit();
-    if (!active) continue;
-
-    const bf16* sq = ring + 2 * (step % kStages) * TILE;
-    const bf16* sdo = sq + TILE;
-    const float* sl = sstat + 2 * (step % kStages) * BQ;
-    const float* sdl = sl + BQ;
-
-    // keys g, g + 8 against queries 8 j + 2 t, + 1 of the step:
-    // S^T = k . q^T, dP^T = v . do^T
-    float st[NT][4], dpt[NT][4];
-    flash_bf16::dot_rows<LD, NT, D>(sk + r0 * LD, sq, g, t, st);
-    flash_bf16::dot_rows<LD, NT, D>(sv + r0 * LD, sdo, g, t, dpt);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float2 lq = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t);
-      const float2 dlq = *reinterpret_cast<const float2*>(sdl + 8 * j + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(fmaf(st[j][e], scale_log2e, e & 1 ? -lq.y : -lq.x));
-        st[j][e] = p;                                           // P^T
-        dpt[j][e] = p * (dpt[j][e] - (e & 1 ? dlq.y : dlq.x));  // dS^T
-      }
-    }
-
-    // dv += bf16(P^T) . do and dk += bf16(dS^T) . q over the block's channels
-    flash_bf16::weighted_rows<LD, NT, NCH>(st, sdo + c0, lane, accv);
-    flash_bf16::weighted_rows<LD, NT, NCH>(dpt, sq + c0, lane, acck);
-  }
-
+  const long long ldo = (long long)a.heads * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = j0 + r0 + g + 8 * r;
-    if (row >= n) continue;
-    const size_t off = (size_t)b * n * ldo + (size_t)row * ldo + (size_t)h * D + c0 + 2 * t;
+    const int row = a.key0 + warp * 16 + g + 8 * r;
+    if (row >= a.n) continue;
+    const size_t off = ((size_t)a.b * a.n + row) * ldo + (size_t)a.h * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * c) =
-          __floats2bfloat162_rn(acck[c][2 * r] * scale, acck[c][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * c) =
-          __floats2bfloat162_rn(accv[c][2 * r], accv[c][2 * r + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      if constexpr (DK) {
+        *reinterpret_cast<__nv_bfloat162*>(a.dk + off + 8 * c) = __floats2bfloat162_rn(
+            acck[4 * c + 2 * r] * a.scale, acck[4 * c + 2 * r + 1] * a.scale);
+      }
+      if constexpr (DV) {
+        *reinterpret_cast<__nv_bfloat162*>(a.dv + off + 8 * c) =
+            __floats2bfloat162_rn(accv[4 * c + 2 * r], accv[4 * c + 2 * r + 1]);
+      }
     }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash_bf16::kMaxThreads, 1)
+flash_attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int heads,
+                               int tiles, float scale) {
+  constexpr int BQ = Plan<D>::dkv_bq;
+  constexpr int STAGES = Plan<D>::dkv_stages;
+  constexpr bool SPLIT = Plan<D>::dkv_split;
+  constexpr uint32_t kK = tile_bytes(kRows, D);
+  constexpr uint32_t kQ = tile_bytes(BQ, D);
+  constexpr int KT = SPLIT ? 1 : 2;  // resident key tiles of each of k and v
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sk = flash_bf16::aligned_base(smem_raw);  // KT k tiles
+  const uint32_t sv = sk + KT * kK;                          // KT v tiles
+  const uint32_t ring = sv + KT * kK;                        // STAGES x (q, do)
+  const uint32_t stats = ring + STAGES * 2 * kQ;             // STAGES x (lse, delta)
+  const uint32_t bars = stats + STAGES * 2 * BQ * sizeof(float);
+  const uint32_t resbar = bars + 2 * STAGES * 8;
+
+  const int groups = blockDim.x / kGroup - 1;
+  const int key_tiles = SPLIT ? 1 : groups;  // 64-key tiles a block
+  const int tile = blockIdx.x % tiles;
+  const int bh = blockIdx.x / tiles;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int j0 = tile * kRows * key_tiles;
+  const int steps = (n + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the TMA thread's arrival and one of each lane of the statistics warp
+      flash_bf16::mbar_init(bars + 8 * s, 1 + 32);
+      flash_bf16::mbar_init(bars + 8 * (STAGES + s), 4 * groups);
+    }
+    flash_bf16::mbar_init(resbar, 1);
+    flash_bf16::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= groups * kGroup) {
+    flash_bf16::producer_registers();
+    const int pt = threadIdx.x - groups * kGroup;
+    if (pt >= 32 && pt < 64) {
+      // the producer's second warp: a step's base-2 lse (+inf past N, so
+      // that P = exp2(-inf) = 0) and delta into the stage, then an arrival
+      // on its full barrier, which releases them to the consumers
+      float* st = reinterpret_cast<float*>(smem_raw + (stats - flash_bf16::smem_u32(smem_raw)));
+      const size_t stat0 = (size_t)bh * n;
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % STAGES;
+        flash_bf16::mbar_wait(bars + 8 * (STAGES + s), ((step / STAGES) & 1) ^ 1);
+        for (int i = pt - 32; i < BQ; i += 32) {
+          const int row = step * BQ + i;
+          st[s * 2 * BQ + i] = row < n ? lse[stat0 + row] * flash::kLog2e : INFINITY;
+          st[s * 2 * BQ + BQ + i] = row < n ? delta[stat0 + row] : 0.f;
+        }
+        flash_bf16::mbar_arrive(bars + 8 * s);
+      }
+    }
+    if (pt == 0) {
+      flash_bf16::mbar_expect(resbar, 2 * key_tiles * kK);
+      for (int w = 0; w < key_tiles; ++w) {
+        flash_bf16::load_tile<D, kRows>(sk + w * kK, &tk, resbar, h * D, j0 + w * kRows, b);
+        flash_bf16::load_tile<D, kRows>(sv + w * kK, &tv, resbar, h * D, j0 + w * kRows, b);
+      }
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % STAGES;
+        flash_bf16::mbar_wait(bars + 8 * (STAGES + s), ((step / STAGES) & 1) ^ 1);
+        flash_bf16::mbar_expect(bars + 8 * s, 2 * kQ);
+        const uint32_t dst = ring + s * 2 * kQ;
+        flash_bf16::load_tile<D, BQ>(dst, &tq, bars + 8 * s, h * D, step * BQ, b);
+        flash_bf16::load_tile<D, BQ>(dst + kQ, &tdo, bars + 8 * s, h * D, step * BQ, b);
+      }
+    }
+    return;
+  }
+  flash_bf16::consumer_registers();
+
+  const int wg = threadIdx.x / kGroup;
+  const int kt = SPLIT ? 0 : wg;  // the warpgroup's key tile
+  const float* stats_buf =
+      reinterpret_cast<const float*>(smem_raw + (stats - flash_bf16::smem_u32(smem_raw)));
+  const DkvArgs args{sk + kt * kK, sv + kt * kK, ring, bars, resbar, stats_buf, dk, dv,
+                     n, heads, b, h, j0 + kt * kRows, steps, wg, groups == 2, scale};
+  if constexpr (SPLIT) {
+    if (wg == 0) {
+      dkv_consumer<D, true, false>(args);
+    } else {
+      dkv_consumer<D, false, true>(args);
+    }
+  } else {
+    dkv_consumer<D, true, true>(args);
   }
 }
 
 template <int D>
 cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                      const bf16* dout, const float* lse, bf16* dq, float* delta,
-                      int b, int n, int heads, long long ldq, long long ldk,
-                      long long ldv, int device, cudaStream_t st) {
-  constexpr int BN = bwd_step(D);
-  constexpr size_t bytes = bwd_smem_bytes(D, false);
+                      const bf16* dout, const float* lse, bf16* dq, float* delta, int b,
+                      int n, int heads, long long ldq, long long ldk, long long ldv,
+                      int device, cudaStream_t st) {
+  constexpr int BN = Plan<D>::dq_bn;
+  constexpr size_t bytes = dq_smem_bytes<D>();
   static_assert(bytes <= flash::kMaxShared, "shared memory");
-  auto kernel = flash_attn_bwd_dq_bf16_kernel<D, BN>;
+  auto kernel = flash_attn_bwd_dq_bf16_kernel<D>;
   static bool allowed[flash::kDevices] = {};
   cudaError_t err = flash::allow_shared(
       kernel, bytes, device < flash::kDevices ? &allowed[device] : nullptr);
   if (err != cudaSuccess) return err;
-  const int tiles = (n + kBM - 1) / kBM;
+  CUtensorMap tq, tk, tv, tdo;
+  const int hd = heads * D;
+  if ((err = flash_bf16::rows_map(&tq, q, b, n, hd, ldq, kRows)) != cudaSuccess) return err;
+  if ((err = flash_bf16::rows_map(&tk, k, b, n, hd, ldk, BN)) != cudaSuccess) return err;
+  if ((err = flash_bf16::rows_map(&tv, v, b, n, hd, ldv, BN)) != cudaSuccess) return err;
+  if ((err = flash_bf16::rows_map(&tdo, dout, b, n, hd, hd, kRows)) != cudaSuccess) return err;
+  const int groups = flash_bf16::consumer_groups(b, heads, n, device);
+  const int tiles = (n + kRows * groups - 1) / (kRows * groups);
   const float scale = (float)(1.0 / std::sqrt((double)D));
-  kernel<<<(unsigned)((size_t)b * heads * tiles), kThreads, bytes, st>>>(
-      q, k, v, o, dout, lse, dq, delta, n, heads, tiles, ldq, ldk, ldv, scale);
+  kernel<<<(unsigned)((size_t)b * heads * tiles), kGroup * (groups + 1), bytes, st>>>(
+      tq, tk, tv, tdo, o, dout, lse, dq, delta, n, heads, tiles, scale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* dout, const float* lse, const float* delta,
-                       bf16* dk, bf16* dv, int b, int n, int heads, long long ldq,
-                       long long ldk, long long ldv, int device, cudaStream_t st) {
-  constexpr int BQ = bwd_step(D), CS = dkv_split(D);
-  constexpr size_t bytes = bwd_smem_bytes(D, true);
+cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                       const float* lse, const float* delta, bf16* dk, bf16* dv, int b, int n,
+                       int heads, long long ldq, long long ldk, long long ldv, int device,
+                       cudaStream_t st) {
+  constexpr int BQ = Plan<D>::dkv_bq;
+  constexpr size_t bytes = dkv_smem_bytes<D>();
   static_assert(bytes <= flash::kMaxShared, "shared memory");
-  static_assert((D / CS) % 16 == 0, "pairs of 8-channel tiles a block");
-  auto kernel = flash_attn_bwd_dkv_bf16_kernel<D, BQ, CS>;
+  auto kernel = flash_attn_bwd_dkv_bf16_kernel<D>;
   static bool allowed[flash::kDevices] = {};
   cudaError_t err = flash::allow_shared(
       kernel, bytes, device < flash::kDevices ? &allowed[device] : nullptr);
   if (err != cudaSuccess) return err;
-  const int tiles = (n + kBM - 1) / kBM;
+  CUtensorMap tq, tk, tv, tdo;
+  const int hd = heads * D;
+  if ((err = flash_bf16::rows_map(&tq, q, b, n, hd, ldq, BQ)) != cudaSuccess) return err;
+  if ((err = flash_bf16::rows_map(&tk, k, b, n, hd, ldk, kRows)) != cudaSuccess) return err;
+  if ((err = flash_bf16::rows_map(&tv, v, b, n, hd, ldv, kRows)) != cudaSuccess) return err;
+  if ((err = flash_bf16::rows_map(&tdo, dout, b, n, hd, hd, BQ)) != cudaSuccess) return err;
+  // with the split, two warpgroups share a block's 64 keys
+  const int groups = Plan<D>::dkv_split ? 2 : flash_bf16::consumer_groups(b, heads, n, device);
+  const int keys = Plan<D>::dkv_split ? kRows : kRows * groups;
+  const int tiles = (n + keys - 1) / keys;
   const float scale = (float)(1.0 / std::sqrt((double)D));
-  kernel<<<(unsigned)((size_t)b * heads * tiles * CS), kThreads, bytes, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, n, heads, tiles, ldq, ldk, ldv, scale);
+  kernel<<<(unsigned)((size_t)b * heads * tiles), kGroup * (groups + 1), bytes, st>>>(
+      tq, tk, tv, tdo, lse, delta, dk, dv, n, heads, tiles, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
-// For both: d a multiple of 32 up to 256; b * heads * ceil(n / 64) * 4 <
-// 2^31; every pointer 16-byte aligned and the row strides multiples of 8:
-// checked by the wrapper.
+// For both: d a multiple of 32 up to 256; b * heads * ceil(n / 64) < 2^31;
+// every pointer 16-byte aligned and the row strides multiples of 8 (the
+// TMA's rules for a global address and stride): checked by the wrapper.
 
 // dq [B, N, H, D] bf16 and delta [B, H, N] float32 from q, k, v, o, do and lse.
 PCB_API int pcb_flash_attn_bwd_dq_bf16(const void* q, const void* k,

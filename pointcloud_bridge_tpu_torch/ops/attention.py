@@ -41,6 +41,38 @@ from . import _kernels
 
 # head widths the kernels are instantiated for
 FLASH_HEAD_DIMS = tuple(range(32, 257, 32))
+# The bf16 kernels' tile plan, csrc/flash_attn_bf16.cuh PCB_BF16_PLAN: D ->
+# (keys a forward step, forward stages, keys a dq step, dq stages, queries a
+# dk/dv step, dk/dv stages, whether dk/dv splits its two sums between the
+# block's consumer warpgroups). A consumer warpgroup owns BF16_ROWS rows;
+# a TMA box and a shared-memory column block are BF16_BOX channels (the
+# 64-byte swizzle). The CPU tests hold this table to the C one.
+BF16_PLAN = {
+    32: (128, 4, 64, 4, 64, 4, False),
+    64: (128, 4, 64, 4, 64, 4, False),
+    96: (128, 3, 64, 4, 64, 4, False),
+    128: (64, 4, 64, 4, 32, 4, False),
+    160: (64, 4, 64, 3, 64, 4, True),
+    192: (64, 3, 32, 4, 64, 3, True),
+    224: (64, 3, 32, 4, 32, 4, True),
+    256: (32, 4, 32, 3, 32, 4, True),
+}
+BF16_ROWS, BF16_BOX = 64, 32
+
+
+def bf16_smem_bytes(d: int) -> tuple:
+    """Dynamic shared memory of a block of the three bf16 kernels at head
+    width d (forward, dq, dk/dv), as csrc/flash_attn_bf16.cuh smem_bytes
+    counts it: 1024 bytes of alignment slack, the resident 64-row tiles, the
+    ring of stages x 2 tiles, dk/dv's (lse, delta) of a stage's queries and
+    8 bytes a barrier (two a stage and one)."""
+    fbn, fst, qbn, qst, kbq, kst, split = BF16_PLAN[d]
+
+    def block(resident, bn, stages, stats=0):
+        return (1024 + resident * BF16_ROWS * d * 2 + stages * 2 * bn * d * 2 + 4 * stats
+                + 8 * (2 * stages + 1))
+
+    return block(2, fbn, fst), block(4, qbn, qst), block(2 if split else 4, kbq, kst, 2 * kst * kbq)
 # the types the kernels take, with their entry points (forward, dq, dk/dv)
 _KERNELS_BY_DTYPE = {
     torch.float32: (_kernels.FLASH_ATTN, _kernels.FLASH_ATTN_BWD_DQ,
@@ -213,7 +245,8 @@ def einsum_3xtf32(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """t as the kernel reads it: [H, D] contiguous inside a row, the batch
     stride N rows, rows 16-byte aligned (a row stride of a multiple of 4
-    float32 or 8 bf16 elements). A packed-qkv slice and its window fold pass
+    float32 or 8 bf16 elements; the bf16 kernels' TMA asks the same of a
+    global address and stride). A packed-qkv slice and its window fold pass
     as they are; anything else is copied into a fresh, aligned buffer (a
     contiguous view off 16-byte alignment too, which ``.contiguous()`` would
     hand back as it is)."""
@@ -237,8 +270,10 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(
             f"attention kernel takes a head width of {FLASH_HEAD_DIMS}, got D={d}"
         )
-    # the bf16 dk/dv kernel splits a key tile's channels over up to 4 blocks
-    if b * h * ((n + 63) // 64) * 4 >= 2**31:
+    # the most blocks a launch takes: a block per 64 rows (the float32
+    # kernels; the bf16 kernels where a block has one consumer warpgroup, and
+    # bf16 dk/dv with its split)
+    if b * h * ((n + BF16_ROWS - 1) // BF16_ROWS) >= 2**31:
         raise ValueError(f"attention kernel takes < 2^31 blocks, got {tuple(q.shape)}")
 
 
@@ -263,7 +298,7 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
     """t contiguous and 16-byte aligned, as the backward kernels read the
-    output and its gradient (16-byte loads and ``cp.async``): t itself where
+    output and its gradient (16-byte loads, ``cp.async``, TMA): t itself where
     it is, else a copy (``.contiguous()`` would hand back a contiguous view
     off alignment as it is)."""
     ok = t.is_contiguous() and t.data_ptr() % 16 == 0

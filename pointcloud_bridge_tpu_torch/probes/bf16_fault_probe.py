@@ -8,8 +8,10 @@ Nothing here is on the port's main path. For each fault (all four by
 default) it copies the checkout into a temporary directory, plants the
 fault in the copy's kernel source, runs ``chip_smoke.py --attention-bf16``
 there (which builds the copy's kernels) and reads its exit code and its
-first failed band. A fault leaves one tile, the loop's second step, out of
-one product, about 1/64 of each sum at N = 4096:
+first failed band. A fault skips one second product (a wgmma from
+registers, ``weighted_rows``) at step 1 of its kernel's loop; each loop runs
+a step behind on its second products, so that is step 0's tile, 1/32 to
+1/64 of each sum at N = 4096:
 
 - ``fwd``: K6-bf16's P . V (the softmax's sums keep the tile);
 - ``dq``: the dq kernel's dS . K;
@@ -32,12 +34,10 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path("pointcloud_bridge_tpu_torch") / "csrc"
 # fault -> (kernel source, the product's line that the fault makes skip step 1)
 FAULTS = {
-    "fwd": ("flash_attn_bf16.cu", "flash_bf16::weighted_rows<LD, NT, NCH>(s, sv, lane, acc);"),
-    "dq": ("flash_attn_bwd_bf16.cu", "flash_bf16::weighted_rows<LD, NT, NCH>(s, sk, lane, acc);"),
-    "dv": ("flash_attn_bwd_bf16.cu",
-           "flash_bf16::weighted_rows<LD, NT, NCH>(st, sdo + c0, lane, accv);"),
-    "dk": ("flash_attn_bwd_bf16.cu",
-           "flash_bf16::weighted_rows<LD, NT, NCH>(dpt, sq + c0, lane, acck);"),
+    "fwd": ("flash_attn_bf16.cu", "flash_bf16::weighted_rows<D, BN>(acc, p, sv_prev, BN);"),
+    "dq": ("flash_attn_bwd_bf16.cu", "flash_bf16::weighted_rows<D, BN>(acc, ds, sk_prev, BN);"),
+    "dv": ("flash_attn_bwd_bf16.cu", "flash_bf16::weighted_rows<D, BQ>(accv, pt, sdo, BQ);"),
+    "dk": ("flash_attn_bwd_bf16.cu", "flash_bf16::weighted_rows<D, BQ>(acck, dst, sq, BQ);"),
 }
 IGNORED = shutil.ignore_patterns(".git", "build", "chiprun_out", "experiments", "__pycache__")
 
