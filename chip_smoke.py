@@ -203,7 +203,8 @@ any failure raises and exits non-zero:
    time, points/s and device time by kernel family;
 19. one DGCNN train step at full width, B=4 x 4096, on the card against
    the CPU, checked as in 6, the CPU taking the card's graphs of the same
-   mode: exactly 1 K5 and 3 K5c launches; milliseconds a step;
+   mode: exactly 1 K5, 3 K5c and 3 group-backward launches (index_points'
+   backward, IndexPoints, at conv2-conv4); milliseconds a step;
 20. two epochs of DGCNN at batch 16 through train_cli.main with
    ``--config configs/train_dgcnn.yaml``, checked as in 7, the batch-16
    step timed (ms, points/s, peak memory) and profiled, then ``infer_cli
@@ -253,10 +254,39 @@ any failure raises and exits non-zero:
    stands, two epochs; its checkpoint reloaded through the config's
    model_extra gives the same logits; the batch-16 step (4 microbatches of
    4) timed, profiled, with its launches (96 bf16 forward, 48 of each
-   backward) and peak memory, then without remat.
+   backward) and peak memory, then without remat;
+28. the five PointNet names (pointnet, pointnet_seg, pointnet_global,
+   pointnet_sem_seg with colours, pointnet_cls on xyz alone) at full width,
+   B=4 x 4096, on the card against the CPU: logits within 2e-4, no kernel
+   launch; pointnet's device time by kernel family;
+29. one pointnet train step against the CPU, checked as in 6;
+30. two epochs of configs/train_pointnet.yaml (CE, plateau) through
+   train_cli.main, checked as in 7, the batch-16 step timed and profiled,
+   then ``infer_cli blocks --model pointnet`` on that checkpoint;
+31. the enhanced_pointnet2_ssg forwards with use_attention off (profiled)
+   and on, B=4 x 4096, against the CPU: logits within 2e-4, exactly 3 FPS,
+   3 ball-query, 3 group, 3 interpolation and 1 k-NN launches (3 k-NN with
+   attention);
+32. a train step of each against the CPU (every Dropout at p = 0 on both
+   copies), checked as in 6: 3 group backward (4 with attention, where
+   BoundaryAwareModule's gather goes through IndexPoints) and 3
+   interpolation backward;
+33. ``infer_cli blocks --model enhanced_pointnet2_ssg`` from a checkpoint
+   written here.
+
+Every single-step train phase (6, 13, 15, 16, 19, 23, 25, 26, 29, 32)
+runs its card step twice from the same state (weights, BatchNorm buffers,
+batch, generators) and fails if the loss or any gradient leaf differs
+(torch.equal). Phase 3b holds K3b bit for bit to
+ops/grouping.py::group_backward_order, the kernel's order of adds in plain
+PyTorch, at every case, and phase 20 times the DGCNN batch-16 step with
+index_points' backward as IndexPoints and as torch.gather's own, in turns.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
-K3b cases of phases 3 and 3b alone (``--interp-backward`` the K4b cases of
+K3b cases of phases 3 and 3b alone, then K3b's variants
+(probes/k3b_probe.py); ``--train-steps`` every single-step train phase,
+each run twice, the leaves that differ printed before it fails;
+``--pointnet`` phases 28-33 (``--interp-backward`` the K4b cases of
 phase 3b, then K4b's designs side by side, pointcloud_bridge_tpu_torch/
 probes/k4b_probe.py; ``--attention`` phases 3c and 3d;
 ``--sampling`` the K1 and K4 cases of phase 3, then each kernel's launch
@@ -323,6 +353,7 @@ from pointcloud_bridge_tpu_torch.models import (
     MultiScaleSetAbstraction,
     get_model,
 )
+from pointcloud_bridge_tpu_torch.ops import core as core_ops
 from pointcloud_bridge_tpu_torch.ops import (
     _kernels,
     attention,
@@ -342,7 +373,7 @@ NUM_CLASSES = 5
 REPS = 20
 LOGIT_TOL = 2e-4  # PARITY.md §7's band for torch-vs-JAX logits
 INTERP_TOL = 1e-5
-BWD_TOL = 1e-5  # of max|plain|: float atomics add in another order
+BWD_TOL = 1e-5  # of max|plain|: the kernels add in another order than scatter_add_
 ATTN_TOL = 2e-5  # of max(1, max|plain|): the online softmax re-associates the sums
 FORWARD_KERNELS = ("fps", "ball_query", "group", "interpolate")
 SSG_BACKWARD_KERNELS = ("group_bwd", "interp_bwd")
@@ -379,6 +410,23 @@ CLS_MSG_LAUNCHES = only(fps=2, ball_query=2, group=6)
 # backward is PyTorch's): K5 over xyz in conv1, K5c over 64 channels in
 # conv2-conv4
 DGCNN_LAUNCHES = only(knn=1, knn_c=3)
+# a train step adds index_points' backward (IndexPoints) at the three
+# EdgeConvs whose input carries a gradient
+DGCNN_STEP_LAUNCHES = DGCNN_LAUNCHES | {"group_bwd": 3}
+# the PointNet family runs no kernel of the port
+POINTNET_NAMES = ("pointnet", "pointnet_seg", "pointnet_global", "pointnet_sem_seg",
+                  "pointnet_cls")
+# enhanced_pointnet2_ssg: its positional encoding's knn_set, SSG's three
+# levels; with use_attention geometric1's knn_set and boundary1's k-NN over
+# l1. A train step adds a group backward a level (sa1's features carry the
+# encoding's gradient), an interpolation backward a decoder level and, with
+# use_attention, boundary1's gather of l1's features (IndexPoints)
+ENHANCED_LAUNCHES = only(fps=3, ball_query=3, group=3, interpolate=3, knn=1)
+ENHANCED_ATTN_LAUNCHES = ENHANCED_LAUNCHES | {"knn": 3}
+ENHANCED_STEP_LAUNCHES = ENHANCED_LAUNCHES | {"group_bwd": 3, "interp_bwd": 3}
+ENHANCED_ATTN_STEP_LAUNCHES = ENHANCED_ATTN_LAUNCHES | {"group_bwd": 4, "interp_bwd": 3}
+# sa1's features: the colours and the positional encoding's 6 channels
+ENHANCED_SA1_FEATURES = 3 + 6
 # the benched ptv3_pooled (configs/train_ptv3_pooled.yaml): an attention a block
 POOLED_BENCHED = dict(dims=(64, 128, 256), enc_depths=(2, 2, 6), dec_depths=(1, 1),
                       strides=(4, 4), window_size=1024)
@@ -512,6 +560,7 @@ class Results:
         # path -> kernel -> sums; a side path (a batch of 16, a backward that
         # is not run as a pass here) is printed by ``print_sums`` alone
         self.sums = {}
+        self.order_exact = 0  # K3b cases bit-identical to group_backward_order
 
     def total(self, path: str, name: str) -> dict:
         return self.sums.setdefault(path, {}).setdefault(
@@ -711,6 +760,9 @@ def compare_group_kernel(dev: torch.device, res: Results, rng) -> None:
         level((BRISTRUNET,), B, *lv)
     for lv in SSG_LEVELS:
         level((SSG_B16,), 16, *lv)
+    # enhanced_pointnet2_ssg's sa1: the colours and the 6 positional
+    # channels beside the relative xyz, width 12
+    level((), B, 4096, 1024, 32, 0.1, ENHANCED_SA1_FEATURES)
     res.print_sums("group", (SSG, BRISTRUNET, SSG_B16))
 
     # the kernel's two ways to store, each bit for bit: the warp's tile
@@ -1120,6 +1172,13 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
         print(f"{name:18s} {label}: device {got['device_ms']:.4f} ms, {pairs} pairs, issue floor "
               f"{floor_ms:.5f} ms at {clock.mhz:.0f} MHz ({got['device_ms'] / floor_ms:.1f}x)",
               flush=True)
+    # enhanced_pointnet2_ssg (phases 31-33), held here before any model phase
+    # runs them: its positional encoding's knn_set over the input cloud at
+    # N=S=4096, k=16 (B=4 and the serve's 16), BoundaryAwareModule's ordered
+    # k-NN and geometric1's knn_set over l1 at N=S=1024, k=16
+    for b, n in ((B, 4096), (16, 4096), (B, 1024)):
+        xyz = cloud(b, n)
+        knn_case(f"enhanced B={b} N=S={n} k=16", xyz, xyz, 16, timed=True)
     res.print_sums("ball_query", (SSG, BRISTRUNET, SSG_B16))
     res.print_sums("knn", (BRISTRUNET, KNN_B16, DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16))
     res.print_sums("knn_c", (DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16))
@@ -1613,7 +1672,18 @@ def compare_interp_backward(dev: torch.device, res: Results, rng,
 
 
 def check_group_bwd(res: Results, label, g, idx, n, c0, c1, paths=(), timed=False) -> None:
+    """K3b at one case: the same bits from one call to the next and as
+    ``group_backward_order`` (the kernel's fold order in plain PyTorch),
+    then within BWD_TOL * max|plain| of ``group_backward_plain``."""
     b, s, k, _ = g.shape
+    got = grouping.group_backward_cuda(g, idx, n, c0, c1)
+    if not torch.equal(got, grouping.group_backward_cuda(g, idx, n, c0, c1)):
+        raise AssertionError(f"group_bwd {label}: two calls give other bits")
+    order = grouping.group_backward_order(g, idx, n, c0, c1)
+    if not torch.equal(got, order):
+        raise AssertionError(f"group_bwd {label}: not the bits of the order emulation, "
+                             f"max|err| {max_abs_err(got, order):.3g}")
+    res.order_exact += 1
     work = library = None
     if timed:
         # library: one index_add_ over the batch-flattened rows (zeroing
@@ -1632,8 +1702,9 @@ def check_group_bwd(res: Results, label, g, idx, n, c0, c1, paths=(), timed=Fals
 
 
 def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
-    """K3b against group_backward_plain within BWD_TOL * max|plain|: the
-    feature channels of g [B,S,K,3+C] -> [B,N,C] over ball-query indices
+    """K3b bit for bit against group_backward_order and the same bits call
+    to call, and against group_backward_plain within BWD_TOL * max|plain|
+    (check_group_bwd): the feature channels of g [B,S,K,3+C] -> [B,N,C] over ball-query indices
     (repeats and all) at the SSG train step's sa2 and sa3 at B=4 and B=16 and
     at the six levels of a BriStruNet backward (all timed, with the split of
     their time); then the xyz channels (c0 = 0, with and without features),
@@ -1685,6 +1756,19 @@ def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
         wild = torch.from_numpy(rng.integers(-2, 1027, (3, 7, 5)).astype(np.int32)).to(dev)
         check_group_bwd(res, f"S=7 K=5 C={c} channels [{c0},{3 + c}), indices -2..N+2",
                         normal(3, 7, 5, 3 + c), wild, 1024, c0, 3 + c)
+    # enhanced_pointnet2_ssg's sa1, whose features carry a gradient (the
+    # positional encoding's), width 12
+    level((), B, 4096, 1024, 32, 0.1, ENHANCED_SA1_FEATURES)
+    # index_points' backward (IndexPoints): DGCNN's edge features at k = 20
+    # and 64 over its graphs' shape, B=4, C=64, and BoundaryAwareModule's
+    # over l1 (N = 1024, k = 16, C = 128); idx viewed as [B, N, k]
+    for n, k, c in ((N, 20, 64), (N, 64, 64), (1024, 16, 128)):
+        x = cloud(B, n)
+        graph = grouping.knn(x, k=k)
+        check_group_bwd(res, f"index_points [{B},{n},{k},{c}] -> [{B},{n},{c}]",
+                        normal(B, n, k, c), graph, n, 0, c, timed=True)
+    print(f"group_bwd: {res.order_exact} cases bit-identical to group_backward_order and "
+          "the same bits call to call", flush=True)
 
 
 def packed_qkv_maker(dev: torch.device, seed: int, dtype=torch.float32):
@@ -2207,6 +2291,60 @@ def loss_and_grads(model, xyz, rgb, labels, cw, loss_fn=None):
     return loss.detach(), grads, logits.detach()
 
 
+# A train step run twice from the same state must give the same bits: the
+# loss and every gradient leaf, compared with torch.equal. ``--train-steps``
+# sets REPEAT_REPORT_ONLY, so that every phase prints its count before the
+# script fails; otherwise a leaf that differs fails its phase at once.
+REPEAT_REPORT_ONLY = False
+REPEAT_DIFFERS: list = []
+
+
+def step_state(model: torch.nn.Module) -> tuple:
+    """What a train step reads besides its batch: the weights and BatchNorm
+    statistics (a copy of the state_dict), torch's CPU and CUDA generators
+    and every Dropout's own generator."""
+    gens = [m.generator.get_state() for m in model.modules()
+            if isinstance(m, Dropout) and m.generator is not None]
+    return (copy.deepcopy(model.state_dict()), torch.get_rng_state(),
+            torch.cuda.get_rng_state_all(), gens)
+
+
+def restore_state(model: torch.nn.Module, state: tuple) -> None:
+    sd, cpu_rng, cuda_rng, gens = state
+    model.load_state_dict(sd)
+    torch.set_rng_state(cpu_rng)
+    torch.cuda.set_rng_state_all(cuda_rng)
+    own = [m.generator for m in model.modules()
+           if isinstance(m, Dropout) and m.generator is not None]
+    for g, st in zip(own, gens):
+        g.set_state(st)
+
+
+def check_same_bits(label: str, model: torch.nn.Module, state: tuple, first: tuple,
+                    run) -> None:
+    """Run the step ``run() -> (loss, {name: grad}, ...)`` again from
+    ``state`` (``step_state`` taken before the run that gave ``first``) and
+    hold the loss and every gradient leaf to ``first`` with torch.equal:
+    prints how many leaves differ and the first few names."""
+    restore_state(model, state)
+    second = run()
+    torch.cuda.synchronize()
+    loss_same = torch.equal(first[0], second[0])
+    differ = [name for name, g in first[1].items()
+              if (g is None) != (second[1][name] is None)
+              or (g is not None and not torch.equal(g, second[1][name]))]
+    print(f"{label}: run twice from the same state: loss {'the same' if loss_same else 'differs'}"
+          f" ({first[0].item():.9g}, {second[0].item():.9g}), {len(differ)} of "
+          f"{len(first[1])} gradient leaves differ{': ' + ', '.join(differ[:6]) if differ else ''}",
+          flush=True)
+    if loss_same and not differ:
+        return
+    REPEAT_DIFFERS.append((label, loss_same, differ))
+    if not REPEAT_REPORT_ONLY:
+        raise AssertionError(f"{label}: a second run from the same state differs: loss "
+                             f"{'same' if loss_same else 'differs'}, leaves {differ[:6]}")
+
+
 def gradient_faults(grads: dict, cpu_grads: dict, zero: tuple = (),
                     zero_bound: float = 0.0) -> tuple:
     """The card's gradient leaves against the CPU's, element by element:
@@ -2294,10 +2432,13 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
     cpu_loss, cpu_grads, _ = loss_and_grads(cpu_model, xyz, rgb, labels, cw, loss_fn)
     cpu_s = time.perf_counter() - t0
     model.train()
+    state = step_state(model)
     _kernels.reset_launch_counts()
     loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw, loss_fn)
     torch.cuda.synchronize()
     counts = counts_all_launched(label, needed)
+    check_same_bits(label, model, state, (loss, grads),
+                    lambda: loss_and_grads(model, xyz, rgb, labels, cw, loss_fn))
     if launches is not None and counts != launches:
         raise AssertionError(f"{label}: launches {counts}, expected {launches}")
     if not torch.isfinite(loss):
@@ -2366,6 +2507,168 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
     return counts
 
 
+def batch_of(ds: BlockDataset) -> tuple:
+    """The first B blocks of ds on the CPU: (xyz, rgb, labels, the dataset's
+    class weights)."""
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
+    labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
+    return xyz, rgb, labels, losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
+
+
+def check_ssg_train_step(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 6: one SSG train step on the card against the CPU (dropout 0,
+    weighted CE with the dataset's class weights), frozen BatchNorms first
+    -> the step's launch counts."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    model = get_model("pointnet2_ssg", NUM_CLASSES, generator=gen, dropout_rate=0.0)
+    randomize_bn(model, gen)
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz, rgb, labels, cw = batch_of(ds)
+    check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw)
+    return check_train_step(model, cpu_model, xyz, rgb, labels, cw)
+
+
+def run_train_steps(ds: BlockDataset, dev: torch.device) -> None:
+    """Every single-step train phase (6, 13, 15, 16, 19, 23, 25b, 26c and
+    the steps of the PointNet family and enhanced_pointnet2_ssg) in turn,
+    each run twice from the same state; ``--train-steps`` runs them alone
+    with REPEAT_REPORT_ONLY set and fails at the end if any differed."""
+    no_dropout = dict(drop_rate=0.0, head_drop_rate=0.0)
+    check_ssg_train_step(ds, dev)
+    check_attention_train_step(
+        "ptv3_pooled train step",
+        seeded_model("ptv3_pooled", SEED + 13, **no_dropout, **POOLED_BENCHED), ds, dev,
+        attention_launches(12))
+    check_attention_train_step(
+        "ptv3 train step", seeded_model("ptv3", SEED + 15, **no_dropout), ds, dev,
+        attention_launches(8))
+    check_bristrunet_train_step(ds, dev)
+    check_dgcnn_train_step(ds, dev)
+    check_msg_train_step(ds, dev)
+    check_moe_train_step(ds, dev)
+    check_bf16_train_step(ds, dev)
+    check_pointnet_train_step(ds, dev)
+    for use_attention in (False, True):
+        check_enhanced_train_step(ds, dev, use_attention)
+
+
+def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
+    """p = 0 on every Dropout of ``model`` (the test's own doing: the JAX
+    enhanced_pointnet2_ssg gives no way to set its attention blocks' rate)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def check_pointnet_phases(ds: BlockDataset, data_dir: Path, dev: torch.device) -> dict:
+    """Phases 28-30, the PointNet family (no kernel of the port runs): 28
+    the five registry names' forwards at B=4 x 4096 against the CPU (logits
+    within 2e-4, no launch; ``pointnet`` profiled), the classifier on xyz
+    alone; 29 one ``pointnet`` train step against the CPU (dropout 0,
+    frozen BatchNorms first, then train mode as phase 6, run twice from the
+    same state); 30 two epochs of configs/train_pointnet.yaml through
+    train_cli.main (CE, the plateau schedule), the batch-16 step timed and
+    profiled, and ``infer_cli blocks --model pointnet`` on its checkpoint
+    -> launch counts by path."""
+    none = only()
+    for name in POINTNET_NAMES:
+        cls = name == "pointnet_cls"
+        forward_against_cpu(f"{name} forward",
+                            seeded_model(name, SEED + 28, **({"in_features": 0} if cls else {})),
+                            ds, dev, none, profile=name == "pointnet",
+                            features=None if cls else "colors",
+                            out_shape=(B, NUM_CLASSES) if cls else (B, N, NUM_CLASSES))
+    by_path = {"pointnet_train_step": check_pointnet_train_step(ds, dev)}
+    by_path["pointnet_train_cli"], exp_dir = train_through_cli(
+        "train pointnet (configs/train_pointnet.yaml)", "pointnet", (), data_dir, dev,
+        profile=True, recipe=ROOT / "configs" / "train_pointnet.yaml")
+    try:
+        by_path["pointnet_serve_trained"] = serve_blocks(
+            "serve trained pointnet blocks", "pointnet", exp_dir, (), data_dir, len(ds), dev)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    if by_path["pointnet_serve_trained"] != none:
+        raise AssertionError(f"serve trained pointnet blocks: {by_path['pointnet_serve_trained']}")
+    return by_path
+
+
+def check_pointnet_train_step(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 29: one ``pointnet`` train step at full width, B=4 x 4096,
+    random weights and BatchNorm statistics, dropout 0, weighted CE, on the
+    card against the CPU, checked as phase 6 (frozen BatchNorms first, then
+    train mode, run twice from the same state), no launch -> the counts."""
+    model = seeded_model("pointnet", SEED + 29, dropout_rate=0.0)
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz, rgb, labels, cw = batch_of(ds)
+    check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw,
+                              label="pointnet frozen-BN gradients")
+    counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None, only(),
+                              "pointnet train step", zero_below=1e-4, needed=())
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
+    print(f"pointnet train step: forward and backward {step_ms:.3f} ms, "
+          f"{B * N / step_ms * 1e3:.0f} points/s", flush=True)
+    return counts
+
+
+def check_enhanced_train_step(ds: BlockDataset, dev: torch.device, use_attention: bool) -> dict:
+    """One enhanced_pointnet2_ssg train step at full width, B=4 x 4096,
+    random weights and BatchNorm statistics, every Dropout at p = 0 on both
+    copies, weighted CE, on the card against the CPU, checked as phase 6
+    (frozen BatchNorms first, then train mode, run twice from the same
+    state), with exactly its launches -> those launch counts."""
+    label = f"enhanced_pointnet2_ssg train step, use_attention={use_attention}"
+    model = no_dropout(seeded_model("enhanced_pointnet2_ssg", SEED + 32,
+                                    use_attention=use_attention))
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz, rgb, labels, cw = batch_of(ds)
+    check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw,
+                              label=label.replace("train step", "frozen-BN gradients"))
+    launches = ENHANCED_ATTN_STEP_LAUNCHES if use_attention else ENHANCED_STEP_LAUNCHES
+    counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None, launches, label,
+                              zero_below=1e-4, needed=("knn",) + FORWARD_KERNELS
+                              + SSG_BACKWARD_KERNELS)
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
+    print(f"{label}: forward and backward {step_ms:.3f} ms, "
+          f"{B * N / step_ms * 1e3:.0f} points/s", flush=True)
+    return counts
+
+
+def check_enhanced_phases(ds: BlockDataset, data_dir: Path, dev: torch.device) -> tuple:
+    """Phases 31-33, enhanced_pointnet2_ssg at the registry's width: 31 the
+    forwards with use_attention off (profiled) and on at B=4 x 4096 against
+    the CPU, logits within 2e-4, exactly their launches; 32 a train step of
+    each against the CPU; 33 ``infer_cli blocks --model
+    enhanced_pointnet2_ssg`` from a checkpoint written here -> (launch
+    counts of one forward by path, launch counts of the steps and the
+    serve by path)."""
+    forward_against_cpu("enhanced_pointnet2_ssg forward",
+                        seeded_model("enhanced_pointnet2_ssg", SEED + 31), ds, dev,
+                        ENHANCED_LAUNCHES)
+    forward_against_cpu("enhanced_pointnet2_ssg forward, use_attention=True",
+                        seeded_model("enhanced_pointnet2_ssg", SEED + 31, use_attention=True),
+                        ds, dev, ENHANCED_ATTN_LAUNCHES, profile=False)
+    by_path = {"enhanced_train_step": check_enhanced_train_step(ds, dev, False),
+               "enhanced_attention_train_step": check_enhanced_train_step(ds, dev, True)}
+    ckpt = data_dir / "enhanced_checkpoint"
+    save_checkpoint(str(ckpt), {"model": seeded_model("enhanced_pointnet2_ssg",
+                                                      SEED + 33).state_dict(), "epoch": 0})
+    label = "serve enhanced_pointnet2_ssg blocks"
+    counts = serve_blocks(label, "enhanced_pointnet2_ssg", ckpt,
+                          tuple(k for k, v in ENHANCED_LAUNCHES.items() if v), data_dir,
+                          len(ds), dev)
+    batches = -(-len(ds) // 16)
+    if counts != {k: batches * v for k, v in ENHANCED_LAUNCHES.items()}:
+        raise AssertionError(f"{label}: launches {counts}, {batches} batches")
+    by_path["enhanced_serve_blocks"] = counts
+    return {"enhanced_forward": ENHANCED_LAUNCHES,
+            "enhanced_attention_forward": ENHANCED_ATTN_LAUNCHES}, by_path
+
+
 def run_train_cli(label: str, data_dir: Path, args: list, epochs: int, launched: tuple) -> tuple:
     """train_cli.main on the two LAS scenes of data_dir, validating on the
     second, with the launch counters reset just before and read just after
@@ -2408,7 +2711,8 @@ def run_train_cli(label: str, data_dir: Path, args: list, epochs: int, launched:
 
 def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Path,
                       dev: torch.device, step_model: torch.nn.Module = None,
-                      profile: bool = False, recipe: Path = None) -> tuple:
+                      profile: bool = False, recipe: Path = None,
+                      gather_turns: bool = False) -> tuple:
     """Phases 7, 14 and 17: two epochs of ``model_name`` (the registry's
     default model) at batch 16 through train_cli.main -> (launch counts of
     exactly that run, the experiment directory, which the caller removes).
@@ -2416,7 +2720,9 @@ def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Pa
     exactly. Then the steady-state train step at batch 16 (Adam, weighted
     CE) on the reloaded model, or on ``step_model`` where the timed
     configuration is another than the default one; with ``profile`` its
-    device time by kernel family. With ``recipe`` (a config of configs/),
+    device time by kernel family; with ``gather_turns`` (phase 20) the step
+    in turns with index_points' backward as torch.gather's own scatter and
+    as IndexPoints'. With ``recipe`` (a config of configs/),
     the run and the timed step take that config's loss, sampling and
     schedule (``--config``), the data directories and the epochs as flags."""
     args = (["--config", str(recipe)] if recipe else
@@ -2454,6 +2760,20 @@ def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Pa
         torch.cuda.reset_peak_memory_stats()
         step_ms = time_ms(lambda: step(batch, 1e-4, cw), reps=20, warmup=5)
         step_mem = torch.cuda.max_memory_allocated()
+        if gather_turns:
+            # index_points' backward in turns: torch.gather's own (an atomic
+            # scatter), the group-backward kernel (IndexPoints), kernel, gather
+            turns = []
+            for plain in (True, False, False, True):
+                if plain:
+                    grouping.index_points = core_ops._gather
+                try:
+                    turns.append(time_ms(lambda: step(batch, 1e-4, cw), reps=20, warmup=3))
+                finally:
+                    grouping.index_points = core_ops.index_points
+            print(f"{label} step, index_points' backward in turns (torch.gather's scatter, "
+                  f"IndexPoints, IndexPoints, torch.gather's scatter): "
+                  f"{', '.join(f'{t:.3f}' for t in turns)} ms", flush=True)
     except BaseException:
         shutil.rmtree(exp_dir, ignore_errors=True)
         raise
@@ -2499,10 +2819,17 @@ def check_attention_train_step(label: str, model: torch.nn.Module, ds: BlockData
     labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
     cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
     recorder = tap(model) if tap else None
+    state = step_state(model)
     _kernels.reset_launch_counts()
     loss, grads, logits = loss_and_grads(model, xyz, rgb, labels, cw)
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
+    picks = dict(recorder.picks) if recorder is not None else None
+    check_same_bits(label, model, state, (loss, grads),
+                    lambda: loss_and_grads(model, xyz, rgb, labels, cw))
+    if recorder is not None:
+        if any(not torch.equal(picks[k], recorder.picks[k]) for k in picks):
+            raise AssertionError(f"{label}: the second run picked other experts")
     report = recorder.replay(cpu_model) if recorder is not None else None
     t0 = time.perf_counter()
     cpu_loss, cpu_grads, cpu_logits = loss_and_grads(cpu_model, xyz, rgb, labels, cw)
@@ -2823,7 +3150,7 @@ def check_dgcnn_train_step(ds: BlockDataset, dev: torch.device) -> dict:
     weights, on the card against the CPU, checked as phase 6 checks SSG's
     (frozen BatchNorms first, then train mode; ``pre_bn_biases``), the CPU
     taking the card's graphs of the same mode (GraphTap), with exactly
-    DGCNN_LAUNCHES -> those launch counts."""
+    DGCNN_STEP_LAUNCHES -> those launch counts."""
     model = seeded_model("dgcnn", SEED + 19)
     cpu_model = copy.deepcopy(model)
     model.to(dev)
@@ -2859,8 +3186,9 @@ def check_dgcnn_train_step(ds: BlockDataset, dev: torch.device) -> dict:
         # float64 step gives it 2e-15 of its weight's gradient;
         # tests/test_torch_dgcnn_train.py): found by their CPU gradient below
         # 1e-4 of their weight's
-        counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None, DGCNN_LAUNCHES,
-                                  "DGCNN train step", zero_below=1e-4, needed=("knn", "knn_c"))
+        counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None,
+                                  DGCNN_STEP_LAUNCHES, "DGCNN train step", zero_below=1e-4,
+                                  needed=("knn", "knn_c", "group_bwd"))
         if tap.replayed != 4:
             raise AssertionError(f"DGCNN train step: the CPU took {tap.replayed} graphs, not 4")
     step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
@@ -2880,8 +3208,8 @@ def train_dgcnn_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) ->
     kernels = ("knn", "knn_c")
     by_path = {}
     by_path["dgcnn_train_cli"], exp_dir = train_through_cli(
-        "train dgcnn (configs/train_dgcnn.yaml)", "dgcnn", kernels, data_dir, dev,
-        profile=True, recipe=ROOT / "configs" / "train_dgcnn.yaml")
+        "train dgcnn (configs/train_dgcnn.yaml)", "dgcnn", kernels + ("group_bwd",), data_dir, dev,
+        profile=True, recipe=ROOT / "configs" / "train_dgcnn.yaml", gather_turns=True)
     label = "serve trained dgcnn blocks"
     try:
         counts = serve_blocks(label, "dgcnn", exp_dir, kernels, data_dir, n_blocks, dev)
@@ -2945,7 +3273,7 @@ def kernel_family(name: str) -> str:
     """The row of PERF.md's breakdown that a device kernel's name goes to."""
     for key, family in (
         ("fps_kernel", "K1 FPS"), ("ballq_", "K2 ball query"),
-        ("group_kernel", "K3 group"), ("group_bwd_kernel", "K3b group backward"),
+        ("group_kernel", "K3 group"), ("group_bwd_", "K3b group backward"),
         ("interp_kernel", "K4 interpolate"), ("interp_bwd_kernel", "K4b interpolation backward"),
         ("knn_c_kernel", "K5c k-NN over C channels"), ("knn_kernel", "K5 k-NN"),
         ("flash_attn_bf16_kernel", "K6 flash attention (bf16)"),
@@ -3550,10 +3878,13 @@ def check_bf16_train_step(ds: BlockDataset, dev: torch.device) -> dict:
     labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
     cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
     want_loss, want, _ = loss_and_grads(f32, xyz, rgb, labels, cw)
+    state = step_state(model)
     _kernels.reset_launch_counts()
     loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw)
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
+    check_same_bits("ptv3 bf16-stream train step", model, state, (loss, grads),
+                    lambda: loss_and_grads(model, xyz, rgb, labels, cw))
     flat = torch.cat([grads[k].flatten() for k in want])
     ref = torch.cat([want[k].flatten() for k in want])
     cos = (flat @ ref / (flat.norm() * ref.norm())).item()
@@ -3678,10 +4009,13 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--grouping"]:
         # kernel work on K3 and K3b: phases 1, 2 and their cases of 3 and 3b
-        # alone, no result line
+        # alone, then K3b's variants (probes/k3b_probe.py), no result line
+        from pointcloud_bridge_tpu_torch.probes import k3b_probe
+
         res = Results()
         compare_group_kernel(dev, res, np.random.default_rng(SEED))
         compare_group_backward(dev, res, np.random.default_rng(SEED + 1))
+        k3b_probe.compare(dev)
         return
     if sys.argv[1:] == ["--sampling"]:
         # kernel work on K1 and K4: phases 1, 2 and their cases of 3, then
@@ -3742,6 +4076,33 @@ def main() -> None:
             run_msg_family_phases(make_dataset(data_dir), data_dir, dev)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
+        return
+    if sys.argv[1:] == ["--pointnet"]:
+        # model work on the PointNet family and enhanced_pointnet2_ssg: phases
+        # 1, 2 and 28-33 alone, no result line
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            ds = make_dataset(data_dir)
+            check_pointnet_phases(ds, data_dir, dev)
+            check_enhanced_phases(ds, data_dir, dev)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        return
+    if sys.argv[1:] == ["--train-steps"]:
+        # every single-step train phase, each run twice from the same state:
+        # phases 1, 2 and those alone, every phase's count of leaves that
+        # differ printed before the script fails, no result line
+        global REPEAT_REPORT_ONLY
+        REPEAT_REPORT_ONLY = True
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            run_train_steps(make_dataset(data_dir), dev)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        print(f"train steps run twice: {len(REPEAT_DIFFERS)} differ "
+              f"{[(label, same, len(d)) for label, same, d in REPEAT_DIFFERS]}")
+        if REPEAT_DIFFERS:
+            raise SystemExit(1)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -3818,17 +4179,8 @@ def main() -> None:
               f"OA {g['OA']:.4f} mIoU {g['mIoU']:.4f} (random weights), "
               f"blocks 0-3 vs CPU argmax {same:.6f}")
 
-        # 6. one train step on the card against the CPU (dropout 0, weighted
-        # CE with the dataset's class weights)
-        gen = torch.Generator().manual_seed(SEED + 6)
-        model = get_model("pointnet2_ssg", NUM_CLASSES, generator=gen, dropout_rate=0.0)
-        randomize_bn(model, gen)
-        cpu_model = copy.deepcopy(model)
-        model.to(dev)
-        labels = torch.from_numpy(ds.labels[:B].astype(np.int64))
-        cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES))
-        check_frozen_bn_gradients(model, cpu_model, xyz_cpu, rgb_cpu, labels, cw)
-        step_counts = check_train_step(model, cpu_model, xyz_cpu, rgb_cpu, labels, cw)
+        # 6. one train step on the card against the CPU
+        step_counts = check_ssg_train_step(ds, dev)
 
         # 7. train through the CLI
         train_counts, exp_dir = train_through_cli(
@@ -3924,6 +4276,15 @@ def main() -> None:
         prod_by_path = train_prod_through_cli(data_dir, dev)
         prod_counts = prod_by_path.pop(PROD_TRAIN)
         by_path |= prod_by_path
+
+        # 28. the PointNet family's forwards; 29. a pointnet train step;
+        # 30. configs/train_pointnet.yaml through the training CLI, served
+        by_path |= check_pointnet_phases(ds, data_dir, dev)
+
+        # 31. the enhanced_pointnet2_ssg forwards; 32. its train steps; 33.
+        # served through the inference CLI
+        enhanced_passes, enhanced_by_path = check_enhanced_phases(ds, data_dir, dev)
+        by_path |= enhanced_passes | enhanced_by_path
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,

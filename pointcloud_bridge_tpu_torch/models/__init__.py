@@ -1,14 +1,19 @@
 """Models of the PyTorch port."""
 
 from .attention import (
+    BoundaryAwareModule,
     BridgeStructureEncoding,
     ColorFeatureExtraction,
     CompositeFeatureFusion,
+    EnhancedAttentionModule,
+    EnhancedPositionalEncoding,
     GeometricFeatureExtraction,
     MultiScaleFeatureFusion,
+    SinusoidalPositionalEncoding,
+    StructuralAwareModule,
 )
 from .bristrunet import BriStruNet
-from .cls_models import PointNet2ClsMSG, PointNet2ClsSSG, PointNet2SSGPartsize
+from .cls_models import PointNet2ClsMSG, PointNet2ClsSSG, PointNet2SSGPartsize, PointNetCls
 from .common import (
     BatchNorm,
     Dense,
@@ -25,7 +30,9 @@ from .common import (
     SharedMLP,
 )
 from .dgcnn import DGCNN, DGCNNGlobal, EdgeConv
+from .enhanced_pointnet2 import EnhancedPointNet2SSG
 from .moe import MoEFeedForward, upcycle_dense_to_moe
+from .pointnet import PointNetGlobalSeg, PointNetSeg, PointNetSemSegPartsize, TNet
 from .pointnet2 import PointNet2MSG, PointNet2SSG
 from .ptv3 import (
     GEGLU,
@@ -40,6 +47,7 @@ from .registry import MODEL_REGISTRY, get_model
 
 __all__ = [
     "BatchNorm",
+    "BoundaryAwareModule",
     "BriStruNet",
     "BridgeStructureEncoding",
     "ColorFeatureExtraction",
@@ -50,6 +58,9 @@ __all__ = [
     "DenseMLP",
     "Dropout",
     "EdgeConv",
+    "EnhancedAttentionModule",
+    "EnhancedPointNet2SSG",
+    "EnhancedPositionalEncoding",
     "EnhancedFeaturePropagation",
     "FeaturePropagation",
     "FeedForward",
@@ -68,6 +79,10 @@ __all__ = [
     "PointNet2MSG",
     "PointNet2SSG",
     "PointNet2SSGPartsize",
+    "PointNetCls",
+    "PointNetGlobalSeg",
+    "PointNetSeg",
+    "PointNetSemSegPartsize",
     "PointTransformerBlock",
     "PointTransformerV3",
     "PointTransformerV3Pooled",
@@ -76,6 +91,9 @@ __all__ = [
     "SerializedUnpool",
     "SetAbstraction",
     "SharedMLP",
+    "SinusoidalPositionalEncoding",
+    "StructuralAwareModule",
+    "TNet",
     "get_model",
     "morton_code",
     "upcycle_dense_to_moe",

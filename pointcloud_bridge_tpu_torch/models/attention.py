@@ -1,11 +1,16 @@
-"""Attention and encoding modules of BriStruNet (counterpart of
+"""Attention and encoding modules of BriStruNet and of
+``enhanced_pointnet2_ssg`` (counterpart of
 pointcloud_bridge_tpu/models/attention.py), channel-last, with the flax
 modules' names for every layer.
 
-Ported are the five modules BriStruNet uses. The five others of the JAX
-file (SinusoidalPositionalEncoding, EnhancedPositionalEncoding,
-BoundaryAwareModule, and the two attention blocks of
-``enhanced_pointnet2_ssg``) follow with that model (ROADMAP.md).
+All ten modules of the JAX file are here: the five BriStruNet uses
+(BridgeStructureEncoding, ColorFeatureExtraction, CompositeFeatureFusion,
+GeometricFeatureExtraction, MultiScaleFeatureFusion), the two encodings of
+``enhanced_pointnet2_ssg`` (EnhancedPositionalEncoding, and
+SinusoidalPositionalEncoding, which no model of either package uses), and
+its attention blocks (EnhancedAttentionModule, BoundaryAwareModule; and
+StructuralAwareModule, which no model uses). A module whose JAX Dense reads
+its width off the input takes that width (``channels``) when built.
 """
 
 from __future__ import annotations
@@ -16,8 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import index_points, knn
 from ..ops.structure import knn_relative_positions, local_structure_features
-from .common import BatchNorm, Dense
+from .common import BatchNorm, Dense, Dropout
 
 
 class BridgeStructureEncoding(nn.Module):
@@ -158,3 +164,171 @@ class MultiScaleFeatureFusion(nn.Module):
             h = getattr(self, f"conv{i}")(resize_nearest(feat, n))
             outs.append(F.relu(getattr(self, f"bn{i}")(h)))
         return torch.cat(outs, dim=-1)
+
+
+def norm3(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The Euclidean norm over the last axis as ``jnp.linalg.norm`` takes
+    it: sqrt of the sum of squares."""
+    return torch.sqrt((v * v).sum(-1, keepdim=keepdim))
+
+
+def frequency_encoding(x: torch.Tensor, bands: int) -> list:
+    """[sin(x f), cos(x f)] for f = 1, 2, 4, ... 2^(bands - 1)."""
+    enc = []
+    for band in range(bands):
+        f = float(2 ** band)
+        enc += [torch.sin(x * f), torch.cos(x * f)]
+    return enc
+
+
+class SinusoidalPositionalEncoding(nn.Module):
+    """sin/cos frequency encoding of xyz, then a linear projection ``proj``
+    (models/attention.py:31-46). [B, N, 3] -> [B, N, channels]."""
+
+    def __init__(self, channels: int = 64, freq_bands: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.freq_bands = freq_bands
+        self.proj = Dense(6 * freq_bands, channels, generator=generator)
+
+    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        return self.proj(torch.cat(frequency_encoding(xyz, self.freq_bands), dim=-1))
+
+
+class EnhancedPositionalEncoding(nn.Module):
+    """Relative frequency encoding and the 22-dim covariance / PCA /
+    curvature structure encoding of each point's k-NN set
+    (models/attention.py:113-166). [B, N, 3] -> [B, N, channels]: the mean
+    over the k neighbours of ``rel_mlp0`` -> ``rel_bn`` (over [B, N, k, C])
+    -> ReLU -> ``rel_mlp1`` on [sin, cos of rel_pos * 2^f | dist | unit],
+    beside ``struct_mlp0`` -> ``struct_bn`` -> ReLU -> ``struct_mlp1`` on
+    [cov (9) | linearity, planarity, sphericity | radius, density,
+    curvature, direction consistency | mean (3) | std (3)], each half the
+    channels. The neighbours come from ``knn_set`` (K5 on the card)."""
+
+    def __init__(self, channels: int = 32, freq_bands: int = 4, k_neighbors: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, half = generator, channels // 2
+        self.freq_bands = freq_bands
+        self.k_neighbors = k_neighbors
+        self.rel_mlp0 = Dense(6 * freq_bands + 4, half, generator=g)
+        self.rel_bn = BatchNorm(half)
+        self.rel_mlp1 = Dense(half, half, generator=g)
+        self.struct_mlp0 = Dense(22, half, generator=g)
+        self.struct_bn = BatchNorm(half)
+        self.struct_mlp1 = Dense(half, half, generator=g)
+
+    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        k = min(self.k_neighbors, xyz.shape[1])
+        rel_pos, _ = knn_relative_positions(xyz, k, ordered=False)  # [B, N, k, 3]
+
+        dist = norm3(rel_pos, keepdim=True)
+        unit = rel_pos / (dist + 1e-8)
+        rel_feat = torch.cat(frequency_encoding(rel_pos, self.freq_bands) + [dist, unit], dim=-1)
+        h = self.rel_bn(self.rel_mlp0(rel_feat))
+        rel_encoding = self.rel_mlp1(F.relu(h)).mean(dim=2)  # [B, N, half]
+
+        cov = torch.einsum("bnki,bnkj->bnij", rel_pos, rel_pos) / (k - 1)
+        struct13 = local_structure_features(rel_pos)
+        d_off = norm3(rel_pos - rel_pos.mean(dim=2, keepdim=True))  # [B, N, k]
+        local_radius = d_off.amax(dim=-1)
+        density = k / (local_radius + 1e-8)
+        sorted_d = d_off.sort(dim=-1).values
+        curvature = (sorted_d[..., 1:] - sorted_d[..., :-1]).mean(dim=-1)
+        geom = torch.stack([local_radius, density, curvature, struct13[..., 6]], dim=-1)
+        struct22 = torch.cat([cov.reshape(cov.shape[:2] + (9,)), struct13[..., 0:3], geom,
+                              rel_pos.mean(dim=2), rel_pos.std(dim=2, unbiased=True)], dim=-1)
+        s = self.struct_mlp1(F.relu(self.struct_bn(self.struct_mlp0(struct22))))
+        return torch.cat([rel_encoding, s], dim=-1)
+
+
+class BoundaryAwareModule(nn.Module):
+    """k-NN feature-difference boundary attention (models/attention.py:
+    235-269). x [B, N, channels], xyz [B, N, 3] -> [B, N, channels]: the
+    ordered k-NN of xyz (K5 on the card); a spatial branch on the mean
+    relative position and distance (``spatial0``, ``spatial_bn``,
+    ``spatial1``); a boundary branch on [x | max over the neighbours of
+    x_j - x_i] (``boundary0``, ``boundary_bn0``, ``boundary1``,
+    ``boundary_bn1``); a gate ``attn0`` -> ``attn_bn`` -> ``attn1`` on [x |
+    spatial]; x + boundary * gate. The neighbours' features are gathered by
+    ``index_points``, whose backward on the card is the group-backward
+    kernel."""
+
+    def __init__(self, channels: int, k: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, c = generator, channels
+        self.k = k
+        self.spatial0 = Dense(4, 32, generator=g)
+        self.spatial_bn = BatchNorm(32)
+        self.spatial1 = Dense(32, 64, generator=g)
+        self.boundary0 = Dense(2 * c, c, generator=g)
+        self.boundary_bn0 = BatchNorm(c)
+        self.boundary1 = Dense(c, c, generator=g)
+        self.boundary_bn1 = BatchNorm(c)
+        self.attn0 = Dense(c + 64, c // 2, generator=g)
+        self.attn_bn = BatchNorm(c // 2)
+        self.attn1 = Dense(c // 2, c, generator=g)
+
+    def forward(self, x: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+        idx = knn(xyz, k=min(self.k, xyz.shape[1]))
+        rel = index_points(xyz, idx) - xyz.unsqueeze(2)
+        spatial = torch.cat([rel.mean(dim=2), norm3(rel, keepdim=True).mean(dim=2)], dim=-1)
+        s = self.spatial1(F.relu(self.spatial_bn(self.spatial0(spatial))))
+        local_diff = index_points(x, idx) - x.unsqueeze(2)  # [B, N, k, C]
+        b = torch.cat([x, local_diff.amax(dim=2)], dim=-1)
+        b = F.relu(self.boundary_bn0(self.boundary0(b)))
+        b = F.relu(self.boundary_bn1(self.boundary1(b)))
+        a = F.relu(self.attn_bn(self.attn0(torch.cat([x, s], dim=-1))))
+        return x + b * torch.sigmoid(self.attn1(a))
+
+
+class StructuralAwareModule(nn.Module):
+    """Global-context gated structure features (models/attention.py:
+    272-287). [B, N, channels] -> [B, N, channels]: x + (``struct0`` ->
+    ``struct_bn`` -> ReLU -> ``struct1``) * sigmoid(``ctx1``(ReLU(``ctx_bn``
+    (``ctx0``(max over the points))))); ``ctx_bn`` normalises [B, 1, C / 4]
+    over the batch."""
+
+    def __init__(self, channels: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, c = generator, channels
+        self.struct0 = Dense(c, c, generator=g)
+        self.struct_bn = BatchNorm(c)
+        self.struct1 = Dense(c, c, generator=g)
+        self.ctx0 = Dense(c, c // 4, generator=g)
+        self.ctx_bn = BatchNorm(c // 4)
+        self.ctx1 = Dense(c // 4, c, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.struct1(F.relu(self.struct_bn(self.struct0(x))))
+        ctx = F.relu(self.ctx_bn(self.ctx0(x.amax(dim=1, keepdim=True))))
+        return x + h * torch.sigmoid(self.ctx1(ctx))
+
+
+class EnhancedAttentionModule(nn.Module):
+    """Channel and spatial attention (models/attention.py:290-308).
+    [B, N, channels] -> [B, N, channels]: a channel gate from the mean over
+    the points (``ca0`` -> ReLU -> dropout -> ``ca1`` -> sigmoid), then a
+    spatial gate a point (``sa0`` -> ``sa_bn`` -> ReLU -> dropout -> ``sa1``
+    -> sigmoid); x + x_ca * gate. ``dropout`` is the JAX module's attribute
+    (0.5), for both Dropouts."""
+
+    def __init__(self, channels: int, dropout: float = 0.5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, c = generator, channels
+        self.ca0 = Dense(c, c // 4, generator=g)
+        self.drop_ca = Dropout(dropout)
+        self.ca1 = Dense(c // 4, c, generator=g)
+        self.sa0 = Dense(c, c // 4, generator=g)
+        self.sa_bn = BatchNorm(c // 4)
+        self.drop_sa = Dropout(dropout)
+        self.sa1 = Dense(c // 4, 1, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ca = self.drop_ca(F.relu(self.ca0(x.mean(dim=1, keepdim=True))))
+        x_ca = x * torch.sigmoid(self.ca1(ca))
+        sa = self.drop_sa(F.relu(self.sa_bn(self.sa0(x_ca))))
+        return x + x_ca * torch.sigmoid(self.sa1(sa))

@@ -1,7 +1,8 @@
 """The Partsize extras in PyTorch (counterpart of
 pointcloud_bridge_tpu/models/cls_models.py): the 4-level SSG segmentation
-model ``PointNet2SSGPartsize`` (``pointnet2_sem_seg``) and the two PointNet++
-classifiers ``PointNet2ClsSSG`` and ``PointNet2ClsMSG``.
+model ``PointNet2SSGPartsize`` (``pointnet2_sem_seg``), the two PointNet++
+classifiers ``PointNet2ClsSSG`` and ``PointNet2ClsMSG``, and the PointNet
+classifier ``PointNetCls`` (``pointnet_cls``).
 
 Parameter names are the reference torch models'
 (Partsize-identical/models/pointnet2_sem_seg.py, pointnet2_cls_ssg.py,
@@ -14,9 +15,9 @@ first conv a branch in the reference's [features, rel-xyz] order),
 The classifiers return logits [B, num_classes] (the reference returns
 log-probs). Their FC BatchNorms normalise over the batch alone; their
 dropouts draw from the generator the trainer sets (common.Dropout).
-
-``pointnet_cls`` (``PointNetCls``) is not ported: it needs PointNet's TNet
-(models/pointnet.py), which ROADMAP.md Queue 1 lists with PointNet.
+``PointNetCls`` has no reference torch model here, so its layers carry the
+flax module names (``stn``, ``fstn``, ``conv1``-``conv3``, ``bn1``-``bn5``,
+``fc1``-``fc3``), a Dense stored as [out, in].
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from .common import (
     SegHead,
     SetAbstraction,
 )
+from .pointnet import TNet, dense
 from .ptv3 import only_defaults
 
 
@@ -149,3 +151,54 @@ class PointNet2ClsMSG(_Classifier):
             MultiScaleSetAbstractionMsg(128, (0.2, 0.4, 0.8), (32, 64, 128), 3 + 320,
                                         self.BRANCHES[1], g),
             640, num_classes, dropout_rate, g)
+
+
+class PointNetCls(nn.Module):
+    """pointnet_cls (cls_models.py:109-146): the ``stn`` T-Net transforms
+    xyz, the features join after it; conv1 (64); the 64-d ``fstn``
+    transform; conv2, conv3 (128, 1024); max over the points; fc1 (512)
+    with bn4, dropout, fc2 (256) with bn5, fc3. forward(xyz [B, N, 3],
+    features [B, N, in_features] or None, return_transform=False) -> logits
+    [B, num_classes] (and the 64-d transform). ``in_features`` 0 (the
+    default) means xyz alone, as PointNet2ClsSSG's."""
+
+    def __init__(self, num_classes: int = 5, feature_transform: bool = True,
+                 axis_name: Optional[str] = None, dropout_rate: float = 0.4,
+                 in_features: int = 0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        only_defaults("PointNetCls", axis_name=(axis_name, None))
+        g = generator
+        self.feature_transform = feature_transform
+        self.stn = TNet(3, conv=dense, generator=g)
+        self.conv1 = dense(3 + in_features, 64, g)
+        self.bn1 = BatchNorm(64)
+        if feature_transform:
+            self.fstn = TNet(64, conv=dense, generator=g)
+        self.conv2 = dense(64, 128, g)
+        self.bn2 = BatchNorm(128)
+        self.conv3 = dense(128, 1024, g)
+        self.bn3 = BatchNorm(1024)
+        self.fc1 = dense(1024, 512, g)
+        self.bn4 = BatchNorm(512)
+        self.drop = Dropout(dropout_rate)
+        self.fc2 = dense(512, 256, g)
+        self.bn5 = BatchNorm(256)
+        self.fc3 = dense(256, num_classes, g)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
+                return_transform: bool = False):
+        x = torch.bmm(xyz, self.stn(xyz))
+        if features is not None:
+            x = torch.cat([x, features], dim=-1)
+        x = F.relu(self.bn1(self.conv1(x)))
+        trans_feat = None
+        if self.feature_transform:
+            trans_feat = self.fstn(x)
+            x = torch.bmm(x, trans_feat)
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self.bn3(self.conv3(x)))
+        h = torch.amax(x, dim=1)
+        h = self.drop(F.relu(self.bn4(self.fc1(h))))
+        h = F.relu(self.bn5(self.fc2(h)))
+        logits = self.fc3(h)
+        return (logits, trans_feat) if return_transform else logits

@@ -12,13 +12,20 @@ import torch
 from torch import nn
 
 from .bristrunet import BriStruNet
-from .cls_models import PointNet2ClsMSG, PointNet2ClsSSG, PointNet2SSGPartsize
+from .cls_models import PointNet2ClsMSG, PointNet2ClsSSG, PointNet2SSGPartsize, PointNetCls
 from .dgcnn import DGCNN, DGCNNGlobal
+from .enhanced_pointnet2 import EnhancedPointNet2SSG
+from .pointnet import PointNetGlobalSeg, PointNetSeg, PointNetSemSegPartsize
 from .pointnet2 import PointNet2MSG, PointNet2SSG
 from .ptv3 import PointTransformerV3
 from .ptv3_pooled import PointTransformerV3Pooled
 
 MODEL_REGISTRY = {
+    "pointnet": PointNetSeg,  # eva_model's 'PointNet' (pointnet.py:59-173)
+    "pointnet_seg": PointNetSeg,
+    "pointnet_global": PointNetGlobalSeg,  # model.py:301-369 variant
+    "pointnet_cls": PointNetCls,
+    "pointnet_sem_seg": PointNetSemSegPartsize,  # Partsize 9-ch PointNet seg
     "pointnet2": PointNet2SSG,  # reference name for the SSG seg model
     "pointnet2_ssg": PointNet2SSG,
     "pointnet2_msg": PointNet2MSG,  # Partsize 9-channel MSG, the north star
@@ -28,6 +35,7 @@ MODEL_REGISTRY = {
     "bristrunet": BriStruNet,  # EnhancedPointNet2 / BridgeSeg (paper model)
     "enhanced_pointnet2": BriStruNet,
     "bridgeseg": BriStruNet,
+    "enhanced_pointnet2_ssg": EnhancedPointNet2SSG,  # older SSG+EPE variant
     "ptv3": PointTransformerV3,  # the reference's flat transformer
     # every other block's feed-forward routes to 8 experts (models/moe.py)
     "ptv3_moe": partial(PointTransformerV3, num_experts=8),
@@ -38,9 +46,7 @@ MODEL_REGISTRY = {
 
 # names the JAX package's registry knows and the port does not yet
 NOT_PORTED = (
-    "pointnet", "pointnet_seg", "pointnet_global", "randlanet", "randlanet_ss",
-    "pointnet_cls", "pointnet_sem_seg", "spg", "superpoint_graph", "spt", "superpoint_transformer",
-    "enhanced_pointnet2_ssg",
+    "randlanet", "randlanet_ss", "spg", "superpoint_graph", "spt", "superpoint_transformer",
 )
 
 

@@ -21,15 +21,18 @@ from .sampling import farthest_point_sample
 from .structure import (
     eigh3x3,
     eigvals3_from_entries,
+    estimate_normals,
     knn_relative_positions,
     local_covariance,
     local_structure_features,
+    min_eigvec3x3,
 )
 
 __all__ = [
     "edge_conv_graph_feature",
     "eigh3x3",
     "eigvals3_from_entries",
+    "estimate_normals",
     "farthest_point_sample",
     "group_points",
     "index_points",
@@ -39,6 +42,7 @@ __all__ = [
     "knn_with_distance",
     "local_covariance",
     "local_structure_features",
+    "min_eigvec3x3",
     "pairwise_sq_dist",
     "query_ball_point",
     "sample_and_group",

@@ -113,8 +113,9 @@ INTERPOLATE = Kernel(
 )
 GROUP_BWD = Kernel(
     "group_bwd", "pcb_group_backward",
-    # g, idx, out, plan (ops/grouping.py GROUP_BWD_PLAN), device, stream
-    (_P, _P, _P, _P, _I, _P),
+    # g, idx, out, work (ops/grouping.py group_backward_work), plan
+    # (GROUP_BWD_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/group_bwd.cu",
     "pointcloud_bridge_tpu/ops/core.py:44",
 )

@@ -16,11 +16,47 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     points [B, N, C], idx integer [B, ...] -> [B, *idx.shape[1:], C]. The
     clamp is the reference's (ops/core.py:83-105): a ball-query miss is
     index N and reads point N-1.
+
+    On the card, float32 points that need a gradient go through
+    :class:`IndexPoints`, whose backward is the group-backward kernel
+    (csrc/group_bwd.cu): each point's gradient a sum in a fixed order, so
+    the same bits every call (``torch.gather``'s own backward adds with
+    float atomics in an order that varies). Elsewhere it is ``torch.gather``.
     """
+    if (points.is_cuda and points.requires_grad and torch.is_grad_enabled()
+            and points.dtype == torch.float32):
+        return IndexPoints.apply(points, idx)
+    return _gather(points, idx)
+
+
+def _gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, n, c = points.shape
     flat = idx.reshape(b, -1).clamp(0, n - 1).long()
     out = torch.gather(points, 1, flat.unsqueeze(-1).expand(-1, -1, c))
     return out.reshape(*idx.shape, c)
+
+
+class IndexPoints(torch.autograd.Function):
+    """index_points with the group backward as its gradient: idx is viewed
+    as [B, S, K] (K its last axis, 1 for a 2-D idx) and the gradient
+    [B, S, K, C] summed onto the points with c0 = 0, c1 = C."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        b = points.shape[0]
+        k = idx.shape[-1] if idx.dim() > 2 else 1
+        ctx.save_for_backward(idx.reshape(b, -1, k).to(torch.int32).contiguous())
+        ctx.n = points.shape[1]
+        return _gather(points, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .grouping import group_backward_cuda
+
+        (idx,) = ctx.saved_tensors
+        b, s, k = idx.shape
+        c = g.shape[-1]
+        return group_backward_cuda(g.reshape(b, s, k, c).contiguous(), idx, ctx.n, 0, c), None
 
 
 def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -491,7 +491,14 @@ def group_launch(width: int) -> Tuple[int, int, bool]:
 # the integers of a launch, in the order pcb_group (csrc/group.cu) and
 # pcb_group_backward (csrc/group_bwd.cu) read them from their `plan`
 GROUP_PLAN = ("b", "n", "s", "k", "c", "lanes", "rows", "staged", "k_mul", "k_shift")
-GROUP_BWD_PLAN = ("b", "n", "s", "k", "width", "c0", "c1", "lanes", "vec")
+GROUP_BWD_PLAN = ("b", "n", "s", "k", "width", "c0", "c1", "vec", "split")
+# points a batch element that csrc/group_bwd.cu counts in shared memory
+# (4 bytes a point: 128 KB)
+GROUP_BWD_MAX_N = 32768
+# slots a block of csrc/group_bwd.cu's count and place takes at least, and
+# their blocks an SM over the whole grid
+GROUP_BWD_SLICE = 2048
+_GROUP_BWD_BLOCKS_AN_SM = 2
 
 
 @functools.lru_cache(maxsize=1024)
@@ -556,34 +563,109 @@ def group_backward_plain(
     return out.scatter_add_(1, flat.expand_as(src), src)
 
 
+def group_backward_split(b: int, s: int, k: int, sms: int) -> int:
+    """Blocks a batch element of csrc/group_bwd.cu's count and place: a
+    slice of GROUP_BWD_SLICE slots or more each, and no more blocks over
+    the batch than two an SM."""
+    return max(1, min(-(-(s * k) // GROUP_BWD_SLICE), -(-_GROUP_BWD_BLOCKS_AN_SM * sms // b)))
+
+
+def _check_group_backward(b: int, n: int, s: int, k: int, width: int, c0: int, c1: int) -> None:
+    if not 0 <= c0 < c1 <= width or not 1 <= n <= GROUP_BWD_MAX_N:
+        raise ValueError(f"group backward: bad channels [{c0}, {c1}) of {width} or N={n} "
+                         f"outside [1, {GROUP_BWD_MAX_N}]")
+    if b > 65535 or b * s * k >= _INT_LIMIT or -(-(c1 - c0) // 32) > 65535:
+        raise ValueError(f"group backward kernel takes B <= 65535 and B * S * K < 2^31, "
+                         f"got [{b}, {s}, {k}]")
+
+
 @functools.lru_cache(maxsize=1024)
-def _group_backward_plan(b: int, n: int, s: int, k: int, width: int, c0: int, c1: int):
+def _group_backward_plan(b: int, n: int, s: int, k: int, width: int, c0: int, c1: int,
+                         split: int):
     """pcb_group_backward's plan (GROUP_BWD_PLAN), checked and laid out once
-    a shape: four channels a lane where c1 - c0 is a multiple of 4."""
-    if not 0 <= c0 < c1 <= width or n < 1:
-        raise ValueError(f"group backward: bad channels [{c0}, {c1}) of {width}, N={n}")
-    if b > 65535:
-        raise ValueError(f"group backward kernel takes B <= 65535, got {b}")
+    a shape: four channels a lane where c1 - c0 is a multiple of 4; the
+    count and place split over ``split`` blocks a batch element
+    (``group_backward_split``)."""
+    _check_group_backward(b, n, s, k, width, c0, c1)
+    if not 1 <= split <= 65535:
+        raise ValueError(f"group backward: split {split} outside [1, 65535]")
     vec = 4 if (c1 - c0) % 4 == 0 else 1
-    return (ctypes.c_int * len(GROUP_BWD_PLAN))(b, n, s, k, width, c0, c1,
-                                                group_lanes((c1 - c0) // vec), vec)
+    return (ctypes.c_int * len(GROUP_BWD_PLAN))(b, n, s, k, width, c0, c1, vec, split)
+
+
+@functools.lru_cache(maxsize=1024)
+def _group_backward_launch(b: int, n: int, s: int, k: int, width: int, c0: int, c1: int,
+                           device: int) -> tuple:
+    """(plan, ints of scratch) of a group-backward launch on ``device``,
+    worked out once a shape; the shape is checked before the device is
+    read."""
+    _check_group_backward(b, n, s, k, width, c0, c1)
+    split = group_backward_split(b, s, k, _kernels.sm_count(device))
+    plan = _group_backward_plan(b, n, s, k, width, c0, c1, split)
+    return plan, group_backward_work(b, n, s, k, group_backward_chunks(c1 - c0, plan[7]), split)
+
+
+def group_backward_chunks(wout: int, vec: int) -> int:
+    """Channel chunks of csrc/group_bwd.cu's fold, a warp each a point:
+    32 * vec channels a chunk."""
+    return -(-wout // (32 * vec))
+
+
+def group_backward_work(b: int, n: int, s: int, k: int, chunks: int, split: int) -> int:
+    """Ints of scratch pcb_group_backward takes: the bucket ends [B, N], the
+    count blocks' histograms [B, split, N], the buckets [B, S * K] and a
+    sorted copy of them a chunk [B, chunks, S * K]."""
+    return b * (n + split * n + (1 + chunks) * s * k)
 
 
 def group_backward_cuda(
     g: torch.Tensor, idx: torch.Tensor, n: int, c0: int, c1: int
 ) -> torch.Tensor:
-    """Group-backward kernel wrapper: one launch (csrc/group_bwd.cu)."""
+    """Group-backward kernel wrapper (csrc/group_bwd.cu, four launches a
+    call): each point's row a left fold of its slots' rows in ascending
+    slot order, so the same bits every call."""
     _kernels.check_tensor("g", g, torch.float32, 4)
     _kernels.check_tensor("idx", idx, torch.int32, 3)
     b, s, k, width = g.shape
     if idx.shape != (b, s, k):
         raise ValueError(f"group backward: g {tuple(g.shape)} vs idx {tuple(idx.shape)}")
-    plan = _group_backward_plan(b, n, s, k, width, c0, c1)
+    plan, work_ints = _group_backward_launch(b, n, s, k, width, c0, c1, g.get_device())
     out = torch.empty(b, n, c1 - c0, dtype=torch.float32, device=g.device)
     if b * s * k == 0:
         return out.zero_()
-    _kernels.GROUP_BWD.launch(g.data_ptr(), idx.data_ptr(), out.data_ptr(), plan,
-                              *_kernels.stream_args(g))
+    work = torch.empty(work_ints, dtype=torch.int32, device=g.device)
+    _kernels.GROUP_BWD.launch(g.data_ptr(), idx.data_ptr(), out.data_ptr(), work.data_ptr(),
+                              plan, *_kernels.stream_args(g))
+    return out
+
+
+def group_backward_order(g: torch.Tensor, idx: torch.Tensor, n: int, c0: int,
+                         c1: int) -> torch.Tensor:
+    """The group backward in the kernel's order, in plain PyTorch: each
+    point's row a left fold from 0.0 over its slots in ascending s * K + k,
+    one float32 add at a time -> the kernel's bits. A slow emulation for
+    holding the kernel (phase 3b of chip_smoke.py) and the tests: one
+    elementwise add a step, as many steps as the longest bucket."""
+    b, s, k, _ = g.shape
+    flat = idx.reshape(b, s * k).clamp(0, n - 1).long()
+    src = g[..., c0:c1].reshape(b, s * k, c1 - c0)
+    # slots by (point, slot id): a stable sort by point keeps ascending ids
+    order = flat.argsort(dim=1, stable=True)
+    point = flat.gather(1, order)
+    counts = torch.zeros((b, n), dtype=torch.long, device=g.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    first = torch.cumsum(counts, dim=1) - counts  # bucket starts
+    rank = torch.arange(s * k, device=g.device).expand(b, -1) - first.gather(1, point)
+    rows = src.gather(1, order.unsqueeze(-1).expand(-1, -1, c1 - c0))
+    out = torch.zeros((b, n, c1 - c0), dtype=g.dtype, device=g.device)
+    for q in range(int(counts.max()) if counts.numel() else 0):
+        at = rank == q  # the q-th slot of each bucket
+        step = torch.zeros_like(out)
+        bi, pi = at.nonzero(as_tuple=True)
+        step[bi, point[bi, pi]] = rows[bi, pi]
+        has = torch.zeros((b, n), dtype=torch.bool, device=g.device)
+        has[bi, point[bi, pi]] = True
+        out = torch.where(has.unsqueeze(-1), out + step, out)
     return out
 
 
@@ -613,8 +695,9 @@ def edge_conv_graph_feature(
 
     x [B, N, C], idx [B, N, k] (default ``knn(x, k=k)``) -> [B, N, k, 2C],
     channel-last in that channel order. Differentiable in x: the gather is
-    ``index_points`` (torch.gather), whose backward is PyTorch's scatter-add,
-    as the JAX package gathers outside any Pallas kernel.
+    ``index_points``, whose backward on the card is the group-backward
+    kernel (a fixed order of adds), as the JAX package gathers outside any
+    Pallas kernel.
     """
     if idx is None:
         idx = knn(x, k=k)

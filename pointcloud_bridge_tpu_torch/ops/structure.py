@@ -8,8 +8,9 @@ features follow Weinmann et al. (linearity = (l1 - l2) / l1 with l1 the
 largest), a deliberate difference from the reference torch code, which
 indexes ascending eigenvalues with the descending formula. The arithmetic
 keeps the JAX package's coordinate-plane form, so that the two agree to
-float32 rounding. ``min_eigvec3x3`` and ``estimate_normals`` are not ported
-yet (ROADMAP.md).
+float32 rounding. ``min_eigvec3x3`` takes the eigenvector of the smallest
+eigenvalue by the cross-product method, and ``estimate_normals`` the
+normals of k-NN neighbourhoods (K5 on the card).
 """
 
 from __future__ import annotations
@@ -66,6 +67,35 @@ def eigh3x3(a: torch.Tensor) -> torch.Tensor:
         a[..., 1, 1], a[..., 1, 2], a[..., 2, 2],
     )
     return torch.stack([e1, e2, e3], dim=-1)
+
+
+def min_eigvec3x3(a: torch.Tensor, eigvals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric 3x3 matrices
+    [..., 3, 3] -> [..., 3] (ops/structure.py:88-114): the rows of A - l_min
+    I are orthogonal to it, so it is the longest of their three pairwise
+    cross products, normalised (the first of equal lengths); +z where all
+    three vanish (a degenerate neighbourhood). The sign is not normalised."""
+    if eigvals is None:
+        eigvals = eigh3x3(a)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    m = a - eigvals[..., 2, None, None] * eye
+    r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    cands = torch.stack([torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2),
+                         torch.linalg.cross(r1, r2)], dim=-2)  # [..., 3, 3]
+    best = torch.sqrt((cands * cands).sum(-1)).argmax(dim=-1)
+    vec = cands.gather(-2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
+    nrm = torch.sqrt((vec * vec).sum(-1, keepdim=True))
+    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device).expand_as(vec)
+    return torch.where(nrm > 1e-10, vec / nrm.clamp_min(1e-10), fallback)
+
+
+def estimate_normals(xyz: torch.Tensor, k: int = 20) -> torch.Tensor:
+    """Per-point normals, the min-eigenvector of the k-NN covariance
+    (ops/structure.py:199-212): xyz [B, N, 3] -> [B, N, 3] unit vectors,
+    their sign not normalised, as the reference's."""
+    idx = knn(xyz, k=k)
+    rel = index_points(xyz, idx) - xyz.unsqueeze(2)
+    return min_eigvec3x3(torch.einsum("bnki,bnkj->bnij", rel, rel))
 
 
 def local_covariance(rel_pos: torch.Tensor, unbiased: bool = True) -> torch.Tensor:

@@ -42,6 +42,17 @@ model says which flax module becomes which prefix of the state_dict:
     "conv2d_featfirst": the reference's input order is [features, rel-xyz]
     and the flax kernel's [rel-xyz, features], so the kernel's first 3
     input rows go to the end of the torch weight's columns (and back).
+  - The PointNet family: ``pointnet`` (``pointnet_seg``) and
+    ``pointnet_sem_seg`` carry the reference torch names of the JAX
+    package's ``_rules_pointnet`` (utils/torch_import.py:154-164) and
+    ``_rules_pointnet_sem_seg`` (:362-374), with ``_rules_tnet``'s T-Net
+    (:143-151): per-point convs Conv1d [O, I, 1], a T-Net's fc1-fc3 Linear.
+    ``pointnet_global`` and ``pointnet_cls`` have no torch rules in the JAX
+    package and take the flax names (a Dense [O, I]).
+  - ``enhanced_pointnet2_ssg`` (``enhanced_pointnet2_ssg_rules``) has no
+    torch rules in the JAX package: its SSG levels, decoder and head carry
+    PointNet2SSG's names (the same rules), its positional encoding and
+    attention blocks the flax paths (a Dense [O, I]).
   - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
     running_mean/running_var, num_batches_tracked 0.
   - LayerNorm (kind "ln") scale/bias -> weight/bias; it has no statistics.
@@ -143,9 +154,14 @@ def _by_flax_path(layers: _Layers) -> List[Rule]:
     return [(".".join(path), path, kind) for path, kind in layers]
 
 
+def _bse(prefix: Tuple[str, ...]) -> _Layers:
+    """A BridgeStructureEncoding's layers under ``prefix``."""
+    return [(prefix + (n,), kind) for n, kind in (("mlp0_shared", "dense"), ("mlp0_rel", "dense"),
+                                                  ("bn0", "bn"), ("mlp1", "dense"))]
+
+
 def bristrunet_rules() -> List[Rule]:
-    bse = [("mlp0_shared", "dense"), ("mlp0_rel", "dense"), ("bn0", "bn"), ("mlp1", "dense")]
-    layers: _Layers = [(("bri_enc", n), kind) for n, kind in bse]
+    layers: _Layers = _bse(("bri_enc",))
     layers += [(("color_encoder", n), "bn" if "bn" in n else "dense")
                for n in ("mlp0", "bn0", "mlp1", "bn1", "attn0", "attn_bn", "attn1", "ctx0", "ctx1")]
     layers += [(("feature_fusion", "fusion"), "dense"), (("feature_fusion", "bn"), "bn")]
@@ -155,7 +171,7 @@ def bristrunet_rules() -> List[Rule]:
                 layers.append(((sa, f"mlp_{scale}", f"dense_{j}"), "dense"))
                 layers.append(((sa, f"mlp_{scale}", f"bn_{j}"), "bn"))
     for geo in ("geometric2", "geometric3"):
-        layers += [((geo, "br_pos", n), kind) for n, kind in bse]
+        layers += _bse((geo, "br_pos"))
         layers += [((geo, "mlp0"), "dense"), ((geo, "bn0"), "bn"), ((geo, "mlp1"), "dense")]
     for fp in ("fp3", "fp2", "fp1"):
         layers += [((fp, "attn_dense0"), "dense"), ((fp, "attn_bn"), "bn"),
@@ -169,6 +185,27 @@ def bristrunet_rules() -> List[Rule]:
         layers += [(("fusion", f"conv{i}"), "dense"), (("fusion", f"bn{i}"), "bn")]
     layers += [(("final0",), "dense"), (("final_bn",), "bn"), (("final1",), "dense")]
     return _by_flax_path(layers)
+
+
+def _dense_bn(prefix: Tuple[str, ...], names: Sequence[str]) -> _Layers:
+    """Layers named ``names`` under ``prefix``: a BatchNorm where the name
+    has "bn" in it, else a Dense."""
+    return [(prefix + (n,), "bn" if "bn" in n else "dense") for n in names]
+
+
+def enhanced_pointnet2_ssg_rules(use_attention: bool = False) -> List[Rule]:
+    layers = _dense_bn(("pos_encoding",), ("rel_mlp0", "rel_bn", "rel_mlp1", "struct_mlp0",
+                                           "struct_bn", "struct_mlp1"))
+    if use_attention:
+        attention = ("ca0", "ca1", "sa0", "sa_bn", "sa1")
+        for i in (1, 2, 3):
+            layers += _dense_bn((f"attention{i}",), attention)
+        layers += _bse(("geometric1", "br_pos")) + _dense_bn(("geometric1",),
+                                                             ("mlp0", "bn0", "mlp1"))
+        layers += _dense_bn(("boundary1",), (
+            "spatial0", "spatial_bn", "spatial1", "boundary0", "boundary_bn0", "boundary1",
+            "boundary_bn1", "attn0", "attn_bn", "attn1"))
+    return pointnet2_ssg_rules() + _by_flax_path(layers)
 
 
 def _ptv3_block(name: str, moe: bool = False) -> _Layers:
@@ -245,7 +282,56 @@ def dgcnn_global_rules() -> List[Rule]:
     ]
 
 
+def _tnet(tprefix: str, fpath: Tuple[str, ...], conv: str) -> List[Rule]:
+    """A T-Net's ``conv1``-``conv3`` (``conv``), ``fc1``-``fc3`` and
+    ``bn1``-``bn5`` under ``tprefix`` <-> the flax TNet at ``fpath``."""
+    fc = "dense" if conv == "dense" else "linear"
+    return ([(f"{tprefix}.conv{i}", fpath + (f"conv{i}",), conv) for i in (1, 2, 3)]
+            + [(f"{tprefix}.fc{i}", fpath + (f"fc{i}",), fc) for i in (1, 2, 3)]
+            + [(f"{tprefix}.bn{i}", fpath + (f"bn{i}",), "bn") for i in range(1, 6)])
+
+
+def _flat(names: Sequence[str], kind: str) -> List[Rule]:
+    return [(n, (n,), kind) for n in names]
+
+
+def pointnet_rules() -> List[Rule]:
+    return (_tnet("input_transform", ("input_transform",), "conv1d")
+            + _tnet("feature_transform_net", ("feature_transform",), "conv1d")
+            + _flat([f"conv{i}" for i in range(1, 6)], "conv1d")
+            + _flat([f"bn{i}" for i in range(1, 6)], "bn")
+            + _flat([f"seg_conv{i}" for i in range(1, 5)], "conv1d")
+            + _flat([f"bn_seg{i}" for i in range(1, 4)], "bn"))
+
+
+def pointnet_sem_seg_rules() -> List[Rule]:
+    return (_tnet("feat.stn", ("stn",), "conv1d") + _tnet("feat.fstn", ("fstn",), "conv1d")
+            + [(f"feat.conv{i}", (f"conv{i}",), "conv1d") for i in (1, 2, 3)]
+            + [(f"feat.bn{i}", (f"bn{i}",), "bn") for i in (1, 2, 3)]
+            + [(f"conv{i}", (f"head{i}",), "conv1d") for i in (1, 2, 3, 4)]
+            + [(f"bn{i}", (f"bn_h{i}",), "bn") for i in (1, 2, 3)])
+
+
+def pointnet_global_rules() -> List[Rule]:
+    return (_tnet("stn", ("stn",), "dense")
+            + _flat(["conv1", "mlp64_dense0", "mlp64_dense1"]
+                    + [f"conv{i}" for i in range(2, 6)] + ["fc1", "fc2", "fc3"], "dense")
+            + _flat(["mlp64_bn"] + [f"bn{i}" for i in range(1, 8)], "bn"))
+
+
+def pointnet_cls_rules() -> List[Rule]:
+    return (_tnet("stn", ("stn",), "dense") + _tnet("fstn", ("fstn",), "dense")
+            + _flat(["conv1", "conv2", "conv3", "fc1", "fc2", "fc3"], "dense")
+            + _flat([f"bn{i}" for i in range(1, 6)], "bn"))
+
+
 MODEL_RULES = {
+    "pointnet": pointnet_rules,
+    "pointnet_seg": pointnet_rules,
+    "pointnet_global": pointnet_global_rules,
+    "pointnet_cls": pointnet_cls_rules,
+    "pointnet_sem_seg": pointnet_sem_seg_rules,
+    "enhanced_pointnet2_ssg": enhanced_pointnet2_ssg_rules,
     "pointnet2": pointnet2_ssg_rules,
     "pointnet2_ssg": pointnet2_ssg_rules,
     "bristrunet": bristrunet_rules,

@@ -21,10 +21,15 @@ from pointcloud_bridge_tpu_torch.models import (
     PointNet2ClsMSG,
     PointNet2ClsSSG,
     PointNet2SSGPartsize,
+    PointNetCls,
     get_model,
 )
 from pointcloud_bridge_tpu_torch.models.registry import NOT_PORTED
-from pointcloud_bridge_tpu_torch.utils.weights import flax_to_state_dict, state_dict_to_flax
+from pointcloud_bridge_tpu_torch.utils.weights import (
+    MODEL_RULES,
+    flax_to_state_dict,
+    state_dict_to_flax,
+)
 
 from test_torch_ssg import randomize_bn
 
@@ -137,6 +142,18 @@ def test_in_features_default_and_refusals(name, default):
 
 
 def test_pointnet_cls_waits_for_pointnet():
-    assert "pointnet_cls" in NOT_PORTED
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("pointnet_cls", 5)
+    """pointnet_cls waited for PointNet's TNet and is ported with it: the
+    registry builds PointNetCls, and its parameters and buffers are named as
+    its weight rules say (flax names, a Dense [out, in])."""
+    assert "pointnet_cls" not in NOT_PORTED
+    model = get_model("pointnet_cls", 5)
+    assert isinstance(model, PointNetCls)
+    want = set()
+    for tp, _, kind in MODEL_RULES["pointnet_cls"]():
+        leaves = ("weight", "bias")
+        if kind == "bn":
+            leaves += ("running_mean", "running_var", "num_batches_tracked")
+        want |= {f"{tp}.{leaf}" for leaf in leaves}
+    sd = model.state_dict()
+    assert set(sd) == want
+    assert sd["stn.conv1.weight"].shape == (64, 3) and sd["fstn.fc3.weight"].shape == (4096, 256)

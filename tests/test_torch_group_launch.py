@@ -73,9 +73,29 @@ def test_plans_hold_the_launch():
     assert list(plan) == [4, 1024, 512, 32, 256, *grouping.group_launch(259),
                           *grouping.fast_divisor(32)]
     assert list(grouping._group_plan(4, 512, 128, 32, 512, False))[5:8] == [32, 4, 0]
-    assert list(grouping._group_backward_plan(4, 1024, 256, 32, 131, 3, 131)) == [
-        4, 1024, 256, 32, 131, 3, 131, 32, 4]
-    assert list(grouping._group_backward_plan(4, 4096, 1024, 16, 6, 3, 6))[7:] == [4, 1]
+    assert list(grouping._group_backward_plan(4, 1024, 256, 32, 131, 3, 131, 4)) == [
+        4, 1024, 256, 32, 131, 3, 131, 4, 4]
+    assert list(grouping._group_backward_plan(4, 4096, 1024, 16, 6, 3, 6, 8))[7:] == [1, 8]
+    assert grouping.group_backward_chunks(128, 4) == 1
+    assert grouping.group_backward_chunks(131, 1) == 5
+    assert grouping.group_backward_work(4, 1024, 256, 32, 2, 4) == 4 * (
+        1024 + 4 * 1024 + 3 * 256 * 32)
+
+
+@pytest.mark.parametrize("b,s,k,split", [
+    (4, 256, 32, 4), (4, 64, 32, 1), (16, 256, 32, 4), (4, 1024, 32, 16), (4, 512, 32, 8),
+    (4, 4096, 20, 40), (16, 4096, 20, 17), (4, 4096, 64, 66), (1, 1, 1, 1)])
+def test_group_backward_split_by_slots_and_sms(b, s, k, split):
+    """K3b's count and place: a slice of GROUP_BWD_SLICE slots or more a
+    block, at most two blocks an SM of 132 over the batch; every slot in
+    exactly one block's slice."""
+    got = grouping.group_backward_split(b, s, k, 132)
+    assert got == split
+    t = s * k
+    per = -(-t // got)
+    assert per >= min(t, grouping.GROUP_BWD_SLICE) and got * per >= t > (got - 1) * per
+    with pytest.raises(ValueError, match="split"):
+        grouping._group_backward_plan(b, 64, s, k, 8, 3, 8, 0)
 
 
 def test_kernels_are_bound_lazily():
@@ -169,10 +189,13 @@ def test_warp_tiles_cover_every_row_once(lanes, per_group, rows):
     (3, 4, 1), (128, 32, 4), (256, 32, 4), (512, 32, 4), (131, 32, 1), (4, 4, 4),
     (16, 4, 4), (13, 16, 1), (1, 4, 1), (19, 32, 1)])
 def test_group_backward_lanes_by_width(wout, lanes, vec):
-    """K3b: four channels a lane where c1 - c0 is a multiple of 4, and the
-    lanes of a slot cover a chunk of lanes * vec channels."""
-    got_vec = 4 if wout % 4 == 0 else 1
-    assert (grouping.group_lanes(wout // got_vec), got_vec) == (lanes, vec)
+    """K3b: four channels a lane where c1 - c0 is a multiple of 4 (the plan's
+    `vec`), so that a warp folds a chunk of 32 * vec channels of its point's
+    row; ``lanes`` is K3's choice for rows of the same width."""
+    plan = grouping._group_backward_plan(2, 64, 8, 4, 3 + wout, 3, 3 + wout, 1)
+    assert (grouping.group_lanes(wout // plan[7]), plan[7]) == (lanes, vec)
+    chunks = grouping.group_backward_chunks(wout, plan[7])
+    assert (chunks - 1) * 32 * plan[7] < wout <= chunks * 32 * plan[7]
 
 
 # ------------------------------------------- what keeps a bad tensor out
@@ -243,7 +266,8 @@ def test_group_cuda_refuses(as_if_on_the_card, case):
 
 @pytest.mark.parametrize("case", ["g float64", "idx int64", "g not contiguous", "g rank 3",
                                   "idx of another K", "c0 == c1", "c1 past the width",
-                                  "c0 negative", "N = 0", "B over 65535"])
+                                  "c0 negative", "N = 0", "B over 65535",
+                                  "N past the shared counts"])
 def test_group_backward_cuda_refuses(as_if_on_the_card, case):
     g = torch.zeros((2, 4, 8, 8))
     idx = torch.zeros((2, 4, 8), dtype=torch.int32)
@@ -269,6 +293,8 @@ def test_group_backward_cuda_refuses(as_if_on_the_card, case):
     elif case == "B over 65535":
         g = torch.zeros((65536, 1, 1, 8))
         idx = torch.zeros((65536, 1, 1), dtype=torch.int32)
+    elif case == "N past the shared counts":
+        n = grouping.GROUP_BWD_MAX_N + 1
     with pytest.raises((TypeError, ValueError)):
         grouping.group_backward_cuda(g, idx, n, c0, c1)
 

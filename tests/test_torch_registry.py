@@ -58,6 +58,14 @@ def test_the_port_knows_no_name_the_jax_registry_lacks():
     assert set(MODEL_RULES) == set(MODEL_REGISTRY)
 
 
+def test_the_port_serves_twenty_of_the_twenty_six_names():
+    """20 of the JAX registry's 26 names are ported; what is left is
+    RandLANet and the superpoint models."""
+    assert len(JAX_REGISTRY) == 26 and len(MODEL_REGISTRY) == 20
+    assert sorted(NOT_PORTED) == ["randlanet", "randlanet_ss", "spg", "spt", "superpoint_graph",
+                                  "superpoint_transformer"]
+
+
 def test_unknown_name_raises_value_error():
     with pytest.raises(ValueError, match="unknown model"):
         get_model("no_such_model", 5)

@@ -120,7 +120,7 @@ def test_generator_makes_weights_reproducible():
 
 def test_unported_model_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("pointnet_cls", num_classes=5)
+        get_model("randlanet", num_classes=5)
 
 
 def test_train_mode_forward_updates_batch_stats(rng):
