@@ -272,9 +272,38 @@ any failure raises and exits non-zero:
    BoundaryAwareModule's gather goes through IndexPoints) and 3
    interpolation backward;
 33. ``infer_cli blocks --model enhanced_pointnet2_ssg`` from a checkpoint
-   written here.
+   written here;
+34. the forwards of randlanet, randlanet_ss, spg and spt at the registry's
+   widths, B=4 x 4096, on the card against the CPU, the card's discrete
+   picks replayed on the CPU (``PickTap``: randlanet_ss's re-weighted
+   k-NN, the superpoint models' k-means partition, SPG's three top-k and
+   SPT's centroid graph), each of the card's calls first held to its
+   plain path on the card on the same inputs (equal picks) and to the CPU
+   on those inputs (a pick that differs within 1e-4 of its row's
+   boundary): logits within 2e-4, exactly 4 K5 and 4 K3 (randlanet; 8 K3
+   for randlanet_ss, whose re-weighted k-NN gathers its 2k candidates),
+   1 K1 (spg), 1 K1, 1 K5 and 8 group-backward launches (spt's segment
+   sums); profiled;
+35. a train step of each against the CPU (every Dropout at p = 0 on both
+   copies), checked as in 6, the CPU on the card's picks of the same mode
+   (held as in 34), no gradient on SPG's pooling scores alone:
+   12 group-backward launches (randlanet, randlanet_ss: kept features,
+   neighbour features and upsampling sources), 2 (spg's poolings), 21
+   (spt: its 8 segment sums, the backward of x_j, x_i and the softmax
+   denominator a layer and of the points' superpoint logits);
+36. two epochs of configs/train_randlanet.yaml through train_cli.main,
+   checked as in 7, the batch-16 step timed and profiled, then ``infer_cli
+   blocks --model randlanet`` on that checkpoint;
+37. spg and spt (no recipe): the batch-16 step at the registry's defaults
+   timed and profiled, then ``infer_cli blocks`` from a checkpoint written
+   here.
+Phase 3 holds K5, K3 and K1 at these models' shapes first (K5 over
+randlanet's levels at B=4 and 16, at randlanet_ss's 2k, at k = 9 over 4096
+points and over 81 centroids; K3 over both models' levels; K1 4096 -> 81),
+and phase 3b K3b at every gather of a
+randlanet train step and at SPT's segment sums.
 
-Every single-step train phase (6, 13, 15, 16, 19, 23, 25, 26, 29, 32)
+Every single-step train phase (6, 13, 15, 16, 19, 23, 25, 26, 29, 32, 35)
 runs its card step twice from the same state (weights, BatchNorm buffers,
 batch, generators) and fails if the loss or any gradient leaf differs
 (torch.equal). Phase 3b holds K3b bit for bit to
@@ -299,7 +328,9 @@ query) and the kernel in turns, probes/k2_k5_probe.py ``compare_k5c``;
 ``--attention-bf16`` phase 3e; ``--k5c-exit`` K5c's early exit on the
 features DGCNN's graphs are built over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
 K5c cases of phase 3 and phases 18-20; ``--msg`` the MSG family's cases of
-phases 3 and 3b and phases 21-24), and prints no result line.
+phases 3 and 3b and phases 21-24; ``--zoo`` the cases of RandLA-Net and the
+superpoint models in phases 3 and 3b and phases 34-37), and prints no
+result line.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
@@ -325,6 +356,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import importlib.util
 import io
 import json
@@ -346,6 +378,9 @@ from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
 from pointcloud_bridge_tpu_torch.infer import run_block_inference, whole_scene_vote_predict
 from pointcloud_bridge_tpu_torch.config import Config, LossConfig
 from pointcloud_bridge_tpu_torch.models import dgcnn as dgcnn_models
+from pointcloud_bridge_tpu_torch.models import randlanet as randla_models
+from pointcloud_bridge_tpu_torch.models import spg as spg_models
+from pointcloud_bridge_tpu_torch.models import spt as spt_models
 from pointcloud_bridge_tpu_torch.models import (
     BatchNorm,
     Dense,
@@ -690,6 +725,8 @@ def compare_kernels(dev: torch.device) -> Results:
     compare_neighbour_kernels(dev, res, rng)
     # K1-K4 at the shapes of the PointNet++ MSG family
     compare_msg_family_kernels(dev, res, rng)
+    # K1 and K5 at the shapes of RandLA-Net and the superpoint models
+    compare_zoo_kernels(dev, res, rng)
     return res
 
 
@@ -1565,6 +1602,7 @@ def compare_backward_kernels(dev: torch.device, res: Results) -> None:
     compare_group_backward(dev, res, rng)
     compare_interp_backward(dev, res, rng)
     compare_msg_family_backward(dev, res, rng)
+    compare_zoo_backward(dev, res, rng)
 
 
 def kept_selection(dst, src, k: int) -> tuple:
@@ -1671,10 +1709,12 @@ def compare_interp_backward(dev: torch.device, res: Results, rng,
         case(f"N={n} S=100 D=36 k={k} (N * k = {n * k})", normal(B, n, 36), idx, w, 100)
 
 
-def check_group_bwd(res: Results, label, g, idx, n, c0, c1, paths=(), timed=False) -> None:
+def check_group_bwd(res: Results, label, g, idx, n, c0, c1, paths=(), timed=False,
+                    times: int = 1) -> None:
     """K3b at one case: the same bits from one call to the next and as
     ``group_backward_order`` (the kernel's fold order in plain PyTorch),
-    then within BWD_TOL * max|plain| of ``group_backward_plain``."""
+    then within BWD_TOL * max|plain| of ``group_backward_plain``; ``times``
+    launches of a pass at this shape."""
     b, s, k, _ = g.shape
     got = grouping.group_backward_cuda(g, idx, n, c0, c1)
     if not torch.equal(got, grouping.group_backward_cuda(g, idx, n, c0, c1)):
@@ -1698,7 +1738,7 @@ def check_group_bwd(res: Results, label, g, idx, n, c0, c1, paths=(), timed=Fals
               lambda: grouping.group_backward_cuda(g, idx, n, c0, c1),
               lambda: grouping.group_backward_plain(g, idx, n, c0, c1),
               False, paths, scaled=(BWD_TOL, 0.0), work=work, library_fn=library,
-              split=timed)
+              split=timed, times=times)
 
 
 def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
@@ -2345,18 +2385,35 @@ def check_same_bits(label: str, model: torch.nn.Module, state: tuple, first: tup
                              f"{'same' if loss_same else 'differs'}, leaves {differ[:6]}")
 
 
+def unreached_faults(grads: dict, cpu_grads: dict, unreached: tuple) -> list:
+    """The leaves that no gradient reaches, by name prefix in ``unreached``
+    (SPG's pooling scores, which pick nodes and weigh nothing): None on
+    both devices; every other leaf must have a gradient on both."""
+    faults = []
+    for name, want in cpu_grads.items():
+        got, none = grads[name], name.startswith(unreached) if unreached else False
+        if none and (got is not None or want is not None):
+            faults.append(f"{name}: a gradient where none reaches")
+        elif not none and (got is None or want is None):
+            faults.append(f"{name}: no gradient on the {'card' if got is None else 'CPU'}")
+    return faults
+
+
 def gradient_faults(grads: dict, cpu_grads: dict, zero: tuple = (),
-                    zero_bound: float = 0.0) -> tuple:
+                    zero_bound: float = 0.0, unreached: tuple = ()) -> tuple:
     """The card's gradient leaves against the CPU's, element by element:
-    each present, finite, within 1e-3 * max|g_leaf| + 1e-7 and not all zero
-    where the CPU's is not. The leaves named in ``zero`` have a gradient that
+    each present (but the ``unreached``, absent on both devices), finite,
+    within 1e-3 * max|g_leaf| + 1e-7 and not all zero where the CPU's is
+    not. The leaves named in ``zero`` have a gradient that
     is exactly 0, so any float32 value of it is rounding noise: both sides
     must keep it below ``zero_bound``. -> (faults, (worst share of a leaf's
     band, its name), (worst relative L2, its name))."""
-    faults, worst, rel_l2 = [], (0.0, ""), (0.0, "")
+    faults, worst, rel_l2 = unreached_faults(grads, cpu_grads, unreached), (0.0, ""), (0.0, "")
     for name, want in cpu_grads.items():
         got = grads[name]
-        if got is None or not torch.isfinite(got).all():
+        if got is None or want is None:  # counted by unreached_faults
+            continue
+        if not torch.isfinite(got).all():
             faults.append(f"{name}: gradient {got if got is None else 'not finite'}")
             continue
         got, want = got.double().cpu(), want.double()
@@ -2376,7 +2433,8 @@ def gradient_faults(grads: dict, cpu_grads: dict, zero: tuple = (),
 
 
 def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
-                              label: str = "frozen-BN gradients") -> None:
+                              label: str = "frozen-BN gradients",
+                              unreached: tuple = ()) -> None:
     """Phases 6a and 16a: the gradient of the same loss with the BatchNorms
     frozen (eval mode), on the card and on the CPU. Without the batch
     statistics the step is well conditioned, so every leaf is held element
@@ -2388,7 +2446,7 @@ def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw, loss_fn=No
     loss, grads, _ = loss_and_grads(model, xyz, rgb, labels, cw, loss_fn)
     torch.cuda.synchronize()
     loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
-    faults, worst, rel_l2 = gradient_faults(grads, cpu_grads)
+    faults, worst, rel_l2 = gradient_faults(grads, cpu_grads, unreached=unreached)
     print(f"{label}: loss {loss.item():.7f} (CPU {cpu_loss.item():.7f}, rel "
           f"{loss_rel:.3g}); over {len(cpu_grads)} leaves the worst max|err| is at "
           f"{worst[0]:.3g} of its band ({worst[1]}), the worst relative L2 "
@@ -2400,7 +2458,8 @@ def check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw, loss_fn=No
 def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
                      launches: dict = None, label: str = "train step",
                      zero_below: float = 0.0,
-                     needed: tuple = FORWARD_KERNELS + SSG_BACKWARD_KERNELS) -> dict:
+                     needed: tuple = FORWARD_KERNELS + SSG_BACKWARD_KERNELS,
+                     unreached: tuple = ()) -> dict:
     """Phases 6 and 16: one train-mode forward and backward on the card
     (kernels) and on the CPU (plain versions) from the same weights and
     batch; every kernel of ``needed`` launched and, with ``launches``,
@@ -2424,7 +2483,9 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
     biases that feed a BatchNorm have an exactly zero gradient: both sides
     must keep it below 1e-3 * max|g| of the same conv's weight
     (``pre_bn_biases`` finds them). Phase 6a and the kernels' own phases 3
-    and 3b hold element by element.
+    and 3b hold element by element. Every leaf has a gradient on both
+    devices, but those whose names start with one of ``unreached``, which
+    have none on either.
     """
     pre_bn = pre_bn_biases(model, xyz, rgb)
     cpu_model.train()
@@ -2447,16 +2508,16 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
     if loss_rel > 1e-5:
         raise AssertionError(f"{label}: loss {loss.item()} vs CPU {cpu_loss.item()}")
     pre_bn |= {name for name, g in cpu_grads.items() if name.endswith(".bias")
-               and name[:-4] + "weight" in cpu_grads and g.abs().max()
-               < zero_below * cpu_grads[name[:-4] + "weight"].abs().max()}
+               and g is not None and cpu_grads.get(name[:-4] + "weight") is not None
+               and g.abs().max() < zero_below * cpu_grads[name[:-4] + "weight"].abs().max()}
 
     # every leaf is measured and printed first, then held to its band
-    rows, biases, faults = [], [], []
+    rows, biases = [], []
+    faults = unreached_faults(grads, cpu_grads, unreached)
     for name, got in grads.items():
-        want = cpu_grads[name].double()
-        if got is None:
-            faults.append(f"no gradient for {name} on the card")
+        if got is None or cpu_grads[name] is None:  # counted by unreached_faults
             continue
+        want = cpu_grads[name].double()
         got = got.double().cpu()
         if not torch.isfinite(got).all():
             faults.append(f"non-finite gradient for {name}")
@@ -2499,6 +2560,7 @@ def check_train_step(model, cpu_model, xyz, rgb, labels, cw, loss_fn=None,
           f"{worst('max_err')['max_err']:.4g}, worst relative L2 {worst('rel_l2')['rel_l2']:.4g} "
           f"({worst('rel_l2')['name']}), worst cosine {worst('cos', -1)['cos']:.6f}; "
           f"{len(biases)} zero-gradient biases at {max(biases)[0]:.3g} of their bound; "
+          f"{sum(g is None for g in grads.values())} leaves no gradient reaches; "
           f"BatchNorm statistics worst {stat_err[0]:.3g} of max|stat| ({stat_err[1]}); "
           f"launches {counts}; "
           f"CPU reference step {cpu_s:.2f} s (host)", flush=True)
@@ -2532,7 +2594,8 @@ def check_ssg_train_step(ds: BlockDataset, dev: torch.device) -> dict:
 
 def run_train_steps(ds: BlockDataset, dev: torch.device) -> None:
     """Every single-step train phase (6, 13, 15, 16, 19, 23, 25b, 26c and
-    the steps of the PointNet family and enhanced_pointnet2_ssg) in turn,
+    the steps of the PointNet family, enhanced_pointnet2_ssg, RandLA-Net
+    and the superpoint models) in turn,
     each run twice from the same state; ``--train-steps`` runs them alone
     with REPEAT_REPORT_ONLY set and fails at the end if any differed."""
     no_dropout = dict(drop_rate=0.0, head_drop_rate=0.0)
@@ -2552,6 +2615,8 @@ def run_train_steps(ds: BlockDataset, dev: torch.device) -> None:
     check_pointnet_train_step(ds, dev)
     for use_attention in (False, True):
         check_enhanced_train_step(ds, dev, use_attention)
+    for i, (name, _, _, launches) in enumerate(ZOO):
+        check_zoo_train_step(name, ds, dev, launches, SEED + 350 + i)
 
 
 def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
@@ -3061,20 +3126,33 @@ def check_card_graphs(label: str, tap: GraphTap) -> list:
     return out
 
 
+# a pick that the CPU makes otherwise than the card, on the card's inputs,
+# must be a tie within this share of the row's boundary value
+PICK_TIE = 1e-4
+
+
+def set_gaps(card: torch.Tensor, other: torch.Tensor, values: torch.Tensor) -> tuple:
+    """Rows of k picks [.., k]: the card's picks that ``other``'s rows lack,
+    and each one's gap to its row's k-th value (``values`` [.., k] aligned
+    with the card's picks, the k-th last), relative to that value -> (the
+    mask of those picks, their gaps)."""
+    missing = ~(card.unsqueeze(-1) == other.to(card.device).unsqueeze(-2)).any(-1)
+    kth = values[..., -1:]
+    return missing, ((values - kth).abs() / kth.abs().clamp_min(1e-30))[missing].double()
+
+
 def picks_that_differ(label: str, card: list, cpu: list, plain: list) -> list:
     """Stage by stage, the picks of the card's graph that the CPU's own
     graph (no replay) lacks, with each one's gap to the k-th distance on
     the card's features, relative to that distance -> the counts."""
     counts = []
     for stage, ((x, idx), (_, own), (d2, _)) in enumerate(zip(card, cpu, plain)):
-        own = own.to(idx.device)
-        missing = ~(idx.unsqueeze(-1) == own.unsqueeze(-2)).any(-1)  # [B, N, k]
+        missing, gap = set_gaps(idx, own, d2)  # [B, N, k]
         n = int(missing.sum())
         counts.append(n)
         line = (f"{label}: stage {stage + 1} (C={x.shape[-1]}, k={idx.shape[-1]}): {n} of "
                 f"{idx.numel()} picks differ between the card and the CPU without the replay")
         if n:
-            gap = ((d2[..., -1:] - d2) / d2[..., -1:].clamp_min(1e-30))[missing].double()
             line += (f"; gap to the k-th distance, relative: max {gap.max().item():.3g}, median "
                      f"{gap.median().item():.3g}, min {gap.min().item():.3g}")
         print(line, flush=True)
@@ -3492,10 +3570,13 @@ GLOBAL_LINE = r"GLOBAL mIoU=[\d.]+ OA=[\d.]+ mAcc=[\d.]+ F1=[\d.]+"
 
 
 def serve_blocks(label: str, model_name: str, checkpoint: Path, launched: tuple,
-                 data_dir: Path, n_blocks: int, dev: torch.device) -> dict:
+                 data_dir: Path, n_blocks: int, dev: torch.device,
+                 forward_kernels: tuple = ()) -> dict:
     """``infer_cli blocks`` over the scenes of data_dir from ``checkpoint``,
     twice; the second, warm call is timed and counted -> its launch counts,
-    which must cover ``launched`` and no backward kernel."""
+    which must cover ``launched`` and no backward kernel but those of
+    ``forward_kernels`` (SPT's segment sums run on the group-backward
+    kernel)."""
     out_dir = data_dir / "infer_out" / label.replace(" ", "_")
     argv = ["blocks", "--checkpoint", str(checkpoint), "--model", model_name,
             "--data-dir", str(data_dir), "--out-dir", str(out_dir),
@@ -3504,7 +3585,7 @@ def serve_blocks(label: str, model_name: str, checkpoint: Path, launched: tuple,
     first, _, _ = run_cli(label, argv, GLOBAL_LINE)
     wall, lines, counts = run_cli(label, argv, GLOBAL_LINE)
     counts_all_launched(label, launched)
-    if any(counts[k] for k in BACKWARD_KERNELS):
+    if any(counts[k] for k in BACKWARD_KERNELS if k not in forward_kernels):
         raise AssertionError(f"{label}: a backward kernel ran ({counts})")
     cm = np.loadtxt(out_dir / "confusion_matrix.csv", delimiter=",")
     if cm.shape != (NUM_CLASSES, NUM_CLASSES) or cm.sum() != n_blocks * N:
@@ -3973,6 +4054,452 @@ def train_prod_through_cli(data_dir: Path, dev: torch.device) -> dict:
     return by_path
 
 
+# ------------------------------------------ RandLA-Net and the superpoint models
+
+RANDLA, RANDLA_SS = "randlanet_forward", "randlanet_ss_forward"
+SPG_FWD, SPT_FWD = "spg_forward", "spt_forward"
+RANDLA_TRAIN = "randlanet_train_step"
+ZOO_B16 = "randlanet_forward_b16"
+# points a level of randlanet at N = 4096 (ratios .35, .25, .25, .25)
+RANDLA_LEVELS = (1433, 358, 89, 22)
+# the input features' width a level of both models
+RANDLA_WIDTHS = (8, 16, 64, 128)
+# randlanet_ss's levels (ratio .25) and the 2k nearest its re-weighted k-NN
+# takes there (k = 16, 8, 5, 4)
+RANDLA_SS_KNN = ((1024, 32), (256, 16), (64, 10), (16, 8))
+SUPERPOINTS = 81  # S = max(32 or 16, N // 50) of both superpoint models at N = 4096
+SPT_DEGREE = 8  # edges into a superpoint: the 9 nearest centroids, self dropped
+# a forward: one K5 a level and one K3 (the neighbourhoods; randlanet_ss's
+# re-weighted k-NN gathers its 2k candidates with a second); one FPS (the
+# k-means seeds); SPT adds its graph's
+# K5 and the segment sums of its four attention layers (the softmax
+# denominator and the messages), each one launch of the group-backward kernel
+RANDLANET_LAUNCHES = only(knn=4, group=4)
+RANDLANET_SS_LAUNCHES = only(knn=4, group=8)
+SPG_LAUNCHES = only(fps=1)
+SPT_LAUNCHES = only(fps=1, knn=1, group_bwd=8)
+# a train step adds the backward of every gather with a gradient: randlanet's
+# and randlanet_ss's kept features (4), neighbour features (4) and upsampling
+# sources (4); SPG's two poolings; SPT's x_j, x_i and the softmax
+# denominator a layer and the points' superpoint logits
+RANDLANET_STEP_LAUNCHES = RANDLANET_LAUNCHES | {"group_bwd": 12}
+RANDLANET_SS_STEP_LAUNCHES = RANDLANET_SS_LAUNCHES | {"group_bwd": 12}
+SPG_STEP_LAUNCHES = SPG_LAUNCHES | {"group_bwd": 2}
+SPT_STEP_LAUNCHES = SPT_LAUNCHES | {"group_bwd": 8 + 4 * 3 + 1}
+# (label, S, K, C, N) of each gather with a gradient in a randlanet step at
+# B = 4: the backward K3b runs at each
+RANDLA_GATHERS = (
+    ("level 0 kept", 1433, 1, 8, 4096), ("level 1 kept", 358, 1, 16, 1433),
+    ("level 2 kept", 89, 1, 64, 358), ("level 3 kept", 22, 1, 128, 89),
+    ("level 0 neighbours", 1433, 16, 8, 1433), ("level 1 neighbours", 358, 16, 16, 358),
+    ("level 2 neighbours", 89, 16, 64, 89), ("level 3 neighbours", 22, 16, 128, 22),
+    ("up 22->89", 89, 2, 256, 22), ("up 89->358", 358, 2, 256, 89),
+    ("up 358->1433", 1433, 2, 128, 358), ("up 1433->4096", 4096, 2, 64, 1433),
+)
+
+
+def zoo_knn_case(res: Results, label, xyz, query, k, paths=()) -> dict:
+    """K5 against knn_plain, indices and distances bit for bit, timed with
+    the split of its time beside cdist + topk."""
+    b, n, _ = xyz.shape
+    s = query.shape[1]
+    return res.check("knn", label, lambda: grouping.knn_cuda(xyz, query, k),
+                     lambda: grouping.knn_plain(xyz, query, k), True, paths,
+                     work=(nbytes(xyz, query) + b * s * k * 8, NEIGHBOUR_INSTRUCTIONS * b * s * n),
+                     library_fn=lambda: (torch.cdist(query, xyz) ** 2).topk(k, largest=False),
+                     split=True)
+
+
+def compare_zoo_kernels(dev: torch.device, res: Results, rng) -> None:
+    """Phase 3, the shapes of RandLA-Net and the superpoint models, before
+    any of their phases: K5 over randlanet's levels (N = S = 1433, 358, 89,
+    22, k = 16) at B = 4 and 16; over randlanet_ss's at the 2k its
+    re-weighted k-NN takes (k = 32, 16, 10, 8 over 1024, 256, 64, 16);
+    at k = 9 over 4096 points (density-weighted sampling) and over the 81
+    centroids of SPT's graph; K3 over both models' levels (the
+    neighbourhoods with the level's features, randlanet_ss's 2k candidates
+    without); K1 4096 -> 81 (the k-means seeds)."""
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    for b, paths in ((B, (RANDLA,)), (16, (ZOO_B16,))):
+        for n in RANDLA_LEVELS:
+            xyz = cloud(b, n)
+            zoo_knn_case(res, f"randlanet B={b} N=S={n} k=16", xyz, xyz, 16, paths)
+    for n, k in RANDLA_SS_KNN:
+        xyz = cloud(B, n)
+        zoo_knn_case(res, f"randlanet_ss B={B} N=S={n} k={k}", xyz, xyz, k, (RANDLA_SS,))
+    xyz = cloud(B, N)
+    zoo_knn_case(res, f"density sampling B={B} N=S={N} k=9", xyz, xyz, 9)
+    cent = cloud(B, SUPERPOINTS)
+    zoo_knn_case(res, f"spt graph B={B} N=S={SUPERPOINTS} k=9", cent, cent, 9, (SPT_FWD,))
+    # K3 on K5's graphs: each level's neighbourhoods with its input features,
+    # and randlanet_ss's 2k candidates about a zero centre
+
+    def group_case(label, n, k, c, path, zero_centre=False):
+        xyz = cloud(B, n)
+        feats = (torch.from_numpy(rng.normal(size=(B, n, c)).astype(np.float32)).to(dev)
+                 if c else None)
+        check_group(res, f"{label} B={B} N=S={n} K={k} C={c}", xyz,
+                    torch.zeros_like(xyz) if zero_centre else xyz,
+                    grouping.knn_cuda(xyz, xyz, k)[1], feats, (path,), timed=True)
+
+    for n, c in zip(RANDLA_LEVELS, RANDLA_WIDTHS):
+        group_case("randlanet", n, 16, c, RANDLA)
+    for (n, k2), c, k in zip(RANDLA_SS_KNN, RANDLA_WIDTHS, (16, 8, 5, 4)):
+        group_case("randlanet_ss", n, k, c, RANDLA_SS)
+        group_case("randlanet_ss candidates", n, k2, 0, RANDLA_SS, zero_centre=True)
+    check_fps(res, f"k-means seeds B={B} N={N} -> {SUPERPOINTS}", cloud(B, N), SUPERPOINTS,
+              torch.zeros(B, dtype=torch.int32, device=dev), (SPG_FWD, SPT_FWD), timed=True)
+    res.print_sums("knn", (RANDLA, ZOO_B16, RANDLA_SS, SPT_FWD))
+    res.print_sums("group", (RANDLA, RANDLA_SS))
+
+
+def compare_zoo_backward(dev: torch.device, res: Results, rng) -> None:
+    """Phase 3b, K3b at the shapes of the new models: every gather with a
+    gradient of a randlanet train step at B = 4 (the kept features of each
+    level, the neighbours' features over the level's own k-NN, each
+    decoder level's two upsampling sources; 8 to 256 channels, K = 1, 16
+    and 2), and SPT's segment sums (the batch as one graph of B * 81 nodes,
+    8 edges into each: the softmax denominator over 8 heads and the
+    messages over 128 channels, four layers a forward), each held bit for
+    bit to group_backward_order and timed beside index_add_."""
+    from pointcloud_bridge_tpu_torch.models.randlanet import _upsample_plan
+
+    for label, s, k, c, n in RANDLA_GATHERS:
+        if k == 1:  # the stride subset
+            idx = (torch.arange(s, device=dev) * max(1, n // s) % n).view(1, s, 1)
+        elif k == 2:
+            idx = torch.from_numpy(_upsample_plan(n, s, "float32")[0]).to(dev).view(1, s, 2)
+        else:
+            xyz = torch.from_numpy(rng.uniform(size=(B, n, 3)).astype(np.float32)).to(dev)
+            idx = grouping.knn_cuda(xyz, xyz, k)[1]
+        idx = idx.expand(B, -1, -1).to(torch.int32).contiguous()
+        g = torch.from_numpy(rng.normal(size=(B, s, k, c)).astype(np.float32)).to(dev)
+        check_group_bwd(res, f"randlanet {label} S={s} K={k} C={c} N={n}", g, idx, n, 0, c,
+                        (RANDLA_TRAIN,), timed=True)
+    nodes, edges = B * SUPERPOINTS, B * SUPERPOINTS * SPT_DEGREE
+    dst = torch.arange(nodes, device=dev).repeat_interleave(SPT_DEGREE).view(1, edges, 1)
+    dst = dst.to(torch.int32).contiguous()
+    for label, c in (("softmax denominator", 8), ("messages", 128)):
+        g = torch.from_numpy(rng.normal(size=(1, edges, 1, c)).astype(np.float32)).to(dev)
+        check_group_bwd(res, f"spt segment sum, {label} E={edges} C={c} S={nodes}", g, dst,
+                        nodes, 0, c, (SPT_FWD,), timed=True, times=4)
+    res.print_sums("group_bwd", (RANDLA_TRAIN, SPT_FWD))
+
+
+def stat_knn_plain(real, xyz, k):
+    """knn_stat_weighted on knn_plain and the plain gather -> (its picks,
+    their weighted distances)."""
+    n = xyz.shape[1]
+    k = min(k, n)
+    d2, idx2 = grouping.knn_plain(xyz, xyz, min(2 * k, n))
+    pts = grouping.group_plain(xyz, torch.zeros_like(xyz), idx2)
+    weighted = grouping.stat_weighted_distance(pts, d2)
+    order = weighted.argsort(dim=-1, stable=True)[..., :k]
+    return idx2.gather(-1, order).to(torch.int32), weighted.gather(-1, order)
+
+
+def kmeans_plain(real, xyz, s, iters=3):
+    """kmeans_partition with the plain FPS seeds -> (its partition, the
+    squared distances [B, N, S] to the centroids its last round took)."""
+    if iters < 2:
+        raise ValueError(f"kmeans_plain: {iters} rounds, the models take 3")
+    real_fps = spg_models.farthest_point_sample
+    spg_models.farthest_point_sample = lambda x, m: sampling.fps_plain(
+        x, m, torch.zeros(x.shape[0], dtype=torch.int32, device=x.device))
+    try:
+        assign = real(xyz, s, iters)[0]
+        prior = real(xyz, s, iters - 1)[1]
+    finally:
+        spg_models.farthest_point_sample = real_fps
+    return assign, core_ops.square_distance(xyz, prior)
+
+
+def top_k_plain(real, scores, k):
+    """top_k_nodes has no kernel -> (its picks, their scores)."""
+    idx = real(scores, k)
+    return idx, scores.gather(-1, idx)
+
+
+def knn_picks_plain(real, xyz, k):
+    """The port's knn on knn_plain -> (its picks, their squared distances)."""
+    d2, idx = grouping.knn_plain(xyz, xyz, k)
+    return idx, d2
+
+
+class PickTap:
+    """The discrete picks of a forward (a k-means partition, a top-k, a
+    k-NN graph), through wrappers of the port's functions where a model
+    module calls them (``sites``: (module, name, plain)). A call on the card
+    runs the function and records its inputs and output, unless ``frozen``;
+    a call on the CPU replays what the card recorded for that function,
+    call by call in the same order (cycling, so each CPU forward takes the
+    same picks). The picks come from GEMMs and reductions (the partition's
+    distances, the poolings' scores, the centroids the graph is built over,
+    the re-weighted k-NN's weights), which the card and the CPU round
+    differently, so ``check`` holds what the card recorded: ``plain(real,
+    *inputs)`` on the card (the function on the plain versions of its
+    kernels) gives the same picks, and the CPU's function on the same
+    inputs differs only at ties."""
+
+    def __init__(self, sites):
+        self.sites, self.real = sites, {}
+        self.card = {name: [] for _, name, _ in sites}
+        self.at = dict.fromkeys(self.card, 0)
+        self.frozen = False
+
+    def __enter__(self):
+        for mod, name, _ in self.sites:
+            self.real[name] = getattr(mod, name)
+            setattr(mod, name, functools.partial(self._call, name, self.real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _ in self.sites:
+            setattr(mod, name, self.real[name])
+
+    def start(self) -> None:
+        """Record the next card forward's picks, in place of the last ones."""
+        self.card = {name: [] for name in self.card}
+        self.frozen = False
+
+    def stop(self) -> None:
+        """Record no more; CPU forwards replay from the first pick."""
+        self.frozen = True
+        self.at = dict.fromkeys(self.card, 0)
+
+    def _call(self, name, real, *args, **kwargs):
+        first = next(a for a in args if torch.is_tensor(a))
+        if first.is_cuda:
+            out = real(*args, **kwargs)
+            if not self.frozen:
+                keep = lambda t: t.detach().clone() if torch.is_tensor(t) else t  # noqa: E731
+                self.card[name].append(([keep(a) for a in args], kwargs,
+                                        tuple(map(keep, out)) if isinstance(out, tuple)
+                                        else keep(out)))
+            return out
+        kept = self.card[name]
+        out = kept[self.at[name] % len(kept)][2]
+        self.at[name] += 1
+        return tuple(t.cpu() for t in out) if isinstance(out, tuple) else out.cpu()
+
+    def check(self, label: str) -> dict:
+        """Each call the card recorded: ``plain`` on its inputs on the card
+        gives the card's picks exactly; the CPU's function on the same
+        inputs moved to the CPU makes the same picks but at ties, each
+        pick that differs within PICK_TIE of its row's boundary (the k-th
+        value of a set, the distance to the card's centroid of a
+        partition) -> per site, the picks that differ and their largest
+        gap."""
+        report = {}
+        for _, name, plain in self.sites:
+            calls = self.card[name]
+            if not calls:
+                raise AssertionError(f"{label}: {name} recorded no call on the card")
+            differ, total, worst = 0, 0, 0.0
+            for at, (args, kwargs, out) in enumerate(calls):
+                got = out[0] if isinstance(out, tuple) else out
+                want, values = plain(self.real[name], *args, **kwargs)
+                if not torch.equal(got, want.to(got.dtype)):
+                    raise AssertionError(f"{label}: {name} call {at}: the card's picks differ "
+                                         "from the plain path's on the card on its own inputs")
+                cpu = self.real[name](*[a.cpu() if torch.is_tensor(a) else a for a in args],
+                                      **kwargs)
+                cpu = (cpu[0] if isinstance(cpu, tuple) else cpu).to(got.device)
+                if got.dim() == values.dim():  # rows of k picks
+                    missing, gaps = set_gaps(got, cpu, values)
+                else:  # a partition: each point's distance to the centroid of each side
+                    missing = got != cpu
+                    near = values.gather(-1, got.long().unsqueeze(-1))[..., 0]
+                    far = values.gather(-1, cpu.long().unsqueeze(-1))[..., 0]
+                    gaps = ((far - near).abs() / near.abs().clamp_min(1e-30))[missing].double()
+                differ, total = differ + int(missing.sum()), total + got.numel()
+                worst = max(worst, gaps.max().item() if gaps.numel() else 0.0)
+            report[name] = (differ, worst)
+            print(f"{label}: {name}: {len(calls)} calls, the card's picks equal to the plain "
+                  f"path's on the card; {differ} of {total} picks differ on the CPU on the "
+                  f"same inputs, the largest gap to the boundary {worst:.3g} relative", flush=True)
+            if worst > PICK_TIE:
+                raise AssertionError(f"{label}: {name}: a pick differs on the CPU beyond a tie "
+                                     f"({worst:.3g} > {PICK_TIE})")
+        return report
+
+
+def zoo_sites(name: str) -> list:
+    """The picks to replay on the CPU for ``name``: randlanet_ss's
+    re-weighted k-NN (its weights come from reductions and exp, which the
+    devices round differently), SPG's partition and three top-k, SPT's
+    partition and graph; none for randlanet (K5 over the same gathered
+    points is bit for bit knn_plain)."""
+    return {"randlanet": [],
+            "randlanet_ss": [(randla_models, "knn_stat_weighted", stat_knn_plain)],
+            "spg": [(spg_models, "kmeans_partition", kmeans_plain),
+                    (spg_models, "top_k_nodes", top_k_plain)],
+            "spt": [(spt_models, "kmeans_partition", kmeans_plain),
+                    (spt_models, "knn", knn_picks_plain)]}[name]
+
+
+# leaves that no gradient reaches, by name prefix: SPG's pooling scores pick
+# nodes and weigh nothing (tests/test_torch_spg.py)
+ZOO_UNREACHED = {"spg": ("gpool1.score", "gpool2.score")}
+
+
+ZOO = (("randlanet", RANDLA, RANDLANET_LAUNCHES, RANDLANET_STEP_LAUNCHES),
+       ("randlanet_ss", RANDLA_SS, RANDLANET_SS_LAUNCHES, RANDLANET_SS_STEP_LAUNCHES),
+       ("spg", SPG_FWD, SPG_LAUNCHES, SPG_STEP_LAUNCHES),
+       ("spt", SPT_FWD, SPT_LAUNCHES, SPT_STEP_LAUNCHES))
+
+
+def check_zoo_forward(name: str, ds: BlockDataset, dev: torch.device, launches: dict,
+                      seed: int) -> dict:
+    """Phase 34, one model: the registry's default model at B=4 x 4096,
+    random weights and BatchNorm statistics, on the card against the CPU
+    with the card's picks replayed there (PickTap): logits within 2e-4,
+    exactly ``launches``; the card's picks held by ``PickTap.check``;
+    forward ms, points/s and device time by kernel family -> the counts."""
+    label = f"{name} forward"
+    model = seeded_model(name, seed)
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz_cpu, rgb_cpu = batch_of(ds)[:2]
+    xyz, rgb = xyz_cpu.to(dev), rgb_cpu.to(dev)
+    with torch.inference_mode(), PickTap(zoo_sites(name)) as tap:
+        _kernels.reset_launch_counts()
+        out = model(xyz, rgb)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        if counts != launches:
+            raise AssertionError(f"{label}: launches {counts}, expected {launches}")
+        tap.stop()
+        tap.check(label)
+        t0 = time.perf_counter()
+        ref = cpu_model(xyz_cpu, rgb_cpu)
+        cpu_s = time.perf_counter() - t0
+        out = out.cpu()
+        err = max_abs_err(out, ref)
+        agree = (out.argmax(-1) == ref.argmax(-1)).double().mean().item()
+        print(f"{label}: logits {tuple(out.shape)} CUDA vs CPU (the card's picks replayed: "
+              f"{ {k: len(v) for k, v in tap.card.items()} }) max|err| {err:.3g} (max|logit| "
+              f"{ref.abs().max().item():.3g}), argmax agreement {agree:.6f}, launches {counts}, "
+              f"CPU reference forward {cpu_s:.2f} s (host)", flush=True)
+        if out.shape != (B, N, NUM_CLASSES) or not torch.isfinite(out).all():
+            raise AssertionError(f"{label}: logits {tuple(out.shape)} not finite")
+        if not torch.allclose(out, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+            raise AssertionError(f"{label}: CUDA logits differ from CPU by {err}")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(xyz, rgb))
+        print(f"{label}: B={B} N={N} {fwd_ms:.3f} ms, {B * N / fwd_ms * 1e3:.0f} points/s",
+              flush=True)
+        profile_by_family(label, "forward", lambda: model(xyz, rgb))
+    return counts
+
+
+def check_zoo_train_step(name: str, ds: BlockDataset, dev: torch.device, launches: dict,
+                         seed: int) -> dict:
+    """Phase 35, one model: one train step at the registry's width, B=4 x
+    4096, every Dropout at p = 0 on both copies, weighted CE, on the card
+    against the CPU, checked as phase 6 (frozen BatchNorms first, then
+    train mode, run twice from the same state), the CPU taking the card's
+    picks of the same mode, with exactly ``launches`` -> those counts."""
+    label = f"{name} train step"
+    model = no_dropout(seeded_model(name, seed))
+    cpu_model = copy.deepcopy(model)
+    model.to(dev)
+    xyz, rgb, labels, cw = batch_of(ds)
+    with PickTap(zoo_sites(name)) as tap:
+        tap.start()
+        model.eval()
+        with torch.no_grad():
+            model(xyz.to(dev), rgb.to(dev))
+        tap.stop()
+        tap.check(f"{name} eval-mode picks")
+        unreached = ZOO_UNREACHED.get(name, ())
+        check_frozen_bn_gradients(model, cpu_model, xyz, rgb, labels, cw,
+                                  label=f"{name} frozen-BN gradients", unreached=unreached)
+        # train mode: the picks of a train-mode forward of a copy (the batch
+        # statistics set the features that SPG's poolings score)
+        tap.start()
+        with torch.no_grad():
+            copy.deepcopy(model).train()(xyz.to(dev), rgb.to(dev))
+        tap.stop()
+        tap.check(f"{name} train-mode picks")
+        counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None, launches, label,
+                                  zero_below=1e-4,
+                                  needed=tuple(k for k, v in launches.items() if v),
+                                  unreached=unreached)
+    step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
+    print(f"{label}: forward and backward {step_ms:.3f} ms, {B * N / step_ms * 1e3:.0f} "
+          f"points/s", flush=True)
+    return counts
+
+
+def time_and_serve(name: str, data_dir: Path, n_blocks: int, dev: torch.device,
+                   launches: dict, seed: int) -> dict:
+    """Phase 37, one model (no recipe in either package): the batch-16 step
+    at the registry's defaults (Adam, weighted CE with the scene's class
+    weights) timed (ms, points/s, peak memory) and profiled by kernel
+    family, then ``infer_cli blocks --model name`` from a checkpoint
+    written here, with exactly ``launches`` a forward batch -> the serve's
+    counts."""
+    model = seeded_model(name, seed).to(dev)
+    ds = BlockDataset.from_files([str(data_dir / "bridge_0.las")], num_points=N,
+                                 num_classes=NUM_CLASSES)
+    batch = {"points": torch.from_numpy(np.ascontiguousarray(ds.points[:16], np.float32)).to(dev),
+             "colors": torch.from_numpy(np.ascontiguousarray(ds.colors[:16], np.float32)).to(dev),
+             "labels": torch.from_numpy(ds.labels[:16].astype(np.int64)).to(dev)}
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES)).to(dev)
+    step = make_train_step(model, LossConfig(name="weighted_ce"),
+                           make_optimizer(model.parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(batch, 1e-4, cw), reps=20, warmup=5)
+    mem = torch.cuda.max_memory_allocated()
+    print(f"{name} step: batch 16 x {N} {step_ms:.3f} ms, {16 * N / step_ms * 1e3:.0f} points/s "
+          f"trained, peak device memory {mem / 2**20:.1f} MiB", flush=True)
+    profile_by_family(f"{name} step", "step", lambda: step(batch, 1e-4, cw))
+    ckpt = data_dir / f"{name}_checkpoint"
+    save_checkpoint(str(ckpt), {"model": model.state_dict(), "epoch": 0})
+    label = f"serve {name} blocks"
+    counts = serve_blocks(label, name, ckpt, tuple(k for k, v in launches.items() if v),
+                          data_dir, n_blocks, dev, forward_kernels=("group_bwd",))
+    batches = -(-n_blocks // 16)
+    if counts != {k: batches * v for k, v in launches.items()}:
+        raise AssertionError(f"{label}: launches {counts}, {batches} batches")
+    return counts
+
+
+def run_zoo_phases(ds: BlockDataset, data_dir: Path, dev: torch.device) -> tuple:
+    """Phases 34-37 -> (launch counts of one forward by path, launch counts
+    of the steps, the training run and the serves by path)."""
+    passes, by_path = {}, {}
+    for i, (name, path, launches, _) in enumerate(ZOO):
+        passes[path] = check_zoo_forward(name, ds, dev, launches, SEED + 340 + i)
+    for i, (name, _, _, launches) in enumerate(ZOO):
+        by_path[f"{name}_train_step"] = check_zoo_train_step(name, ds, dev, launches,
+                                                             SEED + 350 + i)
+    passes[RANDLA_TRAIN] = by_path["randlanet_train_step"]
+    # 36. configs/train_randlanet.yaml through the training CLI, then served
+    by_path["randlanet_train_cli"], exp_dir = train_through_cli(
+        "train randlanet (configs/train_randlanet.yaml)", "randlanet",
+        ("knn", "group", "group_bwd"),
+        data_dir, dev, profile=True, recipe=ROOT / "configs" / "train_randlanet.yaml")
+    try:
+        label = "serve trained randlanet blocks"
+        counts = serve_blocks(label, "randlanet", exp_dir, ("knn", "group"), data_dir, len(ds),
+                              dev)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    if counts != {k: -(-len(ds) // 16) * v for k, v in RANDLANET_LAUNCHES.items()}:
+        raise AssertionError(f"{label}: launches {counts}")
+    by_path["randlanet_serve_trained"] = counts
+    # 37. spg and spt: the batch-16 step, then served from a checkpoint
+    for i, (name, _, launches, _) in enumerate(ZOO[2:]):
+        by_path[f"{name}_serve_blocks"] = time_and_serve(name, data_dir, len(ds), dev, launches,
+                                                         SEED + 370 + i)
+    return passes, by_path
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4085,6 +4612,19 @@ def main() -> None:
             ds = make_dataset(data_dir)
             check_pointnet_phases(ds, data_dir, dev)
             check_enhanced_phases(ds, data_dir, dev)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        return
+    if sys.argv[1:] == ["--zoo"]:
+        # model work on RandLA-Net and the superpoint models: phases 1, 2,
+        # their kernel cases of 3 and 3b and phases 34-37 alone, no result
+        # line
+        res = Results()
+        compare_zoo_kernels(dev, res, np.random.default_rng(SEED))
+        compare_zoo_backward(dev, res, np.random.default_rng(SEED + 1))
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            run_zoo_phases(make_dataset(data_dir), data_dir, dev)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         return
@@ -4285,6 +4825,12 @@ def main() -> None:
         # served through the inference CLI
         enhanced_passes, enhanced_by_path = check_enhanced_phases(ds, data_dir, dev)
         by_path |= enhanced_passes | enhanced_by_path
+
+        # 34. the forwards of randlanet, randlanet_ss, spg and spt; 35. a
+        # train step of each; 36. configs/train_randlanet.yaml through the
+        # training CLI, served; 37. spg and spt timed at batch 16 and served
+        zoo_passes, zoo_by_path = run_zoo_phases(ds, data_dir, dev)
+        by_path |= zoo_by_path
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
@@ -4301,13 +4847,14 @@ def main() -> None:
                    PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts,
                    DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts, **msg_passes,
                    PROD_TRAIN: prod_counts, PTV3_BF16: ptv3_bf16_counts,
-                   POOLED_BF16: pooled_bf16_counts}
+                   POOLED_BF16: pooled_bf16_counts, **zoo_passes}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:
         paths = {path: res.row(k.name, path, counts[k.name])
                  for path, counts in pass_counts.items()
-                 if counts[k.name] and (path not in (TRAIN, BRISTRUNET_TRAIN, MSG_TRAIN)
+                 if counts[k.name] and (path not in (TRAIN, BRISTRUNET_TRAIN, MSG_TRAIN,
+                                                     RANDLA_TRAIN)
                                         or k.name in SSG_BACKWARD_KERNELS)}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,

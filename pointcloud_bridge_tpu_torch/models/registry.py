@@ -1,7 +1,6 @@
 """Model registry of the port (counterpart of
-pointcloud_bridge_tpu/models/registry.py). ``MODEL_REGISTRY`` holds the
-models the port supports; ``NOT_PORTED`` the JAX package's other names,
-which raise an error that points at ROADMAP.md."""
+pointcloud_bridge_tpu/models/registry.py): every name of the JAX
+package's registry, each to the port's class of the same name."""
 
 from __future__ import annotations
 
@@ -19,6 +18,9 @@ from .pointnet import PointNetGlobalSeg, PointNetSeg, PointNetSemSegPartsize
 from .pointnet2 import PointNet2MSG, PointNet2SSG
 from .ptv3 import PointTransformerV3
 from .ptv3_pooled import PointTransformerV3Pooled
+from .randlanet import RandLANet, RandLANetSS
+from .spg import SuperpointGraph
+from .spt import SPTSegmenter
 
 MODEL_REGISTRY = {
     "pointnet": PointNetSeg,  # eva_model's 'PointNet' (pointnet.py:59-173)
@@ -42,12 +44,13 @@ MODEL_REGISTRY = {
     "ptv3_pooled": PointTransformerV3Pooled,  # serialized encoder-decoder
     "dgcnn": DGCNN,  # the k=20 segmentation model of configs/train_dgcnn.yaml
     "dgcnn_global": DGCNNGlobal,  # the k=64 variant, logits repeated per point
+    "randlanet": RandLANet,
+    "randlanet_ss": RandLANetSS,  # density sampling, re-weighted k-NN, one MLP a level
+    "spg": SuperpointGraph,
+    "superpoint_graph": SuperpointGraph,
+    "spt": SPTSegmenter,  # point-level SuperPointTransformer wrapper
+    "superpoint_transformer": SPTSegmenter,
 }
-
-# names the JAX package's registry knows and the port does not yet
-NOT_PORTED = (
-    "randlanet", "randlanet_ss", "spg", "superpoint_graph", "spt", "superpoint_transformer",
-)
 
 
 def get_model(
@@ -59,11 +62,6 @@ def get_model(
 ) -> nn.Module:
     """Build ``name`` with weights drawn from ``generator`` (a CPU
     generator, or torch's default one when None) and move it to device."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model '{name}' is not ported to PyTorch yet (ported: "
-            f"{sorted(MODEL_REGISTRY)}); ROADMAP.md lists what comes next"
-        )
     if name not in MODEL_REGISTRY:
         raise ValueError(f"unknown model '{name}'; available: {sorted(MODEL_REGISTRY)}")
     model = MODEL_REGISTRY[name](

@@ -84,9 +84,12 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     parity. The ops of the slice use ``pairwise_sq_dist`` instead: the
     expansion cancels and can move a point across a radius or a tie.
 
-    src [B, N, C], dst [B, M, C] -> [B, N, M].
+    src [B, N, C], dst [B, M, C] -> [B, N, M] of src's type, computed in
+    float32 as the JAX function computes it (its products and sums of
+    squares in float32 for any input type).
     """
-    cross = torch.einsum("bnc,bmc->bnm", src, dst)
-    s2 = (src * src).sum(-1).unsqueeze(2)
-    d2 = (dst * dst).sum(-1).unsqueeze(1)
-    return -2.0 * cross + s2 + d2
+    a, b = src.float(), dst.float()
+    cross = torch.einsum("bnc,bmc->bnm", a, b)
+    s2 = (a * a).sum(-1).unsqueeze(2)
+    d2 = (b * b).sum(-1).unsqueeze(1)
+    return (-2.0 * cross + s2 + d2).to(src.dtype)

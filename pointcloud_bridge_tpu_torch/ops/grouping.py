@@ -704,3 +704,67 @@ def edge_conv_graph_feature(
     neighbours = index_points(x, idx)  # [B, N, k, C]
     center = x.unsqueeze(2).expand_as(neighbours)
     return torch.cat([neighbours - center, center], dim=-1)
+
+
+def knn_stat_weighted(xyz: torch.Tensor, k: int = 16) -> torch.Tensor:
+    """RandLANet_ss's statistically re-weighted k-NN (ops/grouping.py:254-280):
+    the 2k nearest points (k-NN kernel), gathered by ``group_points`` about
+    a zero centre (the group kernel: the candidates' own xyz, as the JAX
+    line takes them), then ``knn_stat_select``. xyz [B, N, 3] -> [B, N, k]
+    int32, no gradient."""
+    n = xyz.shape[1]
+    k = min(k, n)
+    with torch.no_grad():
+        d2, idx2 = knn_with_distance(xyz, k=min(2 * k, n))
+        pts = group_points(xyz, torch.zeros_like(xyz), idx2)  # [B, N, 2k, 3]
+        return knn_stat_select(pts, d2, idx2, k)
+
+
+def stat_weighted_distance(pts: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """The 2k candidates' squared distances d2 [B, N, 2k], each weighted by
+    exp(-|p - mean|^2 / mean(std + 1e-6)) over the candidates' xyz pts
+    [B, N, 2k, 3] (their mean and unbiased std, as ``jnp.std(ddof=1)``)."""
+    mean = pts.mean(dim=2, keepdim=True)
+    std = pts.std(dim=2, unbiased=True)  # [B, N, 3]
+    denom = (std + 1e-6).mean(dim=-1, keepdim=True)
+    return d2 * torch.exp(-((pts - mean) ** 2).sum(dim=-1) / denom)
+
+
+def knn_stat_select(pts: torch.Tensor, d2: torch.Tensor, idx2: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """The selection of ``knn_stat_weighted`` from the 2k-NN (d2, idx2)
+    [B, N, 2k] and the candidates' xyz pts [B, N, 2k, 3]: the k smallest
+    ``stat_weighted_distance``, by a stable argsort (equal values keep the
+    nearer candidate first, as ``jnp.argsort``)."""
+    order = stat_weighted_distance(pts, d2).argsort(dim=-1, stable=True)[..., :k]
+    return idx2.gather(-1, order).to(torch.int32)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum`` over the first axis: data [E, C], segment_ids
+    [E] -> [S, C], each segment the sum of its rows, an empty one 0. This is
+    the group backward's function (the gradient of a gather): on the card
+    the group-backward kernel adds each segment's rows in ascending row
+    order, so the same bits every call (``index_add_`` adds with float
+    atomics in an order that varies); on the CPU ``group_backward_plain``.
+    Its gradient is a gather, :class:`SegmentSum`."""
+    return SegmentSum.apply(data, segment_ids, num_segments)
+
+
+class SegmentSum(torch.autograd.Function):
+    """``segment_sum`` with a gather as its backward."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        e, c = data.shape
+        ids = segment_ids.reshape(1, e, 1).to(torch.int32).contiguous()
+        ctx.save_for_backward(ids)
+        g = data.reshape(1, e, 1, c).contiguous()
+        if data.is_cuda:
+            return group_backward_cuda(g, ids, num_segments, 0, c)[0]
+        return group_backward_plain(g, ids, num_segments, 0, c)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return grad[ids.reshape(-1).long()], None, None

@@ -1,7 +1,11 @@
-"""Farthest point sampling (counterpart of pointcloud_bridge_tpu/ops/sampling.py).
+"""Farthest point sampling and RandLA-Net's random sampling (counterpart
+of pointcloud_bridge_tpu/ops/sampling.py).
 
-A CPU tensor goes to the plain PyTorch version, a CUDA tensor to the FPS
-kernel (csrc/fps.cu); both give the same indices bit for bit.
+FPS: a CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
+FPS kernel (csrc/fps.cu); both give the same indices bit for bit. The
+random subsets draw from an explicit ``torch.Generator``; density-weighted
+sampling splits into that draw and a deterministic selection
+(``density_weighted_select``) whose k-NN runs on the k-NN kernel.
 """
 
 from __future__ import annotations
@@ -110,3 +114,48 @@ def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tenso
     _kernels.FPS.launch(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), plan,
                         *_kernels.stream_args(xyz))
     return out
+
+
+def random_sample_indices(n: int, npoint: int, batch: int,
+                          generator: torch.Generator) -> torch.Tensor:
+    """RandLA-Net's random subset (ops/sampling.py:98-110): each row the
+    first ``npoint`` of a random permutation of range(n), drawn from
+    ``generator`` on its device. The JAX package draws from a PRNG key, so
+    the two agree in distribution, not in value. -> [batch, npoint] int32."""
+    if not 0 <= npoint <= n:
+        raise ValueError(f"random sampling: npoint {npoint} outside [0, {n}]")
+    dev = generator.device
+    rows = [torch.randperm(n, generator=generator, device=dev)[:npoint] for _ in range(batch)]
+    return torch.stack(rows).to(torch.int32) if rows else \
+        torch.empty(0, npoint, dtype=torch.int32, device=dev)
+
+
+# the neighbours whose mean distance stands for 1/density (ops/sampling.py:113)
+DENSITY_K = 8
+
+
+def density_weighted_sample_indices(xyz: torch.Tensor, npoint: int,
+                                    generator: torch.Generator) -> torch.Tensor:
+    """RandLANet_ss's density-weighted sampling without replacement
+    (ops/sampling.py:113-131): a uniform draw ``u`` [B, N] from
+    ``generator`` (on xyz's device), then ``density_weighted_select``.
+    xyz [B, N, 3] float32 -> [B, npoint] int32."""
+    u = torch.rand(xyz.shape[:2], generator=generator, device=xyz.device)
+    return density_weighted_select(xyz, npoint, u)
+
+
+def density_weighted_select(xyz: torch.Tensor, npoint: int, u: torch.Tensor) -> torch.Tensor:
+    """The deterministic part of density-weighted sampling: the mean
+    distance to the DENSITY_K nearest other points (the DENSITY_K + 1
+    nearest, self first, on the k-NN kernel) as 1/density, its log plus the
+    Gumbel noise of ``u`` [B, N], and the ``npoint`` largest of that, the
+    largest first and equal values to the lower index (``lax.top_k``'s
+    order)."""
+    from . import grouping  # grouping imports this module
+
+    d2, _ = grouping.knn_with_distance(xyz, k=min(DENSITY_K + 1, xyz.shape[1]))
+    sparsity = torch.sqrt(torch.relu(d2[..., 1:])).mean(dim=-1)
+    logits = torch.log(sparsity + 1e-8)
+    gumbel = -torch.log(-torch.log(u + 1e-12))
+    order = (logits + gumbel).sort(dim=-1, descending=True, stable=True).indices
+    return order[:, :npoint].to(torch.int32)

@@ -55,6 +55,12 @@ model says which flax module becomes which prefix of the state_dict:
     attention blocks the flax paths (a Dense [O, I]).
   - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
     running_mean/running_var, num_batches_tracked 0.
+  - ``randlanet`` (``randlanet_rules``) carries the reference torch names
+    of the JAX package's ``_rules_randlanet`` (utils/torch_import.py:293-336):
+    the convolutions over neighbourhoods Conv2d, the others Conv1d,
+    ``fc_start`` Linear. ``randlanet_ss``, ``spg`` (``superpoint_graph``)
+    and ``spt`` (``superpoint_transformer``) have no torch rules in the JAX
+    package and take the flax names.
   - LayerNorm (kind "ln") scale/bias -> weight/bias; it has no statistics.
 """
 
@@ -325,6 +331,76 @@ def pointnet_cls_rules() -> List[Rule]:
             + _flat([f"bn{i}" for i in range(1, 6)], "bn"))
 
 
+def randlanet_rules() -> List[Rule]:
+    """The inverse of the JAX package's ``_rules_randlanet``
+    (utils/torch_import.py:293-336): the LocalSpatialEncodings' and the
+    attention scores' convolutions Conv2d [O, I, 1, 1], the other
+    convolutions Conv1d [O, I, 1], ``fc_start`` Linear."""
+    r: List[Rule] = [("fc_start", ("fc_start",), "linear"), ("bn_start", ("bn_start",), "bn")]
+    for i in range(4):
+        la, fl = f"down_modules.{i}.localAgg", f"lfa{i}"
+        for lse in ("lse1", "lse2"):
+            r += [(f"{la}.{lse}.mlp.0", (fl, lse, "mlp"), "conv2d"),
+                  (f"{la}.{lse}.mlp.1", (fl, lse, "bn"), "bn")]
+        for ap in ("ap1", "ap2"):
+            r += [(f"{la}.{ap}.score_fn.0", (fl, ap, "score0"), "conv2d"),
+                  (f"{la}.{ap}.score_fn.1", (fl, ap, "score_bn"), "bn"),
+                  (f"{la}.{ap}.score_fn.3", (fl, ap, "score1"), "conv2d"),
+                  (f"{la}.{ap}.mlp.0", (fl, ap, "mlp"), "conv1d"),
+                  (f"{la}.{ap}.mlp.1", (fl, ap, "mlp_bn"), "bn")]
+        r += [(f"{la}.drb.mlp{j}.{t}", (fl, "drb", f"{kind}{j}"), "conv1d" if t == 0 else "bn")
+              for j in (1, 2) for t, kind in ((0, "mlp"), (1, "bn"))]
+    for i in range(4):
+        up = f"up_modules.{i}.mlp"
+        r += [(f"{up}.0", (f"up{i}_d1",), "conv1d"), (f"{up}.1", (f"up{i}_bn1",), "bn"),
+              (f"{up}.3", (f"up{i}_d2",), "conv1d"), (f"{up}.4", (f"up{i}_bn2",), "bn")]
+    return r + [("seg_head.0", ("head_d0",), "conv1d"), ("seg_head.1", ("head_bn",), "bn"),
+                ("seg_head.4", ("head_d1",), "conv1d")]
+
+
+def randlanet_ss_rules() -> List[Rule]:
+    layers = _dense_bn((), ("fc_start", "bn_start"))
+    for i in range(4):
+        layers += _dense_bn((f"lfa{i}",), ("mlp0", "bn0", "mlp1", "bn1", "mlp2", "bn2"))
+        layers += _dense_bn((), (f"up{i}_d1", f"up{i}_bn1", f"up{i}_d2", f"up{i}_bn2"))
+    return _by_flax_path(layers + _dense_bn((), ("head_d0", "head_bn", "head_d1")))
+
+
+def _dense_mlp(prefix: Tuple[str, ...], depth: int) -> _Layers:
+    """A DenseMLP's ``dense_{i}`` and ``bn_{i}`` under ``prefix``."""
+    return [x for i in range(depth) for x in _dense_bn(prefix, (f"dense_{i}", f"bn_{i}"))]
+
+
+def spg_rules() -> List[Rule]:
+    layers = _dense_mlp(("point_encoder",), 4) + _dense_mlp(("sp_encoder",), 3)
+    for i in (1, 2, 3):
+        layers += _dense_bn((f"gconv{i}",), (
+            "self_transform", "neighbor_transform", "edge_mlp0", "edge_mlp1", "attn0", "attn1",
+            "gate0", "gate1", "combine0", "combine1"))
+        layers += _dense_bn((), (f"gbn{i}",))
+    for i in (1, 2):
+        layers += _dense_bn((f"gpool{i}",), ("score0", "score1", "score2"))
+    layers += _dense_bn(("gpooling",), ("attn0", "attn1", "global0", "global1"))
+    layers += _dense_bn((), ("cls_fc1", "cls_bn1", "cls_fc2", "cls_bn2", "cls_fc3", "pfp_mlp0",
+                             "pfp_mlp1", "pfp_comb0", "pfp_comb1", "pfp_comb2"))
+    return _by_flax_path(layers)
+
+
+def spt_rules(num_layers: int = 4) -> List[Rule]:
+    """SPTSegmenter's SuperPointTransformer ``spt``, ``num_layers`` encoders
+    with edge attributes."""
+    def graph_mlp(prefix: Tuple[str, ...]) -> _Layers:
+        return _dense_bn(prefix, ("lin0", "bn0", "lin1"))
+
+    layers = graph_mlp(("spt", "input_proj"))
+    for i in range(num_layers):
+        block = ("spt", f"layer{i}")
+        layers += [(block + ("norm1",), "ln")]
+        layers += _dense_bn(block + ("attn",), ("q", "k", "v", "edge_proj", "o"))
+        layers += [(block + ("norm2",), "ln")] + graph_mlp(block + ("ffn",))
+    return _by_flax_path(layers + graph_mlp(("spt", "output_proj")))
+
+
 MODEL_RULES = {
     "pointnet": pointnet_rules,
     "pointnet_seg": pointnet_rules,
@@ -346,6 +422,12 @@ MODEL_RULES = {
     "pointnet2_sem_seg": pointnet2_sem_seg_rules,
     "pointnet2_cls_ssg": pointnet2_cls_ssg_rules,
     "pointnet2_cls_msg": pointnet2_cls_msg_rules,
+    "randlanet": randlanet_rules,
+    "randlanet_ss": randlanet_ss_rules,
+    "spg": spg_rules,
+    "superpoint_graph": spg_rules,
+    "spt": spt_rules,
+    "superpoint_transformer": spt_rules,
 }
 
 
@@ -404,13 +486,15 @@ def state_dict_to_flax(
     """The inverse of ``flax_to_state_dict``: a state_dict of ``model``, or
     any part of one (a dict of gradients holds only weights and biases) ->
     ``{"params": ..., "batch_stats": ...}`` nested dicts of float32 numpy
-    arrays, with the leaves that ``sd`` has."""
+    arrays (float64 where the tensor is float64), with the leaves that
+    ``sd`` has."""
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
 
     def put(tree: Dict[str, Any], path: Tuple[str, ...], v: torch.Tensor) -> None:
         for p in path[:-1]:
             tree = tree.setdefault(p, {})
-        tree[path[-1]] = v.detach().cpu().numpy().astype(np.float32)
+        a = v.detach().cpu().numpy()
+        tree[path[-1]] = a if a.dtype == np.float64 else a.astype(np.float32)
 
     names = {"weight": "scale", "bias": "bias"}
     for tp, fp, kind in rules_for(model):

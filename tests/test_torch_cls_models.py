@@ -24,7 +24,7 @@ from pointcloud_bridge_tpu_torch.models import (
     PointNetCls,
     get_model,
 )
-from pointcloud_bridge_tpu_torch.models.registry import NOT_PORTED
+from pointcloud_bridge_tpu_torch.models.registry import MODEL_REGISTRY
 from pointcloud_bridge_tpu_torch.utils.weights import (
     MODEL_RULES,
     flax_to_state_dict,
@@ -145,7 +145,7 @@ def test_pointnet_cls_waits_for_pointnet():
     """pointnet_cls waited for PointNet's TNet and is ported with it: the
     registry builds PointNetCls, and its parameters and buffers are named as
     its weight rules say (flax names, a Dense [out, in])."""
-    assert "pointnet_cls" not in NOT_PORTED
+    assert MODEL_REGISTRY["pointnet_cls"] is PointNetCls
     model = get_model("pointnet_cls", 5)
     assert isinstance(model, PointNetCls)
     want = set()

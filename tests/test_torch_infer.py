@@ -380,11 +380,13 @@ def test_infer_cli_from_snapshot_matches_the_working_tree(cli_run, capsys):
 
 
 def test_infer_cli_refuses_a_model_not_ported(cli_run):
+    """Every registry name is ported; a name outside the registry is
+    refused before any checkpoint is read."""
     from pointcloud_bridge_tpu_torch import infer_cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        infer_cli.main(["blocks", "--checkpoint", cli_run["ptv3_pooled"], "--model", "randlanet",
-                        "--data-dir", str(cli_run["data"]), "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown model"):
+        infer_cli.main(["blocks", "--checkpoint", cli_run["ptv3_pooled"], "--model",
+                        "randlanet_v2", "--data-dir", str(cli_run["data"]), "--device", "cpu"])
 
 
 def test_infer_cli_refuses_a_missing_card(tmp_path):

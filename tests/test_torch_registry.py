@@ -1,6 +1,6 @@
 """The port's model registry against the JAX package's: every name of the
-JAX registry whose class the port has resolves to the port's class of the
-same name, every other name raises NotImplementedError, and the reference
+JAX registry resolves to the port's class of the same name and has weight
+rules, a name outside the registry raises ValueError, and the reference
 name ``pointnet2`` builds, takes converted weights and serves like
 ``pointnet2_ssg``."""
 
@@ -19,7 +19,7 @@ from pointcloud_bridge_tpu.models import get_model as jax_get_model
 from pointcloud_bridge_tpu.models.registry import MODEL_REGISTRY as JAX_REGISTRY
 from pointcloud_bridge_tpu_torch.infer import run_block_inference
 from pointcloud_bridge_tpu_torch.models import get_model
-from pointcloud_bridge_tpu_torch.models.registry import MODEL_REGISTRY, NOT_PORTED
+from pointcloud_bridge_tpu_torch.models.registry import MODEL_REGISTRY
 from pointcloud_bridge_tpu_torch.utils.weights import MODEL_RULES, flax_to_state_dict
 
 from test_torch_ssg import randomize_bn
@@ -42,28 +42,28 @@ PORTED_CLASSES = {_jax_class_name(ctor) for ctor in MODEL_REGISTRY.values()}
 
 @pytest.mark.parametrize("name", sorted(JAX_REGISTRY))
 def test_every_jax_registry_name_resolves_or_raises(name):
+    """Every name resolves: to the class (or configuration of a class) of
+    the same name, with weight rules, and it builds."""
     jax_name = _jax_class_name(JAX_REGISTRY[name])
-    if jax_name in PORTED_CLASSES:
-        assert _jax_class_name(MODEL_REGISTRY[name]) == jax_name
-        assert name in MODEL_RULES and name not in NOT_PORTED
-    else:
-        assert name in NOT_PORTED and name not in MODEL_REGISTRY
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model(name, 5)
+    assert jax_name in PORTED_CLASSES
+    assert _jax_class_name(MODEL_REGISTRY[name]) == jax_name
+    assert name in MODEL_RULES
+    model = get_model(name, 5)
+    assert type(model).__name__ == (jax_name if isinstance(jax_name, str) else jax_name[0])
 
 
 def test_the_port_knows_no_name_the_jax_registry_lacks():
-    assert set(MODEL_REGISTRY) | set(NOT_PORTED) == set(JAX_REGISTRY)
-    assert not set(MODEL_REGISTRY) & set(NOT_PORTED)
+    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
     assert set(MODEL_RULES) == set(MODEL_REGISTRY)
 
 
 def test_the_port_serves_twenty_of_the_twenty_six_names():
-    """20 of the JAX registry's 26 names are ported; what is left is
-    RandLANet and the superpoint models."""
-    assert len(JAX_REGISTRY) == 26 and len(MODEL_REGISTRY) == 20
-    assert sorted(NOT_PORTED) == ["randlanet", "randlanet_ss", "spg", "spt", "superpoint_graph",
-                                  "superpoint_transformer"]
+    """All 26 of the JAX registry's names are served, RandLA-Net and the
+    superpoint models among them, and every one has weight rules."""
+    assert len(JAX_REGISTRY) == 26 and len(MODEL_REGISTRY) == 26
+    assert {"randlanet", "randlanet_ss", "spg", "spt", "superpoint_graph",
+            "superpoint_transformer"} <= set(MODEL_REGISTRY)
+    assert MODEL_RULES.keys() == MODEL_REGISTRY.keys()
 
 
 def test_unknown_name_raises_value_error():
