@@ -296,7 +296,28 @@ any failure raises and exits non-zero:
    blocks --model randlanet`` on that checkpoint;
 37. spg and spt (no recipe): the batch-16 step at the registry's defaults
    timed and profiled, then ``infer_cli blocks`` from a checkpoint written
-   here.
+   here;
+38. multi-step dispatch (train.steps_per_dispatch = 4) at batch 16 for
+   pointnet2_ssg (weighted CE), the pointnet2_msg and BriStruNet recipes
+   and the benched ptv3_pooled: from one saved state, 4 eager steps and one
+   dispatch of train/loop.py::MultiTrainStep (a CUDA graph of the 4 steps:
+   warm-up, state restored in place, capture, replay), both on the
+   capturable Adam that path takes, EMA 0.999, dropout on the trainer's
+   generator; the losses, accuracies, parameters, buffers, Adam moments and
+   step, EMA and generator states after held with torch.equal, the kernels
+   of one replay (counted at the capture) equal to the eager steps'; then
+   host ms a step in turns (the steps_per_dispatch = 1 step, the eager steps
+   on the capturable Adam, the graph; median and spread of 6 dispatches),
+   device busy ms and idle share (torch.profiler), the replay alone between
+   two events, and peak device memory, eager and graph;
+39. configs/train_partsize_msg.yaml with train: {steps_per_dispatch: 4,
+   ema_decay: 0.999} two epochs through train_cli --device cuda at batch 5
+   (graphs of 4 train steps and of 4 validation batches on the EMA weights,
+   single steps for the ragged tails), against the same copy at
+   steps_per_dispatch 1: bit for bit where that run takes the capturable
+   Adam too; on the eager Adam, which rounds its bias corrections
+   otherwise, losses within 2% and accuracies within 5% relative and every
+   weight within 2 * 3.17 * lr * steps (what two Adam runs can drift apart).
 Phase 3 holds K5, K3 and K1 at these models' shapes first (K5 over
 randlanet's levels at B=4 and 16, at randlanet_ss's 2k, at k = 9 over 4096
 points and over 81 centroids; K3 over both models' levels; K1 4096 -> 81),
@@ -329,8 +350,13 @@ query) and the kernel in turns, probes/k2_k5_probe.py ``compare_k5c``;
 features DGCNN's graphs are built over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
 K5c cases of phase 3 and phases 18-20; ``--msg`` the MSG family's cases of
 phases 3 and 3b and phases 21-24; ``--zoo`` the cases of RandLA-Net and the
-superpoint models in phases 3 and 3b and phases 34-37), and prints no
-result line.
+superpoint models in phases 3 and 3b and phases 34-37; ``--graphs`` phase
+38 for every other model with a step phase or a recipe (the DGCNN,
+PointNet and RandLA-Net recipes, enhanced_pointnet2_ssg, randlanet_ss with a
+sampling generator, spg, spt, ptv3, ptv3_moe and ptv3 with a bf16 stream),
+then one train step of each phase-38 model under
+utils/determinism.py::set_random_seed(deterministic=True), the ops that warn
+for want of a deterministic CUDA form listed), and prints no result line.
 
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
@@ -357,6 +383,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 import importlib.util
 import io
 import json
@@ -396,8 +423,21 @@ from pointcloud_bridge_tpu_torch.ops import (
     interpolate,
     sampling,
 )
-from pointcloud_bridge_tpu_torch.train import make_optimizer, make_train_step
-from pointcloud_bridge_tpu_torch.train.loop import loss_fn_for
+from pointcloud_bridge_tpu_torch.train import loop as train_loop
+from pointcloud_bridge_tpu_torch.train import (
+    MultiTrainStep,
+    make_optimizer,
+    make_train_step,
+    set_lr,
+)
+from pointcloud_bridge_tpu_torch.train.loop import (
+    TRAIN_KEYS,
+    StepState,
+    ema_update,
+    loss_fn_for,
+    model_generators,
+)
+from pointcloud_bridge_tpu_torch.utils.determinism import set_random_seed
 from pointcloud_bridge_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 ROOT = Path(__file__).resolve().parent
@@ -3372,9 +3412,10 @@ def kernel_family(name: str) -> str:
     return "elementwise and other"
 
 
-def profile_by_family(label: str, what: str, fn, reps: int = 10) -> None:
-    """Print the device time of one fn() by kernel family, from one
-    torch.profiler run over ``reps`` back-to-back calls."""
+def profile_by_family(label: str, what: str, fn, reps: int = 10, quiet: bool = False) -> tuple:
+    """Print the device time of one fn() by kernel family (with ``quiet``
+    nothing), from one torch.profiler run over ``reps`` back-to-back calls
+    -> (device busy ms, wall ms) a call."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3391,6 +3432,8 @@ def profile_by_family(label: str, what: str, fn, reps: int = 10) -> None:
             fam = kernel_family(ev.key)
             families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
     busy = sum(families.values())
+    if quiet:
+        return busy, wall_ms
     if busy > 0:
         print(f"{label} profile (device ms a {what}, {reps} back to back, "
               f"profiler on): busy {busy:.3f}, wall {wall_ms:.3f}, idle "
@@ -3399,6 +3442,7 @@ def profile_by_family(label: str, what: str, fn, reps: int = 10) -> None:
             print(f"  {fam:28s} {ms:8.3f} ms  {ms / busy:6.1%}")
     else:
         print(f"{label} profile: the profiler recorded no device time")
+    return busy, wall_ms
 
 
 def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
@@ -4170,7 +4214,7 @@ def compare_zoo_backward(dev: torch.device, res: Results, rng) -> None:
         if k == 1:  # the stride subset
             idx = (torch.arange(s, device=dev) * max(1, n // s) % n).view(1, s, 1)
         elif k == 2:
-            idx = torch.from_numpy(_upsample_plan(n, s, "float32")[0]).to(dev).view(1, s, 2)
+            idx = _upsample_plan(n, s, torch.float32, dev)[0].view(1, s, 2)
         else:
             xyz = torch.from_numpy(rng.uniform(size=(B, n, 3)).astype(np.float32)).to(dev)
             idx = grouping.knn_cuda(xyz, xyz, k)[1]
@@ -4499,6 +4543,336 @@ def run_zoo_phases(ds: BlockDataset, data_dir: Path, dev: torch.device) -> tuple
     return passes, by_path
 
 
+# 38-39. multi-step dispatch (train.steps_per_dispatch): K train steps, and K
+# eval batches, a CUDA graph replay
+GRAPH_K = 4
+GRAPH_B = 16
+GRAPH_LR = 1e-3
+GRAPH_EMA = 0.999
+
+
+def recipe(name: str) -> tuple:
+    """(model name, model_extra, loss config) of configs/<name>."""
+    cfg = Config.from_yaml(str(ROOT / "configs" / name))
+    return cfg.model.name, dict(cfg.model.extra), cfg.loss
+
+
+WEIGHTED_CE = LossConfig(name="weighted_ce")
+# phase 38: (label, model, model_extra, loss config, a RandLA-Net sampling
+# generator, batch); --graphs adds GRAPH_MORE
+GRAPH_STEPS = (
+    ("pointnet2_ssg", "pointnet2_ssg", {}, WEIGHTED_CE, False, GRAPH_B),
+    ("pointnet2_msg (configs/train_partsize_msg.yaml)", *recipe("train_partsize_msg.yaml"), False,
+     GRAPH_B),
+    ("bristrunet (configs/train_bristrunet.yaml)", *recipe("train_bristrunet.yaml"), False,
+     GRAPH_B),
+    ("ptv3_pooled (benched)", "ptv3_pooled", POOLED_BENCHED, WEIGHTED_CE, False, GRAPH_B),
+)
+GRAPH_MORE = (
+    ("dgcnn (configs/train_dgcnn.yaml)", *recipe("train_dgcnn.yaml"), False, GRAPH_B),
+    ("pointnet (configs/train_pointnet.yaml)", *recipe("train_pointnet.yaml"), False, GRAPH_B),
+    ("enhanced_pointnet2_ssg", "enhanced_pointnet2_ssg", {}, WEIGHTED_CE, False, GRAPH_B),
+    ("randlanet (configs/train_randlanet.yaml)", *recipe("train_randlanet.yaml"), False,
+     GRAPH_B),
+    ("randlanet_ss, density sampling", "randlanet_ss", {}, WEIGHTED_CE, True, GRAPH_B),
+    ("spg", "spg", {}, WEIGHTED_CE, False, GRAPH_B),
+    ("spt", "spt", {}, WEIGHTED_CE, False, GRAPH_B),
+    ("ptv3", "ptv3", {}, WEIGHTED_CE, False, GRAPH_B),
+    # batch 8: at 16 the eager step's 40.7 GB and the graph's pool of as
+    # much do not fit on the card together
+    ("ptv3_moe", "ptv3_moe", {}, WEIGHTED_CE, False, 8),
+    ("ptv3 bf16 stream", "ptv3", {"stream_dtype": "bfloat16"}, WEIGHTED_CE, False, GRAPH_B),
+    ("ptv3_pooled remat (benched)", "ptv3_pooled", dict(POOLED_BENCHED, remat=True),
+     WEIGHTED_CE, False, GRAPH_B),
+)
+
+
+def stacked_batches(ds: BlockDataset, dev: torch.device, seed: int, b: int = GRAPH_B) -> dict:
+    """GRAPH_K batches of b blocks of ds stacked [K, b, ...] on the card,
+    as the trainer's group_batches and put_batch give them: a seeded
+    permutation of the blocks, another after it where K * b exceeds them."""
+    rng = np.random.default_rng(seed)
+    want = GRAPH_K * b
+    order = np.concatenate([rng.permutation(len(ds)) for _ in range(-(-want // len(ds)))])
+    order = order[:want].reshape(GRAPH_K, b)
+    return {"points": torch.from_numpy(np.ascontiguousarray(ds.points[order], np.float32)).to(dev),
+            "colors": torch.from_numpy(np.ascontiguousarray(ds.colors[order], np.float32)).to(dev),
+            "labels": torch.from_numpy(ds.labels[order].astype(np.int64)).to(dev)}
+
+
+def step_outcome(model, optimizer, ema: dict, gens: list, metrics: dict) -> dict:
+    """Copies of what train steps leave behind, by name: the metrics, every
+    parameter and buffer, the Adam moments and step count, the EMA tensors
+    and the generators' states (the trainer's Dropout generator, a sampling
+    generator, torch's default one on the card)."""
+    names = {id(p): k for k, p in model.named_parameters()}
+    out = {f"metric {k}": v.clone() for k, v in metrics.items()}
+    out |= {f"parameter {k}": p.detach().clone() for k, p in model.named_parameters()}
+    out |= {f"buffer {k}": v.clone() for k, v in model.named_buffers()}
+    out |= {f"adam {key} {names[id(p)]}": v.clone() for p, st in optimizer.state.items()
+            for key, v in st.items() if torch.is_tensor(v)}
+    out |= {f"ema {k}": v.clone() for k, v in ema.items()}
+    out |= {f"generator {i}": g.get_state() for i, g in enumerate(gens)}
+    out["generator cuda default"] = torch.cuda.get_rng_state(next(model.parameters()).device)
+    return out
+
+
+def dispatch_walls(variants: dict, rounds: int = 3) -> dict:
+    """Host ms of one dispatch of each variant (name -> fn), from a
+    synchronise to a synchronise, in turns A B C C B A of ``rounds``
+    dispatches each (after one to warm up) -> name -> [ms, ...]."""
+    for fn in variants.values():
+        fn()
+    walls = {name: [] for name in variants}
+    order = list(variants) + list(reversed(variants))
+    for name in order:
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            variants[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def check_graph_steps(label: str, name: str, extra: dict, loss_cfg, ds: BlockDataset,
+                      dev: torch.device, seed: int, sampling: bool = False,
+                      b: int = GRAPH_B) -> dict:
+    """Phase 38, one model: K = 4 train steps at batch b (Adam at lr 1e-3,
+    the loss of ``loss_cfg`` with the blocks' class weights, EMA 0.999, the
+    Dropouts on one generator as the trainer sets them, ``sampling``: a
+    RandLA-Net sampling generator too), from one saved state (one eager
+    step in: moments and a step count), as K eager steps and as one
+    dispatch of MultiTrainStep (warm-up, restore, capture, replay), both on
+    the capturable optimizer, which the multi-step path takes. Held with
+    torch.equal: the K losses and accuracies, every parameter and buffer,
+    the Adam moments and step, the EMA and the generators' states after; the
+    kernels of one replay (counted at the capture) equal to those of the K
+    eager steps. Then host ms a step in turns (the spd = 1 eager step on its
+    own optimizer, the K eager steps on the capturable one, the graph),
+    device busy ms a step and the idle share from torch.profiler, and peak
+    device memory of each -> the numbers by key."""
+    t_start = time.perf_counter()
+    model = seeded_model(name, seed, **extra).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = gen
+    if sampling:
+        model.sampling_generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    optimizer = make_optimizer(model.parameters(), capturable=True)
+    ema = {k: p.detach().clone() for k, p in model.named_parameters()}
+    multi = MultiTrainStep(model, loss_cfg, optimizer, GRAPH_K, ema, GRAPH_EMA)
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES)).to(dev)
+    batches = stacked_batches(ds, dev, seed, b)
+    slots = [{key: batches[key][i] for key in TRAIN_KEYS} for i in range(GRAPH_K)]
+    set_lr(optimizer, GRAPH_LR)
+    multi.run(slots[:1], cw)
+    gens = model_generators(model)
+    state = StepState(model, optimizer, ema, gens)
+
+    mem = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    eager = step_outcome(model, optimizer, ema, gens, multi.run(slots, cw))
+    torch.cuda.synchronize()
+    eager_launches = _kernels.launch_counts()
+    mem["eager"] = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+    state.restore()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = step_outcome(model, optimizer, ema, gens, multi(batches, GRAPH_LR, cw))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    mem["graph"] = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+    (steps,) = multi.graphs.values()
+    differ = [key for key, want in eager.items() if not torch.equal(want, graph[key])]
+    print(f"{label}: {GRAPH_K} eager steps against one {GRAPH_K}-step graph dispatch "
+          f"(capturable Adam on both): {len(differ)} of {len(eager)} tensors differ"
+          f"{': ' + ', '.join(differ[:6]) if differ else ' (torch.equal)'}; losses "
+          f"{[round(v, 6) for v in eager['metric loss'].tolist()]}; launches a dispatch "
+          f"{ {k: v for k, v in steps.launches.items() if v} } (eager "
+          f"{ {k: v for k, v in eager_launches.items() if v} }); first dispatch (warm-up step, "
+          f"capture, replay) {first_s:.3f} s", flush=True)
+    if differ:
+        raise AssertionError(f"{label}: the graph dispatch differs from {GRAPH_K} eager steps: "
+                             f"{differ[:12]}")
+    if steps.launches != eager_launches:
+        raise AssertionError(f"{label}: a replay launches {steps.launches}, the eager steps "
+                             f"{eager_launches}")
+
+    # the spd = 1 path: make_train_step on the eager optimizer (its own
+    # state; the weights move on, which no timing minds)
+    plain_opt = make_optimizer(model.parameters())
+    plain_step = make_train_step(model, loss_cfg, plain_opt)
+
+    def plain():
+        for s in slots:
+            plain_step(s, GRAPH_LR, cw)
+            ema_update(ema, multi.params, GRAPH_EMA)
+
+    def eager_k():
+        set_lr(optimizer, GRAPH_LR)
+        multi.run(slots, cw)
+
+    variants = {"eager": plain, "eager capturable": eager_k,
+                "graph": lambda: multi(batches, GRAPH_LR, cw)}
+    walls = dispatch_walls(variants)
+    replay_ms = time_ms(steps.graph.replay, reps=5, warmup=1) / GRAPH_K
+    out = {}
+    for key, fn in variants.items():
+        busy, wall = profile_by_family(f"{label} {key}", f"{GRAPH_K}-step dispatch", fn, reps=1,
+                                       quiet=True)
+        ms = [w / GRAPH_K for w in walls[key]]
+        out[key] = {"ms": statistics.median(ms), "min": min(ms), "max": max(ms),
+                    "busy_ms": busy / GRAPH_K, "idle": max(0.0, 1 - busy / wall) if busy else None}
+        line = (f"{label} {key}: batch {b} x {N}, {statistics.median(ms):.3f} ms a step "
+                f"(median of {len(ms)} dispatches of {GRAPH_K}, {min(ms):.3f}-{max(ms):.3f}), ")
+        line += (f"busy {busy / GRAPH_K:.3f} ms a step, idle {max(0.0, 1 - busy / wall):.1%} "
+                 "(profiler on)" if busy else "busy not measured (the profiler saw no device time)")
+        if key == "graph":
+            line += f", the replay alone {replay_ms:.3f} ms a step between two events"
+        if key in mem:
+            alloc, reserved = mem[key]
+            out[key] |= {"peak_mib": alloc / 2**20, "reserved_mib": reserved / 2**20}
+            line += (f", peak device memory {alloc / 2**20:.1f} MiB allocated, "
+                     f"{reserved / 2**20:.1f} MiB reserved"
+                     + (" (warm-up, capture and first replay)" if key == "graph" else ""))
+        print(line, flush=True)
+    out["graph"]["replay_ms"] = replay_ms
+    out["launches"] = {k: v for k, v in steps.launches.items() if v}
+    print(f"{label}: phase 38 in {time.perf_counter() - t_start:.1f} s (host)", flush=True)
+    return out
+
+
+def run_graph_phases(ds: BlockDataset, dev: torch.device, models=GRAPH_STEPS) -> dict:
+    """Phase 38 over ``models`` -> label -> its numbers; each model's graphs
+    and their memory pools freed before the next."""
+    out = {}
+    for i, (label, name, extra, loss_cfg, sampling, b) in enumerate(models):
+        out[label] = check_graph_steps(label, name, extra, loss_cfg, ds, dev, SEED + 380 + i,
+                                       sampling, b)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def multistep_recipe(data_dir: Path, spd: int) -> Path:
+    """A copy of configs/train_partsize_msg.yaml with train:
+    {steps_per_dispatch: spd, ema_decay: 0.999}."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "train_partsize_msg.yaml").read_text())
+    cfg["train"] = dict(cfg.get("train") or {}, steps_per_dispatch=spd, ema_decay=GRAPH_EMA)
+    path = data_dir / f"train_partsize_msg_spd{spd}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+# batch 5: 48 training blocks give 9 batches an epoch (two dispatches of 4
+# and a single step), 24 validation blocks 5 (one dispatch, one padded step)
+MULTISTEP_BATCH = 5
+
+
+def train_multistep_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) -> dict:
+    """Phase 39: configs/train_partsize_msg.yaml with steps_per_dispatch 4
+    and EMA 0.999, two epochs through train_cli --device cuda at batch 5
+    (CUDA graphs of 4 train steps and of 4 validation batches on the EMA
+    weights, the ragged tails as single steps), against the same copy at
+    steps_per_dispatch 1, and against it again with the capturable
+    optimizer forced on the single-step run: that pair must agree bit for
+    bit (history and weights), the first within the band of the CPU
+    tests' JAX comparison (the optimizers round their bias corrections
+    apart, and Adam's sign steps carry a rounding on to lr): train losses
+    within 2% and accuracies within 5% relative, every weight element
+    within 2 * 3.17 * lr * steps, the most two Adam runs can move it apart
+    -> launch counts of the spd 4 run, its graphs' replays included."""
+    label = "train pointnet2_msg, steps_per_dispatch 4"
+    args = lambda spd: ["--config", str(multistep_recipe(data_dir, spd)),  # noqa: E731
+                        "--batch-size", str(MULTISTEP_BATCH)]
+    runs, walls = {}, {}
+    steps = 2 * (n_blocks // MULTISTEP_BATCH)
+    lr = Config.from_yaml(str(ROOT / "configs" / "train_partsize_msg.yaml")).train.learning_rate
+    made = train_loop.make_optimizer
+    for key, spd, capturable in (("spd4", 4, True), ("spd1", 1, False),
+                                 ("spd1 capturable", 1, True)):
+        if capturable and spd == 1:
+            train_loop.make_optimizer = lambda params, wd, _: made(params, wd, True)
+        try:
+            out, walls[key], counts, mem = run_train_cli(f"{label} ({key})", data_dir, args(spd),
+                                                         2, FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+        finally:
+            train_loop.make_optimizer = made
+        shutil.rmtree(out["exp_dir"], ignore_errors=True)
+        runs[key] = (out, counts, mem)
+    out4, counts4, mem4 = runs["spd4"]
+    graphs = out4["graph_launches"]
+    if not graphs or not all(graphs[k] for k in FORWARD_KERNELS + SSG_BACKWARD_KERNELS):
+        raise AssertionError(f"{label}: the graphs' replays launched {graphs}")
+    faults = []
+    for key in ("spd1", "spd1 capturable"):
+        out1 = runs[key][0]
+        keys = [k for k in out4["history"][0] if k != "epoch_time_s"]
+        hist = [(k, r4[k], r1[k]) for r4, r1 in zip(out4["history"], out1["history"]) for k in keys]
+        sd4, sd1 = out4["model"].state_dict(), out1["model"].state_dict()
+        same = [k for k in sd4 if torch.equal(sd4[k], sd1[k])]
+        params = dict(out4["model"].named_parameters())
+        apart = {k: (sd4[k].double() - sd1[k].double()).abs().max().item() for k in params}
+        worst = max(apart.items(), key=lambda kv: kv[1])
+        rel = lambda k: max(abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
+                            for name, a, b in hist if name == k)
+        print(f"{label} against {key}: history {sum(a == b for _, a, b in hist)} of {len(hist)} "
+              f"values equal (at most {rel('train_loss'):.3g} relative apart in train loss, "
+              f"{rel('val_loss'):.3g} in validation loss, {rel('train_acc'):.3g} and "
+              f"{rel('val_acc'):.3g} in accuracy), weights {len(same)} of {len(sd4)} tensors "
+              f"equal, the largest element {worst[1]:.3g} apart ({worst[0]}); walls "
+              f"{walls['spd4']:.2f} s and {walls[key]:.2f} s", flush=True)
+        if key == "spd1 capturable":
+            if len(same) != len(sd4) or any(a != b for _, a, b in hist):
+                faults.append(f"{key}: not bit for bit")
+        elif (max(rel("train_loss"), rel("val_loss")) > 0.02
+              or max(rel("train_acc"), rel("val_acc")) > 0.05
+              or worst[1] > 2 * 3.17 * lr * steps):
+            faults.append(f"{key}: outside the band: {worst}")
+    print(f"{label}: launches {counts4} eager (single steps and each graph's warm-up step), "
+          f"{graphs} by the graphs' replays; peak device memory {mem4 / 2**20:.1f} MiB "
+          f"(spd 1: {runs['spd1'][2] / 2**20:.1f} MiB)", flush=True)
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults))
+    return {k: counts4[k] + graphs[k] for k in counts4}
+
+
+def determinism_warnings(ds: BlockDataset, dev: torch.device) -> dict:
+    """--graphs: one train step of each phase-38 model under
+    set_random_seed(deterministic=True) (warn-only), the warnings of ops
+    without a deterministic CUDA form collected -> model -> the warnings'
+    first lines. Deterministic mode is turned off again after."""
+    import warnings
+
+    found = {}
+    try:
+        for i, (label, name, extra, loss_cfg, _, _) in enumerate(GRAPH_STEPS + GRAPH_MORE):
+            set_random_seed(SEED + 390 + i, deterministic=True)
+            model = seeded_model(name, SEED + 390 + i, **extra).to(dev)
+            step = make_train_step(model, loss_cfg, make_optimizer(model.parameters()))
+            batch = {k: v[0] for k, v in stacked_batches(ds, dev, SEED + 390 + i).items()}
+            cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES)).to(dev)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step(batch, GRAPH_LR, cw)
+                torch.cuda.synchronize()
+            found[label] = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                                   if "deterministic" in str(w.message)})
+            print(f"determinism, {label}: {len(found[label])} ops warn: {found[label]}",
+                  flush=True)
+            del model, step
+    finally:
+        set_random_seed(SEED, deterministic=False)
+    return found
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -4643,6 +5017,18 @@ def main() -> None:
               f"{[(label, same, len(d)) for label, same, d in REPEAT_DIFFERS]}")
         if REPEAT_DIFFERS:
             raise SystemExit(1)
+        return
+    if sys.argv[1:] == ["--graphs"]:
+        # multi-step dispatch for every other model with a step phase or a
+        # recipe: phases 1, 2 and 38 over GRAPH_MORE, then the ops that warn
+        # under set_random_seed(deterministic=True), no result line
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            ds = make_dataset(data_dir)
+            run_graph_phases(ds, dev, GRAPH_MORE)
+            determinism_warnings(ds, dev)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -4831,6 +5217,13 @@ def main() -> None:
         # training CLI, served; 37. spg and spt timed at batch 16 and served
         zoo_passes, zoo_by_path = run_zoo_phases(ds, data_dir, dev)
         by_path |= zoo_by_path
+
+        # 38. K = 4 train steps at batch 16 as one CUDA graph replay against
+        # 4 eager steps: SSG, the pointnet2_msg and BriStruNet recipes and the
+        # benched ptv3_pooled; 39. configs/train_partsize_msg.yaml at
+        # steps_per_dispatch 4 through the training CLI
+        run_graph_phases(ds, dev)
+        by_path["msg_multistep_train_cli"] = train_multistep_through_cli(data_dir, len(ds), dev)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,

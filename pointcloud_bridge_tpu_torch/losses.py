@@ -67,7 +67,7 @@ def weighted_cross_entropy_sums(
     logp, labels, onehot = _flat_logp_target(logits, labels, label_smoothing)
     if class_weights is None:
         nll = -(onehot * logp).sum(-1)
-        return nll.sum(), torch.tensor(float(labels.shape[0]), device=logp.device)
+        return nll.sum(), torch.full((), float(labels.shape[0]), device=logp.device)
     w = class_weights.to(device=logp.device, dtype=torch.float32)
     nll = -(onehot * w[None, :] * logp).sum(-1)
     return nll.sum(), w[labels].sum()
@@ -87,7 +87,7 @@ def _masked_norm_z_mean(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean normalised z of the masked points of each batch element:
     xyz [B, N, 3], mask [B, N] bool -> [B]; 0 where nothing is masked."""
     z = xyz[..., 2]
-    big = torch.tensor(1e9, dtype=z.dtype, device=z.device)
+    big = torch.full((), 1e9, dtype=z.dtype, device=z.device)
     zmin = torch.where(mask, z, big).amin(1)
     zmax = torch.where(mask, z, -big).amax(1)
     rng = torch.clamp(zmax - zmin, min=1e-7)
@@ -96,6 +96,9 @@ def _masked_norm_z_mean(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mean = torch.where(mask, zn, 0.0).sum(1) / torch.clamp(cnt, min=1)
     return torch.where(cnt > 0, mean, 0.0)
 
+
+# the per-class base weights of bridge_structure_loss (losses.py:127-182)
+BSL_BASE_WEIGHTS = (1.5, 1.0, 1.2, 1.5, 1.0)
 
 # hierarchy: class -> the classes that must lie below it
 _BSL_ABOVE = {1: (), 2: (1,), 3: (1, 2), 4: (1, 2, 3)}
@@ -141,8 +144,10 @@ def bridge_structure_weights(
     labels = labels.long()
     b = labels.shape[0]
     dev = preds.device
-    if base_weights is None:
-        base_weights = torch.tensor([1.5, 1.0, 1.2, 1.5, 1.0])
+    if base_weights is None:  # made on the device: no copy from the host
+        base_weights = torch.empty(len(BSL_BASE_WEIGHTS), dtype=torch.float32, device=dev)
+        for c, w in enumerate(BSL_BASE_WEIGHTS):
+            base_weights[c].fill_(w)
     xyz = xyz.float()
     weights = base_weights.to(dev, torch.float32)[None, :].repeat(b, 1)
     exists = {c: (labels == c).any(1) for c in (1, 2, 3, 4)}
@@ -157,7 +162,13 @@ def bridge_structure_weights(
             weights[:, cid] += alpha * violation * 0.3
     other_frac = (preds == 0).float().mean(1)
     weights[:, 0] += alpha * (1.0 - other_frac)
-    counts = torch.bincount(labels.reshape(-1), minlength=num_classes)[:num_classes]
+    # a label >= num_classes goes to the last bin, which is dropped; fixed
+    # length, so that a CUDA graph can capture it (bincount sizes its output
+    # on the host)
+    flat = labels.reshape(-1)
+    counts = torch.zeros(num_classes + 1, dtype=torch.int64, device=dev)
+    counts = counts.scatter_add_(0, flat.clamp(max=num_classes), torch.ones_like(flat))
+    counts = counts[:num_classes]
     freq_w = 1.0 / torch.sqrt(torch.clamp(counts.float(), min=1.0))
     freq_w[1] *= 2.0
     freq_w[4] *= 2.0

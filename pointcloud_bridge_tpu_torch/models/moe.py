@@ -21,10 +21,13 @@ default one-hot einsums: a slot table says which token fills each (expert,
 slot), and row gathers replace the [G, K*S, E, C] one-hot contractions
 (671 MB each in float32 at batch 16 x 4096 with 8 experts and top 2).
 Unfilled slots read a zero row. The Switch load-balance loss is computed on
-every call and kept as ``aux_loss``; the single-device trainer does not add
-it to the loss, as the JAX single-device step does not (only the JAX
-package's expert-parallel step does). ``routing`` keeps the last call's
-expert picks and slots, for the tests.
+every call and kept, detached, as ``aux_loss``; the single-device trainer
+does not add it to the loss, as the JAX single-device step does not (only
+the JAX package's expert-parallel step does). Kept with its autograd graph
+it would hold that graph, and the router's gradient accumulators in it,
+into the next step, where a CUDA graph captured on another stream
+(train/loop.py::GraphSteps) cannot take them. ``routing`` keeps the last
+call's expert picks and slots, for the tests.
 
 Parameters carry the flax names: the stacked ``experts_proj_kernel`` [E, d,
 2h], ``experts_proj_bias`` [E, 2h], ``experts_out_kernel`` [E, h, d] and
@@ -116,7 +119,7 @@ class MoEFeedForward(nn.Module):
 
         # Switch load-balance loss over the first choices
         f_e = F.one_hot(sel[..., 0], e).float().mean(dim=(0, 1))
-        self.aux_loss = e * (f_e * probs.mean(dim=(0, 1))).sum()
+        self.aux_loss = (e * (f_e * probs.mean(dim=(0, 1))).sum()).detach()
 
         # rank-major capacity: choice r * S + i is token i's r-th pick
         choice = sel.transpose(1, 2).reshape(g, k * s)

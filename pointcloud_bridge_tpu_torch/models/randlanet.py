@@ -46,7 +46,6 @@ module names (``lfa0.mlp0``, ``up0_d1``, ``head_bn``; a Dense [out, in]).
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -185,27 +184,25 @@ class LocalFeatureAggregationSS(nn.Module):
         return torch.amax(h, dim=2)
 
 
-@functools.lru_cache(maxsize=64)
-def _upsample_plan(n_in: int, n_out: int, dtype: str) -> tuple:
+def _upsample_plan(n_in: int, n_out: int, dtype: torch.dtype, device) -> tuple:
     """The two sources and weights of each output of ``jax.image.resize``'s
     linear method from n_in to n_out >= n_in points, computed as
     jax/_src/image/scale.py computes its weight matrix: sample at (i + 0.5)
     * (n_in / n_out) - 0.5 (rounded once, as the compiled function does),
     a triangle kernel, the weights over the points in range renormalised to
-    sum 1 -> (sources [n_out, 2] int64, weights
-    [n_out, 2]) as numpy arrays."""
-    dt = np.dtype(dtype)
-    inv_scale = dt.type(1.0 / (n_out / n_in))
+    sum 1 -> (sources [n_out, 2] int64, weights [n_out, 2] of ``dtype``),
+    made on ``device`` (no copy from the host, which a CUDA graph cannot
+    capture)."""
+    inv_scale = float(np.dtype(str(dtype).removeprefix("torch.")).type(1.0 / (n_out / n_in)))
     # XLA fuses (i + 0.5) * inv_scale - 0.5 into one FMA, a single rounding:
     # exact in float64 for float32 operands, then rounded once
-    sample = ((np.arange(n_out, dtype=np.float64) + 0.5) * np.float64(inv_scale)
-              - 0.5).astype(dt)
-    lo = np.floor(sample).astype(np.int64)
-    src = np.stack([lo, lo + 1], axis=1)
-    w = np.maximum(dt.type(0), dt.type(1) - np.abs(sample[:, None] - src.astype(dt)))
-    w = np.where((src >= 0) & (src < n_in), w, dt.type(0)).astype(dt)
-    w = (w / (w[:, :1] + w[:, 1:])).astype(dt)
-    return np.clip(src, 0, n_in - 1), w
+    pos = torch.arange(n_out, dtype=torch.float64, device=device)
+    sample = ((pos + 0.5) * inv_scale - 0.5).to(dtype)
+    lo = torch.floor(sample).long()
+    src = torch.stack([lo, lo + 1], dim=1)
+    w = (1 - (sample[:, None] - src.to(dtype)).abs()).clamp_min(0)
+    w = torch.where((src >= 0) & (src < n_in), w, 0)
+    return src.clamp(0, n_in - 1), w / (w[:, :1] + w[:, 1:])
 
 
 def linear_upsample(x: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -221,9 +218,10 @@ def linear_upsample(x: torch.Tensor, n_out: int) -> torch.Tensor:
         return x
     if n_out < n:
         raise ValueError(f"linear_upsample: {n} -> {n_out} points is not an upsampling")
-    src, w = _upsample_plan(n, n_out, "float64" if x.dtype == torch.float64 else "float32")
-    idx = torch.from_numpy(src).to(x.device).expand(b, -1, -1)
-    w = torch.from_numpy(w).to(x.device, x.dtype)
+    src, w = _upsample_plan(n, n_out, torch.float64 if x.dtype == torch.float64 else
+                            torch.float32, x.device)
+    idx = src.expand(b, -1, -1)
+    w = w.to(x.dtype)
     pair = index_points(x, idx)  # [B, n_out, 2, C]
     return pair[:, :, 0] * w[:, :1] + pair[:, :, 1] * w[:, 1:]
 

@@ -85,7 +85,9 @@ def min_eigvec3x3(a: torch.Tensor, eigvals: Optional[torch.Tensor] = None) -> to
     best = torch.sqrt((cands * cands).sum(-1)).argmax(dim=-1)
     vec = cands.gather(-2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
     nrm = torch.sqrt((vec * vec).sum(-1, keepdim=True))
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device).expand_as(vec)
+    fallback = torch.zeros(3, dtype=a.dtype, device=a.device)  # made on the device
+    fallback[2].fill_(1.0)
+    fallback = fallback.expand_as(vec)
     return torch.where(nrm > 1e-10, vec / nrm.clamp_min(1e-10), fallback)
 
 

@@ -18,9 +18,13 @@ def confusion_matrix(
     preds: torch.Tensor, labels: torch.Tensor, num_classes: int
 ) -> torch.Tensor:
     """[C, C] int64 counts, rows = true label, columns = prediction, on the
-    tensors' device."""
+    tensors' device. Counted into a fixed C * C bins with integer adds (no
+    ``bincount``, which reads its largest value on the host to size its
+    output: a CUDA graph cannot capture that); a label or prediction out of
+    range raises."""
     flat = labels.reshape(-1).long() * num_classes + preds.reshape(-1).long()
-    counts = torch.bincount(flat, minlength=num_classes * num_classes)
+    counts = torch.zeros(num_classes * num_classes, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
     return counts.reshape(num_classes, num_classes)
 
 
@@ -28,10 +32,12 @@ def masked_confusion_matrix(
     preds: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, num_classes: int
 ) -> torch.Tensor:
     """Confusion matrix counting only mask==True points (padded batches):
-    masked-out points go to an extra bin that is dropped."""
+    masked-out points go to an extra bin that is dropped. Fixed-length
+    integer counts, as :func:`confusion_matrix`."""
     flat = labels.reshape(-1).long() * num_classes + preds.reshape(-1).long()
     flat = torch.where(mask.reshape(-1), flat, num_classes * num_classes)
-    counts = torch.bincount(flat, minlength=num_classes * num_classes + 1)
+    counts = torch.zeros(num_classes * num_classes + 1, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
     return counts[:-1].reshape(num_classes, num_classes)
 
 
