@@ -318,6 +318,34 @@ any failure raises and exits non-zero:
    Adam too; on the eager Adam, which rounds its bias corrections
    otherwise, losses within 2% and accuracies within 5% relative and every
    weight within 2 * 3.17 * lr * steps (what two Adam runs can drift apart).
+40. the deck-measurement chain (measure/wl_iden.py) on the card at the two
+   deck scans' sizes, 63,885 and 103,718 points (``measured_deck``: a
+   40 x 9 m deck, 2% misclassified points): process_bridge_deck, then LOF
+   at the adaptive parameters and DBSCAN on the isolation forest's output,
+   with the launch counters reset just before and read just after (K5
+   alone, once a neighbour search); every stage (voxel, RANSAC, the
+   isolation forest, LOF, the host tail, adaptive LOF, DBSCAN) against the
+   port's CPU path on the CPU's input of it: outputs equal, LOF's mask but
+   for points whose negative outlier factor lies within 1e-6 of offset_
+   (counted and printed); lengths and widths within 1e-6 relative; two card
+   runs bit-identical; each stage's wall and device-busy time (and K5's
+   part), the chain's wall; then each K5 call of the main path held against
+   knn_plain on 2,048 of its queries and timed at its own shape (the deck
+   paths of the summary);
+41. examples/full_pipeline.py on the card (pointnet2_ssg at sa_npoints
+   256/64/16, 8 epochs at 8 steps a dispatch on three 40,000-point scenes,
+   the test scene voted 3 times, exported as LAS, its deck measured), the
+   counters reset just before and read just after (K1-K4, K3b, K4b, K5):
+   each stage's wall, the vote's OA and mIoU, the measured deck against the
+   ground truth beside the chain's own error on the ground-truth deck; it
+   fails on a NaN or a relative error above FULL_PIPELINE_MAX_ERROR (the
+   JAX example's error on the same scenes, 0.1089, plus 0.04).
+Phase 3 also holds K5 at the measurement chain's shapes (B = 1, N = S =
+63,885 and 103,718 at k = 31, 51 and 5, and k = 1 from a tenth of the
+points to the rest), each launch's rows of 2,048 random queries bit for bit
+against knn_plain on those queries (the plain version's distances of a
+whole deck would not fit the card), timed whole beside the plain version
+on the sample.
 Phase 3 holds K5, K3 and K1 at these models' shapes first (K5 over
 randlanet's levels at B=4 and 16, at randlanet_ss's 2k, at k = 9 over 4096
 points and over 81 centroids; K3 over both models' levels; K1 4096 -> 81),
@@ -346,6 +374,10 @@ choices side by side: warps a block and queries a warp, K5's row staged
 as a ring of tiles, and K5c's grid of warps, queries a warp and tiles with
 the plan's pick beside the fastest, then K5c's first design (a warp a
 query) and the kernel in turns, probes/k2_k5_probe.py ``compare_k5c``;
+``--measure`` K5's deck cases of phase 3 and phases 40-41;
+``--large-scene`` examples/large_scene_stream.py at 5M points (pointnet2_ssg
+quick-trained 4 epochs on 300k points, 3 votes: end-to-end points/s,
+coverage, OA, mIoU and the vote's phase split);
 ``--attention-bf16`` phase 3e; ``--k5c-exit`` K5c's early exit on the
 features DGCNN's graphs are built over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
 K5c cases of phase 3 and phases 18-20; ``--msg`` the MSG family's cases of
@@ -403,6 +435,7 @@ from pointcloud_bridge_tpu_torch.data import BlockDataset, scene_labelweights, w
 from pointcloud_bridge_tpu_torch.data.dataset import _load_scene
 from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
 from pointcloud_bridge_tpu_torch.infer import run_block_inference, whole_scene_vote_predict
+from pointcloud_bridge_tpu_torch.measure import wl_iden
 from pointcloud_bridge_tpu_torch.config import Config, LossConfig
 from pointcloud_bridge_tpu_torch.models import dgcnn as dgcnn_models
 from pointcloud_bridge_tpu_torch.models import randlanet as randla_models
@@ -704,18 +737,23 @@ class Results:
                     case["library_device_ms"] = device_ms(library_fn)
                     line += f"  library {case['library_device_ms']:.4f} ms"
                 line += f"  | host {case['host_us']:.1f} us a call"
-            for path in paths:
-                total = self.total(path, name)
-                total["cases"] += times
-                for key in SUMS:
-                    total[key] += times * case[key]
-                for key in SPLIT_SUMS:
-                    if key in case:
-                        total[key] = (total[key] or 0.0) + times * case[key]
+            self.record(name, case, paths, times)
             if paths:
                 line += f"  [{times} x " + ", ".join(paths) + "]"
         print(line, flush=True)
         return case if work else None
+
+    def record(self, name: str, case: dict, paths, times: int = 1) -> None:
+        """Add a timed case (SUMS and whichever SPLIT_SUMS it has) to each
+        path's sums, ``times`` launches of it a pass."""
+        for path in paths:
+            total = self.total(path, name)
+            total["cases"] += times
+            for key in SUMS:
+                total[key] += times * case[key]
+            for key in SPLIT_SUMS:
+                if key in case:
+                    total[key] = (total[key] or 0.0) + times * case[key]
 
     def row(self, name: str, path: str, launches: int) -> dict:
         """The numbers of one kernel on one path, as the summary prints
@@ -767,6 +805,8 @@ def compare_kernels(dev: torch.device) -> Results:
     compare_msg_family_kernels(dev, res, rng)
     # K1 and K5 at the shapes of RandLA-Net and the superpoint models
     compare_zoo_kernels(dev, res, rng)
+    # K5 at the deck-measurement chain's shapes
+    compare_measure_knn(dev, res, rng)
     return res
 
 
@@ -4874,6 +4914,374 @@ def determinism_warnings(ds: BlockDataset, dev: torch.device) -> dict:
 
 
 
+# ---------------------------------------------------------------- measurement
+
+# the point counts of the two deck scans the JAX package's measurement
+# chain was timed on (benchmark_results/measure_timing.json)
+MEASURE_DECKS = (63_885, 103_718)
+MEASURE_PATHS = tuple(f"deck_measure_{n}" for n in MEASURE_DECKS)
+# queries of a deck-sized K5 call held against the plain version (the plain
+# version's [S, N] distances of a whole deck would not fit the card)
+KNN_SAMPLE = 2048
+# LOF's k + 1 at the chain's default, at the adaptive parameters' largest
+# n_neighbors (50) and DBSCAN's min_samples; the k = 1 search of DBSCAN's
+# border points over the core points
+MEASURE_KNN_K = (31, 51, 5)
+# a near tie of LOF's negative outlier factor with offset_: the card and the
+# CPU may order a pair of neighbours at the k-th distance differently
+LOF_NEAR = 1e-6
+# the deck measured by examples.full_pipeline: the JAX example's relative
+# error on the same five scenes was 0.1089 (examples/full_pipeline.py on a
+# CPU, measured 18.45 x 5.07 m against 20.00 x 5.90 m); the port trains
+# another model from another initialisation, hence 0.04 of slack
+FULL_PIPELINE_MAX_ERROR = 0.15
+
+
+def measured_deck(n: int, seed: int, length: float = 40.0, width: float = 9.0) -> np.ndarray:
+    """A predicted deck scan of n points [n, 3] float64: a 40 x 9 m deck with
+    1% longitudinal slope and 2% crossfall, 1 cm noise, 2% misclassified
+    points within 1.5 m of its footprint and 2 m of its height, rotated in
+    plane, in a site frame 35 m up. (Georeferenced xy would break the
+    JAX package's minimum_bounding_rectangle, whose candidate edges pair x
+    with y: ROADMAP.md Queue 3.)"""
+    rng = np.random.default_rng(seed)
+    n_out = n // 50
+    m = n - n_out
+    u, v = rng.uniform(0, length, m), rng.uniform(0, width, m)
+    z = 0.01 * u - 0.02 * np.abs(v - width / 2) + rng.normal(0, 0.01, m)
+    out = np.stack([rng.uniform(-1.5, length + 1.5, n_out), rng.uniform(-1.5, width + 1.5, n_out),
+                    rng.uniform(-2, 2, n_out)], 1)
+    pts = np.concatenate([np.stack([u, v, z], 1), out])[rng.permutation(n)]
+    a = 0.3 + 0.2 * seed
+    c, s = np.cos(a), np.sin(a)
+    pts[:, :2] = pts[:, :2] @ np.array([[c, -s], [s, c]]).T
+    return pts + np.array([-length / 2, -width / 2, 35.0])
+
+
+def knn_sampled_case(res: Results, label: str, xyz: torch.Tensor, query: torch.Tensor, k: int,
+                     rng, paths=(), reps: int = 5) -> dict:
+    """K5 at a deck's shape: one launch over all S queries, its rows of
+    KNN_SAMPLE random queries held bit for bit against knn_plain on those
+    queries; the kernel timed whole, the plain version on the sample (its
+    time scaled by S / sample in the sums), beside the bound (each input
+    read once, the outputs written once; 9 operations a pair)."""
+    b, n, _ = xyz.shape
+    s = query.shape[1]
+    pick = torch.from_numpy(np.sort(rng.choice(s, min(s, KNN_SAMPLE), replace=False))).to(
+        xyz.device)
+    sub = query[:, pick].contiguous()
+
+    def full():
+        return grouping.knn_cuda(xyz, query, k)
+
+    res.check("knn", f"{label} ({len(pick)} queries held)",
+              lambda: tuple(t[:, pick] for t in full()),
+              lambda: grouping.knn_plain(xyz, sub, k), True)
+    bytes_ms = (nbytes(xyz, query) + b * s * k * 8) / PEAK_BYTES_S * 1e3
+    ops_ms = 9 * b * s * n / PEAK_FLOPS * 1e3
+    plain_sample_ms = time_ms(lambda: grouping.knn_plain(xyz, sub, k), reps=reps, warmup=1)
+    case = {"ms": time_ms(full, reps=reps, warmup=1),
+            "plain_ms": plain_sample_ms * s / len(pick),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "fma_bound_ms": max(bytes_ms, ops_ms)}
+    res.record("knn", case, paths)
+    print(f"{'knn':18s} {label}: kernel {case['ms']:.3f} ms, plain {plain_sample_ms:.3f} ms on "
+          f"{len(pick)} queries ({case['plain_ms']:.1f} ms scaled to {s}), bound "
+          f"{case['bound_ms']:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}), "
+          f"{case['bound_ms'] / case['ms']:.1%} of it" + (f" [{', '.join(paths)}]" if paths else ""),
+          flush=True)
+    return case
+
+
+def compare_measure_knn(dev: torch.device, res: Results, rng) -> None:
+    """Phase 3, K5 at the measurement chain's shapes: B = 1, N = S = 63,885
+    and 103,718 (the two deck scans' sizes; points of ``measured_deck``,
+    centred, float32) at k = 31 (LOF at its default), 51 (LOF at the
+    adaptive parameters' largest) and 5 (DBSCAN's core test), then k = 1
+    from a tenth of the points to the rest (DBSCAN's border search over the
+    core points)."""
+    for n, seed in zip(MEASURE_DECKS, (1, 2)):
+        pts = measured_deck(n, seed)
+        xyz = torch.from_numpy((pts - pts.mean(0)).astype(np.float32))[None].to(dev)
+        for k in MEASURE_KNN_K:
+            knn_sampled_case(res, f"deck B=1 N=S={n} k={k}", xyz, xyz, k, rng)
+        border = np.zeros(n, bool)
+        border[rng.choice(n, n // 10, replace=False)] = True
+        core = xyz[:, torch.from_numpy(~border).to(dev)].contiguous()
+        rest = xyz[:, torch.from_numpy(border).to(dev)].contiguous()
+        knn_sampled_case(res, f"deck core N={core.shape[1]} S={rest.shape[1]} k=1", core, rest,
+                         1, rng)
+
+
+class KnnTap:
+    """Records the inputs of every K5 call that measure/wl_iden.py makes
+    (its ``knn_with_distance``) while the block runs."""
+
+    def __enter__(self):
+        self.calls, self.orig = [], wl_iden.knn_with_distance
+
+        def record(xyz, query=None, k=20):
+            self.calls.append((xyz.clone(), (xyz if query is None else query).clone(), k))
+            return self.orig(xyz, query, k)
+
+        wl_iden.knn_with_distance = record
+        return self
+
+    def __exit__(self, *exc):
+        wl_iden.knn_with_distance = self.orig
+
+
+def deck_dimensions(x: np.ndarray) -> np.ndarray:
+    """The chain's host tail: projection, edge trim, MBR, refined sides."""
+    trimmed = wl_iden.detect_and_trim_edges(wl_iden.project_to_plane(x))
+    length, width = wl_iden.calculate_dimensions(
+        trimmed, wl_iden.minimum_bounding_rectangle(trimmed))
+    return np.array([max(length, width), min(length, width)])
+
+
+def measure_stages(device) -> list:
+    """process_bridge_deck's chain at its defaults, stage by stage, then the
+    adaptive LOF and DBSCAN (eps 1.0, min_samples 5, the chain's defaults)
+    on the isolation forest's output -> [(stage, fn, the stage whose output
+    it takes, -1 for the deck)]."""
+    hp = wl_iden.default_hyperparams()
+    return [
+        ("voxel (host)", lambda x: wl_iden.data_voxel(x, hp["voxel_size"]), -1),
+        ("ransac", lambda x: wl_iden.ransac_plane_fit(
+            x, hp["ransac_max_trials"], hp["ransac_residual_threshold"], device), 0),
+        ("isolation_forest", lambda x: wl_iden.isolation_forest_outlier_removal(
+            x, hp["isolation_forest_contamination"], device), 1),
+        ("lof", lambda x: wl_iden.lof_outlier_removal(
+            x, hp["lof_n_neighbors"], hp["lof_contamination"], device), 2),
+        ("trim, MBR, sides (host)", deck_dimensions, 3),
+        ("adaptive LOF", lambda x: wl_iden.lof_outlier_removal(x, device=device), 2),
+        ("dbscan", lambda x: wl_iden.dbscan_outlier_removal(x, 1.0, 5, device), 2),
+    ]
+
+
+def device_busy(fn) -> tuple:
+    """One fn() under torch.profiler -> (its result, device busy ms, K5's ms
+    of it, wall ms)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = knn = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            ms = (ev.self_cuda_time_total if us is None else us) / 1e3
+            busy += ms
+            knn += ms if "knn_kernel" in ev.key else 0.0
+    return out, busy, knn, wall
+
+
+# torch.profiler on the card's machine now and then returns a session with
+# some of its device events missing (run 3 of PR 19: a LOF stage read 0.094
+# ms busy with no K5 kernel, its neighbours 3-6 ms); a profiled stage runs
+# this many sessions and keeps the largest reading
+PROFILE_TRIES = 3
+
+
+def run_stages(pts: np.ndarray, device, profile: bool = False) -> tuple:
+    """Each stage of ``measure_stages`` once (profiled: PROFILE_TRIES times,
+    the first call's output kept) -> (outputs, [(wall ms, device busy ms, K5
+    ms)] a stage; busy and K5 None unless profiled)."""
+    outs, times = [], []
+    for name, fn, src in measure_stages(device):
+        x = pts if src < 0 else outs[src]
+        if profile:
+            readings = [device_busy(lambda: fn(x)) for _ in range(PROFILE_TRIES)]
+            out = readings[0][0]
+            _, busy, knn, wall = max(readings, key=lambda r: r[1])
+        else:
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall, busy, knn = (time.perf_counter() - t0) * 1e3, None, None
+        outs.append(out)
+        times.append((wall, busy, knn))
+    return outs, times
+
+
+def check_measurement_chain(dev: torch.device, res: Results) -> dict:
+    """Phase 40: the deck-measurement chain (measure/wl_iden.py) on the card
+    at both deck sizes: counted through its entry points, stage by stage
+    against the port's CPU path on the same inputs and draws and against a
+    second card run, timed. Returns the launches of each deck's main path
+    (by MEASURE_PATHS)."""
+    counts = {}
+    rng = np.random.default_rng(SEED + 40)
+    for n, seed, path in zip(MEASURE_DECKS, (1, 2), MEASURE_PATHS):
+        pts = measured_deck(n, seed)
+        stages = measure_stages("cuda")
+        hp = wl_iden.default_hyperparams()
+        # the main path through the entry points a user calls, counted:
+        # process_bridge_deck (its first call: the first deck's also builds
+        # the native voxel library), then LOF at the adaptive parameters and
+        # DBSCAN on the isolation forest's output (voxel, RANSAC and the
+        # forest launch no kernel)
+        _kernels.reset_launch_counts()
+        with KnnTap() as tap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            length, width, trimmed, rect = wl_iden.process_bridge_deck(pts, device="cuda")
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            forest = wl_iden.isolation_forest_outlier_removal(wl_iden.ransac_plane_fit(
+                wl_iden.data_voxel(pts, hp["voxel_size"]), hp["ransac_max_trials"],
+                hp["ransac_residual_threshold"], "cuda"), hp["isolation_forest_contamination"],
+                "cuda")
+            wl_iden.lof_outlier_removal(forest, device="cuda")
+            wl_iden.dbscan_outlier_removal(forest, 1.0, 5, "cuda")
+            torch.cuda.synchronize()
+        c = _kernels.launch_counts()
+        if c["knn"] != len(tap.calls) or c["knn"] < 4 or any(
+                v for name, v in c.items() if name != "knn"):
+            raise AssertionError(f"measure {n}: launches {c}, {len(tap.calls)} K5 calls recorded")
+        counts[path] = c
+        # warm: the chain's wall, then each stage's, then each stage profiled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = wl_iden.process_bridge_deck(pts, device="cuda")
+        torch.cuda.synchronize()
+        chain_ms = (time.perf_counter() - t0) * 1e3
+        card, card_times = run_stages(pts, "cuda")
+        card2, busy_times = run_stages(pts, "cuda", profile=True)
+        for (name, _, _), a, b in zip(stages, card, card2):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"measure {n}: stage {name} differs between two card runs")
+        if (again[0], again[1]) != (length, width) or not (
+                np.array_equal(again[2], trimmed) and np.array_equal(again[3], rect)):
+            raise AssertionError(f"measure {n}: process_bridge_deck differs between two card runs")
+        if not np.array_equal(card[2], forest):
+            raise AssertionError(f"measure {n}: the forest's output differs between two card runs")
+        # the CPU path; each card stage on the CPU's input of it
+        cpu, cpu_times = run_stages(pts, "cpu")
+        near = 0
+        for (name, fn, src), want in zip(stages, cpu):
+            x = pts if src < 0 else cpu[src]
+            if name == "lof":
+                pct = 100.0 * hp["lof_contamination"]
+                nof_card = wl_iden.lof_negative_outlier_factor(x, hp["lof_n_neighbors"],
+                                                               "cuda").cpu()
+                nof_cpu = wl_iden.lof_negative_outlier_factor(x, hp["lof_n_neighbors"], "cpu")
+                offset = wl_iden.np_percentile(nof_cpu, pct)
+                band = (nof_cpu - offset).abs() <= LOF_NEAR * abs(offset)
+                near = int(band.sum())
+                differ = (nof_card < wl_iden.np_percentile(nof_card, pct)) != (nof_cpu < offset)
+                if (differ & ~band).any():
+                    raise AssertionError(f"measure {n}: LOF masks differ off the threshold")
+                if not near and not np.array_equal(fn(x), want):
+                    raise AssertionError(f"measure {n}: LOF differs from the CPU path")
+            elif not np.array_equal(fn(x), want):
+                raise AssertionError(f"measure {n}: stage {name} differs from the CPU path")
+        cpu_dims = wl_iden.process_bridge_deck(pts, device="cpu")[:2]
+        rel = max(abs(length - cpu_dims[0]) / cpu_dims[0], abs(width - cpu_dims[1]) / cpu_dims[1])
+        if not np.isfinite([length, width]).all() or rel > 1e-6:
+            raise AssertionError(f"measure {n}: card {length} x {width}, CPU {cpu_dims}")
+        print(f"measure {n} points: {length:.4f} x {width:.4f} m (CPU path {cpu_dims[0]:.4f} x "
+              f"{cpu_dims[1]:.4f}, relative difference {rel:.2e}); "
+              + " -> ".join(str(len(o)) for o in card[:4])
+              + f" points; {near} LOF points within {LOF_NEAR:g} of offset_; two card runs "
+              f"bit-identical; K5 launches {c['knn']}", flush=True)
+        for (name, _, _), (wall, _, _), (_, busy, knn), (cpu_wall, _, _) in zip(
+                stages, card_times, busy_times, cpu_times):
+            print(f"  stage {name:24s} card wall {wall:9.3f} ms, device busy {busy:8.3f} ms "
+                  f"(K5 {knn:7.3f}) | CPU path wall {cpu_wall:9.3f} ms", flush=True)
+        chain = busy_times[:5]  # the stages of process_bridge_deck
+        busy, knn = sum(t[1] for t in chain), sum(t[2] for t in chain)
+        print(f"  process_bridge_deck wall {first_ms:.1f} ms (first call), {chain_ms:.1f} ms "
+              f"(warm); its stages' device busy {busy:.3f} ms ("
+              + (f"{busy / chain_ms:.1%} of the warm wall), K5 {knn:.3f} ms of it "
+                 f"({knn / busy:.1%})" if busy > 0 else "the profiler recorded no device time)"),
+              flush=True)
+        # each K5 call of the main path held against the plain version and
+        # timed at its own shape: the path's sums
+        for xyz, query, k in tap.calls:
+            knn_sampled_case(res, f"measure {n} N={xyz.shape[1]} S={query.shape[1]} k={k}",
+                             xyz, query, k, rng, paths=(path,))
+    return counts
+
+
+def run_full_pipeline(dev: torch.device) -> dict:
+    """Phase 41: examples/full_pipeline.py on the card, counted: SSG trained
+    at 8 steps a dispatch, the test scene voted, exported and its deck
+    measured. Returns its launch counts."""
+    from pointcloud_bridge_tpu_torch.examples import full_pipeline
+
+    workdir = ROOT / "build" / "full_pipeline"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = full_pipeline.run(str(workdir), "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_all_launched("full pipeline", FORWARD_KERNELS + SSG_BACKWARD_KERNELS
+                                     + ("knn",))
+        r, m = out["row"], out["metrics"]
+        numbers = [r[k] for k in ("length_raw", "width_raw", "length_pred", "width_pred",
+                                  "relative_error")] + [m["OA"], m["mIoU"]]
+        if not np.isfinite(numbers).all():
+            raise AssertionError(f"full pipeline: {numbers}")
+        if r["relative_error"] > FULL_PIPELINE_MAX_ERROR:
+            raise AssertionError(f"full pipeline: deck error {r['relative_error']:.4f} above "
+                                 f"{FULL_PIPELINE_MAX_ERROR}")
+        # the chain's own error: the ground-truth deck measured as predicted
+        raw = full_pipeline_gt_deck(workdir)
+        floor = wl_iden.run_wl_identification([("gt", raw, raw)],
+                                              hyperparams=full_pipeline.MEASURE_HYPERPARAMS)[0]
+        print(f"full pipeline: {wall:.1f} s ({', '.join(f'{k} {v:.2f}' for k, v in out['walls'].items())}); "
+              f"best val OA {out['best_val_acc']:.4f}; vote OA {m['OA']:.4f} mIoU {m['mIoU']:.4f}; "
+              f"deck GT {r['length_raw']:.3f} x {r['width_raw']:.3f} m from {out['raw_deck_points']} "
+              f"points, measured {r['length_pred']:.3f} x {r['width_pred']:.3f} m from "
+              f"{out['pred_deck_points']}, relative error {r['relative_error']:.4f} (band "
+              f"{FULL_PIPELINE_MAX_ERROR}; the chain on the ground-truth deck: "
+              f"{floor['length_pred']:.3f} x {floor['width_pred']:.3f} m, "
+              f"{floor['relative_error']:.4f}); launches {counts}", flush=True)
+        return counts
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def full_pipeline_gt_deck(workdir: Path) -> np.ndarray:
+    """The test scene's ground-truth deck points, as full_pipeline reads them."""
+    from pointcloud_bridge_tpu_torch.examples.full_pipeline import DECK_CLASS
+
+    pts, _, labels = _load_scene(str(workdir / "test" / "scene20.las"))
+    return pts[labels == DECK_CLASS]
+
+
+def run_large_scene(dev: torch.device) -> None:
+    """``--large-scene``: examples/large_scene_stream.py at 5M points
+    (pointnet2_ssg, 4 quick-train epochs on 300k points, 3 votes), its
+    end-to-end points/s, coverage, OA and mIoU."""
+    from pointcloud_bridge_tpu_torch.examples import large_scene_stream
+
+    workdir = ROOT / "build" / "large_scene"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        _kernels.reset_launch_counts()
+        art = large_scene_stream.run(5_000_000, "pointnet2_ssg", workdir=str(workdir),
+                                     device="cuda")
+        counts = counts_all_launched("large scene", FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+        if not np.isfinite([art["oa"], art["miou"], art["end_to_end_pts_per_s"]]).all():
+            raise AssertionError(f"large scene: {art}")
+        print(f"large scene: {art['n_points']} points, 3 votes in {art['wall_s']:.2f} s: "
+              f"{art['end_to_end_pts_per_s']:.0f} points/s end to end, coverage "
+              f"{art['coverage']:.4f}, OA {art['oa']:.4f}, mIoU {art['miou']:.4f}; quick-train "
+              f"{art['train_s']:.1f} s; launches {counts}", flush=True)
+        print("large scene phases: " + json.dumps(art["phases"]), flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -5029,6 +5437,19 @@ def main() -> None:
             determinism_warnings(ds, dev)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
+        return
+    if sys.argv[1:] == ["--measure"]:
+        # work on the measurement layer: phases 1, 2, K5's deck cases of 3
+        # and phases 40-41 alone, no result line
+        res = Results()
+        compare_measure_knn(dev, res, np.random.default_rng(SEED))
+        check_measurement_chain(dev, res)
+        run_full_pipeline(dev)
+        return
+    if sys.argv[1:] == ["--large-scene"]:
+        # phases 1, 2 and examples/large_scene_stream.py at 5M points, no
+        # result line
+        run_large_scene(dev)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -5226,6 +5647,11 @@ def main() -> None:
         by_path["msg_multistep_train_cli"] = train_multistep_through_cli(data_dir, len(ds), dev)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+
+    # 40. the deck-measurement chain at both deck sizes against the CPU
+    # path; 41. examples/full_pipeline.py: train, vote, export, measure
+    measure_counts = check_measurement_chain(dev, res)
+    by_path["full_pipeline"] = run_full_pipeline(dev)
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
     # 10, 11, 13, 15, 16 and 18) beside the times and bound summed over
     # exactly those launches' shapes (phases 3, 3b, 3c and 3d). The row's own
@@ -5240,7 +5666,7 @@ def main() -> None:
                    PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts,
                    DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts, **msg_passes,
                    PROD_TRAIN: prod_counts, PTV3_BF16: ptv3_bf16_counts,
-                   POOLED_BF16: pooled_bf16_counts, **zoo_passes}
+                   POOLED_BF16: pooled_bf16_counts, **zoo_passes, **measure_counts}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:

@@ -415,7 +415,11 @@ class GroupPoints(torch.autograd.Function):
         ctx.n = xyz.shape[1]
         if xyz.device.type == "cpu":
             return group_plain(xyz, new_xyz, idx, features)
-        return group_cuda(xyz, new_xyz, idx, features)
+        # the kernel takes contiguous rows (the wrapper refuses strides); a
+        # view such as the vote's colour columns of its gathered table
+        # (infer/vote.py) goes as a copy, as query_ball_point's inputs do
+        return group_cuda(xyz.contiguous(), new_xyz.contiguous(), idx.contiguous(),
+                          None if features is None else features.contiguous())
 
     @staticmethod
     def backward(ctx, g):

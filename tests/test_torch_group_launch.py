@@ -216,6 +216,26 @@ def group_inputs(b=2, n=32, s=4, k=8, c=5):
             torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)))
 
 
+def test_group_points_hands_the_kernel_contiguous_tensors(monkeypatch):
+    """Strided inputs (the vote's colour columns, a view of its gathered
+    [B, P, 6] table) take the kernel as contiguous copies, as the CPU path
+    takes any layout (the wrapper refuses strides). The meta device stands
+    in for the card: the op dispatches to the wrapper, which records here."""
+    seen = []
+
+    def fake_group(xyz, new_xyz, idx, features=None, staged=None):
+        seen.append(tuple(t.is_contiguous() for t in (xyz, new_xyz, idx, features)))
+        return torch.empty(*idx.shape, 3 + features.shape[-1], device=xyz.device)
+
+    monkeypatch.setattr(grouping, "group_cuda", fake_group)
+    table = torch.empty(2, 64, 6, device="meta")
+    xyz, rgb = table[..., :3], table[..., 3:6]
+    assert not (xyz.is_contiguous() or rgb.is_contiguous())
+    idx = torch.empty(2, 16, 8, dtype=torch.int32, device="meta")
+    assert grouping.group_points(xyz, xyz[:, ::4], idx, rgb).shape == (2, 16, 8, 6)
+    assert seen == [(True, True, True, True)]
+
+
 def test_group_wrappers_refuse_cpu_tensors():
     xyz, centers, idx, feats = group_inputs()
     with pytest.raises(ValueError, match="CUDA"):

@@ -114,7 +114,8 @@ HOST_COPIES = [
     "data/lasio.py", "data/h5io.py", "data/blocks.py", "data/dataset.py",
     "data/augment.py", "data/native.py", "data/samplers_extra.py",
     "data/synthetic.py", "config.py", "class_names.py", "infer/figures.py",
-    "infer/las_export.py",
+    "infer/las_export.py", "measure/evaluation.py", "utils/hostmem.py", "tools/convert.py",
+    "tools/relabel.py", "tools/downsample.py", "tools/dataset_stats.py",
 ]
 
 
@@ -396,6 +397,52 @@ def test_infer_cli_refuses_a_missing_card(tmp_path):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer_cli.main(["blocks", "--checkpoint", str(tmp_path), "--data-dir", str(tmp_path)])
+
+
+def test_port_imports_no_scikit_learn_and_measures_on_the_cpu():
+    """A fresh interpreter with scikit-learn blocked (``sys.modules['sklearn']
+    = None``, so any import of it raises) imports every module of the port,
+    the measurement layer, the host tools and the examples among them, and
+    runs ``run_wl_identification`` on a small deck with ``device="cpu"``:
+    no module of scikit-learn, JAX or the JAX package enters."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['sklearn'] = None\n"
+        "import numpy as np\n"
+        "import pointcloud_bridge_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for want in ('measure.wl_iden', 'measure.wl_vision', 'measure.optimize',\n"
+        "             'measure.evaluation', 'tools.convert', 'tools.relabel',\n"
+        "             'tools.downsample', 'tools.dataset_stats', 'utils.hostmem',\n"
+        "             'examples.full_pipeline', 'examples.large_scene_stream'):\n"
+        "    assert pkg.__name__ + '.' + want in names, want\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from pointcloud_bridge_tpu_torch.measure import run_wl_identification\n"
+        "def deck(n, seed):\n"
+        "    r = np.random.default_rng(seed)\n"
+        "    return np.stack([r.uniform(0, 20, n), r.uniform(0, 6, n),\n"
+        "                     2.7 + r.normal(0, 0.01, n)], 1)\n"
+        "rows = run_wl_identification([('d', deck(3000, 1), deck(2000, 2))],\n"
+        "                             hyperparams={'voxel_size': 0.05, 'lof_n_neighbors': 20,\n"
+        "                                          'isolation_forest_contamination': 0.1,\n"
+        "                                          'lof_contamination': 0.05}, device='cpu')\n"
+        "assert rows[0]['length_pred'] > rows[0]['width_pred'] > 0, rows\n"
+        "assert rows[0]['relative_error'] < 0.2, rows\n"
+        "bad = [k for k in sys.modules if sys.modules[k] is not None and (\n"
+        "       k.split('.')[0] in ('sklearn', 'jax', 'jaxlib', 'flax', 'optax', 'orbax')\n"
+        "       or k == 'pointcloud_bridge_tpu' or k.startswith('pointcloud_bridge_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_port_imports_no_jax():
