@@ -339,7 +339,27 @@ any failure raises and exits non-zero:
    each stage's wall, the vote's OA and mIoU, the measured deck against the
    ground truth beside the chain's own error on the ground-truth deck; it
    fails on a NaN or a relative error above FULL_PIPELINE_MAX_ERROR (the
-   JAX example's error on the same scenes, 0.1089, plus 0.04).
+   JAX example's error on the same scenes, 0.1089, plus 0.04);
+42. the port's tools: (a) a seeded pointnet2_ssg and a seeded
+   pointnet2_msg saved as a reference training run saves them
+   ({"model_state_dict": ..., "epoch": 7, "class_avg_iou": ...}; their
+   parameter names are the reference's), imported by tools/import_ckpt.py
+   (scalars and weights checked) and served by ``infer_cli blocks
+   --device cuda`` from the imported checkpoint (K1-K4 launched), its
+   confusion matrix and the imported model's predictions equal to the
+   seeded model's on the card; (b) six programs exported by
+   utils/export.py at B=1 x 4096 (pointnet2_ssg, pointnet2_msg,
+   bristrunet, dgcnn, the benched ptv3_pooled in float32 and with a bf16
+   stream), each saved, loaded and run on the card: the graph names the
+   pcb:: ops it must, the output equals the eager forward (torch.equal),
+   every kernel's counter rises by exactly what one eager forward adds,
+   and the loaded program and the eager forward are timed (CUDA events);
+   the six together launch K1-K5, K5c and both attention forwards; (c)
+   tools/debug_module.py's smoke_test of pointnet2_ssg at B = 1, 2, 4, 8 x
+   4096 (points/s from CUDA events, peak MiB allocated), failing on any
+   batch size's error; (d) the superpoint pipeline's host modules
+   (data/superpoints.py with its DBSCAN, data/completion.py, ops/avs.py) on
+   one synthetic scene, with scikit-learn absent.
 Phase 3 also holds K5 at the measurement chain's shapes (B = 1, N = S =
 63,885 and 103,718 at k = 31, 51 and 5, and k = 1 from a tenth of the
 points to the rest), each launch's rows of 2,048 random queries bit for bit
@@ -375,6 +395,13 @@ as a ring of tiles, and K5c's grid of warps, queries a warp and tiles with
 the plan's pick beside the fastest, then K5c's first design (a warp a
 query) and the kernel in turns, probes/k2_k5_probe.py ``compare_k5c``;
 ``--measure`` K5's deck cases of phase 3 and phases 40-41;
+``--tools`` phase 42 alone; ``--export-all`` exports, loads and runs every
+registry name at B=1 x 4096 on the card beside its eager forward (the
+classifiers with the colours as features) and fails on a name that neither
+exports nor raises NotImplementedError; ``--host-us`` the host microseconds
+a call of the four entry points farthest_point_sample, query_ball_point,
+group_points and three_nn_interpolate where the card is faster than the
+host (run it from another tree's root to compare two trees);
 ``--large-scene`` examples/large_scene_stream.py at 5M points (pointnet2_ssg
 quick-trained 4 epochs on 300k points, 3 votes: end-to-end points/s,
 coverage, OA, mIoU and the vote's phase split);
@@ -3655,18 +3682,18 @@ GLOBAL_LINE = r"GLOBAL mIoU=[\d.]+ OA=[\d.]+ mAcc=[\d.]+ F1=[\d.]+"
 
 def serve_blocks(label: str, model_name: str, checkpoint: Path, launched: tuple,
                  data_dir: Path, n_blocks: int, dev: torch.device,
-                 forward_kernels: tuple = ()) -> dict:
+                 forward_kernels: tuple = (), warm: bool = True) -> dict:
     """``infer_cli blocks`` over the scenes of data_dir from ``checkpoint``,
-    twice; the second, warm call is timed and counted -> its launch counts,
-    which must cover ``launched`` and no backward kernel but those of
-    ``forward_kernels`` (SPT's segment sums run on the group-backward
-    kernel)."""
+    twice (once where not ``warm``); the second, warm call is timed and
+    counted -> its launch counts, which must cover ``launched`` and no
+    backward kernel but those of ``forward_kernels`` (SPT's segment sums run
+    on the group-backward kernel)."""
     out_dir = data_dir / "infer_out" / label.replace(" ", "_")
     argv = ["blocks", "--checkpoint", str(checkpoint), "--model", model_name,
             "--data-dir", str(data_dir), "--out-dir", str(out_dir),
             "--num-classes", str(NUM_CLASSES), "--num-points", str(N),
             "--batch-size", "16", "--device", dev.type]
-    first, _, _ = run_cli(label, argv, GLOBAL_LINE)
+    first = run_cli(label, argv, GLOBAL_LINE)[0] if warm else float("nan")
     wall, lines, counts = run_cli(label, argv, GLOBAL_LINE)
     counts_all_launched(label, launched)
     if any(counts[k] for k in BACKWARD_KERNELS if k not in forward_kernels):
@@ -3679,8 +3706,9 @@ def serve_blocks(label: str, model_name: str, checkpoint: Path, launched: tuple,
     figures = len(list(out_dir.glob("*.png")))
     if not figures and importlib.util.find_spec("matplotlib"):
         raise AssertionError(f"{label}: matplotlib is installed, but no figure was drawn")
-    print(f"{label}: {n_blocks} blocks x {N} in {wall:.3f} s wall warm, first call "
-          f"{first:.3f} s (LAS read, blocks, checkpoint, forward, CSVs, {figures} figures), "
+    when = f"warm, first call {first:.3f} s" if warm else "in its one call"
+    print(f"{label}: {n_blocks} blocks x {N} in {wall:.3f} s wall {when} "
+          f"(LAS read, blocks, checkpoint, forward, CSVs, {figures} figures), "
           f"{n_blocks * N / wall:.0f} points/s end to end, launches {counts}; {lines[-1]}",
           flush=True)
     return counts
@@ -5282,6 +5310,271 @@ def run_large_scene(dev: torch.device) -> None:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def import_and_serve(label: str, name: str, seed: int, ds: BlockDataset, data_dir: Path,
+                     dev: torch.device) -> dict:
+    """42a: a seeded ``name`` saved as a reference training run saves it,
+    imported by tools/import_ckpt.py, served by ``infer_cli blocks`` from
+    the imported checkpoint -> the serve's launch counts."""
+    from pointcloud_bridge_tpu_torch.tools import import_ckpt
+
+    model = seeded_model(name, seed)
+    work = data_dir / "import" / name
+    work.mkdir(parents=True, exist_ok=True)
+    pth, exp = work / "best_model.pth", work / "exp"
+    torch.save({"model_state_dict": model.state_dict(), "epoch": 7,
+                "class_avg_iou": 0.625}, pth)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_ckpt.main(["--model", name, "--torch-ckpt", str(pth), "--out", str(exp)])
+    import_s = time.perf_counter() - t0
+    ckpt = restore_checkpoint(str(exp / "best_model"))
+    if (ckpt["epoch"], ckpt["class_avg_iou"], ckpt["source_torch"]) != (7, 0.625,
+                                                                        str(pth.resolve())):
+        scalars = {k: v for k, v in ckpt.items() if k != "model"}
+        raise AssertionError(f"{label}: checkpoint scalars {scalars}")
+    want = model.state_dict()
+    if set(ckpt["model"]) != set(want) or any(
+            not torch.equal(ckpt["model"][k].to(v.dtype), v) for k, v in want.items()):
+        raise AssertionError(f"{label}: imported weights differ from the saved ones")
+    counts = serve_blocks(label, name, exp, FORWARD_KERNELS, data_dir, len(ds), dev, warm=False)
+    served_cm = np.loadtxt(data_dir / "infer_out" / label.replace(" ", "_")
+                           / "confusion_matrix.csv", delimiter=",")
+    imported = get_model(name, NUM_CLASSES)
+    imported.load_state_dict(ckpt["model"], strict=True)
+    got = run_block_inference(imported.to(dev).eval(), ds, NUM_CLASSES, batch_size=16)
+    eager = run_block_inference(model.to(dev), ds, NUM_CLASSES, batch_size=16)
+    if not np.array_equal(got["predictions"], eager["predictions"]):
+        raise AssertionError(f"{label}: the imported model's predictions differ from the "
+                             "seeded model's")
+    if not np.array_equal(served_cm, eager["global"]["Confusion_Matrix"]):
+        raise AssertionError(f"{label}: infer_cli's confusion matrix differs from the seeded "
+                             "model's")
+    print(f"{label}: import {import_s:.3f} s (host), {len(ds)} blocks served, predictions and "
+          f"the CLI's confusion matrix equal to the seeded model's, OA "
+          f"{eager['global']['OA']:.4f}", flush=True)
+    return counts
+
+
+# 42b: the exported programs (label, registry name, model options), which
+# launch every forward kernel between them
+EXPORTS = (
+    ("pointnet2_ssg", "pointnet2_ssg", {}),
+    ("pointnet2_msg", "pointnet2_msg", {}),
+    ("bristrunet", "bristrunet", {}),
+    ("dgcnn", "dgcnn", {}),
+    ("ptv3_pooled", "ptv3_pooled", POOLED_BENCHED),
+    ("ptv3_pooled bf16 stream", "ptv3_pooled", dict(POOLED_BENCHED, stream_dtype="bfloat16")),
+)
+# the ops each program's graph must name (ops/_kernels.py custom_op)
+EXPORT_OPS = {
+    "pointnet2_ssg": ("fps", "ball_query", "group", "interpolate"),
+    "pointnet2_msg": ("fps", "ball_query_radii", "group", "interpolate"),
+    "bristrunet": ("fps", "ball_query_radii", "group", "interpolate", "knn"),
+    "dgcnn": ("knn", "knn_c"),
+    "ptv3_pooled": ("attention",),
+    "ptv3_pooled bf16 stream": ("attention",),
+}
+# the classifiers read xyz alone by default; exported with the colours
+EXPORT_KWARGS = {name: {"in_features": 3}
+                 for name in ("pointnet2_cls_ssg", "pointnet2_cls_msg", "pointnet_cls")}
+
+
+def graph_ops(program: torch.nn.Module) -> list:
+    """The pcb:: ops a loaded program's graph calls."""
+    return sorted({str(node.target).split(".")[1] for node in program.graph.nodes
+                   if node.op == "call_function" and str(node.target).startswith("pcb.")})
+
+
+def export_and_run(label: str, model: torch.nn.Module, xyz: torch.Tensor, rgb: torch.Tensor,
+                   workdir: Path, need_ops=()) -> tuple:
+    """Export ``model`` (on the card) at xyz's shape, save, load, run the
+    program and the eager forward, each with the counters reset just
+    before -> (program launches, eager launches, line of numbers). Fails
+    where the graph lacks an op of ``need_ops``, the launches differ or the
+    outputs differ beyond LOGIT_TOL (an exact match is reported as such)."""
+    from pointcloud_bridge_tpu_torch.utils.export import export_program, load_program
+
+    path = workdir / (label.replace(" ", "_") + ".pt2")
+    with torch.inference_mode():
+        _kernels.reset_launch_counts()
+        want = model(xyz, rgb)
+        torch.cuda.synchronize()
+        eager_counts = _kernels.launch_counts()
+    t0 = time.perf_counter()
+    export_program(model, None, str(path), *xyz.shape[:2], rgb.shape[2])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = load_program(str(path))
+    load_s = time.perf_counter() - t0
+    ops = graph_ops(program)
+    if any(op not in ops for op in need_ops):
+        raise AssertionError(f"export {label}: the graph calls {ops}, not all of {need_ops}")
+    with torch.inference_mode():
+        _kernels.reset_launch_counts()
+        got = program(xyz, rgb)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        if counts != eager_counts:
+            raise AssertionError(f"export {label}: the program launched {counts}, the eager "
+                                 f"forward {eager_counts}")
+        err = max_abs_err(got.float(), want.float())
+        same = torch.equal(got, want)
+        if got.shape != want.shape or not torch.isfinite(got).all() or (
+                not same and err > LOGIT_TOL * max(1.0, want.abs().max().item())):
+            raise AssertionError(f"export {label}: output {tuple(got.shape)} differs from the "
+                                 f"eager forward by {err}")
+        prog_ms = time_ms(lambda: program(xyz, rgb), reps=10)
+        eager_ms = time_ms(lambda: model(xyz, rgb), reps=10)
+    agreement = ("equal to the eager forward (torch.equal)" if same
+                 else f"max|err| {err:.3g} against the eager forward")
+    line = (f"export {label}: {path.stat().st_size / 2**20:.1f} MiB, export {export_s:.2f} s, "
+            f"load {load_s:.2f} s (host); graph ops {ops}; output {agreement}; "
+            f"loaded program {prog_ms:.3f} ms, eager forward {eager_ms:.3f} ms a call "
+            f"(B={xyz.shape[0]} x {xyz.shape[1]}); launches {counts}")
+    return counts, eager_counts, line
+
+
+def check_exports(ds: BlockDataset, dev: torch.device, workdir: Path) -> dict:
+    """42b: the six required programs -> their launch counts by label."""
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:1], np.float32)).to(dev)
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:1], np.float32)).to(dev)
+    by_label = {}
+    for i, (label, name, kwargs) in enumerate(EXPORTS):
+        model = seeded_model(name, SEED + 420 + i, **kwargs).to(dev)
+        by_label[f"export_{label.replace(' ', '_')}"], _, line = export_and_run(
+            label, model, xyz, rgb, workdir, EXPORT_OPS[label])
+        print(line, flush=True)
+        del model
+    launched = {k for counts in by_label.values() for k, v in counts.items() if v}
+    need = {"fps", "ball_query", "group", "interpolate", "knn", "knn_c", "flash_attn",
+            "flash_attn_bf16"}
+    if not need <= launched:
+        raise AssertionError(f"exports: no loaded program launched {sorted(need - launched)}")
+    return by_label
+
+
+def export_all(dev: torch.device) -> None:
+    """``--export-all``: every registry name exported, loaded and run at B=1
+    x 4096 beside its eager forward (export_and_run's checks); a name that
+    raises NotImplementedError is listed, any other failure fails."""
+    from pointcloud_bridge_tpu_torch.models.registry import MODEL_REGISTRY
+
+    workdir = ROOT / "build" / "export_all"
+    workdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    xyz = torch.from_numpy(rng.uniform(size=(1, N, 3)).astype(np.float32)).to(dev)
+    rgb = torch.from_numpy(rng.uniform(size=(1, N, 3)).astype(np.float32)).to(dev)
+    failed, refused = [], []
+    try:
+        for i, name in enumerate(sorted(MODEL_REGISTRY)):
+            model = seeded_model(name, SEED + 500 + i, **EXPORT_KWARGS.get(name, {})).to(dev)
+            try:
+                _, _, line = export_and_run(name, model, xyz, rgb, workdir)
+                print(line, flush=True)
+            except NotImplementedError as exc:
+                refused.append((name, str(exc)))
+                print(f"export {name}: not exported ({exc})", flush=True)
+            except Exception as exc:  # every other failure is one
+                failed.append(name)
+                print(f"export {name}: FAILED {type(exc).__name__}: {exc}", flush=True)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"export-all: {len(MODEL_REGISTRY) - len(failed) - len(refused)} of "
+          f"{len(MODEL_REGISTRY)} names exported and ran, refused {refused}, failed {failed}",
+          flush=True)
+    if failed:
+        raise SystemExit(1)
+
+
+def check_debug_module(dev: torch.device) -> dict:
+    """42c: tools/debug_module.py's smoke_test of pointnet2_ssg at B = 1, 2,
+    4 and 8 x 4096 on the card; any batch size's error fails."""
+    from pointcloud_bridge_tpu_torch.tools import debug_module
+
+    _kernels.reset_launch_counts()
+    res = debug_module.smoke_test("pointnet2_ssg", NUM_CLASSES, N, (1, 2, 4, 8),
+                                  device=dev.type)
+    counts = counts_all_launched("debug_module", FORWARD_KERNELS)
+    errors = {k: v for k, v in res.items() if k.endswith("_error")}
+    if errors or res["output_shape"] != (1, N, NUM_CLASSES):
+        raise AssertionError(f"debug_module: {res}")
+    print("debug_module: " + json.dumps(res), flush=True)
+    return counts
+
+
+def run_host_modules() -> None:
+    """42d: the superpoint pipeline's host modules on one synthetic scene,
+    with scikit-learn absent (the card's machine has none)."""
+    from pointcloud_bridge_tpu_torch.data import completion, superpoints
+    from pointcloud_bridge_tpu_torch.ops import avs_adapt_voxel_size, avs_net_sample_indices
+
+    t0 = time.perf_counter()
+    xyz, rgb, labels = toy_bridge_scene(10_000, seed=42)
+    normals = superpoints.compute_normals_host(xyz)
+    sp_labels, sp_features = superpoints.generate_superpoints(xyz, rgb, normals, min_points=10,
+                                                              eps=0.3)
+    edge_index, edge_attr = superpoints.build_graph(sp_features)
+    pts, cols, labs = completion.complete_scene(xyz, rgb, labels, voxel_size=0.1)
+    idx, voxel = avs_net_sample_indices(xyz[None, :4096], 1024, rng=np.random.default_rng(0))
+    wall = time.perf_counter() - t0
+    count = int(sp_labels.max()) + 1
+    if (sp_labels.shape != (len(xyz),) or count < 1 or sp_features.shape != (count, 16)
+            or not np.isfinite(sp_features).all() or edge_index.shape[0] != 2
+            or len(pts) < len(xyz) or idx.shape != (1, 1024) or not voxel > 0
+            or "sklearn" in sys.modules):
+        raise AssertionError(f"host modules: {count} superpoints {sp_features.shape}, "
+                             f"{len(pts)} completed points, AVS {idx.shape} at {voxel}")
+    print(f"host modules: {len(xyz)} points -> {count} superpoints "
+          f"({int((sp_labels < 0).sum())} noise), graph of {edge_index.shape[1]} edges, "
+          f"completion {len(xyz)} -> {len(pts)} points, AVS 4096 -> 1024 at voxel "
+          f"{voxel:.4f} (adapted {avs_adapt_voxel_size(xyz[None, :4096], 1024):.4f}); "
+          f"{wall:.2f} s (host), scikit-learn not imported", flush=True)
+
+
+def run_tool_phases(ds: BlockDataset, data_dir: Path, dev: torch.device) -> dict:
+    """Phase 42 -> launch counts by path (the imported serves, the six
+    exported programs, debug_module)."""
+    t0 = time.perf_counter()
+    by_path = {}
+    for label, name, seed in (("serve imported pointnet2_ssg", "pointnet2_ssg", SEED + 42),
+                              ("serve imported pointnet2_msg", "pointnet2_msg", SEED + 43)):
+        by_path[label.replace(" ", "_")] = import_and_serve(label, name, seed, ds, data_dir, dev)
+    workdir = data_dir / "export"
+    workdir.mkdir(parents=True, exist_ok=True)
+    by_path |= check_exports(ds, dev, workdir)
+    by_path["debug_module_pointnet2_ssg"] = check_debug_module(dev)
+    run_host_modules()
+    print(f"phase 42: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
+def entry_point_host_us(dev: torch.device) -> None:
+    """``--host-us``: host microseconds a call of the four public entry
+    points the models call (the eager path: farthest_point_sample,
+    query_ball_point, group_points, three_nn_interpolate) at B=1, N=256 and
+    16 centres, where the card is faster than the host, so that the time is
+    the host's path; 5 rounds of 2000 calls each, the median."""
+    rng = np.random.default_rng(SEED)
+    xyz = torch.from_numpy(rng.uniform(size=(1, 256, 3)).astype(np.float32)).to(dev)
+    feats = torch.from_numpy(rng.uniform(size=(1, 256, 16)).astype(np.float32)).to(dev)
+    centres = xyz[:, :16].contiguous()
+    idx = grouping.query_ball_point(0.2, 16, xyz, centres)
+    calls = {
+        "fps": lambda: sampling.farthest_point_sample(xyz, 16),
+        "ball_query": lambda: grouping.query_ball_point(0.2, 16, xyz, centres),
+        "group": lambda: grouping.group_points(xyz, centres, idx, feats),
+        "interpolate": lambda: interpolate.three_nn_interpolate(xyz, centres, feats[:, :16]),
+    }
+    with torch.inference_mode():
+        got = {k: host_us(fn, calls=2000) for k, fn in calls.items()}
+        dev_us = {k: device_ms(fn) * 1e3 for k, fn in calls.items()}
+    print("entry point host us a call: " + ", ".join(
+        f"{k} {v:.2f} (device {dev_us[k]:.2f})" for k, v in got.items()), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -5450,6 +5743,22 @@ def main() -> None:
         # phases 1, 2 and examples/large_scene_stream.py at 5M points, no
         # result line
         run_large_scene(dev)
+        return
+    if sys.argv[1:] == ["--tools"]:
+        # phases 1, 2 and 42 alone, no result line
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            run_tool_phases(make_dataset(data_dir), data_dir, dev)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        return
+    if sys.argv[1:] == ["--export-all"]:
+        # phases 1, 2 and every registry name exported, no result line
+        export_all(dev)
+        return
+    if sys.argv[1:] == ["--host-us"]:
+        # phases 1, 2 and the entry points' host time, no result line
+        entry_point_host_us(dev)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -5645,6 +5954,10 @@ def main() -> None:
         # steps_per_dispatch 4 through the training CLI
         run_graph_phases(ds, dev)
         by_path["msg_multistep_train_cli"] = train_multistep_through_cli(data_dir, len(ds), dev)
+
+        # 42. reference checkpoints imported and served, six programs
+        # exported and run, debug_module, the superpoint host modules
+        by_path |= run_tool_phases(ds, data_dir, dev)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 

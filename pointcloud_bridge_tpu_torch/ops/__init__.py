@@ -4,8 +4,13 @@ Each op that the JAX package runs as a Pallas kernel has a hand-written CUDA
 kernel here (csrc/) and a plain PyTorch version beside it in the same
 module: a CPU tensor takes the plain version, a CUDA tensor the kernel.
 ``ops.attention`` is the attention module (``ops.attention.attention`` the op).
+Each forward kernel is also a custom op ``pcb::<name>`` (ops/_kernels.py),
+which ``torch.export`` records; importing this package registers them all.
+``ops.avs`` is AVS-Net's adaptive voxel sampling, host numpy.
 """
 
+from . import attention
+from .avs import avs_adapt_voxel_size, avs_net_sample_indices, avs_voxel_downsample
 from .core import index_points, pairwise_sq_dist, square_distance
 from .grouping import (
     edge_conv_graph_feature,
@@ -29,6 +34,9 @@ from .structure import (
 )
 
 __all__ = [
+    "avs_adapt_voxel_size",
+    "avs_net_sample_indices",
+    "avs_voxel_downsample",
     "edge_conv_graph_feature",
     "eigh3x3",
     "eigvals3_from_entries",

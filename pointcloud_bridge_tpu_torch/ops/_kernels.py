@@ -20,8 +20,16 @@ integers as one array laid out once a shape (ops/sampling.py, grouping.py,
 interpolate.py),
 since ctypes converts every argument on every call.
 
-Nothing here runs at import time: the CPU tests import every module on a
-machine without ``nvcc`` or a GPU.
+Each forward kernel is also a ``torch.library`` custom op in the namespace
+``pcb`` (``custom_op``), so that ``torch.export`` records the kernel and not
+its plain version: an exported program calls ``pcb::fps`` and friends, whose
+CUDA implementation is the wrapper's launch and whose CPU implementation is
+the plain version. The models reach an op only while they are exported or
+compiled (``torch.compiler.is_compiling()``); the eager path calls the
+wrapper directly, which keeps the dispatcher's cost off it.
+
+Nothing here runs at import time but the ops' registration: the CPU tests
+import every module on a machine without ``nvcc`` or a GPU.
 """
 
 from __future__ import annotations
@@ -52,6 +60,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v", "--threads", "0",
 )
+
+# a copy of the package loaded under another name (a training run's code
+# snapshot, utils/logging.py) registers its ops under that name
+_ROOT_PACKAGE = __name__.split(".")[0]
+OP_NAMESPACE = "pcb" if _ROOT_PACKAGE == "pointcloud_bridge_tpu_torch" else _ROOT_PACKAGE
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -200,6 +213,18 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def custom_op(name: str, cpu, cuda, fake):
+    """Register ``OP_NAMESPACE::name``: ``cpu`` (the plain version, whose
+    annotations give the schema) on CPU tensors, ``cuda`` (the kernel's
+    wrapper, which raises where it cannot launch) on CUDA tensors and
+    ``fake`` (the outputs' shapes and types, no data) while tracing."""
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", cpu, mutates_args=(),
+                                 device_types="cpu")
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
 
 
 def _nvcc() -> str:

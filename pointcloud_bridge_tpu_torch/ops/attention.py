@@ -34,6 +34,7 @@ float32 and returned in bf16.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -87,9 +88,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 
     q, k, v [B, N, H, D], all float32 or all bfloat16, the JAX layout; any
     strides (the three slices of a packed qkv projection are read in place)
-    -> [B, N, H, D] in their type, contiguous. Differentiable in q, k and v.
+    -> [B, N, H, D] in their type, contiguous. Differentiable in q, k and v,
+    but not while exported: an exported program is an inference program.
     """
     _check(q, k, v)
+    if torch.compiler.is_compiling():
+        return ATTENTION_OP(q, k, v)[0]
     return Attention.apply(q, k, v)
 
 
@@ -294,6 +298,22 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(1), k.stride(1), v.stride(1), *_kernels.stream_args(q),
         )
     return (out, lse) if need_lse else out
+
+
+def _attention_op_plain(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, scores = _forward_plain(q, k, v)
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+# pcb::attention, the flash-attention forward (float32 or bf16 by the
+# inputs' type) as a custom op (ops/_kernels.py custom_op) -> (out, lse)
+ATTENTION_OP = _kernels.custom_op(
+    "attention", _attention_op_plain,
+    lambda q, k, v: attention_cuda(q, k, v, need_lse=True),
+    lambda q, k, v: (q.new_empty(q.shape),
+                     q.new_empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)),
+)
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:

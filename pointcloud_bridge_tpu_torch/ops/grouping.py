@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +53,11 @@ def _query_ball_radii(balls, xyz: torch.Tensor, new_xyz: torch.Tensor) -> list:
     for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if torch.compiler.is_compiling():
+        if len(balls) == 1:
+            return [BALL_QUERY_OP(xyz, new_xyz, float(balls[0][0]), int(balls[0][1]))]
+        return BALL_QUERY_RADII_OP(xyz, new_xyz, [float(r) for r, _ in balls],
+                                   [int(k) for _, k in balls])
     if xyz.device.type == "cpu":
         return [ball_query_plain(r, k, xyz, new_xyz) for r, k in balls]
     return ball_query_radii_cuda(tuple(balls), xyz.contiguous(), new_xyz.contiguous())
@@ -197,6 +202,37 @@ def _ball_launches(balls: tuple) -> tuple:
 _NO_OUTPUT = (None,) * BALL_MAX_RADII
 
 
+def _ball_query_op_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
+                         nsample: int) -> torch.Tensor:
+    return ball_query_plain(radius, nsample, xyz, new_xyz)
+
+
+def _ball_query_radii_op_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, radii: List[float],
+                               nsamples: List[int]) -> List[torch.Tensor]:
+    return [ball_query_plain(r, k, xyz, new_xyz) for r, k in zip(radii, nsamples)]
+
+
+def _ball_fake(new_xyz: torch.Tensor, nsample: int) -> torch.Tensor:
+    return new_xyz.new_empty((*new_xyz.shape[:2], nsample), dtype=torch.int32)
+
+
+# pcb::ball_query and pcb::ball_query_radii, the ball-query kernel as custom
+# ops (ops/_kernels.py custom_op): one radius, and up to BALL_MAX_RADII a
+# launch over one scan
+BALL_QUERY_OP = _kernels.custom_op(
+    "ball_query", _ball_query_op_plain,
+    lambda xyz, new_xyz, radius, nsample: ball_query_cuda(
+        radius, nsample, xyz.contiguous(), new_xyz.contiguous()),
+    lambda xyz, new_xyz, radius, nsample: _ball_fake(new_xyz, nsample),
+)
+BALL_QUERY_RADII_OP = _kernels.custom_op(
+    "ball_query_radii", _ball_query_radii_op_plain,
+    lambda xyz, new_xyz, radii, nsamples: ball_query_radii_cuda(
+        tuple(zip(radii, nsamples)), xyz.contiguous(), new_xyz.contiguous()),
+    lambda xyz, new_xyz, radii, nsamples: [_ball_fake(new_xyz, k) for k in nsamples],
+)
+
+
 # the kernel keeps the k best of a query in two registers of each lane
 KNN_MAX_K = 64
 
@@ -225,6 +261,8 @@ def knn_with_distance(
     if not 1 <= k <= xyz.shape[1]:
         raise ValueError(f"knn: expected 1 <= k <= N, got k={k}, N={xyz.shape[1]}")
     xyz, query = xyz.detach(), query.detach()
+    if torch.compiler.is_compiling():
+        return (KNN_OP if xyz.shape[2] == 3 else KNN_C_OP)(xyz, query, k)
     if xyz.device.type == "cpu":
         return knn_plain(xyz, query, k)
     if xyz.shape[2] == 3:
@@ -389,6 +427,26 @@ def knn_c_cuda(
     return d2, idx
 
 
+def _knn_op_plain(xyz: torch.Tensor, query: torch.Tensor,
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return knn_plain(xyz, query, k)
+
+
+def _knn_fake(xyz, query, k):
+    shape = (*query.shape[:2], k)
+    return query.new_empty(shape), query.new_empty(shape, dtype=torch.int32)
+
+
+# pcb::knn and pcb::knn_c, K5 and K5c as custom ops (ops/_kernels.py
+# custom_op) -> (d2, idx)
+KNN_OP = _kernels.custom_op(
+    "knn", _knn_op_plain,
+    lambda xyz, query, k: knn_cuda(xyz.contiguous(), query.contiguous(), k), _knn_fake)
+KNN_C_OP = _kernels.custom_op(
+    "knn_c", _knn_op_plain,
+    lambda xyz, query, k: knn_c_cuda(xyz.contiguous(), query.contiguous(), k), _knn_fake)
+
+
 def group_points(
     xyz: torch.Tensor,
     new_xyz: torch.Tensor,
@@ -399,8 +457,11 @@ def group_points(
 
     xyz [B, N, 3], new_xyz [B, S, 3], idx [B, S, K] int32 (clamped to N-1),
     features [B, N, C] or None -> [B, S, K, 3] or [B, S, K, 3 + C].
-    Differentiable in xyz, new_xyz and features.
+    Differentiable in xyz, new_xyz and features, but not while exported:
+    an exported program is an inference program.
     """
+    if torch.compiler.is_compiling():
+        return GROUP_OP(xyz, new_xyz, idx, features)
     return GroupPoints.apply(xyz, new_xyz, idx, features)
 
 
@@ -552,6 +613,25 @@ def group_cuda(xyz, new_xyz, idx, features=None, staged=None) -> torch.Tensor:
         features.data_ptr() if c else None, out.data_ptr(), plan, *_kernels.stream_args(xyz),
     )
     return out
+
+
+def _group_op_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, idx: torch.Tensor,
+                    features: Optional[torch.Tensor]) -> torch.Tensor:
+    return group_plain(xyz, new_xyz, idx, features)
+
+
+def _group_op_cuda(xyz, new_xyz, idx, features):
+    return group_cuda(xyz.contiguous(), new_xyz.contiguous(), idx.contiguous(),
+                      None if features is None else features.contiguous())
+
+
+def _group_fake(xyz, new_xyz, idx, features):
+    width = 3 + (0 if features is None else features.shape[2])
+    return xyz.new_empty((*idx.shape, width))
+
+
+# pcb::group, the group kernel as a custom op (ops/_kernels.py custom_op)
+GROUP_OP = _kernels.custom_op("group", _group_op_plain, _group_op_cuda, _group_fake)
 
 
 def group_backward_plain(
@@ -751,8 +831,37 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     the group-backward kernel adds each segment's rows in ascending row
     order, so the same bits every call (``index_add_`` adds with float
     atomics in an order that varies); on the CPU ``group_backward_plain``.
-    Its gradient is a gather, :class:`SegmentSum`."""
+    Its gradient is a gather, :class:`SegmentSum`; while exported it is
+    the custom op ``pcb::segment_sum``, with no gradient."""
+    if torch.compiler.is_compiling():
+        return SEGMENT_SUM_OP(data, segment_ids, num_segments)
     return SegmentSum.apply(data, segment_ids, num_segments)
+
+
+def _segment_args(data: torch.Tensor, segment_ids: torch.Tensor) -> tuple:
+    """(g [1, E, 1, C], ids [1, E, 1] int32) as the group backward takes them."""
+    e, c = data.shape
+    return (data.reshape(1, e, 1, c).contiguous(),
+            segment_ids.reshape(1, e, 1).to(torch.int32).contiguous())
+
+
+def _segment_sum_op_plain(data: torch.Tensor, segment_ids: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    g, ids = _segment_args(data, segment_ids)
+    return group_backward_plain(g, ids, num_segments, 0, data.shape[1])[0]
+
+
+def _segment_sum_op_cuda(data, segment_ids, num_segments):
+    g, ids = _segment_args(data, segment_ids)
+    return group_backward_cuda(g, ids, num_segments, 0, data.shape[1])[0]
+
+
+# pcb::segment_sum, the group-backward kernel as SPT's segment sums, a custom
+# op (ops/_kernels.py custom_op) for its forward
+SEGMENT_SUM_OP = _kernels.custom_op(
+    "segment_sum", _segment_sum_op_plain, _segment_sum_op_cuda,
+    lambda data, segment_ids, num_segments: data.new_empty((num_segments, data.shape[1])),
+)
 
 
 class SegmentSum(torch.autograd.Function):
@@ -760,13 +869,9 @@ class SegmentSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, segment_ids, num_segments):
-        e, c = data.shape
-        ids = segment_ids.reshape(1, e, 1).to(torch.int32).contiguous()
-        ctx.save_for_backward(ids)
-        g = data.reshape(1, e, 1, c).contiguous()
-        if data.is_cuda:
-            return group_backward_cuda(g, ids, num_segments, 0, c)[0]
-        return group_backward_plain(g, ids, num_segments, 0, c)[0]
+        ctx.save_for_backward(segment_ids)
+        run = _segment_sum_op_cuda if data.is_cuda else _segment_sum_op_plain
+        return run(data, segment_ids, num_segments)
 
     @staticmethod
     def backward(ctx, grad):

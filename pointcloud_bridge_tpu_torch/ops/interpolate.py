@@ -63,6 +63,8 @@ def three_nn_interpolate(
     if s == 1:
         return feats_src.expand(b, n, feats_src.shape[2])
     k = min(k, s)
+    if torch.compiler.is_compiling():  # an exported program is an inference program
+        return INTERPOLATE_OP(xyz_dst, xyz_src, feats_src, k)
     keep = torch.is_grad_enabled() and feats_src.requires_grad
     return Interpolate.apply(xyz_dst, xyz_src, feats_src, k, keep)
 
@@ -129,6 +131,22 @@ def interpolate_plain(
     if not keep:
         return out, None, None
     return out, idx.to(torch.int32), w
+
+
+def _interpolate_op_plain(xyz_dst: torch.Tensor, xyz_src: torch.Tensor, feats_src: torch.Tensor,
+                          k: int) -> torch.Tensor:
+    return interpolate_plain(xyz_dst, xyz_src, feats_src, k)[0]
+
+
+# pcb::interpolate, the interpolation kernel as a custom op (ops/_kernels.py
+# custom_op), the blend alone
+INTERPOLATE_OP = _kernels.custom_op(
+    "interpolate", _interpolate_op_plain,
+    lambda xyz_dst, xyz_src, feats_src, k: interpolate_cuda(
+        xyz_dst.contiguous(), xyz_src.contiguous(), feats_src.contiguous(), k)[0],
+    lambda xyz_dst, xyz_src, feats_src, k: feats_src.new_empty(
+        (*xyz_dst.shape[:2], feats_src.shape[2])),
+)
 
 
 def interp_lanes(queries: int) -> int:

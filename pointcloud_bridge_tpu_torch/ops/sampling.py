@@ -48,6 +48,8 @@ def farthest_point_sample(
         start = torch.as_tensor(start_idx).to(xyz.device, torch.int32).reshape(b)
         if bool((start < 0).any()) or bool((start >= n).any()):
             raise ValueError(f"start_idx out of range for N={n}")
+    if torch.compiler.is_compiling():
+        return FPS_OP(xyz, npoint, start)
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint, start)
     return fps_cuda(xyz.contiguous(), npoint, start.contiguous())
@@ -114,6 +116,18 @@ def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tenso
     _kernels.FPS.launch(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), plan,
                         *_kernels.stream_args(xyz))
     return out
+
+
+def _fps_op_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
+    return fps_plain(xyz, npoint, start)
+
+
+# pcb::fps, the FPS kernel as a custom op (ops/_kernels.py custom_op)
+FPS_OP = _kernels.custom_op(
+    "fps", _fps_op_plain,
+    lambda xyz, npoint, start: fps_cuda(xyz.contiguous(), npoint, start.contiguous()),
+    lambda xyz, npoint, start: xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32),
+)
 
 
 def random_sample_indices(n: int, npoint: int, batch: int,

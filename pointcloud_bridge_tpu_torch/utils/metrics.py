@@ -1,5 +1,6 @@
 """Segmentation metrics from confusion matrices (counterpart of
-pointcloud_bridge_tpu/utils/metrics.py:19-72, which imports JAX).
+pointcloud_bridge_tpu/utils/metrics.py, which imports JAX), and the text
+report of scikit-learn's ``classification_report`` written in numpy.
 
 Formula parity with Highway_bridge/inference.py:814-855: per-class IoU and
 mIoU, OA, per-class accuracy and mAcc, row-weighted precision and recall,
@@ -68,3 +69,65 @@ def metrics_from_confusion(cm) -> Dict[str, object]:
         "F1_score": float(f1),
         "Confusion_Matrix": cm,
     }
+
+
+def classification_report(
+    preds: np.ndarray, labels: np.ndarray, class_names=None
+) -> str:
+    """scikit-learn's ``classification_report(labels, preds,
+    target_names=class_names, zero_division=0)`` as a string, character for
+    character (utils/metrics.py:74; tool_utils/model_eva.py:46-107), for
+    integer labels: a row a class present in either array (sorted; named
+    by ``class_names`` in that order, or by the label), precision, recall,
+    F1 (2 tp / (true + predicted)) and support, 0 where a division is by 0;
+    then the accuracy, the macro average and the average weighted by
+    support. The first column is as wide as the longest name and at least
+    "weighted avg"; numbers take 2 digits; where no prediction is right
+    the supports print as floats, as scikit-learn's. Like scikit-learn, raises
+    ``ValueError`` when ``class_names`` does not name every class present."""
+    y_true = np.asarray(labels).reshape(-1)
+    y_pred = np.asarray(preds).reshape(-1)
+    classes = np.unique(np.concatenate([y_true, y_pred]))
+    if class_names is not None and len(classes) != len(class_names):
+        raise ValueError(
+            "Number of classes, {0}, does not match size of "
+            "target_names, {1}. Try specifying the labels "
+            "parameter".format(len(classes), len(class_names))
+        )
+    names = ["%s" % c for c in classes] if class_names is None else list(class_names)
+    tp = np.array([np.sum((y_true == c) & (y_pred == c)) for c in classes], np.int64)
+    pred_sum = np.array([np.sum(y_pred == c) for c in classes], np.int64)
+    true_sum = np.array([np.sum(y_true == c) for c in classes], np.int64)
+    if not tp.any():  # scikit-learn counts in float64 then: a support prints as "4.0"
+        tp, pred_sum, true_sum = (x.astype(np.float64) for x in (tp, pred_sum, true_sum))
+
+    def divide(num, den):
+        den = np.asarray(den, np.float64)
+        zero = den == 0
+        out = np.asarray(num, np.float64) / np.where(zero, 1.0, den)
+        out[zero] = 0.0
+        return out
+
+    def scores(tp, pred, true):
+        return (divide(tp, pred), divide(tp, true),
+                divide(2.0 * tp.astype(np.float64), 1.0 * true.astype(np.float64)
+                       + pred.astype(np.float64)))
+
+    p, r, f1 = scores(tp, pred_sum, true_sum)
+    digits = 2
+    width = max(max(len(cn) for cn in names), len("weighted avg"), digits)
+    headers = ["precision", "recall", "f1-score", "support"]
+    report = ("{:>{width}s} " + " {:>9}" * len(headers)).format("", *headers, width=width)
+    report += "\n\n"
+    row_fmt = "{:>{width}s} " + " {:>9.{digits}f}" * 3 + " {:>9}\n"
+    for row in zip(names, p, r, f1, true_sum):
+        report += row_fmt.format(*row, width=width, digits=digits)
+    report += "\n"
+    support = np.sum(true_sum)
+    micro = scores(tp.sum().reshape(1), pred_sum.sum().reshape(1), true_sum.sum().reshape(1))
+    report += ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f}" + " {:>9}\n").format(
+        "accuracy", "", "", float(micro[2][0]), support, width=width, digits=digits)
+    for heading, weights in (("macro avg", None), ("weighted avg", true_sum)):
+        avg = [float(np.average(x, weights=weights)) for x in (p, r, f1)]
+        report += row_fmt.format(heading, *avg, support, width=width, digits=digits)
+    return report

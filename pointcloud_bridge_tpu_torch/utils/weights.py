@@ -166,16 +166,27 @@ def _bse(prefix: Tuple[str, ...]) -> _Layers:
                                                   ("bn0", "bn"), ("mlp1", "dense"))]
 
 
+def _multiscale_sa(prefix: Tuple[str, ...], scales: int, depth: int) -> _Layers:
+    """A MultiScaleSetAbstraction's layers under ``prefix``: scale s's
+    ``mlp_{s}``, ``depth`` Dense and BatchNorm pairs."""
+    return [(prefix + (f"mlp_{s}", f"{name}_{j}"), kind) for s in range(scales)
+            for j in range(depth) for name, kind in (("dense", "dense"), ("bn", "bn"))]
+
+
+def multiscale_sa_rules(scales: int = 2, depth: int = 3) -> List[Rule]:
+    """models/common.py's MultiScaleSetAbstraction alone (BriStruNet's
+    sa1-sa3 are three): the JAX package's module-level "multiscale_sa"
+    import (utils/torch_import.py:339-361) gives its flax tree."""
+    return _by_flax_path(_multiscale_sa((), scales, depth))
+
+
 def bristrunet_rules() -> List[Rule]:
     layers: _Layers = _bse(("bri_enc",))
     layers += [(("color_encoder", n), "bn" if "bn" in n else "dense")
                for n in ("mlp0", "bn0", "mlp1", "bn1", "attn0", "attn_bn", "attn1", "ctx0", "ctx1")]
     layers += [(("feature_fusion", "fusion"), "dense"), (("feature_fusion", "bn"), "bn")]
     for sa in ("sa1", "sa2", "sa3"):
-        for scale in (0, 1):
-            for j in range(3):
-                layers.append(((sa, f"mlp_{scale}", f"dense_{j}"), "dense"))
-                layers.append(((sa, f"mlp_{scale}", f"bn_{j}"), "bn"))
+        layers += _multiscale_sa((sa,), 2, 3)
     for geo in ("geometric2", "geometric3"):
         layers += _bse((geo, "br_pos"))
         layers += [((geo, "mlp0"), "dense"), ((geo, "bn0"), "bn"), ((geo, "mlp1"), "dense")]
@@ -519,3 +530,39 @@ def state_dict_to_flax(
             if f"{tp}.bias" in sd:
                 put(out["params"], fp + ("bias",), sd[f"{tp}.bias"])
     return out
+
+
+# the JAX package's aliases of its torch rule sets (utils/torch_import.py:405-409)
+_REFERENCE_ALIASES = {"pointnet2": "pointnet2_ssg", "pointnet_seg": "pointnet",
+                      "dgcnn_cls": "dgcnn_global"}
+
+
+def reference_rules(model_name: str, variables: Dict[str, Any]) -> Sequence[Rule]:
+    """The port's rule table for a reference checkpoint's model converted to
+    ``variables``, at the depths the checkpoint has: ``ptv3``'s blocks,
+    ``multiscale_sa``'s scales and layers (the JAX import reads both from
+    the state_dict)."""
+    name = _REFERENCE_ALIASES.get(model_name, model_name)
+    params = variables["params"]
+    if name == "ptv3":
+        return ptv3_rules(depth=sum(1 for k in params if k.startswith("block")))
+    if name == "multiscale_sa":
+        return multiscale_sa_rules(scales=len(params),
+                                   depth=sum(1 for k in params.get("mlp_0", {})
+                                             if k.startswith("dense_")))
+    return rules_for(name)
+
+
+def reference_state_dict(model_name: str, sd: Dict[str, Any],
+                         strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A reference torch model's state_dict (numpy arrays or tensors) -> the
+    port's state_dict of ``model_name``, in two steps: the JAX package's
+    conversion (``utils/torch_import.py::convert_state_dict``, copied into
+    the port: reference layout -> flax layout; ``strict`` raises on a key it
+    did not use) and ``flax_to_state_dict`` (flax layout -> the port's).
+    For every rule set of the JAX import, and module-level
+    "multiscale_sa"."""
+    from .torch_import import convert_state_dict
+
+    variables = convert_state_dict(model_name, sd, strict=strict)
+    return flax_to_state_dict(variables, reference_rules(model_name, variables))

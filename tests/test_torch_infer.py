@@ -116,6 +116,7 @@ HOST_COPIES = [
     "data/synthetic.py", "config.py", "class_names.py", "infer/figures.py",
     "infer/las_export.py", "measure/evaluation.py", "utils/hostmem.py", "tools/convert.py",
     "tools/relabel.py", "tools/downsample.py", "tools/dataset_stats.py",
+    "utils/torch_import.py", "data/completion.py", "ops/avs.py",
 ]
 
 
@@ -455,6 +456,9 @@ def test_port_imports_no_jax():
         "import pointcloud_bridge_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 30, names\n"
+        "for want in ('utils.torch_import', 'utils.export', 'tools.import_ckpt',\n"
+        "             'tools.debug_module', 'data.superpoints', 'data.completion', 'ops.avs'):\n"
+        "    assert pkg.__name__ + '.' + want in names, want\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
