@@ -5575,9 +5575,362 @@ def entry_point_host_us(dev: torch.device) -> None:
         f"{k} {v:.2f} (device {dev_us[k]:.2f})" for k, v in got.items()), flush=True)
 
 
+# ----------------------------------------------------------- 43. the parallel layer
+
+PAR_B = 16  # the recipe's batch
+
+
+def par_batch(ds: BlockDataset, rows: slice = slice(0, PAR_B)) -> dict:
+    """Blocks ``rows`` of ds as a host batch (the trainer's keys)."""
+    return {"points": np.ascontiguousarray(ds.points[rows], np.float32),
+            "colors": np.ascontiguousarray(ds.colors[rows], np.float32),
+            "labels": ds.labels[rows].astype(np.int32), "mask": np.ones(len(ds.points[rows]), bool)}
+
+
+def par_model(dev: torch.device, axis=None) -> torch.nn.Module:
+    """SSG at the registry's widths, its weights and statistics drawn from
+    a seed, dropout 0 (as phase 6: a rank draws the masks of its own rows,
+    which the single-device step draws otherwise)."""
+    return no_dropout(seeded_model("pointnet2_ssg", SEED + 43, axis_name=axis)).to(dev)
+
+
+def grads_after(step, model, *args) -> tuple:
+    """(loss, {name: gradient copy}) of one step (plain SGD at lr 0: the
+    weights stay, only the BatchNorm statistics move)."""
+    m = step(*args)
+    return m["loss"].detach().clone(), {k: p.grad.detach().clone()
+                                        for k, p in model.named_parameters()}
+
+
+def hold_to_single(label: str, got: tuple, want: tuple, pre_bn: set) -> str:
+    """A parallel step's loss and gradients against the single-device
+    step's on the same batch and weights, in phase 6's band: the loss
+    within 1e-5 relative, each gradient leaf relative L2 <= 0.2 and cosine
+    >= 0.98 (float32 through 17 train-mode BatchNorms; sync-BN takes
+    flax's E[x^2] - E[x]^2, torch's BatchNorm another arithmetic); the
+    biases that feed a BatchNorm (``pre_bn``), whose gradient is exactly
+    zero, below 1e-3 of their layer weight's max|g| on both sides."""
+    loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    worst_l2, worst_cos, faults = 0.0, 1.0, []
+    bits = got[0].item() == want[0].item() and all(
+        torch.equal(g, want[1][k]) for k, g in got[1].items())
+    for k, g in got[1].items():
+        w = want[1][k].double()
+        if k in pre_bn:
+            bound = 1e-3 * want[1][k[:-4] + "weight"].abs().max().item()
+            if max(g.abs().max().item(), w.abs().max().item()) > bound:
+                faults.append(f"{k} above its zero bound {bound:.3g}")
+            continue
+        if w.norm() == 0:
+            continue
+        g = g.double()
+        l2 = ((g - w).norm() / w.norm()).item()
+        cos = (g.ravel() @ w.ravel() / (g.norm() * w.norm() + 1e-300)).item()
+        worst_l2, worst_cos = max(worst_l2, l2), min(worst_cos, cos)
+        if l2 > 0.2 or cos < 0.98:
+            faults.append(f"{k} rel L2 {l2:.3g} cosine {cos:.6f}")
+    if loss_rel > 1e-5:
+        faults.append(f"loss {got[0].item()} vs {want[0].item()}")
+    print(f"{label}: loss {got[0].item():.7f} (single-device {want[0].item():.7f}, rel "
+          f"{loss_rel:.3g}), gradients worst relative L2 {worst_l2:.4g}, worst cosine "
+          f"{worst_cos:.6f}, {'the same bits' if bits else 'not the same bits'} as the "
+          "single-device step", flush=True)
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults[:6]))
+    return "the same bits" if bits else "within the band"
+
+
+RECORDED = (("fps", sampling, "fps_cuda", lambda a, out: [(sampling.fps_plain(*a), out)]),
+            ("ball_query", grouping, "ball_query_radii_cuda",
+             lambda a, out: [(grouping.ball_query_plain(r, k, a[1], a[2]), o)
+                             for (r, k), o in zip(a[0], out)]),
+            ("group", grouping, "group_cuda", lambda a, out: [(grouping.group_plain(*a[:4]), out)]),
+            ("interpolate", interpolate, "interpolate_cuda",
+             lambda a, out: [(interpolate.interpolate_plain(*a)[0], out[0])]),
+            ("group_backward", grouping, "group_backward_cuda",
+             lambda a, out: [(grouping.group_backward_plain(*a), out)]),
+            ("interpolate_backward", interpolate, "interpolate_backward_cuda",
+             lambda a, out: [(interpolate.interpolate_backward_plain(*a), out)]))
+
+
+def kernels_at_rows(model, batch: dict, cw, dev, label: str) -> None:
+    """Every kernel call of one SSG train step on ``batch`` (the sharded
+    shapes) recorded at its wrapper and held against its plain version on
+    the same inputs: integer outputs equal, float outputs within 1e-5 of
+    the plain output's max."""
+    calls = []
+    saved = {}
+    for name, mod, attr, plain in RECORDED:
+        fn = saved[(mod, attr)] = getattr(mod, attr)
+
+        def wrapped(*a, _fn=fn, _name=name, _plain=plain, **kw):
+            out = _fn(*a, **kw)
+            calls.append((_name, _plain, a, out))
+            return out
+        setattr(mod, attr, wrapped)
+    try:
+        x, c = batch["points"].to(dev), batch["colors"].to(dev)
+        loss = losses.weighted_cross_entropy(model.train()(x, c), batch["labels"].to(dev), cw)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+    seen = {}
+    for name, plain, a, out in calls:
+        for want, got in plain(a, out):
+            if want.dtype.is_floating_point:
+                err = max_abs_err(got, want) / max(want.abs().max().item(), 1e-30)
+                ok = err <= 1e-5
+            else:
+                err, ok = float((got != want).sum()), torch.equal(got, want)
+            if not ok:
+                raise AssertionError(f"{label}: {name} at {tuple(a[-1].shape) if torch.is_tensor(a[-1]) else ''}"
+                                     f" differs from its plain version ({err})")
+            seen[name] = seen.get(name, 0) + 1
+    missing = [n for n, *_ in RECORDED if n not in seen]
+    if missing:
+        raise AssertionError(f"{label}: no call of {missing}")
+    print(f"{label}: every kernel call of one step held against its plain version {seen}",
+          flush=True)
+
+
+def par_world(tmp: Path, name: str, dev: torch.device) -> None:
+    """A world of one over NCCL on ``dev``, its store a new file."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    store = dist.FileStore(str(tmp / f"store_{name}"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=timedelta(seconds=120), device_id=dev)
+
+
+def gloo_rank_main(rank: int, tmp: str) -> None:
+    """``--gloo-rank R DIR``: one of phase 43d's two ranks, both on cuda:0,
+    joined over gloo: the dp step on its 8 blocks of the saved batch."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from pointcloud_bridge_tpu_torch.parallel import make_dp_train_step, make_mesh, shard_batch
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.library()
+    saved = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(tmp) / "store_gloo2"), 2),
+                            rank=rank, world_size=2, timeout=timedelta(seconds=120))
+    try:
+        mesh = make_mesh(2)
+        model = par_model(dev, "data")
+        model.load_state_dict(saved["state"])
+        step = make_dp_train_step(model, Config().loss, torch.optim.SGD(model.parameters(), 0.0),
+                                  mesh)
+        local = shard_batch(saved["batch"], mesh, device=dev)
+        cw = saved["cw"].to(dev)
+        _kernels.reset_launch_counts()
+        out = grads_after(step, model, local, 0.0, cw)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        ms = time_ms(lambda: step(local, 0.0, cw), reps=5, warmup=1)
+        torch.save({"loss": out[0].cpu(), "grads": {k: v.cpu() for k, v in out[1].items()},
+                    "counts": counts, "ms": ms}, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_parallel_phases(ds: BlockDataset, dev: torch.device, card: str) -> dict:
+    """Phase 43, the parallel layer (parallel/), at SSG's registry width,
+    batch 16 x 4096, float32, TF32 off: (a) a world of one over NCCL, the
+    dp train step against the single-device step (plain SGD at lr 0, the
+    same weights, batch and Dropout generator), the gradient all-reduce
+    bit-transparent, the step's bits repeated; (b) make_dp_multi_train_step
+    at K = 4 as one CUDA-graph replay with its NCCL all-reduces captured,
+    equal to four eager dp steps; (c) FSDP2 at world 1 and tp on a 1 x 1
+    mesh, one step each against the single-device step; (d) two ranks on
+    this card over gloo (both cuda:0), each kernel call of one B = 8 step
+    held against its plain version, then the dp step at 8 blocks a rank
+    against the single-process batch-16 step -> launch counts by path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pointcloud_bridge_tpu_torch.parallel import (
+        make_2d_mesh, make_dp_multi_train_step, make_dp_train_step, make_fsdp_mesh,
+        make_fsdp_train_step, make_mesh, make_tp_train_step, shard_batch)
+    from pointcloud_bridge_tpu_torch.parallel.train_step import all_reduce_bucket_
+    from pointcloud_bridge_tpu_torch.train.loop import batch_to_device
+
+    t_start = time.perf_counter()
+    loss_cfg = Config().loss
+    cw = losses.class_weights_from_counts(ds.label_counts(NUM_CLASSES)).to(dev)
+    host = par_batch(ds)
+    batch = batch_to_device(host, dev)
+    by_path = {}
+    tmp = Path(tempfile.mkdtemp(prefix="pcb_parallel_"))
+    try:
+        single = par_model(dev)
+        state0 = copy.deepcopy(single.state_dict())
+        sgd_step = make_train_step(single, loss_cfg, torch.optim.SGD(single.parameters(), 0.0))
+        _kernels.reset_launch_counts()
+        want = grads_after(sgd_step, single, batch, 0.0, cw)
+        pre_bn = pre_bn_biases(single, batch["points"], batch["colors"])
+        single_ms = time_ms(lambda: sgd_step(batch, 0.0, cw), reps=5, warmup=1)
+
+        # (a) a world of one over NCCL
+        par_world(tmp, "dp", dev)
+        try:
+            mesh = make_mesh(1)
+            group = mesh.get_group("data")
+            grads = [g.clone() for g in want[1].values()]
+            all_reduce_bucket_(grads, group)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(grads, want[1].values())):
+                raise AssertionError("43a: the gradient all-reduce changed bits at a world of one")
+            nbytes_g = sum(g.numel() * g.element_size() for g in grads)
+            ar_ms = time_ms(lambda: all_reduce_bucket_(grads, group), reps=20, warmup=3)
+            print(f"43a all-reduce: SSG's {sum(g.numel() for g in grads):,} float32 gradients "
+                  f"({nbytes_g / 1e6:.2f} MB) in one flat bucket over NCCL at a world of one: "
+                  f"{ar_ms:.4f} ms, bit-transparent (torch.equal before and after) [{card}]",
+                  flush=True)
+
+            dp = par_model(dev, "data")
+            dp.load_state_dict(state0)
+            dp_step = make_dp_train_step(dp, loss_cfg, torch.optim.SGD(dp.parameters(), 0.0), mesh)
+            local = shard_batch(host, mesh, device=dev)
+            state = step_state(dp)
+            _kernels.reset_launch_counts()
+            got = grads_after(dp_step, dp, local, 0.0, cw)
+            torch.cuda.synchronize()
+            by_path["dp_world1_train_step"] = counts_all_launched(
+                "43a dp step", FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+            check_same_bits("43a dp step", dp, state, got,
+                            lambda: grads_after(dp_step, dp, local, 0.0, cw))
+            holds = hold_to_single("43a dp step (world 1, NCCL)", got, want, pre_bn)
+            dp_ms = time_ms(lambda: dp_step(local, 0.0, cw), reps=5, warmup=1)
+            print(f"43a dp step: B={PAR_B} N={N} {dp_ms:.3f} ms against the single-device "
+                  f"step's {single_ms:.3f} ms (ratio {dp_ms / single_ms:.4f}); sync-BN at a world "
+                  f"of one gives {holds} [{card}]", flush=True)
+
+            # (b) K = 4 dp steps as one graph replay, NCCL captured
+            model = par_model(dev, "data")
+            opt = make_optimizer(model.parameters(), capturable=True)
+            ema = {k: p.detach().clone() for k, p in model.named_parameters()}
+            multi = make_dp_multi_train_step(model, loss_cfg, opt, mesh, GRAPH_K, ema=ema,
+                                             ema_decay=GRAPH_EMA)
+            stacked = stacked_batches(ds, dev, SEED + 43, PAR_B)
+            slots = [{key: stacked[key][i] for key in TRAIN_KEYS} for i in range(GRAPH_K)]
+            set_lr(opt, GRAPH_LR)
+            multi.run(slots[:1], cw)
+            gens = model_generators(model)
+            st = StepState(model, opt, ema, gens)
+            _kernels.reset_launch_counts()
+            eager = step_outcome(model, opt, ema, gens, multi.run(slots, cw))
+            torch.cuda.synchronize()
+            eager_launches = _kernels.launch_counts()
+            st.restore()
+            t0 = time.perf_counter()
+            graph = step_outcome(model, opt, ema, gens, multi(stacked, GRAPH_LR, cw))
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            (steps,) = multi.graphs.values()
+            differ = [k for k, v in eager.items() if not torch.equal(v, graph[k])]
+            replay_ms = time_ms(steps.graph.replay, reps=5, warmup=1) / GRAPH_K
+            print(f"43b dp multi-step: {GRAPH_K} eager world-1 dp steps against one captured "
+                  f"dispatch: {len(differ)} of {len(eager)} tensors differ"
+                  f"{': ' + ', '.join(differ[:6]) if differ else ' (torch.equal)'}; first "
+                  f"dispatch {first_s:.3f} s; the replay {replay_ms:.3f} ms a step [{card}]",
+                  flush=True)
+            if differ:
+                raise AssertionError(f"43b: the graph dispatch differs from {GRAPH_K} eager dp "
+                                     f"steps: {differ[:12]}")
+            if steps.launches != eager_launches:
+                raise AssertionError(f"43b: a replay launches {steps.launches}, the eager "
+                                     f"steps {eager_launches}")
+            by_path["dp_multistep_graph"] = multi.launch_counts()
+            del multi, steps, model, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (c) FSDP2 at world 1
+            fs = par_model(dev, "data")
+            fs.load_state_dict(state0)
+            fs_opt = torch.optim.SGD(fs.parameters(), 0.0)
+            fs_step, place = make_fsdp_train_step(fs, loss_cfg, fs_opt, make_fsdp_mesh(1))
+            local = place(host)
+            _kernels.reset_launch_counts()
+            m = fs_step(local, 0.0, cw)
+            fs_grads = {k: p.grad.full_tensor() for k, p in fs.named_parameters()}
+            torch.cuda.synchronize()
+            by_path["fsdp_world1_train_step"] = counts_all_launched(
+                "43c fsdp step", FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+            hold_to_single("43c fsdp step (world 1, FSDP2)", (m["loss"], fs_grads), want, pre_bn)
+            fs_ms = time_ms(lambda: fs_step(local, 0.0, cw), reps=5, warmup=1)
+            del fs, fs_opt, fs_step
+        finally:
+            dist.destroy_process_group()
+
+        # (c) tp on a 1 x 1 mesh (its own world of one)
+        par_world(tmp, "tp", dev)
+        try:
+            tp = par_model(dev, "data")
+            tp.load_state_dict(state0)
+            tp_step, place = make_tp_train_step(tp, loss_cfg, torch.optim.SGD(tp.parameters(), 0.0),
+                                                make_2d_mesh(1, 1))
+            local = place(host)
+            split = sum(m.column_group is not None for m in tp.modules()
+                        if hasattr(m, "column_group"))
+            _kernels.reset_launch_counts()
+            got = grads_after(tp_step, tp, local, 0.0, cw)
+            torch.cuda.synchronize()
+            by_path["tp_1x1_train_step"] = counts_all_launched(
+                "43c tp step", FORWARD_KERNELS + SSG_BACKWARD_KERNELS)
+            hold_to_single(f"43c tp step (1 x 1 mesh, {split} column-parallel kernels)", got, want, pre_bn)
+            tp_ms = time_ms(lambda: tp_step(local, 0.0, cw), reps=5, warmup=1)
+            print(f"43c: fsdp step {fs_ms:.3f} ms, tp step {tp_ms:.3f} ms, single-device "
+                  f"{single_ms:.3f} ms [{card}]", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+        # (d) two ranks on this card over gloo
+        half = batch_to_device(par_batch(ds, slice(0, PAR_B // 2)), dev)
+        kernels_at_rows(par_model(dev), half, cw, dev, "43d B=8")
+        torch.save({"state": state0, "batch": host, "cw": cw.cpu()}, tmp / "inputs.pt")
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-rank",
+                                   str(r), str(tmp)], cwd=ROOT) for r in range(2)]
+        try:
+            codes = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(codes):
+            raise AssertionError(f"43d: the gloo ranks exited {codes}")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        for k, g in ranks[0]["grads"].items():
+            if not torch.equal(g, ranks[1]["grads"][k]):
+                raise AssertionError(f"43d: the ranks' gradients differ at {k}")
+        hold_to_single("43d dp step (2 ranks x 8 blocks on cuda:0 over gloo)",
+                       (ranks[0]["loss"], ranks[0]["grads"]),
+                       (want[0].cpu(), {k: v.cpu() for k, v in want[1].items()}), pre_bn)
+        missing = [k for k in FORWARD_KERNELS + SSG_BACKWARD_KERNELS if not ranks[0]["counts"][k]]
+        if missing:
+            raise AssertionError(f"43d: kernels never launched: {missing}")
+        by_path["dp_gloo_2ranks_train_step"] = ranks[0]["counts"]
+        print(f"43d: the gloo dp step {ranks[0]['ms']:.3f} ms (rank 0; both ranks share the "
+              f"card) [{card}]; phase 43 in {time.perf_counter() - t_start:.1f} s (host)",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank_main(int(sys.argv[2]), sys.argv[3])
+        return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5755,6 +6108,14 @@ def main() -> None:
     if sys.argv[1:] == ["--export-all"]:
         # phases 1, 2 and every registry name exported, no result line
         export_all(dev)
+        return
+    if sys.argv[1:] == ["--parallel"]:
+        # phases 1, 2 and 43 alone, no result line
+        data_dir = ROOT / "build" / "chip_smoke_data"
+        try:
+            run_parallel_phases(make_dataset(data_dir), dev, card)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
         return
     if sys.argv[1:] == ["--host-us"]:
         # phases 1, 2 and the entry points' host time, no result line
@@ -5958,6 +6319,11 @@ def main() -> None:
         # 42. reference checkpoints imported and served, six programs
         # exported and run, debug_module, the superpoint host modules
         by_path |= run_tool_phases(ds, data_dir, dev)
+
+        # 43. the parallel layer: dp at a world of one over NCCL (and as a
+        # CUDA-graph replay), FSDP2 and tp at one rank, two gloo ranks on
+        # this card
+        by_path |= run_parallel_phases(ds, dev, card)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 

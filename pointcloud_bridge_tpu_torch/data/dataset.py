@@ -237,7 +237,7 @@ class BlockDataset:
             sel = order[i * batch_size : (i + 1) * batch_size]
             mask = np.ones(batch_size, bool)
             if len(sel) < batch_size:
-                pad = order[: batch_size - len(sel)]
+                pad = np.resize(order, batch_size - len(sel))
                 mask[len(sel) :] = False
                 sel = np.concatenate([sel, pad])
             pts = self.points[sel]

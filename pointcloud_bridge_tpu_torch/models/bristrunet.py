@@ -32,14 +32,15 @@ from .common import (
     Dropout,
     EnhancedFeaturePropagation,
     MultiScaleSetAbstraction,
+    sync_batchnorms,
 )
 
 
 class BriStruNet(nn.Module):
     """forward(xyz [B, N, 3], features [B, N, 3] rgb, or None for xyz) ->
     logits [B, N, num_classes], float32. ``sa_npoints`` shrinks the SA
-    levels for tests. On CUDA it expects full float32 matmuls, as
-    PointNet2SSG does."""
+    levels for tests. ``axis_name`` syncs every BatchNorm over that mesh
+    axis. On CUDA it expects full float32 matmuls, as PointNet2SSG does."""
 
     def __init__(
         self,
@@ -48,6 +49,7 @@ class BriStruNet(nn.Module):
         sa_npoints: tuple = (1024, 512, 128),
         dropout_rate: float = 0.5,
         generator: Optional[torch.Generator] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         g = generator
@@ -74,6 +76,7 @@ class BriStruNet(nn.Module):
         self.final_bn = BatchNorm(128)
         self.final_drop = Dropout(dropout_rate)
         self.final1 = Dense(128, num_classes, generator=g)
+        sync_batchnorms(self, axis_name)
 
     def forward(
         self, xyz: torch.Tensor, features: Optional[torch.Tensor]

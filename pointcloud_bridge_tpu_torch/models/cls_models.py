@@ -37,9 +37,9 @@ from .common import (
     MultiScaleSetAbstractionMsg,
     SegHead,
     SetAbstraction,
+    sync_batchnorms,
 )
 from .pointnet import TNet, dense
-from .ptv3 import only_defaults
 
 
 class PointNet2SSGPartsize(SegHead):
@@ -58,7 +58,6 @@ class PointNet2SSGPartsize(SegHead):
     def __init__(self, num_classes: int = 5, in_features: int = 3,
                  axis_name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("PointNet2SSGPartsize", axis_name=(axis_name, None))
         super().__init__(128, num_classes, 128, 0.5, generator)
         g, c = generator, in_features
         for i, (npoint, radius, mlp) in enumerate(self.LEVELS, start=1):
@@ -68,6 +67,7 @@ class PointNet2SSGPartsize(SegHead):
         self.fp3 = FeaturePropagation(128 + 256, (256, 256), g)
         self.fp2 = FeaturePropagation(64 + 256, (256, 128), g)
         self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]) -> torch.Tensor:
         l1_xyz, l1 = self.sa1(xyz, features)
@@ -122,11 +122,11 @@ class PointNet2ClsSSG(_Classifier):
     def __init__(self, num_classes: int = 5, in_features: int = 0,
                  dropout_rate: float = 0.4, axis_name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("PointNet2ClsSSG", axis_name=(axis_name, None))
         g = generator
         super().__init__(SetAbstraction(512, 0.2, 32, 3 + in_features, (64, 64, 128), g),
                          SetAbstraction(128, 0.4, 64, 3 + 128, (128, 128, 256), g),
                          256, num_classes, dropout_rate, g)
+        sync_batchnorms(self, axis_name)
 
 
 class PointNet2ClsMSG(_Classifier):
@@ -143,7 +143,6 @@ class PointNet2ClsMSG(_Classifier):
     def __init__(self, num_classes: int = 5, in_features: int = 0,
                  dropout_rate: float = 0.4, axis_name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("PointNet2ClsMSG", axis_name=(axis_name, None))
         g = generator
         super().__init__(
             MultiScaleSetAbstractionMsg(512, (0.1, 0.2, 0.4), (16, 32, 128),
@@ -151,6 +150,7 @@ class PointNet2ClsMSG(_Classifier):
             MultiScaleSetAbstractionMsg(128, (0.2, 0.4, 0.8), (32, 64, 128), 3 + 320,
                                         self.BRANCHES[1], g),
             640, num_classes, dropout_rate, g)
+        sync_batchnorms(self, axis_name)
 
 
 class PointNetCls(nn.Module):
@@ -166,7 +166,6 @@ class PointNetCls(nn.Module):
                  axis_name: Optional[str] = None, dropout_rate: float = 0.4,
                  in_features: int = 0, generator: Optional[torch.Generator] = None):
         super().__init__()
-        only_defaults("PointNetCls", axis_name=(axis_name, None))
         g = generator
         self.feature_transform = feature_transform
         self.stn = TNet(3, conv=dense, generator=g)
@@ -184,6 +183,7 @@ class PointNetCls(nn.Module):
         self.fc2 = dense(512, 256, g)
         self.bn5 = BatchNorm(256)
         self.fc3 = dense(256, num_classes, g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
                 return_transform: bool = False):

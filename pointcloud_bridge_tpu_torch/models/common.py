@@ -48,6 +48,7 @@ from ..ops import (
     three_nn_interpolate,
 )
 from ..ops.grouping import _query_ball_radii
+from ..utils.collectives import all_reduce_mean, axis_group, gather_columns, sum_gradient
 
 
 class PointConv(nn.Module):
@@ -62,6 +63,7 @@ class PointConv(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty((out_ch, in_ch) + (1,) * kdims))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.column_group = None
         bound = 1.0 / math.sqrt(in_ch)
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
@@ -69,7 +71,21 @@ class PointConv(nn.Module):
                 self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        return linear(x, self.weight.flatten(1), self.bias, self.column_group)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           column_group=None) -> torch.Tensor:
+    """``F.linear`` over the last axis. With ``column_group`` (tensor
+    parallelism, parallel/sharding.py) ``weight`` holds this rank's rows of
+    the output channels: the product of its columns is gathered from the
+    group's ranks in rank order, and the bias, which every rank holds
+    whole, is added after, so every rank goes on with the whole output as
+    the single-device layer gives it."""
+    if column_group is None:
+        return F.linear(x, weight, bias)
+    y = gather_columns(F.linear(sum_gradient(x, column_group), weight), column_group)
+    return y if bias is None else y + bias
 
 
 class BatchNorm(nn.Module):
@@ -84,6 +100,23 @@ class BatchNorm(nn.Module):
     Eval mode normalises with the running statistics. The parameter and
     buffer names are ``BatchNorm1d``'s, so state_dicts and the weight
     conversions carry over unchanged.
+
+    ``axis_name`` (set by the model, :func:`sync_batchnorms`) makes it
+    flax's ``BatchNorm(axis_name=...)``: sync-BN over the process group
+    bound to that mesh axis (utils/collectives.py). The local ``mean(x)``
+    and ``mean(x^2)``, stacked, take one all-reduce mean over the group,
+    ``var = max(0, mean(x^2) - mean(x)^2)`` (flax's ``_compute_stats`` with
+    ``use_fast_variance``), and the running statistics take that global
+    biased variance. The all-reduce is inside autograd, so the gradient
+    reaches every rank's rows through the shared statistics. Every rank's
+    shard must hold the same number of rows, as the JAX package's pmean
+    assumes.
+
+    On a CPU tensor the single-device path hands ``F.batch_norm`` a
+    channel-major copy ([1, C, rows]): over [rows, C] torch's CPU kernel
+    sums the rows of each channel one after another within a thread, so
+    its gradients lose accuracy as the threads get fewer; channel-major,
+    they do not depend on the thread count.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
@@ -91,6 +124,7 @@ class BatchNorm(nn.Module):
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
+        self.axis_name: Optional[str] = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -103,6 +137,8 @@ class BatchNorm(nn.Module):
             out = F.batch_norm(x2, self.running_mean, self.running_var,
                                self.weight, self.bias, False, 0.0, self.eps)
             return out.reshape(x.shape)
+        if self.axis_name is not None:
+            return self._synced(x2).reshape(x.shape)
         # F.batch_norm updates the running statistics from the ones it
         # computes anyway (no second pass over x), but with the unbiased
         # variance: rv = (1-m) old + m var n/(n-1). The biased update is
@@ -110,12 +146,39 @@ class BatchNorm(nn.Module):
         # which autograd saves: the buffer itself is then updated in place.
         n, m = x2.shape[0], self.momentum
         rv = self.running_var.clone()
-        out = F.batch_norm(x2, self.running_mean, rv, self.weight, self.bias,
-                           True, m, self.eps)
+        if x2.device.type == "cpu":
+            out = F.batch_norm(x2.t().contiguous()[None], self.running_mean, rv,
+                               self.weight, self.bias, True, m, self.eps)[0].t()
+        else:
+            out = F.batch_norm(x2, self.running_mean, rv, self.weight, self.bias,
+                               True, m, self.eps)
         with torch.no_grad():
             self.running_var.mul_((1.0 - m) / n).add_(rv, alpha=1.0 - 1.0 / n)
             self.num_batches_tracked.add_(1)
         return out.reshape(x.shape)
+
+    def _synced(self, x2: torch.Tensor) -> torch.Tensor:
+        xs = x2.to(torch.promote_types(x2.dtype, torch.float32))
+        stats = all_reduce_mean(torch.stack([xs.mean(0), (xs * xs).mean(0)]),
+                                axis_group(self.axis_name))
+        mean, var = stats[0], torch.clamp(stats[1] - stats[0] * stats[0], min=0.0)
+        out = (xs - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out.to(x2.dtype)
+
+
+def sync_batchnorms(model: nn.Module, axis_name: Optional[str]) -> None:
+    """Give every BatchNorm of ``model`` the mesh axis its train-mode
+    statistics are taken over (None: this rank's batch alone), as the JAX
+    models hand ``axis_name`` to each of theirs."""
+    model.axis_name = axis_name
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.axis_name = axis_name
 
 
 def rounded_to(value: float, dtype: torch.dtype) -> float:
@@ -234,6 +297,7 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
         self.dtype = dtype
+        self.column_group = None
         bound = 1.0 / math.sqrt(in_ch)
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
@@ -242,9 +306,9 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is None:
-            return F.linear(x, self.weight, self.bias)
+            return linear(x, self.weight, self.bias, self.column_group)
         dt = self.dtype
-        y = F.linear(x.to(dt), self.weight.to(dt))
+        y = linear(x.to(dt), self.weight.to(dt), None, self.column_group)
         return y if self.bias is None else y + self.bias.to(dt)
 
 
@@ -317,7 +381,8 @@ class FeatFirstConv(PointConv):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.flatten(1)
-        return F.linear(x, torch.cat([w[:, -3:], w[:, :-3]], dim=1), self.bias)
+        return linear(x, torch.cat([w[:, -3:], w[:, :-3]], dim=1), self.bias,
+                      self.column_group)
 
 
 class MultiScaleSetAbstractionMsg(nn.Module):

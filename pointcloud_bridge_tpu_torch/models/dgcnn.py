@@ -22,8 +22,8 @@ EdgeConv is the literal form that the JAX package runs off the TPU
 feature, Dense, BatchNorm, LeakyReLU(0.2), max over the neighbours. The
 restructured form with ``_MomentBN`` (project before the gather) is queued
 in ROADMAP.md. Not ported: ``graph_recall`` (an ``approx_max_k`` knob; the
-port's k-NN is exact, so the argument is not accepted) and ``axis_name``
-(accepted; anything but None raises).
+port's k-NN is exact, so the argument is not accepted). ``axis_name``
+syncs every BatchNorm over that mesh axis (``sync_batchnorms``).
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import edge_conv_graph_feature, knn
-from .common import BatchNorm, Dense, Dropout, PointConv
-from .ptv3 import only_defaults
+from .common import BatchNorm, Dense, Dropout, PointConv, sync_batchnorms
 
 SLOPE = 0.2  # LeakyReLU's negative slope, the reference's
 
@@ -98,7 +97,6 @@ class DGCNN(_EdgeConvTrunk):
 
     def __init__(self, num_classes: int = 5, k: int = 20, axis_name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("DGCNN", axis_name=(axis_name, None))
         super().__init__(k, generator)
         g = generator
         self.local_bn = BatchNorm(320)
@@ -107,6 +105,7 @@ class DGCNN(_EdgeConvTrunk):
             PointConv(512, 256, 1, g), BatchNorm(256), nn.LeakyReLU(SLOPE),
             PointConv(256, num_classes, 1, g),
         )
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         local = self.edge_features(xyz)
@@ -126,7 +125,6 @@ class DGCNNGlobal(_EdgeConvTrunk):
 
     def __init__(self, num_classes: int = 5, k: int = 64, axis_name: Optional[str] = None,
                  dropout_rate: float = 0.5, generator: Optional[torch.Generator] = None):
-        only_defaults("DGCNNGlobal", axis_name=(axis_name, None))
         super().__init__(k, generator)
         g = generator
         self.linear1 = Dense(2048, 512, bias=False, generator=g)
@@ -136,6 +134,7 @@ class DGCNNGlobal(_EdgeConvTrunk):
         self.bn7 = BatchNorm(256)
         self.dp2 = Dropout(dropout_rate)
         self.linear3 = Dense(256, num_classes, generator=g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.global_features(self.edge_features(xyz))

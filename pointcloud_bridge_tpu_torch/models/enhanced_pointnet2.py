@@ -24,8 +24,7 @@ from .attention import (
     EnhancedPositionalEncoding,
     GeometricFeatureExtraction,
 )
-from .common import FeaturePropagation, SegHead, SetAbstraction
-from .ptv3 import only_defaults
+from .common import FeaturePropagation, SegHead, SetAbstraction, sync_batchnorms
 
 
 class EnhancedPointNet2SSG(SegHead):
@@ -45,7 +44,6 @@ class EnhancedPointNet2SSG(SegHead):
                  use_attention: bool = False, axis_name: Optional[str] = None,
                  sa_npoints: tuple = (1024, 256, 64), in_features: int = 3,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("EnhancedPointNet2SSG", axis_name=(axis_name, None))
         super().__init__(128, num_classes, 128, 0.5, generator)
         g = generator
         n1, n2, n3 = sa_npoints
@@ -63,6 +61,7 @@ class EnhancedPointNet2SSG(SegHead):
         self.fp3 = FeaturePropagation(256 + 512, (256, 256), g)
         self.fp2 = FeaturePropagation(128 + 256, (256, 128), g)
         self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         if features is None:

@@ -26,8 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm, Dense, Dropout, PointConv
-from .ptv3 import only_defaults
+from .common import BatchNorm, Dense, Dropout, PointConv, sync_batchnorms
 
 
 def conv1d(in_ch: int, out_ch: int, generator: Optional[torch.Generator]) -> nn.Module:
@@ -88,7 +87,6 @@ class PointNetSeg(nn.Module):
                  axis_name: Optional[str] = None, dropout_rate: float = 0.3,
                  in_features: int = 3, generator: Optional[torch.Generator] = None):
         super().__init__()
-        only_defaults("PointNetSeg", axis_name=(axis_name, None))
         g = generator
         self.feature_transform = feature_transform
         self.input_transform = TNet(3, generator=g)
@@ -104,6 +102,7 @@ class PointNetSeg(nn.Module):
             setattr(self, f"bn_seg{i}", BatchNorm(widths[i]))
         self.drop = Dropout(dropout_rate)
         self.seg_conv4 = conv1d(128, num_classes, g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
                 return_transform: bool = False):
@@ -142,7 +141,6 @@ class PointNetGlobalSeg(nn.Module):
     def __init__(self, num_classes: int = 5, axis_name: Optional[str] = None,
                  dropout_rate: float = 0.3, generator: Optional[torch.Generator] = None):
         super().__init__()
-        only_defaults("PointNetGlobalSeg", axis_name=(axis_name, None))
         g = generator
         self.stn = TNet(3, conv=dense, generator=g)
         self.conv1 = dense(3, 64, g)
@@ -160,6 +158,7 @@ class PointNetGlobalSeg(nn.Module):
         self.bn7 = BatchNorm(256)
         self.drop = Dropout(dropout_rate)
         self.fc3 = dense(256, num_classes, g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = torch.bmm(xyz, self.stn(xyz))
@@ -208,7 +207,6 @@ class PointNetSemSegPartsize(nn.Module):
                  axis_name: Optional[str] = None, in_features: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        only_defaults("PointNetSemSegPartsize", axis_name=(axis_name, None))
         g = generator
         self.with_rgb = with_rgb
         self.channels = 3 + in_features if with_rgb else 3
@@ -218,6 +216,7 @@ class PointNetSemSegPartsize(nn.Module):
             setattr(self, f"conv{i}", conv1d(widths[i - 1], widths[i], g))
             setattr(self, f"bn{i}", BatchNorm(widths[i]))
         self.conv4 = conv1d(128, num_classes, g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
                 return_transform: bool = False):

@@ -8,7 +8,13 @@ from typing import Optional
 
 import torch
 
-from .common import FeaturePropagation, MultiScaleSetAbstractionMsg, SegHead, SetAbstraction
+from .common import (
+    FeaturePropagation,
+    MultiScaleSetAbstractionMsg,
+    SegHead,
+    SetAbstraction,
+    sync_batchnorms,
+)
 from .ptv3 import only_defaults
 
 
@@ -21,7 +27,8 @@ class PointNet2SSG(SegHead):
     (64, 0.4, 32, (256, 256, 512)); FP widths (256, 256), (256, 128),
     (128, 128, 128); head 128. ``sa_npoints`` shrinks the SA levels for
     tests. The head's layers sit at the top of the state_dict (conv1, bn1,
-    conv2) as in the reference, so the model extends SegHead.
+    conv2) as in the reference, so the model extends SegHead. ``axis_name``
+    syncs every BatchNorm over that mesh axis (:func:`sync_batchnorms`).
 
     On CUDA the model expects full float32 matmuls: set
     ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -37,6 +44,7 @@ class PointNet2SSG(SegHead):
         dropout_rate: float = 0.5,
         in_features: int = 3,
         generator: Optional[torch.Generator] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__(128, num_classes, 128, dropout_rate, generator)
         n1, n2, n3 = sa_npoints
@@ -47,6 +55,7 @@ class PointNet2SSG(SegHead):
         self.fp3 = FeaturePropagation(256 + 512, (256, 256), g)
         self.fp2 = FeaturePropagation(128 + 256, (256, 128), g)
         self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+        sync_batchnorms(self, axis_name)
 
     def forward(
         self, xyz: torch.Tensor, features: Optional[torch.Tensor]
@@ -74,7 +83,8 @@ class PointNet2MSG(SegHead):
     PyTorch needs it up front: ``in_features`` is 3 for the colours that
     both CLIs feed a model, 9 for the Partsize column contract [x_c, y_c, z,
     r, g, b, x_norm, y_norm, z_norm] (bench.py's ``feature_dim=9``).
-    ``axis_name`` and ``sp_axis`` are accepted and raise unless None. On CUDA
+    ``axis_name`` syncs every BatchNorm over that mesh axis; ``sp_axis``
+    raises unless None (ROADMAP.md, "Parallel layer, part 2"). On CUDA
     it expects full float32 matmuls, as PointNet2SSG does.
     """
 
@@ -96,7 +106,7 @@ class PointNet2MSG(SegHead):
         sp_axis: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        only_defaults("PointNet2MSG", axis_name=(axis_name, None), sp_axis=(sp_axis, None))
+        only_defaults("PointNet2MSG", sp_axis=(sp_axis, None))
         super().__init__(128, num_classes, 128, dropout_rate, generator)
         c = in_features
         for i, ((npoint, radii), mlps) in enumerate(zip(self.LEVELS, self.BRANCHES), start=1):
@@ -108,6 +118,7 @@ class PointNet2MSG(SegHead):
         self.fp3 = FeaturePropagation(256 + 256, (256, 256), g)
         self.fp2 = FeaturePropagation(96 + 256, (256, 128), g)
         self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+        sync_batchnorms(self, axis_name)
 
     def forward(
         self, xyz: torch.Tensor, features: Optional[torch.Tensor]

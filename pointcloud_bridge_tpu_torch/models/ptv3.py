@@ -32,8 +32,8 @@ The production options are ported for a single device:
   The parameters stay float32 in every option, so checkpoints interchange
   with the float32 model; casts are explicit where flax casts (no autocast,
   whose cast points differ). In bfloat16 attention takes the bf16 kernels.
-``sp_axis`` and ``axis_name`` (a device mesh) are accepted by name and raise
-NotImplementedError unless left at their default.
+``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``); ``sp_axis`` is accepted
+by name and raises NotImplementedError unless left at None.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
-from .common import BatchNorm, Dense, Dropout
+from .common import BatchNorm, Dense, Dropout, sync_batchnorms
 from .moe import MoEFeedForward
 
 LN_EPS = 1e-6  # every LayerNorm of the family (flax's default; torch's is 1e-5)
@@ -59,7 +59,7 @@ def only_defaults(owner: str, **args) -> None:
         if value != default:
             raise NotImplementedError(
                 f"{owner}: {name}={value!r} is not ported to PyTorch yet "
-                f"(only {name}={default!r}); ROADMAP.md Queue 1 lists what comes next"
+                f"(only {name}={default!r}); ROADMAP.md Queue 1, \"Parallel layer, part 2\""
             )
 
 
@@ -341,8 +341,7 @@ class PointTransformerV3(SegmentationHead):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(embed_dim, num_classes, head_drop_rate, generator)
-        only_defaults("PointTransformerV3", axis_name=(axis_name, None),
-                      sp_axis=(sp_axis, None))
+        only_defaults("PointTransformerV3", sp_axis=(sp_axis, None))
         g = generator
         cdt = torch_dtype(compute_dtype)
         self.stream_dtype = torch_dtype(stream_dtype)
@@ -360,6 +359,7 @@ class PointTransformerV3(SegmentationHead):
                 window_size, dtype=cdt, num_experts=num_experts if moe_here else 0,
                 moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
                 stream_dtype=self.stream_dtype, generator=g))
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor,
                 features: Optional[torch.Tensor]) -> torch.Tensor:

@@ -14,8 +14,8 @@ Layers carry the flax names (``enc1_block0.mlp.geglu.proj``, ``pool0.proj``,
 level's x and positional encoding enter the stream before its blocks and
 leave it after them, and the pooling and unpooling projections compute in
 ``compute_dtype`` with their LayerNorms in float32
-(ptv3_pooled.py:59-98, 243-307). ``sp_axis`` and ``axis_name`` raise
-NotImplementedError unless left at their default.
+(ptv3_pooled.py:59-98, 243-307). ``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``);
+``sp_axis`` raises NotImplementedError unless left at None.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .common import Dense
+from .common import Dense, sync_batchnorms
 from .ptv3 import (
     LN_EPS,
     PointTransformerBlock,
@@ -115,8 +115,7 @@ class PointTransformerV3Pooled(SegmentationHead):
     ):
         dims, strides = tuple(dims), tuple(strides)
         super().__init__(dims[0], num_classes, head_drop_rate, generator)
-        only_defaults("PointTransformerV3Pooled", axis_name=(axis_name, None),
-                      sp_axis=(sp_axis, None))
+        only_defaults("PointTransformerV3Pooled", sp_axis=(sp_axis, None))
         cdt = torch_dtype(compute_dtype)
         self.stream_dtype = torch_dtype(stream_dtype)
         self.remat = remat
@@ -152,6 +151,7 @@ class PointTransformerV3Pooled(SegmentationHead):
             setattr(self, f"unpool{lv}",
                     SerializedUnpool(strides[lv], dims[lv + 1], dims[lv], g, cdt))
             add_blocks(f"dec{lv}", lv, self.dec_depths[lv])
+        sync_batchnorms(self, axis_name)
 
     def _level_window(self, level_n: int) -> int:
         """The window of a level of level_n points: ``window_size`` while the

@@ -41,7 +41,7 @@ reference file is not in this repository, so the Conv1d/Conv2d split follows
 the tensors each layer sees there; the JAX import reads either shape.
 ``randlanet_ss`` has no torch rules in the JAX package and carries the flax
 module names (``lfa0.mlp0``, ``up0_d1``, ``head_bn``; a Dense [out, in]).
-``axis_name`` is accepted and raises unless None.
+``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``).
 """
 
 from __future__ import annotations
@@ -56,8 +56,7 @@ from torch import nn
 from ..ops import index_points, knn
 from ..ops.grouping import group_points, knn_stat_weighted
 from ..ops.sampling import density_weighted_sample_indices, random_sample_indices
-from .common import BatchNorm, Dense, Dropout, PointConv
-from .ptv3 import only_defaults
+from .common import BatchNorm, Dense, Dropout, PointConv, sync_batchnorms
 
 
 def spatial_encoding(xyz: torch.Tensor, features: Optional[torch.Tensor],
@@ -303,7 +302,6 @@ class RandLANet(_RandLABase):
                  sampling_ratios: Sequence[float] = (0.35, 0.25, 0.25, 0.25),
                  sampling: str = "random", axis_name: Optional[str] = None,
                  dropout_rate: float = 0.5, generator: Optional[torch.Generator] = None):
-        only_defaults("RandLANet", axis_name=(axis_name, None))
         if sampling not in ("random", "density"):
             raise ValueError(f"RandLANet: sampling {sampling!r} is not 'random' or 'density'")
         if not len(encoder_dims) == len(decoder_dims) == len(sampling_ratios):
@@ -326,6 +324,7 @@ class RandLANet(_RandLABase):
         self.seg_head = nn.Sequential(
             PointConv(dec, 64, 1, g, bias=False), BatchNorm(64), nn.ReLU(),
             Dropout(dropout_rate), PointConv(64, num_classes, 1, g))
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = F.relu(self.bn_start(self.fc_start(self.inputs(xyz, features, self.d_in))))
@@ -351,7 +350,6 @@ class RandLANetSS(_RandLABase):
                  sampling_ratios: Sequence[float] = (0.25, 0.25, 0.25, 0.25),
                  axis_name: Optional[str] = None, dropout_rate: float = 0.5,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("RandLANetSS", axis_name=(axis_name, None))
         if not len(encoder_dims) == len(decoder_dims) == len(sampling_ratios):
             raise ValueError("RandLANetSS: encoder_dims, decoder_dims and sampling_ratios "
                              "differ in length")
@@ -376,6 +374,7 @@ class RandLANetSS(_RandLABase):
         self.head_bn = BatchNorm(64)
         self.dropout = Dropout(dropout_rate)
         self.head_d1 = Dense(64, num_classes, generator=g)
+        sync_batchnorms(self, axis_name)
 
     def _up(self, i: int, h: torch.Tensor) -> torch.Tensor:
         h = F.relu(getattr(self, f"up{i}_bn1")(getattr(self, f"up{i}_d1")(h)))

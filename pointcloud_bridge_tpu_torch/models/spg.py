@@ -26,7 +26,7 @@ segment max does.
 
 Layers under the flax names (``point_encoder.dense_0``, ``gconv1.attn0``,
 ``gpool1.score0``, ``cls_bn1``, ``pfp_comb2``; a Dense [out, in]).
-``axis_name`` is accepted and raises unless None; ``in_features`` is the
+``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``); ``in_features`` is the
 width of the features beside xyz (3, the colours the CLIs feed; xyz stands
 in where none are given).
 """
@@ -42,8 +42,7 @@ from torch import nn
 from ..ops import farthest_point_sample, index_points
 from ..ops.core import square_distance
 from ..ops.structure import eigh3x3, min_eigvec3x3
-from .common import BatchNorm, Dense, DenseMLP, Dropout
-from .ptv3 import only_defaults
+from .common import BatchNorm, Dense, DenseMLP, Dropout, sync_batchnorms
 
 
 def kmeans_partition(xyz: torch.Tensor, num_superpoints: int, iters: int = 3) -> tuple:
@@ -257,7 +256,6 @@ class SuperpointGraph(nn.Module):
                  kmeans_iters: int = 3, knn_k: int = 32, axis_name: Optional[str] = None,
                  dropout_rate: float = 0.5, in_features: int = 3,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("SuperpointGraph", axis_name=(axis_name, None))
         super().__init__()
         g = generator
         self.superpoint_size, self.kmeans_iters, self.knn_k = superpoint_size, kmeans_iters, knn_k
@@ -281,6 +279,7 @@ class SuperpointGraph(nn.Module):
         self.pfp_comb0 = Dense(64 + num_classes, 128, generator=g)
         self.pfp_comb1 = Dense(128, 64, generator=g)
         self.pfp_comb2 = Dense(64, num_classes, generator=g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = xyz.shape

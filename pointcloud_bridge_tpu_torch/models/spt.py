@@ -25,7 +25,7 @@ gradient through it is 0 (JAX's is rounding noise about 0).
 
 Layers under the flax names (``spt.input_proj.lin0``, ``spt.layer0.attn.q``,
 ``spt.layer0.ffn.bn0``, ``spt.output_proj.lin1``; a Dense [out, in]).
-``axis_name`` is accepted and raises unless None; ``in_features`` is the
+``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``); ``in_features`` is the
 width of the features beside xyz (3, the colours the CLIs feed).
 """
 
@@ -40,8 +40,8 @@ from torch import nn
 
 from ..ops import index_points, knn
 from ..ops.grouping import segment_sum
-from .common import BatchNorm, Dense, Dropout
-from .ptv3 import LayerNorm, only_defaults
+from .common import BatchNorm, Dense, Dropout, sync_batchnorms
+from .ptv3 import LayerNorm
 from .spg import kmeans_partition, segment_max, segment_stats
 
 
@@ -156,7 +156,6 @@ class SuperPointTransformer(nn.Module):
                  num_heads: int = 8, dropout: float = 0.1, axis_name: Optional[str] = None,
                  in_channels: int = 22, edge_dim: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("SuperPointTransformer", axis_name=(axis_name, None))
         super().__init__()
         g, hc = generator, hidden_channels
         self.num_layers = num_layers
@@ -165,6 +164,7 @@ class SuperPointTransformer(nn.Module):
             setattr(self, f"layer{i}",
                     GraphTransformerEncoder(hc, num_heads, dropout, edge_dim, g))
         self.output_proj = GraphMLP(hc, (hc // 2, num_classes), dropout, g)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
                 edge_attr: Optional[torch.Tensor] = None,
@@ -189,13 +189,13 @@ class SPTSegmenter(nn.Module):
                  knn_k: int = 8, kmeans_iters: int = 3, dropout: float = 0.1,
                  axis_name: Optional[str] = None, in_features: int = 3,
                  generator: Optional[torch.Generator] = None):
-        only_defaults("SPTSegmenter", axis_name=(axis_name, None))
         super().__init__()
         self.num_classes, self.superpoint_size = num_classes, superpoint_size
         self.knn_k, self.kmeans_iters = knn_k, kmeans_iters
         node = 4 + 3 * (3 + in_features)
         self.spt = SuperPointTransformer(num_classes, hidden_channels, num_layers, num_heads,
                                          dropout, None, node, 1 + node + 3, generator)
+        sync_batchnorms(self, axis_name)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = xyz.shape

@@ -15,15 +15,16 @@ full optimizer steps, and K validation batches, a dispatch over K stacked
 host batches (:func:`group_batches`, :class:`MultiTrainStep`,
 :class:`MultiEvalStep`): on the card a dispatch is one replay of a CUDA
 graph of exactly the eager step's body, on the CPU the same K eager steps
-in a loop.
-
-Not ported yet (ROADMAP.md): a device mesh (``parallel``), which raises
-NotImplementedError.
+in a loop. ``parallel.num_devices`` > 1 (or -1 over a world above one)
+with ``parallel.mode`` dp, tp or fsdp trains on a mesh inside the
+initialised process group (parallel/engine.py); sp, pp and ep raise
+NotImplementedError ("Parallel layer, part 2").
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 import os
 import queue
 import threading
@@ -32,10 +33,12 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import losses as L
 from ..config import Config
 from ..models import Dropout, get_model
+from ..models.common import sync_batchnorms
 from ..ops import _kernels
 from ..utils import metrics as M
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -390,12 +393,14 @@ class MultiTrainStep:
     first dispatch of that shape), so the optimizer must be capturable
     (``make_optimizer(..., capturable=True)``); its lr is filled once a
     dispatch, outside the graph. On the CPU, which a caller asks for, the
-    same K steps run eagerly in a loop."""
+    same K steps run eagerly in a loop. ``body`` replaces the single-device
+    body (parallel/train_step.py: the data-parallel one)."""
 
     def __init__(self, model: torch.nn.Module, loss_cfg, optimizer, k: int,
-                 ema: Optional[Dict[str, torch.Tensor]] = None, ema_decay: float = 0.0):
+                 ema: Optional[Dict[str, torch.Tensor]] = None, ema_decay: float = 0.0,
+                 body: Optional[Callable] = None):
         self.model, self.optimizer, self.k = model, optimizer, k
-        self.body = train_step_body(model, loss_cfg, optimizer)
+        self.body = body or train_step_body(model, loss_cfg, optimizer)
         self.ema, self.ema_decay = ema, ema_decay
         self.params = dict(model.named_parameters())
         self.graphs: Dict[tuple, GraphSteps] = {}
@@ -482,6 +487,31 @@ def _sum_counts(counts) -> dict:
     return total
 
 
+def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A host batch as the train and eval steps take it: points and
+    colours float32, labels int64, the mask bool (block ids stay behind)."""
+    out = {
+        "points": torch.from_numpy(np.ascontiguousarray(batch["points"], np.float32)),
+        "colors": torch.from_numpy(np.ascontiguousarray(batch["colors"], np.float32)),
+        "labels": torch.from_numpy(np.asarray(batch["labels"], np.int64)),
+    }
+    if "mask" in batch:
+        out["mask"] = torch.from_numpy(np.asarray(batch["mask"], bool))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def mesh_request(config: Config) -> Optional[int]:
+    """The mesh's device count that ``config.parallel`` asks for, or None
+    for the single-device trainer: ``num_devices`` > 1, or -1 (the world)
+    when the initialised process group holds more than one rank
+    (loop.py:396-399)."""
+    ndev = int(config.parallel.num_devices)
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if ndev > 1 or (ndev == -1 and world > 1):
+        return world if ndev == -1 else ndev
+    return None
+
+
 def resolve_device(name: str) -> torch.device:
     """"auto" and "cuda" mean the first CUDA device, which must exist;
     "cpu" is for tests. A missing card is an error, never a silent CPU run."""
@@ -495,14 +525,8 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def _check_single_device(config: Config) -> None:
-    tcfg, ndev = config.train, config.parallel.num_devices
-    n_avail = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    if ndev > 1 or (ndev == -1 and n_avail > 1):
-        raise NotImplementedError(
-            f"parallel.mode '{config.parallel.mode}' over {ndev} devices is not "
-            "ported yet; ROADMAP.md Queue 1, \"Parallel layer\""
-        )
+def _check_dispatch(config: Config) -> None:
+    tcfg = config.train
     if int(getattr(tcfg, "steps_per_dispatch", 1)) > 1 and int(getattr(tcfg, "accum_steps", 1)) > 1:
         # as the JAX trainer (loop.py:404-406)
         raise ValueError("steps_per_dispatch and accum_steps are mutually exclusive")
@@ -516,7 +540,10 @@ def train(
     model: Optional[torch.nn.Module] = None,
     resume: bool = False,
 ) -> Dict[str, Any]:
-    """Full training run on ``config.device`` ("auto" = CUDA). Returns
+    """Full training run on ``config.device`` ("auto" = CUDA), or on a
+    mesh of ranks when ``config.parallel`` asks for one (every rank calls
+    ``train`` with the same arguments; rank 0 alone logs and writes the
+    checkpoints, in the single-device layout). Returns
     {history, state, best_val_acc, exp_dir, model, class_weights,
     graph_launches};
     ``state`` holds the model's and the optimizer's state_dicts and the
@@ -528,24 +555,47 @@ def train(
     start with a fresh optimizer from epoch 1 (loop.py:476-526).
     """
     tcfg, mcfg = config.train, config.model
-    _check_single_device(config)
-    device = resolve_device(config.device)
+    _check_dispatch(config)
+    engine = None
+    ndev = mesh_request(config)
+    if ndev is not None:
+        from ..parallel.engine import MeshEngine
+        from ..parallel.train_step import rank_seed
+
+        engine = MeshEngine(config, ndev)
+        device = engine.device
+    else:
+        device = resolve_device(config.device)
+    main = engine is None or engine.is_main
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     if exp_dir is None:
         ts = time.strftime("%m%d%H%M")
         exp_dir = os.path.join(config.exp_dir_root, f"exp_{ts}_{config.case}")
-    os.makedirs(exp_dir, exist_ok=True)
-    logger = initialize_logger(exp_dir)
-    writer = ScalarWriter(exp_dir)
-    snapshot_code(exp_dir)
+    if main:
+        os.makedirs(exp_dir, exist_ok=True)
+        logger = initialize_logger(exp_dir)
+        writer = ScalarWriter(exp_dir)
+        snapshot_code(exp_dir)
+    else:
+        logger, writer = logging.getLogger("pcb.rank"), None
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
 
+    # the mesh's BatchNorms take the whole batch's statistics: dp as the JAX
+    # trainer sets axis_name; tp and fsdp too, since each rank sees its rows
+    # alone where GSPMD's single program saw them all (parallel/fsdp.py)
+    axis = None if engine is None else engine.axis
     if model is None:
         gen = torch.Generator().manual_seed(tcfg.seed)
-        model = get_model(mcfg.name, mcfg.num_classes, generator=gen, **mcfg.extra)
+        extra = dict(mcfg.extra, axis_name=axis) if axis else mcfg.extra
+        model = get_model(mcfg.name, mcfg.num_classes, generator=gen, **extra)
+    elif axis:
+        sync_batchnorms(model, axis)
     model.to(device)
-    dropout_gen = torch.Generator(device=device).manual_seed(tcfg.seed)
+    seed = tcfg.seed if engine is None else rank_seed(tcfg.seed, engine.data_rank)
+    dropout_gen = torch.Generator(device=device).manual_seed(seed)
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = dropout_gen
@@ -595,25 +645,38 @@ def train(
     class_weights = L.class_weights_from_counts(counts).to(device)
     logger.info(f"class weights: {class_weights.cpu().numpy()}")
 
-    train_step = make_train_step(model, config.loss, optimizer,
-                                 max(1, int(getattr(tcfg, "accum_steps", 1))))
-    eval_step = make_eval_step(model, mcfg.num_classes)
     multi_step = multi_eval = None
-    if spd > 1:
-        multi_step = MultiTrainStep(model, config.loss, optimizer, spd, ema,
-                                    d if ema is not None else 0.0)
-        multi_eval = MultiEvalStep(eval_step, spd)
+    if engine is not None:
+        steps = engine.build(model, config.loss, optimizer, mcfg.num_classes, spd, ema,
+                             d if ema is not None else 0.0)
+        train_step, eval_step, ema = steps["train_step"], steps["eval_step"], steps["ema"]
+        multi_step, multi_eval = steps["multi_step"], steps["multi_eval"]
+        params = dict(model.named_parameters())  # fsdp's are new (DTensor) ones
+        put_batch = engine.put_batch
+        logger.info(engine.describe())
+    else:
+        train_step = make_train_step(model, config.loss, optimizer,
+                                     max(1, int(getattr(tcfg, "accum_steps", 1))))
+        eval_step = make_eval_step(model, mcfg.num_classes)
+        if spd > 1:
+            multi_step = MultiTrainStep(model, config.loss, optimizer, spd, ema,
+                                        d if ema is not None else 0.0)
+            multi_eval = MultiEvalStep(eval_step, spd)
+
+        def put_batch(b):
+            return batch_to_device(b, device)
+
+    if multi_step is not None:
         logger.info(f"multi-step dispatch: {spd} steps per graph replay" if capturable else
                     f"multi-step dispatch: {spd} steps per dispatch (eager, on the CPU)")
 
-    def put_batch(b):
-        out = {
-            "points": torch.from_numpy(np.ascontiguousarray(b["points"], np.float32)),
-            "colors": torch.from_numpy(np.ascontiguousarray(b["colors"], np.float32)),
-            "labels": torch.from_numpy(np.asarray(b["labels"], np.int64)),
-            "mask": torch.from_numpy(np.asarray(b["mask"], bool)),
-        }
-        return {k: v.to(device) for k, v in out.items()}
+    def state_for_checkpoint():
+        """The model's, the optimizer's and the EMA's state in the
+        single-device layout (on a mesh a collective: every rank calls it)."""
+        if engine is None:
+            return model.state_dict(), optimizer.state_dict(), ema
+        return (engine.full_model_state(model), engine.full_optimizer_state(model, optimizer),
+                None if ema is None else engine.full_tensors(model, ema))
 
     plateau = ReduceLROnPlateau(
         lr=tcfg.learning_rate, factor=tcfg.plateau_factor,
@@ -700,32 +763,35 @@ def train(
                 lr = plateau.step(val_acc)
             if val_acc > best_val_acc:
                 best_val_acc = val_acc
-                best = model.state_dict()
-                if ema is not None:
-                    best = {**best, **ema}
-                save_checkpoint(
-                    os.path.join(exp_dir, "best_model"),
-                    {"model": best, "optimizer": optimizer.state_dict(),
-                     "epoch": epoch, "val_acc": float(val_acc)},
-                )
+                model_sd, opt_sd, ema_sd = state_for_checkpoint()
+                best = model_sd if ema_sd is None else {**model_sd, **ema_sd}
+                if main:
+                    save_checkpoint(
+                        os.path.join(exp_dir, "best_model"),
+                        {"model": best, "optimizer": opt_sd,
+                         "epoch": epoch, "val_acc": float(val_acc)},
+                    )
 
-        save_checkpoint(
-            os.path.join(exp_dir, "latest_checkpoint"),
-            {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "epoch": epoch},
-        )
-        if ema is not None:  # raw weights above, EMA beside: exact resume
-            save_checkpoint(os.path.join(exp_dir, "latest_ema"), {"model": ema})
+        model_sd, opt_sd, ema_sd = state_for_checkpoint()
+        if main:
+            save_checkpoint(
+                os.path.join(exp_dir, "latest_checkpoint"),
+                {"model": model_sd, "optimizer": opt_sd, "epoch": epoch},
+            )
+            if ema_sd is not None:  # raw weights above, EMA beside: exact resume
+                save_checkpoint(os.path.join(exp_dir, "latest_ema"), {"model": ema_sd})
+            writer.write(epoch, {k: v for k, v in row.items() if k != "epoch"})
         history.append(row)
-        writer.write(epoch, {k: v for k, v in row.items() if k != "epoch"})
         logger.info(" ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()
         ))
 
-    writer.close()
+    if main:
+        writer.close()
+    model_sd, opt_sd, _ = state_for_checkpoint()
     return {
         "history": history,
-        "state": {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                  "epoch": epoch},
+        "state": {"model": model_sd, "optimizer": opt_sd, "epoch": epoch},
         "best_val_acc": best_val_acc,
         "exp_dir": exp_dir,
         "model": model,

@@ -9,6 +9,13 @@ Usage:
 Trains on the first CUDA device; without one it stops with an error.
 ``--device cpu`` runs the plain PyTorch ops on the CPU and is meant for
 tests.
+
+On a mesh (the config's ``parallel: {num_devices: -1, mode: dp}``, or tp
+or fsdp) one process a GPU, started by torchrun, which sets the ranks'
+environment; the CLI opens the process group (NCCL, or gloo with
+``--device cpu``) and closes it at the end:
+    torchrun --nproc_per_node 4 -m pointcloud_bridge_tpu_torch.train_cli \
+        --config dp.yaml --train-dir data/train
 """
 
 from __future__ import annotations
@@ -116,10 +123,34 @@ def main(argv=None) -> dict:
     from .train.loop import resolve_device
 
     resolve_device(cfg.device)  # no card: fail before reading any data
-    tr, va = build_datasets(cfg)
-    out = train(cfg, tr, va)
-    print(f"done: best_val_acc={out['best_val_acc']:.4f} exp_dir={out['exp_dir']}")
+    grouped = int(os.environ.get("WORLD_SIZE", "1")) > 1 and open_process_group(cfg.device)
+    try:
+        tr, va = build_datasets(cfg)
+        out = train(cfg, tr, va)
+    finally:
+        if grouped:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if out["exp_dir"] and int(os.environ.get("RANK", "0")) == 0:
+        print(f"done: best_val_acc={out['best_val_acc']:.4f} exp_dir={out['exp_dir']}")
     return out
+
+
+def open_process_group(device: str) -> bool:
+    """The default process group of a torchrun launch (its environment:
+    RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on the
+    rank's card, gloo when the caller asked for the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    if device == "cpu":
+        dist.init_process_group("gloo")
+    else:
+        local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", device_id=local)
+    return True
 
 
 if __name__ == "__main__":

@@ -12,6 +12,8 @@ packed qkv projection, and window folds of those. Band: 2e-5 * max(1,
 max|ref|), the band of the forward (float32 sums in another order).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,8 @@ probes/bf16_fault_probe.py plants its faults in. Nothing here needs nvcc or
 a card: the kernels themselves are held to their plain versions on the card
 (chip_smoke.py phase 3e)."""
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import re
 
 import pytest

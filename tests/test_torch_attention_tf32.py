@@ -14,6 +14,8 @@ an exponent. The emulation serves the tests alone: on the CPU ``Attention``
 stays the exact plain version.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ and loaded with strict=True. Eval outputs agree to 2e-4 (PARITY.md §7's
 band for torch-vs-JAX parity).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -33,6 +33,8 @@ weight. A plain-SGD step through the port's ``make_train_step`` is held to
 params - lr * g of each JAX step in the same way.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import jax

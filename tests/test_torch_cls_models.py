@@ -10,6 +10,8 @@ batch alone in train mode, with and without colours (``in_features`` 3 and
 0, the JAX signature's ``features=None``).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -137,8 +139,16 @@ def test_in_features_default_and_refusals(name, default):
     assert first.shape[1] == 3 + default
     assert next(p for k, p in get_model(name, 5, in_features=9).named_parameters()
                 if k == "sa1." + k.split(".", 1)[1] and p.dim() == 4).shape[1] == 12
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(name, 5, axis_name="data")
+    # axis_name (a refusal until the parallel layer was ported) now syncs
+    # every BatchNorm over that mesh axis
+    assert all_bns_synced(get_model(name, 5, axis_name="data"), "data")
+
+
+def all_bns_synced(model, axis):
+    from pointcloud_bridge_tpu_torch.models import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    return bool(bns) and all(m.axis_name == axis for m in bns)
 
 
 def test_pointnet_cls_waits_for_pointnet():

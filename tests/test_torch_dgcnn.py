@@ -22,6 +22,8 @@ of tests/test_torch_knn_channels.py: identical indices wherever the JAX
 distances of the two picks differ by more than 1e-6 of the row's largest.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -295,8 +297,11 @@ def test_parameters_carry_the_reference_torch_names(name, names):
 
 @pytest.mark.parametrize("cls", [DGCNN, DGCNNGlobal])
 def test_axis_name_is_not_ported(cls):
-    cls(axis_name=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cls(axis_name="data")
+    """axis_name, refused until the parallel layer was ported, now syncs
+    every BatchNorm over that mesh axis; graph_recall stays out."""
+    from test_torch_cls_models import all_bns_synced
+
+    assert all_bns_synced(cls(axis_name=None), None)
+    assert all_bns_synced(cls(axis_name="data"), "data")
     with pytest.raises(TypeError):
         cls(graph_recall=0.95)

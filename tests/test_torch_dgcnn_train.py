@@ -25,6 +25,8 @@ shift reaches point_conv.1's batch mean through the max over the points:
 both sides keep them below 1e-4 * max|g| of the same layer's weight.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import jax

@@ -15,6 +15,8 @@ through ``state_dict_to_flax`` (the JAX init is traced once, by
 ``jax.eval_shape``, to hold the tree).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -106,19 +108,35 @@ def test_structure_vector_matches_jax():
 
 
 def test_attention_module_train_mode_without_dropout_matches_jax():
+    """The output, the input's gradient and the statistics against the JAX
+    module in float32; the parameters' gradients against it in float64,
+    with the same tolerance. ``sa0``'s bias feeds a train-mode BatchNorm,
+    so its gradient is exactly zero (within 1e-15 in float64) and both
+    float32 gradients are rounding noise of up to 9e-7: against each other
+    they would compare noise with noise."""
     rng = np.random.default_rng(4)
     x = rng.normal(size=(2, 64, 32)).astype(np.float32)
     g = rng.normal(size=(2, 64, 32)).astype(np.float32)
     jm = JEAM(dropout=0.0)
     variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
 
-    def loss(params, xx):
-        out, mut = jm.apply({"params": params, "batch_stats": variables["batch_stats"]}, xx,
+    def loss(params, stats, xx, gg):
+        out, mut = jm.apply({"params": params, "batch_stats": stats}, xx,
                             train=True, mutable=["batch_stats"])
-        return jnp.sum(out * g), (out, mut["batch_stats"])
+        return jnp.sum(out * gg), (out, mut["batch_stats"])
 
-    (_, (want, stats)), (dparams, dx) = jax.jit(jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True))(variables["params"], jnp.asarray(x))
+    grad = jax.value_and_grad(loss, argnums=(0, 2), has_aux=True)
+    (_, (want, stats)), (_, dx) = jax.jit(grad)(
+        variables["params"], variables["batch_stats"], jnp.asarray(x), jnp.asarray(g))
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+        _, (dparams, _) = jax.jit(grad)(v64["params"], v64["batch_stats"],
+                                        x.astype(np.float64), g.astype(np.float64))
+        dparams = jax.tree_util.tree_map(np.asarray, dparams)
+    finally:
+        jax.config.update("jax_enable_x64", x64)
     rules = _by_flax_path(_dense_bn((), ("ca0", "ca1", "sa0", "sa_bn", "sa1")))
     port = EnhancedAttentionModule(32, dropout=0.0)
     port.load_state_dict(flax_to_state_dict(variables, rules), strict=True)

@@ -5,6 +5,8 @@ StableHLO round trip; the graph names the ops, not their plain versions;
 each op's fake implementation gives the plain version's shapes and types;
 the eager path never goes through an op."""
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import jax.numpy as jnp

@@ -12,6 +12,8 @@ routes a float32 CUDA tensor that needs a gradient through
 ``IndexPoints``, whose backward is the same kernel.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,8 @@ and the tile the group wrappers pick, and the row mapping of a warp's
 tile; and the checks that keep a bad tensor from reaching a kernel.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import re
 
 import numpy as np

@@ -6,6 +6,8 @@ module, the host copies of data/completion.py and ops/avs.py run beside the
 JAX package's, ``tools/debug_module.py``'s parameter count against the JAX
 model's, and no module of the port importing scikit-learn."""
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import ast
 import os
 

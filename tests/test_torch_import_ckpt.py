@@ -10,6 +10,8 @@ of them and load with ``strict=True``. The tests that hold that state_dict's
 forward against the JAX model are the models' own parity tests. Numpy only:
 nothing here compiles a JAX function."""
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import numpy as np

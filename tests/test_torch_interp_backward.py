@@ -18,6 +18,8 @@ through the Pallas kernel in interpret mode (a one-hot product, summed in
 another order), on the same numpy inputs.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import re
 
 import jax

@@ -10,6 +10,8 @@ than 1e-6, and distances within 1e-5. On an integer grid both forms are
 exact and the lower index must win every tie in both packages.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

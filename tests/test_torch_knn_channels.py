@@ -28,6 +28,8 @@ group vote, a last warp partly active) held bit for bit against
 ``knn_plain``.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import re
 
 import jax.numpy as jnp

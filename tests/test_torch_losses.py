@@ -8,6 +8,8 @@ Values and gradients agree within 1e-5 relative (float32 reductions in
 another order).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,8 @@ scikit-learn: no JAX compile) on the same synthetic decks, on the CPU:
   0.005; wl_vision and grid_search as the JAX package's.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import numpy as np

@@ -10,6 +10,8 @@ step of ``ptv3_moe`` is held to the JAX float32 and float64 steps with the
 method and bands of tests/test_torch_ptv3_train.py.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,8 @@ rolled. The train step and the recipe through the CLIs are in
 tests/test_torch_msg_train.py.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -241,8 +243,15 @@ def test_default_takes_the_colours_the_clis_feed():
 
 @pytest.mark.parametrize("arg", ["axis_name", "sp_axis"])
 def test_unported_arguments_raise(arg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("pointnet2_msg", 5, **{arg: "data"})
+    """sp_axis raises (ROADMAP.md, "Parallel layer, part 2"); axis_name,
+    refused until the parallel layer was ported, syncs every BatchNorm."""
+    from test_torch_cls_models import all_bns_synced
+
+    if arg == "axis_name":
+        assert all_bns_synced(get_model("pointnet2_msg", 5, axis_name="data"), "data")
+    else:
+        with pytest.raises(NotImplementedError, match="Parallel layer, part 2"):
+            get_model("pointnet2_msg", 5, **{arg: "data"})
     get_model("pointnet2_msg", 5, **{arg: None})
 
 

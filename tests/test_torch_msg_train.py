@@ -24,6 +24,8 @@ noise on them reaches 1.3e-5 where twice the JAX float32 step's is 1.1e-5,
 against weight gradients a thousand times larger.)
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import jax

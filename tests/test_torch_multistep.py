@@ -16,6 +16,8 @@ the same weights (slow), within the JAX package's own band for its two
 engines (see test_train_matches_jax_train_at_two_steps_a_dispatch).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,8 @@ merged 32 at a time into the sorted list by a bitonic network, K2's scan of
 32-point steps in groups with its slot order and early stop.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import re
 
 import jax.numpy as jnp

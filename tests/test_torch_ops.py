@@ -10,6 +10,8 @@ interpolation agrees with the interpret-mode kernel to 1e-5 (both compute
 the direct-form distances; the blend sums in another order).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp

@@ -15,6 +15,8 @@ one train-mode call; the weight round trips; and a state_dict in the
 reference's layout through the JAX ``convert_state_dict`` and back.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

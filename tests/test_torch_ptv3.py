@@ -13,6 +13,8 @@ strict=True. Modules agree to 2e-5, whole models to 2e-4 (PARITY.md §7's
 band for torch-vs-JAX parity).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -367,7 +369,15 @@ def test_registry_rules_cover_the_registry_default_model(name):
     (PointTransformerV3Pooled, {"sp_axis": "sp"}),
 ], ids=lambda v: v.__name__ if isinstance(v, type) else "-".join(v))
 def test_unported_arguments_raise(cls, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """sp_axis raises (ROADMAP.md, "Parallel layer, part 2"); axis_name,
+    refused until the parallel layer was ported, syncs the head's
+    BatchNorm."""
+    from test_torch_cls_models import all_bns_synced
+
+    if "axis_name" in kwargs:
+        assert all_bns_synced(cls(**kwargs), kwargs["axis_name"])
+        return
+    with pytest.raises(NotImplementedError, match="Parallel layer, part 2"):
         cls(**kwargs)
 
 

@@ -28,6 +28,8 @@ types are also read where they flow (``test_bf16_options_compute_in_bf16``).
 Remat is exact: the same bits as without it.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import jax

@@ -17,6 +17,8 @@ step within 1e-5 relative. Dropout is 0 in both packages (their generators
 give different masks); the port's dropout is tested on its own.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import jax

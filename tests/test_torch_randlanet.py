@@ -16,6 +16,8 @@ one epoch through ``train_cli --device cpu`` and ``infer_cli blocks``
 serves it.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 
 import jax
@@ -378,8 +380,11 @@ def test_sampling_generator_draws_in_train_mode_only(name):
 
 
 def test_randlanet_axis_name_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("randlanet", 5, axis_name="data")
+    """axis_name, refused until the parallel layer was ported, now syncs
+    every BatchNorm over that mesh axis; an unknown sampling is refused."""
+    from test_torch_cls_models import all_bns_synced
+
+    assert all_bns_synced(get_model("randlanet", 5, axis_name="data"), "data")
     with pytest.raises(ValueError, match="sampling"):
         get_model("randlanet", 5, sampling="fps")
 

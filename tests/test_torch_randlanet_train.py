@@ -24,6 +24,8 @@ weighted cross-entropy's formula in float64: tests/test_torch_randlanet.py
   kinds of bias that are exactly 0.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ rules, a name outside the registry raises ValueError, and the reference
 name ``pointnet2`` builds, takes converted weights and serves like
 ``pointnet2_ssg``."""
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import functools
 
 import jax

@@ -14,6 +14,8 @@ against the port's plain versions and the JAX package (``_fps_jnp``; the
 Pallas interpolation kernel in interpret mode).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import re
 
 import jax.numpy as jnp

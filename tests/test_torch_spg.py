@@ -13,6 +13,8 @@ JAX forward's partition and picks (``JaxPicks``): the step is held in
 float64 as tests/test_torch_randlanet_train.py holds RandLA-Net's.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,8 +259,11 @@ def test_the_port_makes_the_jax_picks_itself(jax_run, monkeypatch):
 
 
 def test_axis_name_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("spg", 5, axis_name="data")
+    """axis_name, refused until the parallel layer was ported, now syncs
+    every BatchNorm over that mesh axis."""
+    from test_torch_cls_models import all_bns_synced
+
+    assert all_bns_synced(get_model("spg", 5, axis_name="data"), "data")
 
 
 @pytest.mark.parametrize("name", ["spg", "superpoint_graph"])

@@ -13,6 +13,8 @@ tests/test_torch_randlanet_train.py holds RandLA-Net's. Floats within
 §7).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -242,8 +244,11 @@ def test_eval_logits_match_jax(name, jax_run, monkeypatch):
 
 
 def test_axis_name_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("spt", 5, axis_name="data")
+    """axis_name, refused until the parallel layer was ported, now syncs
+    every BatchNorm over that mesh axis."""
+    from test_torch_cls_models import all_bns_synced
+
+    assert all_bns_synced(get_model("spt", 5, axis_name="data"), "data")
 
 
 @pytest.mark.parametrize("name", ["spt", "superpoint_transformer"])

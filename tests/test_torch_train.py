@@ -20,6 +20,8 @@ is held against optax on identical gradients (it flips signs on near-zero
 gradients, so two gradient computations would not compare).
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import os
 import subprocess
 import sys

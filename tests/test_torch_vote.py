@@ -7,6 +7,8 @@ logits are within float32 rounding can flip, hence agreement on >= 99.9% of
 the points rather than all, equal vote mass a point, and mIoU within 1e-3.
 """
 
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
