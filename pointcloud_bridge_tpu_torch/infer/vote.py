@@ -11,10 +11,16 @@ feature table goes to the device once, each vote sends its int32 block
 indices and XY centres, and the device gathers the rows and centres each
 block. The next vote's host gridding runs on a background thread under the
 current vote's device work and fetch. The votes of a pass are scattered with
-one ``np.bincount`` into a float64 pool on the host. Not ported: the device
-mesh, the host-assembly path, and the fixed-shape chunking that the JAX
-version needs for its compiled executables (PyTorch runs eagerly, so a
-vote's indices go up in one copy and the last batch is simply shorter).
+one ``np.bincount`` into a float64 pool on the host. With ``mesh`` (a
+device mesh with a "data" axis, one rank a device) the block batches split
+over the axis, pure data parallelism: each rank classifies its rows of a
+batch (the batch size rounded up to a multiple of the axis, a short batch
+padded with copies of its last block) and the predictions are gathered,
+so every rank builds the same vote pool as the single-rank vote
+(vote.py:59-146). Not ported: the host-assembly path, and the fixed-shape
+chunking that the JAX version needs for its compiled executables (PyTorch
+runs eagerly, so a vote's indices go up in one copy and the last batch is
+simply shorter).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from ..data.blocks import (
     whole_scene_grid_indices,
 )
 from ..utils import metrics as M
+from ..utils.collectives import gather_list
 
 
 def whole_scene_vote_predict(
@@ -50,6 +57,7 @@ def whole_scene_vote_predict(
     normalize_scene: bool = False,
     seed: int = 0,
     collect_timings: bool = False,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Predict a label for every point of one scene.
 
@@ -68,6 +76,9 @@ def whole_scene_vote_predict(
       seed: vote v draws its pad-resampling from numpy's rng at
         ``seed + 1009 * v``, as the JAX version does, so the two see the
         same blocks.
+      mesh: a ``DeviceMesh`` with a "data" axis (parallel/mesh.py): the
+        block batches split over it, every rank of the axis calls this
+        with the same arguments and gets the same result.
       collect_timings: also return host wall times of the phases:
         'table_upload_s' and, a vote, 'grid_s' (host gridding, on the
         background thread), 'h2d_s' (index and centre copies), 'dispatch_s'
@@ -92,6 +103,11 @@ def whole_scene_vote_predict(
     # predictions come back as uint8 when the classes fit
     pred_dtype = torch.uint8 if num_classes <= 255 else torch.int32
     ncols = 9 if feature_mode == "nine" else 6
+    group = None
+    if mesh is not None:
+        group = mesh.get_group("data")
+        ndev, me = mesh.size(mesh.mesh_dim_names.index("data")), mesh.get_local_rank("data")
+        batch_size = -(-batch_size // ndev) * ndev
 
     timings: Dict[str, Any] = {
         "table_upload_s": 0.0,
@@ -110,6 +126,19 @@ def whole_scene_vote_predict(
         xyz = g[..., :3] - offs[:, None, :]
         feats = torch.cat([xyz, g[..., 3:]], dim=-1) if feature_mode == "nine" else g[..., 3:6]
         return model(xyz, feats).argmax(-1).to(pred_dtype)
+
+    def predict(table, idx, centers):
+        """A batch's predictions; with a mesh, this rank's rows of it,
+        gathered from the ranks."""
+        if group is None:
+            return forward_idx(table, idx, centers)
+        nb_b = idx.shape[0]
+        pad = (-nb_b) % ndev
+        if pad:
+            idx = torch.cat([idx, idx[-1:].expand(pad, -1)])
+            centers = torch.cat([centers, centers[-1:].expand(pad, -1)])
+        rows = slice(me * idx.shape[0] // ndev, (me + 1) * idx.shape[0] // ndev)
+        return torch.cat(gather_list(forward_idx(table, idx[rows], centers[rows]), group))[:nb_b]
 
     cells = [None]  # seed-independent grid membership, computed with vote 0
 
@@ -146,7 +175,7 @@ def whole_scene_vote_predict(
             sync()
             t1 = time.perf_counter()
             parts = [
-                forward_idx(table, idx_dev[s : s + batch_size], ctr_dev[s : s + batch_size])
+                predict(table, idx_dev[s : s + batch_size], ctr_dev[s : s + batch_size])
                 for s in range(0, nb, batch_size)
             ]
             t2 = time.perf_counter()

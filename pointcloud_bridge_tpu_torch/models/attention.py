@@ -11,6 +11,12 @@ SinusoidalPositionalEncoding, which no model of either package uses), and
 its attention blocks (EnhancedAttentionModule, BoundaryAwareModule; and
 StructuralAwareModule, which no model uses). A module whose JAX Dense reads
 its width off the input takes that width (``channels``) when built.
+
+``sp_axis`` on BridgeStructureEncoding, GeometricFeatureExtraction and
+MultiScaleFeatureFusion is BriStruNet's sequence parallelism in the
+whole-input contract (models/attention.py:64-109, 211-231, 316-341 of the
+JAX package): the per-query work runs on this rank's slice of the points
+and is gathered back, or left sliced for a pointwise consumer.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from torch import nn
 
 from ..ops import index_points, knn
 from ..ops.structure import knn_relative_positions, local_structure_features
+from ..utils.collectives import all_gather, axis_size, sp_shard_slice
 from .common import BatchNorm, Dense, Dropout
 
 
@@ -36,13 +43,17 @@ class BridgeStructureEncoding(nn.Module):
     per neighbour; abs_enc and struct are the same for all k neighbours, so
     it is split into ``mlp0_shared`` on [B, N, 6F + 13] (no bias) and
     ``mlp0_rel`` on the 3 relative coordinates, as in the JAX module. The
-    BatchNorm runs over the 4-D [B, N, k, C] tensor.
+    BatchNorm runs over the 4-D [B, N, k, C] tensor. With ``sp_axis`` the
+    queries are this rank's slice of the points (the k-NN over the whole
+    cloud), gathered back unless ``sp_gather`` is False.
     """
 
     def __init__(self, channels: int = 32, k_neighbors: int = 16,
                  freq_bands: int = 4, grid_size: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, sp_axis=None,
+                 sp_gather: bool = True):
         super().__init__()
+        self.sp_axis, self.sp_gather = sp_axis, sp_gather
         self.k_neighbors = k_neighbors
         self.freq_bands = freq_bands
         self.grid_size = grid_size
@@ -54,7 +65,8 @@ class BridgeStructureEncoding(nn.Module):
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
         k = min(self.k_neighbors, xyz.shape[1])
-        grid_xyz = torch.floor(xyz / self.grid_size) * self.grid_size
+        q_xyz = sp_shard_slice(xyz, self.sp_axis) if self.sp_axis else xyz
+        grid_xyz = torch.floor(q_xyz / self.grid_size) * self.grid_size
         abs_enc = []
         for band in range(self.freq_bands):
             f = float(2 ** band)
@@ -62,13 +74,15 @@ class BridgeStructureEncoding(nn.Module):
             abs_enc.append(torch.cos(grid_xyz * f))
 
         # the neighbours feed order-free statistics and a max-pooled MLP
-        rel_pos, _ = knn_relative_positions(xyz, k, ordered=False)
+        rel_pos, _ = knn_relative_positions(
+            xyz, k, ordered=False, query=q_xyz if self.sp_axis else None)
         struct = local_structure_features(rel_pos)  # [B, N, 13]
 
         shared = self.mlp0_shared(torch.cat(abs_enc + [struct], dim=-1))
         h = shared.unsqueeze(2) + self.mlp0_rel(rel_pos)  # [B, N, k, C]
         h = self.mlp1(F.relu(self.bn0(h)))
-        return torch.amax(h, dim=2)
+        out = torch.amax(h, dim=2)
+        return all_gather(out, self.sp_axis) if self.sp_axis and self.sp_gather else out
 
 
 class ColorFeatureExtraction(nn.Module):
@@ -117,19 +131,25 @@ class CompositeFeatureFusion(nn.Module):
 class GeometricFeatureExtraction(nn.Module):
     """Concatenate a 16-channel BridgeStructureEncoding of xyz (k = 16, 4
     frequency bands), then a 2-layer MLP (models/attention.py:207-232).
-    [B, N, C] -> [B, N, C]."""
+    [B, N, C] -> [B, N, C]. With ``sp_axis`` the encoding and the MLP run on
+    this rank's slice, gathered back at the end."""
 
     def __init__(self, channels: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, sp_axis=None):
         super().__init__()
-        self.br_pos = BridgeStructureEncoding(16, generator=generator)
+        self.sp_axis = sp_axis
+        self.br_pos = BridgeStructureEncoding(16, generator=generator, sp_axis=sp_axis,
+                                              sp_gather=False)
         self.mlp0 = Dense(channels + 16, channels, generator=generator)
         self.bn0 = BatchNorm(channels)
         self.mlp1 = Dense(channels, channels, generator=generator)
 
     def forward(self, x: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+        if self.sp_axis:
+            x = sp_shard_slice(x, self.sp_axis)
         h = torch.cat([x, self.br_pos(xyz)], dim=-1)
-        return self.mlp1(F.relu(self.bn0(self.mlp0(h))))
+        out = self.mlp1(F.relu(self.bn0(self.mlp0(h))))
+        return all_gather(out, self.sp_axis) if self.sp_axis else out
 
 
 def resize_nearest(feat: torch.Tensor, n: int) -> torch.Tensor:
@@ -147,11 +167,15 @@ def resize_nearest(feat: torch.Tensor, n: int) -> torch.Tensor:
 class MultiScaleFeatureFusion(nn.Module):
     """Resize every feature map to the last one's point count, then a Dense
     + BatchNorm + ReLU a scale (``conv{i}``, ``bn{i}``), concatenated
-    (models/attention.py:311-345)."""
+    (models/attention.py:311-345). With ``sp_axis`` the last map is this
+    rank's slice of the fine points; the others, whole, are resized to the
+    whole fine count and then sliced (a nearest resize maps each row on its
+    own), and the output stays sliced."""
 
     def __init__(self, in_channels: Sequence[int], out_channels: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, sp_axis=None):
         super().__init__()
+        self.sp_axis = sp_axis
         self.scales = len(in_channels)
         for i, c in enumerate(in_channels):
             setattr(self, f"conv{i}", Dense(c, out_channels, generator=generator))
@@ -159,9 +183,16 @@ class MultiScaleFeatureFusion(nn.Module):
 
     def forward(self, features_list: Sequence[torch.Tensor]) -> torch.Tensor:
         n = features_list[-1].shape[1]
+        last = len(features_list) - 1
+        if self.sp_axis:
+            n *= axis_size(self.sp_axis)  # the whole fine count
         outs = []
         for i, feat in enumerate(features_list):
-            h = getattr(self, f"conv{i}")(resize_nearest(feat, n))
+            if not (self.sp_axis and i == last):
+                feat = resize_nearest(feat, n)
+                if self.sp_axis:
+                    feat = sp_shard_slice(feat, self.sp_axis)
+            h = getattr(self, f"conv{i}")(feat)
             outs.append(F.relu(getattr(self, f"bn{i}")(h)))
         return torch.cat(outs, dim=-1)
 

@@ -9,6 +9,14 @@ one width list a level) with GeometricFeatureExtraction at levels 2 and 3
 Parameter names are the flax module names of the JAX model
 (``bri_enc.mlp0_shared``, ``sa1.mlp_0.dense_0``, ``fp3.attn_dense0``,
 ``fusion.conv0``, ``final0``).
+
+``sp_axis`` (JAX bristrunet.py:36-110): the inputs arrive whole on every
+rank; the structure encoding's k-NN and statistics, the set abstractions'
+ball queries, groupings and MLPs, the geometric blocks, the
+feature-propagation layers, the multi-scale fusion and the head run on
+this rank's slices of the points, gathered between levels, and the logits
+are gathered once. FPS and the cheap colour and fusion stages run whole on
+every rank. N and every ``sa_npoints`` entry must divide over the axis.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from .attention import (
     GeometricFeatureExtraction,
     MultiScaleFeatureFusion,
 )
+from ..utils.collectives import all_gather
 from .common import (
     BatchNorm,
     Dense,
@@ -50,27 +59,30 @@ class BriStruNet(nn.Module):
         dropout_rate: float = 0.5,
         generator: Optional[torch.Generator] = None,
         axis_name: Optional[str] = None,
+        sp_axis: Optional[str] = None,
     ):
         super().__init__()
-        g = generator
+        g, sp = generator, sp_axis
+        self.sp_axis = sp
         n1, n2, n3 = sa_npoints
-        self.bri_enc = BridgeStructureEncoding(input_ch, 32, 4, generator=g)
+        self.bri_enc = BridgeStructureEncoding(input_ch, 32, 4, generator=g, sp_axis=sp)
         self.color_encoder = ColorFeatureExtraction(6, 3, g)
         self.feature_fusion = CompositeFeatureFusion(input_ch + 6, input_ch, g)
 
         self.sa1 = MultiScaleSetAbstraction(
-            n1, (0.1, 0.2), (16, 32), 3 + input_ch, (64, 64, 128), g)
+            n1, (0.1, 0.2), (16, 32), 3 + input_ch, (64, 64, 128), g, sp)
         self.sa2 = MultiScaleSetAbstraction(
-            n2, (0.2, 0.4), (16, 32), 3 + 256, (128, 128, 256), g)
-        self.geometric2 = GeometricFeatureExtraction(512, g)
+            n2, (0.2, 0.4), (16, 32), 3 + 256, (128, 128, 256), g, sp)
+        self.geometric2 = GeometricFeatureExtraction(512, g, sp)
         self.sa3 = MultiScaleSetAbstraction(
-            n3, (0.4, 0.8), (16, 32), 3 + 512, (256, 256, 512), g)
-        self.geometric3 = GeometricFeatureExtraction(1024, g)
+            n3, (0.4, 0.8), (16, 32), 3 + 512, (256, 256, 512), g, sp)
+        self.geometric3 = GeometricFeatureExtraction(1024, g, sp)
 
-        self.fp3 = EnhancedFeaturePropagation(512 + 1024, (1024, 256), g)
-        self.fp2 = EnhancedFeaturePropagation(256 + 256, (256, 256), g)
-        self.fp1 = EnhancedFeaturePropagation(input_ch + 256, (256, 128), g)
-        self.fusion = MultiScaleFeatureFusion((256, 256, 128), 128, g)
+        self.fp3 = EnhancedFeaturePropagation(512 + 1024, (1024, 256), g, sp)
+        self.fp2 = EnhancedFeaturePropagation(256 + 256, (256, 256), g, sp)
+        self.fp1 = EnhancedFeaturePropagation(input_ch + 256, (256, 128), g, sp,
+                                              sp_gather=False)
+        self.fusion = MultiScaleFeatureFusion((256, 256, 128), 128, g, sp)
 
         self.final0 = Dense(384, 128, generator=g)
         self.final_bn = BatchNorm(128)
@@ -97,4 +109,5 @@ class BriStruNet(nn.Module):
 
         h = self.fusion([l2, l1, l0])  # [B, N, 384]
         h = F.relu(self.final_bn(self.final0(h)))
-        return self.final1(self.final_drop(h))
+        logits = self.final1(self.final_drop(h))
+        return all_gather(logits, self.sp_axis) if self.sp_axis else logits

@@ -24,6 +24,16 @@ The BriStruNet family has no mappable reference torch model, so its layers
 the flax modules of the JAX package instead (``sa1.mlp_0.dense_0``,
 ``fp3.attn_dense0``), with a Dense weight stored as [out, in].
 
+``sp_axis`` (sequence parallelism in the whole-input contract,
+parallel/sp.py with ``shard_inputs=False``; models/common.py:81-314 of the
+JAX package): the inputs arrive whole on every rank, FPS runs over the
+whole cloud on each, and the per-query work (ball query, grouping, shared
+MLP, pooling; the fine points of an interpolation) runs on this rank's
+contiguous slice of the queries; the outputs are gathered back to whole
+(``sp_gather=False`` leaves a feature-propagation output sliced, for a
+pointwise head). Set ``axis_name`` to include the axis for train-mode
+BatchNorm.
+
 BatchNorm has flax's semantics (:class:`BatchNorm`): momentum 0.1 and eps
 1e-5, which is flax's momentum 0.9 and eps 1e-5 as the JAX package sets
 them, and the running variance takes the biased batch variance. Dropout
@@ -48,7 +58,14 @@ from ..ops import (
     three_nn_interpolate,
 )
 from ..ops.grouping import _query_ball_radii
-from ..utils.collectives import all_reduce_mean, axis_group, gather_columns, sum_gradient
+from ..utils.collectives import (
+    all_gather,
+    all_reduce_mean,
+    axis_group,
+    gather_columns,
+    sp_shard_slice,
+    sum_gradient,
+)
 
 
 class PointConv(nn.Module):
@@ -240,20 +257,24 @@ class SetAbstraction(SharedMLP):
     Its convolutions are the reference's Conv2d."""
 
     def __init__(self, npoint: int, radius: float, nsample: int, in_ch: int,
-                 mlp: Sequence[int], generator: Optional[torch.Generator] = None):
+                 mlp: Sequence[int], generator: Optional[torch.Generator] = None,
+                 sp_axis=None):
         super().__init__(in_ch, mlp, kdims=2, generator=generator)
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
+        self.sp_axis = sp_axis
 
     def forward(
         self, xyz: torch.Tensor, features: Optional[torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         fps_idx = farthest_point_sample(xyz, self.npoint)
         new_xyz = index_points(xyz, fps_idx)
-        idx = query_ball_point(self.radius, self.nsample, xyz, new_xyz)
-        grouped = group_points(xyz, new_xyz, idx, features)  # [B,S,K,3+C]
-        return new_xyz, torch.amax(super().forward(grouped), dim=2)
+        q_xyz = sp_shard_slice(new_xyz, self.sp_axis) if self.sp_axis else new_xyz
+        idx = query_ball_point(self.radius, self.nsample, xyz, q_xyz)
+        grouped = group_points(xyz, q_xyz, idx, features)  # [B,S,K,3+C]
+        pooled = torch.amax(super().forward(grouped), dim=2)
+        return new_xyz, all_gather(pooled, self.sp_axis) if self.sp_axis else pooled
 
 
 class FeaturePropagation(SharedMLP):
@@ -264,8 +285,10 @@ class FeaturePropagation(SharedMLP):
     JAX layer. Its convolutions are the reference's Conv1d."""
 
     def __init__(self, in_ch: int, mlp: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, sp_axis=None,
+                 sp_gather: bool = True):
         super().__init__(in_ch, mlp, kdims=1, generator=generator)
+        self.sp_axis, self.sp_gather = sp_axis, sp_gather
 
     def forward(
         self,
@@ -274,12 +297,26 @@ class FeaturePropagation(SharedMLP):
         feats_fine: Optional[torch.Tensor],
         feats_coarse: torch.Tensor,
     ) -> torch.Tensor:
+        xyz_fine, feats_fine = fine_slice(self.sp_axis, xyz_fine, feats_fine)
         interp = three_nn_interpolate(
             xyz_fine, xyz_coarse, feats_coarse.float(), k=3
         )
         if feats_fine is not None:
             interp = torch.cat([feats_fine.float(), interp], dim=-1)
-        return super().forward(interp)
+        return gather_fine(super().forward(interp), self.sp_axis, self.sp_gather)
+
+
+def fine_slice(sp_axis, xyz_fine: torch.Tensor, feats_fine: Optional[torch.Tensor]):
+    """This rank's slice of the fine points and their skip features under
+    ``sp_axis``; both whole without it."""
+    if not sp_axis:
+        return xyz_fine, feats_fine
+    return (sp_shard_slice(xyz_fine, sp_axis),
+            None if feats_fine is None else sp_shard_slice(feats_fine, sp_axis))
+
+
+def gather_fine(out: torch.Tensor, sp_axis, sp_gather: bool) -> torch.Tensor:
+    return all_gather(out, sp_axis) if sp_axis and sp_gather else out
 
 
 class Dense(nn.Module):
@@ -333,16 +370,21 @@ class DenseMLP(nn.Module):
 
 
 def multi_scale_abstraction(xyz: torch.Tensor, features: Optional[torch.Tensor],
-                            npoint: int, balls, branches) -> Tuple[torch.Tensor, torch.Tensor]:
+                            npoint: int, balls, branches,
+                            sp_axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The loop of every MSG set abstraction: one FPS, every (radius, K) of
     ``balls`` in one ball-query launch on the card (each the same bits as
     its own query_ball_point), then for each scale a grouping, its branch
     (a shared MLP) and a max over the neighbours; the scales concatenated
-    -> ([B, npoint, 3], [B, npoint, sum of the branches' widths])."""
+    -> ([B, npoint, 3], [B, npoint, sum of the branches' widths]). With
+    ``sp_axis`` the queries are this rank's slice of the centres and the
+    result is gathered."""
     new_xyz = index_points(xyz, farthest_point_sample(xyz, npoint))
-    scales = [torch.amax(branch(group_points(xyz, new_xyz, idx, features)), dim=2)
-              for branch, idx in zip(branches, _query_ball_radii(balls, xyz, new_xyz))]
-    return new_xyz, torch.cat(scales, dim=-1)
+    q_xyz = sp_shard_slice(new_xyz, sp_axis) if sp_axis else new_xyz
+    scales = [torch.amax(branch(group_points(xyz, q_xyz, idx, features)), dim=2)
+              for branch, idx in zip(branches, _query_ball_radii(balls, xyz, q_xyz))]
+    out = torch.cat(scales, dim=-1)
+    return new_xyz, all_gather(out, sp_axis) if sp_axis else out
 
 
 class MultiScaleSetAbstraction(nn.Module):
@@ -355,9 +397,10 @@ class MultiScaleSetAbstraction(nn.Module):
 
     def __init__(self, npoint: int, radius_list: Sequence[float],
                  nsample_list: Sequence[int], in_ch: int, mlp: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, sp_axis=None):
         super().__init__()
         self.npoint = npoint
+        self.sp_axis = sp_axis
         self.radius_list = tuple(radius_list)
         self.nsample_list = tuple(nsample_list)
         for i in range(len(self.radius_list)):
@@ -368,7 +411,8 @@ class MultiScaleSetAbstraction(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         balls = tuple(zip(self.radius_list, self.nsample_list))
         branches = [getattr(self, f"mlp_{i}") for i in range(len(balls))]
-        return multi_scale_abstraction(xyz, features, self.npoint, balls, branches)
+        return multi_scale_abstraction(xyz, features, self.npoint, balls, branches,
+                                       self.sp_axis)
 
 
 class FeatFirstConv(PointConv):
@@ -398,9 +442,10 @@ class MultiScaleSetAbstractionMsg(nn.Module):
 
     def __init__(self, npoint: int, radius_list: Sequence[float],
                  nsample_list: Sequence[int], in_ch: int, mlp_list: Sequence[Sequence[int]],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, sp_axis=None):
         super().__init__()
         self.npoint = npoint
+        self.sp_axis = sp_axis
         self.balls = tuple(zip(radius_list, nsample_list))
         self.conv_blocks = nn.ModuleList()
         self.bn_blocks = nn.ModuleList()
@@ -423,7 +468,8 @@ class MultiScaleSetAbstractionMsg(nn.Module):
         self, xyz: torch.Tensor, features: Optional[torch.Tensor]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         branches = [functools.partial(self.branch, b) for b in range(len(self.balls))]
-        return multi_scale_abstraction(xyz, features, self.npoint, self.balls, branches)
+        return multi_scale_abstraction(xyz, features, self.npoint, self.balls, branches,
+                                       self.sp_axis)
 
 
 class GroupAllAbstraction(SharedMLP):
@@ -451,9 +497,11 @@ class EnhancedFeaturePropagation(nn.Module):
     after the concatenation."""
 
     def __init__(self, in_ch: int, mlp: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, sp_axis=None,
+                 sp_gather: bool = True):
         super().__init__()
         g = generator
+        self.sp_axis, self.sp_gather = sp_axis, sp_gather
         self.residual = in_ch == mlp[-1]
         self.attn_dense0 = Dense(in_ch, in_ch // 4, generator=g)
         self.attn_bn = BatchNorm(in_ch // 4)
@@ -469,6 +517,7 @@ class EnhancedFeaturePropagation(nn.Module):
         feats_fine: Optional[torch.Tensor],
         feats_coarse: torch.Tensor,
     ) -> torch.Tensor:
+        xyz_fine, feats_fine = fine_slice(self.sp_axis, xyz_fine, feats_fine)
         fused = three_nn_interpolate(xyz_fine, xyz_coarse, feats_coarse, k=4)
         if feats_fine is not None:
             fused = torch.cat([feats_fine, fused], dim=-1)
@@ -477,7 +526,8 @@ class EnhancedFeaturePropagation(nn.Module):
         out = self.mlp(fused)
         if self.residual:
             out = out + fused
-        return out + self.boundary_dense1(self.boundary_mlp0(xyz_fine))
+        out = out + self.boundary_dense1(self.boundary_mlp0(xyz_fine))
+        return gather_fine(out, self.sp_axis, self.sp_gather)
 
 
 class SegHead(nn.Module):

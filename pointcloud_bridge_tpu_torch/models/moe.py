@@ -29,6 +29,17 @@ into the next step, where a CUDA graph captured on another stream
 (train/loop.py::GraphSteps) cannot take them. ``routing`` keeps the last
 call's expert picks and slots, for the tests.
 
+Expert parallelism (parallel/ep.py) gives a module ``ep_axes`` (its
+"data" and "expert" mesh axes) and keeps on each rank the experts
+``[expert_offset, expert_offset + E_local)`` of the leading E axis: the
+rank routes all of its tokens with the whole router, runs the experts it
+holds over the tokens routed to them, and the partial outputs are summed
+over "expert" inside autograd (:func:`~..utils.collectives.psum`). The
+group size and capacity follow from the global token count (the "data"
+ranks' tokens together), and the load-balance loss from the global
+``f_e`` and ``p_e`` (their means over "data"), so each is the JAX
+program's; there ``aux_loss`` keeps its graph for the step to add.
+
 Parameters carry the flax names: the stacked ``experts_proj_kernel`` [E, d,
 2h], ``experts_proj_bias`` [E, 2h], ``experts_out_kernel`` [E, h, d] and
 ``experts_out_bias`` [E, d] as the JAX module stores them, and ``router``, a
@@ -44,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import collectives as C
 from .common import Dense, Dropout
 
 
@@ -88,6 +100,8 @@ class MoEFeedForward(nn.Module):
         self.drop = Dropout(dropout)
         self.aux_loss: Optional[torch.Tensor] = None
         self.routing: Dict[str, torch.Tensor] = {}
+        self.ep_axes: Optional[tuple] = None  # ("data", "expert") under expert parallelism
+        self.expert_offset = 0
 
     def route(self, xt: torch.Tensor):
         """Router of one [G, S, d] input -> (sel [G, S, K] expert picks,
@@ -109,25 +123,40 @@ class MoEFeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
         e, k = self.num_experts, self.top_k
+        e_local, e0 = self.experts_proj_kernel.shape[0], self.expert_offset
         tokens = b * n
-        s = _group_size(tokens, self.max_group_size)
+        data_axis, expert_axis = self.ep_axes or (None, None)
+        # the group size of the global token count; a rank holds whole groups
+        total = tokens * (C.axis_size(data_axis) if data_axis else 1)
+        s = _group_size(total, self.max_group_size)
+        if tokens % s:
+            raise ValueError(f"expert parallelism: a rank's {tokens} tokens do not hold whole "
+                             f"groups of {s} (the group size of {total} tokens)")
         g = tokens // s
         c = capacity(s, e, k, self.capacity_factor)
         cdt = self.dtype or x.dtype
         xt = x.reshape(g, s, d)
         sel, gate, probs = self.route(xt)
 
-        # Switch load-balance loss over the first choices
+        # Switch load-balance loss over the first choices, of the global batch
         f_e = F.one_hot(sel[..., 0], e).float().mean(dim=(0, 1))
-        self.aux_loss = (e * (f_e * probs.mean(dim=(0, 1))).sum()).detach()
+        p_e = probs.mean(dim=(0, 1))
+        if data_axis:
+            group = C.axis_group(data_axis)
+            f_e = C.sum_plain(f_e, group) / C.axis_size(data_axis)
+            p_e = C.all_reduce_mean(p_e, group)
+        aux = e * (f_e * p_e).sum()
+        self.aux_loss = aux if self.ep_axes else aux.detach()
 
         # rank-major capacity: choice r * S + i is token i's r-th pick
         choice = sel.transpose(1, 2).reshape(g, k * s)
         onehot = F.one_hot(choice, e)
         pos = (onehot.cumsum(dim=1) - onehot).gather(-1, choice.unsqueeze(-1)).squeeze(-1)
-        kept = pos < c
-        ec = e * c
-        slot = torch.where(kept, choice * c + pos, torch.full_like(choice, ec))
+        # the slots of the experts this rank holds (all of them on one device)
+        local = choice - e0
+        kept = (pos < c) & (local >= 0) & (local < e_local)
+        ec = e_local * c
+        slot = torch.where(kept, local * c + pos, torch.full_like(choice, ec))
         self.routing = {"sel": sel.detach(), "slot": slot.detach()}
 
         # the token that fills each (expert, slot); unfilled ones read row S,
@@ -139,7 +168,7 @@ class MoEFeedForward(nn.Module):
         rows = table[:, :ec] + torch.arange(g, device=x.device).unsqueeze(1) * (s + 1)
         xt_pad = torch.cat([xt.to(cdt), xt.new_zeros((g, 1, d), dtype=cdt)], dim=1)
         expert_in = xt_pad.reshape(g * (s + 1), d).index_select(0, rows.reshape(-1))
-        expert_in = expert_in.reshape(g, e, c, d)
+        expert_in = expert_in.reshape(g, e_local, c, d)
 
         h = (torch.einsum("gecd,edh->gech", expert_in, self.experts_proj_kernel.to(cdt))
              + self.experts_proj_bias.to(cdt)[:, None, :])
@@ -156,6 +185,8 @@ class MoEFeedForward(nn.Module):
         gate_flat = gate.transpose(1, 2).reshape(g, k * s)
         y = y.reshape(g, k * s, d) * gate_flat.unsqueeze(-1).to(cdt)
         y = y.reshape(g, k, s, d).sum(dim=1).reshape(b, n, d)
+        if expert_axis:  # the other experts' shares, from the ranks that hold them
+            y = C.psum(y, expert_axis)
         return self.drop(y.to(x.dtype))
 
 

@@ -15,7 +15,7 @@ from .common import (
     SetAbstraction,
     sync_batchnorms,
 )
-from .ptv3 import only_defaults
+from ..utils.collectives import all_gather
 
 
 class PointNet2SSG(SegHead):
@@ -29,6 +29,10 @@ class PointNet2SSG(SegHead):
     tests. The head's layers sit at the top of the state_dict (conv1, bn1,
     conv2) as in the reference, so the model extends SegHead. ``axis_name``
     syncs every BatchNorm over that mesh axis (:func:`sync_batchnorms`).
+    ``sp_axis`` runs the query axis of every level sliced over that mesh
+    axis, the inputs whole on every rank (models/common.py; JAX
+    pointnet2.py:49-87): fp1's output stays sliced through the head and the
+    logits are gathered once.
 
     On CUDA the model expects full float32 matmuls: set
     ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -45,16 +49,18 @@ class PointNet2SSG(SegHead):
         in_features: int = 3,
         generator: Optional[torch.Generator] = None,
         axis_name: Optional[str] = None,
+        sp_axis: Optional[str] = None,
     ):
         super().__init__(128, num_classes, 128, dropout_rate, generator)
         n1, n2, n3 = sa_npoints
-        g = generator
-        self.sa1 = SetAbstraction(n1, 0.1, 32, 3 + in_features, (64, 64, 128), g)
-        self.sa2 = SetAbstraction(n2, 0.2, 32, 3 + 128, (128, 128, 256), g)
-        self.sa3 = SetAbstraction(n3, 0.4, 32, 3 + 256, (256, 256, 512), g)
-        self.fp3 = FeaturePropagation(256 + 512, (256, 256), g)
-        self.fp2 = FeaturePropagation(128 + 256, (256, 128), g)
-        self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+        g, sp = generator, sp_axis
+        self.sp_axis = sp
+        self.sa1 = SetAbstraction(n1, 0.1, 32, 3 + in_features, (64, 64, 128), g, sp)
+        self.sa2 = SetAbstraction(n2, 0.2, 32, 3 + 128, (128, 128, 256), g, sp)
+        self.sa3 = SetAbstraction(n3, 0.4, 32, 3 + 256, (256, 256, 512), g, sp)
+        self.fp3 = FeaturePropagation(256 + 512, (256, 256), g, sp)
+        self.fp2 = FeaturePropagation(128 + 256, (256, 128), g, sp)
+        self.fp1 = FeaturePropagation(128, (128, 128, 128), g, sp, sp_gather=False)
         sync_batchnorms(self, axis_name)
 
     def forward(
@@ -66,7 +72,14 @@ class PointNet2SSG(SegHead):
         l2 = self.fp3(l2_xyz, l3_xyz, l2, l3)
         l1 = self.fp2(l1_xyz, l2_xyz, l1, l2)
         l0 = self.fp1(xyz, l1_xyz, None, l1)
-        return super().forward(l0)
+        return sharded_head(self, l0)
+
+
+def sharded_head(model: SegHead, x: torch.Tensor) -> torch.Tensor:
+    """The SegHead of ``model`` on x, its logits gathered over the model's
+    ``sp_axis`` where it has one."""
+    logits = SegHead.forward(model, x)
+    return all_gather(logits, model.sp_axis) if model.sp_axis else logits
 
 
 class PointNet2MSG(SegHead):
@@ -84,8 +97,8 @@ class PointNet2MSG(SegHead):
     both CLIs feed a model, 9 for the Partsize column contract [x_c, y_c, z,
     r, g, b, x_norm, y_norm, z_norm] (bench.py's ``feature_dim=9``).
     ``axis_name`` syncs every BatchNorm over that mesh axis; ``sp_axis``
-    raises unless None (ROADMAP.md, "Parallel layer, part 2"). On CUDA
-    it expects full float32 matmuls, as PointNet2SSG does.
+    slices the query axis as in PointNet2SSG (JAX pointnet2.py:90-144). On
+    CUDA it expects full float32 matmuls, as PointNet2SSG does.
     """
 
     BRANCHES = (
@@ -106,18 +119,18 @@ class PointNet2MSG(SegHead):
         sp_axis: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        only_defaults("PointNet2MSG", sp_axis=(sp_axis, None))
         super().__init__(128, num_classes, 128, dropout_rate, generator)
+        g, sp = generator, sp_axis
+        self.sp_axis = sp
         c = in_features
         for i, ((npoint, radii), mlps) in enumerate(zip(self.LEVELS, self.BRANCHES), start=1):
             setattr(self, f"sa{i}", MultiScaleSetAbstractionMsg(
-                npoint, radii, self.NSAMPLES, 3 + c, mlps, generator))
+                npoint, radii, self.NSAMPLES, 3 + c, mlps, g, sp))
             c = sum(m[-1] for m in mlps)
-        g = generator
-        self.fp4 = FeaturePropagation(512 + 1024, (256, 256), g)
-        self.fp3 = FeaturePropagation(256 + 256, (256, 256), g)
-        self.fp2 = FeaturePropagation(96 + 256, (256, 128), g)
-        self.fp1 = FeaturePropagation(128, (128, 128, 128), g)
+        self.fp4 = FeaturePropagation(512 + 1024, (256, 256), g, sp)
+        self.fp3 = FeaturePropagation(256 + 256, (256, 256), g, sp)
+        self.fp2 = FeaturePropagation(96 + 256, (256, 128), g, sp)
+        self.fp1 = FeaturePropagation(128, (128, 128, 128), g, sp, sp_gather=False)
         sync_batchnorms(self, axis_name)
 
     def forward(
@@ -131,4 +144,4 @@ class PointNet2MSG(SegHead):
         l2 = self.fp3(l2_xyz, l3_xyz, l2, l3)
         l1 = self.fp2(l1_xyz, l2_xyz, l1, l2)
         l0 = self.fp1(xyz, l1_xyz, None, l1)
-        return super().forward(l0)
+        return sharded_head(self, l0)

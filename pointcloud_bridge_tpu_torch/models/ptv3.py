@@ -32,8 +32,16 @@ The production options are ported for a single device:
   The parameters stay float32 in every option, so checkpoints interchange
   with the float32 model; casts are explicit where flax casts (no autocast,
   whose cast points differ). In bfloat16 attention takes the bf16 kernels.
-``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``); ``sp_axis`` is accepted
-by name and raises NotImplementedError unless left at None.
+``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``).
+
+``sp_axis`` is sequence parallelism over that mesh axis (parallel/sp.py,
+ptv3.py:182-205, 371-464). Global attention (``window_size`` 0): the
+caller hands each rank its slice of the N axis, attention runs as ring
+attention (parallel/ring.py) and everything else is pointwise. Windowed:
+the inputs arrive whole on every rank, the Morton sort runs on each, the
+sorted axis is cut on window boundaries, the trunk and head run on this
+rank's slice and the logits are gathered once before the inverse
+permutation. Set ``axis_name`` to the same axis for train-mode BatchNorm.
 """
 
 from __future__ import annotations
@@ -46,21 +54,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
+from ..utils.collectives import all_gather, axis_size, sp_shard_slice
 from .common import BatchNorm, Dense, Dropout, sync_batchnorms
 from .moe import MoEFeedForward
 
 LN_EPS = 1e-6  # every LayerNorm of the family (flax's default; torch's is 1e-5)
-
-
-def only_defaults(owner: str, **args) -> None:
-    """Raise unless every unported argument, given as name=(value, default),
-    was left at its default."""
-    for name, (value, default) in args.items():
-        if value != default:
-            raise NotImplementedError(
-                f"{owner}: {name}={value!r} is not ported to PyTorch yet "
-                f"(only {name}={default!r}); ROADMAP.md Queue 1, \"Parallel layer, part 2\""
-            )
 
 
 def torch_dtype(name: Union[str, torch.dtype, None]) -> Optional[torch.dtype]:
@@ -226,13 +224,16 @@ class PointAttention(nn.Module):
     window is global attention, so the pooled model's levels at or below
     ``window_size`` need no switch. ``attn_drop`` is accepted and unused, as
     in the JAX module. ``dtype`` is the compute type of both projections, and
-    so of q, k, v and the attention."""
+    so of q, k, v and the attention. With ``sp_axis`` and no window the N
+    axis is a shard of the cloud's and attention is ring attention over
+    that mesh axis (parallel/ring.py)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, window_size: int = 0,
                  generator: Optional[torch.Generator] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, sp_axis=None):
         super().__init__()
+        self.sp_axis = sp_axis
         if dim % num_heads:
             raise ValueError(f"PointAttention: dim {dim} not divisible by {num_heads} heads")
         self.num_heads = num_heads
@@ -248,6 +249,11 @@ class PointAttention(nn.Module):
         if pos_encoding is not None:
             x = x + pos_encoding
         q, k, v = self.qkv(x).reshape(b, n, 3, h, c // h).unbind(2)  # [B, N, H, D] each
+        if self.sp_axis and not w:
+            from ..parallel.ring import ring_attention
+
+            out = ring_attention(q, k, v, self.sp_axis).reshape(b, n, c)
+            return self.proj_drop(self.proj(out))
         if w and n % w == 0:
             q, k, v = (t.reshape(b * (n // w), w, h, c // h) for t in (q, k, v))
         out = attention(q, k, v).reshape(b, n, c)
@@ -269,13 +275,12 @@ class PointTransformerBlock(nn.Module):
                  stream_dtype: Union[str, torch.dtype, None] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        only_defaults("PointTransformerBlock", sp_axis=(sp_axis, None))
         sdt = torch_dtype(stream_dtype)
         cdt = sdt if sdt is not None else torch_dtype(dtype)
         hidden = int(dim * mlp_ratio)
         self.norm1 = LayerNorm(dim, dtype=sdt)
         self.attn = PointAttention(dim, num_heads, qkv_bias, attn_drop, drop, window_size,
-                                   generator, cdt)
+                                   generator, cdt, sp_axis)
         self.norm2 = LayerNorm(dim, dtype=sdt)
         if num_experts > 0:
             self.moe_mlp = MoEFeedForward(num_experts, hidden, dim, moe_top_k,
@@ -341,8 +346,8 @@ class PointTransformerV3(SegmentationHead):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__(embed_dim, num_classes, head_drop_rate, generator)
-        only_defaults("PointTransformerV3", sp_axis=(sp_axis, None))
         g = generator
+        self.sp_axis = sp_axis
         cdt = torch_dtype(compute_dtype)
         self.stream_dtype = torch_dtype(stream_dtype)
         self.remat = remat
@@ -356,7 +361,8 @@ class PointTransformerV3(SegmentationHead):
             moe_here = num_experts > 0 and i % moe_every == moe_every - 1
             setattr(self, f"block{i}", PointTransformerBlock(
                 embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate, attn_drop_rate,
-                window_size, dtype=cdt, num_experts=num_experts if moe_here else 0,
+                window_size, sp_axis=sp_axis, dtype=cdt,
+                num_experts=num_experts if moe_here else 0,
                 moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
                 stream_dtype=self.stream_dtype, generator=g))
         sync_batchnorms(self, axis_name)
@@ -365,12 +371,21 @@ class PointTransformerV3(SegmentationHead):
                 features: Optional[torch.Tensor]) -> torch.Tensor:
         x = input_channels(xyz, features, self.d_in)
         inv_order = None
+        sp_windowed = bool(self.sp_axis) and self.window_size > 0
+        if sp_windowed:
+            p = axis_size(self.sp_axis)
+            if (xyz.shape[1] // p) % self.window_size:
+                raise ValueError(
+                    f"windowed sp: per-shard point count {xyz.shape[1] // p} must be a "
+                    f"multiple of window_size {self.window_size}")
         if self.window_size:
             # serialise: windows of the sorted axis are spatially compact
             order, inv_order = serialize(xyz)
             x = take_rows(x, order)
             # the first 3 channels of x are xyz, sorted with it
             xyz = x[..., :3] if self.d_in >= 3 else take_rows(xyz, order)
+        if sp_windowed:  # this rank's complete windows of the sorted axis
+            x, xyz = sp_shard_slice(x, self.sp_axis), sp_shard_slice(xyz, self.sp_axis)
         x = self.patch_norm(widen(self.patch_embed(x)))
         pos = self.pos_embed(xyz)
         if self.stream_dtype is not None:  # enter the stream
@@ -378,4 +393,6 @@ class PointTransformerV3(SegmentationHead):
         for i in range(self.depth):
             x = run_block(getattr(self, f"block{i}"), x, pos, self.remat)
         logits = self.head(x)
+        if sp_windowed:
+            logits = all_gather(logits, self.sp_axis)
         return logits if inv_order is None else take_rows(logits, inv_order)

@@ -14,8 +14,18 @@ Layers carry the flax names (``enc1_block0.mlp.geglu.proj``, ``pool0.proj``,
 level's x and positional encoding enter the stream before its blocks and
 leave it after them, and the pooling and unpooling projections compute in
 ``compute_dtype`` with their LayerNorms in float32
-(ptv3_pooled.py:59-98, 243-307). ``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``);
-``sp_axis`` raises NotImplementedError unless left at None.
+(ptv3_pooled.py:59-98, 243-307). ``axis_name`` syncs every BatchNorm over that mesh axis (``sync_batchnorms``).
+
+``sp_axis`` is sequence parallelism in the whole-input contract of the
+windowed flat model, a level at a time (ptv3_pooled.py:31-41, 198-322):
+the inputs arrive whole on every rank and are sorted on each. A level whose
+slice of the sorted axis holds complete windows runs SHARDED (this rank's
+contiguous slice; a slice's children pool to exactly that slice's
+parents); any other level runs FULL, the same on every rank. One gather
+(sharded to full) or one slice (full to sharded) moves between levels, the
+per-level xyz stays whole on every rank, and the logits are gathered once
+before the inverse permutation. Set ``axis_name`` to the same axis for
+train-mode BatchNorm.
 """
 
 from __future__ import annotations
@@ -25,13 +35,13 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..utils.collectives import all_gather, axis_size, sp_shard_slice
 from .common import Dense, sync_batchnorms
 from .ptv3 import (
     LN_EPS,
     PointTransformerBlock,
     SegmentationHead,
     input_channels,
-    only_defaults,
     run_block,
     serialize,
     take_rows,
@@ -115,7 +125,7 @@ class PointTransformerV3Pooled(SegmentationHead):
     ):
         dims, strides = tuple(dims), tuple(strides)
         super().__init__(dims[0], num_classes, head_drop_rate, generator)
-        only_defaults("PointTransformerV3Pooled", sp_axis=(sp_axis, None))
+        self.sp_axis = sp_axis
         cdt = torch_dtype(compute_dtype)
         self.stream_dtype = torch_dtype(stream_dtype)
         self.remat = remat
@@ -192,17 +202,66 @@ class PointTransformerV3Pooled(SegmentationHead):
         x = take_rows(input_channels(xyz, features, self.d_in), order)
         # the first 3 channels of x are xyz, sorted with it
         xyz_lv = [x[..., :3] if self.d_in >= 3 else take_rows(xyz, order)]
+        if self.sp_axis:
+            # every level's xyz, whole on every rank (a sharded pool's means
+            # are its slice's alone): the segment means of its children
+            for lv, s in enumerate(self.strides):
+                b, m, _ = xyz_lv[lv].shape
+                xyz_lv.append(xyz_lv[lv].reshape(b, m // s, s, 3).mean(dim=2))
+        levels = len(self.dims)
+        modes = self._sp_modes(n)
+        if modes[0] == "sharded":  # embed this rank's slice alone
+            x = sp_shard_slice(x, self.sp_axis)
 
         x = self.patch_norm(widen(self.patch_embed(x)))
-        levels = len(self.dims)
         skips = []
         for lv in range(levels):
-            x = self._run_blocks(x, xyz_lv[lv], f"enc{lv}", self.enc_depths[lv])
+            x = self._run_blocks(x, self._level_xyz(xyz_lv[lv], modes[lv]), f"enc{lv}",
+                                 self.enc_depths[lv])
             if lv < levels - 1:
                 skips.append(x)
-                x, xyz_coarse = getattr(self, f"pool{lv}")(x, xyz_lv[lv])
-                xyz_lv.append(xyz_coarse)
+                if modes[lv] == "sharded" and x.shape[1] % self.strides[lv]:
+                    raise ValueError(f"sp pooling: per-shard count {x.shape[1]} not "
+                                     f"divisible by stride {self.strides[lv]}")
+                x, xyz_coarse = getattr(self, f"pool{lv}")(
+                    x, self._level_xyz(xyz_lv[lv], modes[lv]))
+                if not self.sp_axis:
+                    xyz_lv.append(xyz_coarse)
+                x = self._to_mode(x, modes[lv], modes[lv + 1])
         for lv in range(levels - 2, -1, -1):
+            # a rank's children pool to exactly its parents (contiguous
+            # nesting): the child level's slice of parents is the coarse
+            # level's slice
+            x = self._to_mode(x, modes[lv + 1], modes[lv])
             x = getattr(self, f"unpool{lv}")(x, skips[lv])
-            x = self._run_blocks(x, xyz_lv[lv], f"dec{lv}", self.dec_depths[lv])
-        return take_rows(self.head(x), inv_order)
+            x = self._run_blocks(x, self._level_xyz(xyz_lv[lv], modes[lv]), f"dec{lv}",
+                                 self.dec_depths[lv])
+        logits = self.head(x)
+        if modes[0] == "sharded":
+            logits = all_gather(logits, self.sp_axis)
+        return take_rows(logits, inv_order)
+
+    def _sp_modes(self, n: int) -> list:
+        """Each level's state: "single" without ``sp_axis``; "sharded" where
+        the level's slice of the sorted axis holds complete windows; "full"
+        elsewhere (the small coarse levels, attended globally)."""
+        if not self.sp_axis:
+            return ["single"] * len(self.dims)
+        p = axis_size(self.sp_axis)
+        modes = []
+        for lv in range(len(self.dims)):
+            win = self._level_window(n)
+            modes.append("sharded" if win and n % p == 0 and (n // p) % win == 0 else "full")
+            if lv < len(self.strides):
+                n //= self.strides[lv]
+        return modes
+
+    def _to_mode(self, t: torch.Tensor, cur: str, want: str) -> torch.Tensor:
+        if cur == "full" and want == "sharded":
+            return sp_shard_slice(t, self.sp_axis)
+        if cur == "sharded" and want == "full":
+            return all_gather(t, self.sp_axis)
+        return t
+
+    def _level_xyz(self, xyz: torch.Tensor, mode: str) -> torch.Tensor:
+        return sp_shard_slice(xyz, self.sp_axis) if mode == "sharded" else xyz

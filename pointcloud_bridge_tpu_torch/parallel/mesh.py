@@ -21,7 +21,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..train.loop import batch_to_device
-from ..utils.collectives import bind_axis
+from ..utils.collectives import bind_mesh_axes
 
 
 def world_size() -> int:
@@ -45,8 +45,7 @@ def make_named_mesh(shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
         raise ValueError(f"a mesh of shape {shape} over a world of {world} ranks")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     mesh = init_device_mesh(device_type, shape, mesh_dim_names=tuple(axes))
-    for axis in axes:
-        bind_axis(axis, mesh.get_group(axis))
+    bind_mesh_axes(tuple(axes), {a: mesh.get_group(a) for a in axes}, dist.group.WORLD)
     return mesh
 
 

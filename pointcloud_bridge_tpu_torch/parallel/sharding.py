@@ -30,14 +30,13 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import losses as L
 from ..models.common import Dense, PointConv
 from ..train.loop import loss_fn_for, set_lr
 from ..utils import metrics as M
-from ..utils.collectives import gather_rows
+from ..utils.collectives import gather_list, gather_rows
 from .mesh import make_named_mesh, rank_rows, shard_batch
 from .train_step import all_reduce_bucket_, gradients
 
@@ -51,9 +50,7 @@ def make_2d_mesh(dp: int, tp: int) -> DeviceMesh:
 
 def gather_plain(t: torch.Tensor, group: Any, dim: int = 0) -> torch.Tensor:
     """The group's tensors concatenated along ``dim``, outside autograd."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim)
+    return torch.cat(gather_list(t, group), dim)
 
 
 def _column_parallel(module: torch.nn.Module, tp: int, min_elems: int) -> bool:

@@ -16,9 +16,8 @@ host batches (:func:`group_batches`, :class:`MultiTrainStep`,
 :class:`MultiEvalStep`): on the card a dispatch is one replay of a CUDA
 graph of exactly the eager step's body, on the CPU the same K eager steps
 in a loop. ``parallel.num_devices`` > 1 (or -1 over a world above one)
-with ``parallel.mode`` dp, tp or fsdp trains on a mesh inside the
-initialised process group (parallel/engine.py); sp, pp and ep raise
-NotImplementedError ("Parallel layer, part 2").
+with ``parallel.mode`` dp, tp, fsdp, sp, pp or ep trains on a mesh inside
+the initialised process group (parallel/engine.py).
 """
 
 from __future__ import annotations
@@ -583,16 +582,20 @@ def train(
         logger.addHandler(logging.NullHandler())
         logger.propagate = False
 
-    # the mesh's BatchNorms take the whole batch's statistics: dp as the JAX
-    # trainer sets axis_name; tp and fsdp too, since each rank sees its rows
-    # alone where GSPMD's single program saw them all (parallel/fsdp.py)
-    axis = None if engine is None else engine.axis
+    # the mesh's BatchNorms take the whole batch's statistics: dp and sp as
+    # the JAX trainer sets axis_name; tp, fsdp and ep too, since each rank
+    # sees its rows alone where GSPMD's single program saw them all
+    # (parallel/fsdp.py); sp also names the model's sp_axis
+    axes = {} if engine is None else engine.model_axes()
     if model is None:
         gen = torch.Generator().manual_seed(tcfg.seed)
-        extra = dict(mcfg.extra, axis_name=axis) if axis else mcfg.extra
-        model = get_model(mcfg.name, mcfg.num_classes, generator=gen, **extra)
-    elif axis:
-        sync_batchnorms(model, axis)
+        model = get_model(mcfg.name, mcfg.num_classes, generator=gen, **dict(mcfg.extra, **axes))
+    elif "sp_axis" in axes:
+        raise ValueError("parallel.mode=sp builds its model itself (with sp_axis): pass none")
+    elif axes:
+        sync_batchnorms(model, axes["axis_name"])
+    if engine is not None:
+        engine.check_model(model)
     model.to(device)
     seed = tcfg.seed if engine is None else rank_seed(tcfg.seed, engine.data_rank)
     dropout_gen = torch.Generator(device=device).manual_seed(seed)

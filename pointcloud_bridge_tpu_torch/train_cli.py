@@ -10,10 +10,10 @@ Trains on the first CUDA device; without one it stops with an error.
 ``--device cpu`` runs the plain PyTorch ops on the CPU and is meant for
 tests.
 
-On a mesh (the config's ``parallel: {num_devices: -1, mode: dp}``, or tp
-or fsdp) one process a GPU, started by torchrun, which sets the ranks'
-environment; the CLI opens the process group (NCCL, or gloo with
-``--device cpu``) and closes it at the end:
+On a mesh (the config's ``parallel: {num_devices: -1, mode: dp}``, or tp,
+fsdp, sp, pp or ep) one process a GPU, started by torchrun, which sets
+the ranks' environment; the CLI opens the process group (NCCL, or gloo
+with ``--device cpu``) and closes it at the end:
     torchrun --nproc_per_node 4 -m pointcloud_bridge_tpu_torch.train_cli \
         --config dp.yaml --train-dir data/train
 """

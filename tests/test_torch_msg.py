@@ -243,15 +243,19 @@ def test_default_takes_the_colours_the_clis_feed():
 
 @pytest.mark.parametrize("arg", ["axis_name", "sp_axis"])
 def test_unported_arguments_raise(arg):
-    """sp_axis raises (ROADMAP.md, "Parallel layer, part 2"); axis_name,
-    refused until the parallel layer was ported, syncs every BatchNorm."""
+    """axis_name syncs every BatchNorm; sp_axis slices every level's
+    queries over that mesh axis, and a forward raises where no mesh bound
+    the axis, as the JAX model raises on an unbound axis name."""
     from test_torch_cls_models import all_bns_synced
 
     if arg == "axis_name":
         assert all_bns_synced(get_model("pointnet2_msg", 5, axis_name="data"), "data")
     else:
-        with pytest.raises(NotImplementedError, match="Parallel layer, part 2"):
-            get_model("pointnet2_msg", 5, **{arg: "data"})
+        model = get_model("pointnet2_msg", 5, **{arg: "unbound_sp"}).eval()
+        assert all(getattr(model, f"sa{i}").sp_axis == "unbound_sp" for i in range(1, 5))
+        assert model.fp1.sp_axis == "unbound_sp" and not model.fp1.sp_gather
+        with torch.no_grad(), pytest.raises(RuntimeError, match="bound to no process group"):
+            model(torch.rand(1, 64, 3), torch.rand(1, 64, 3))
     get_model("pointnet2_msg", 5, **{arg: None})
 
 

@@ -10,8 +10,10 @@ dp at two steps a dispatch gives the bits of one, and resumes from rank
 trainer's refusals raise before any collective: a batch the mesh does not
 divide, a ``tp_axis_size`` that does not divide the devices, accumulation
 or multi-step dispatch with tp or fsdp (and accumulation with dp, which the
-JAX dp step leaves unread), and sp, pp and ep, which are "Parallel layer,
-part 2"."""
+JAX dp step leaves unread), accumulation with sp, multi-step dispatch with
+pp and ep on a model without experts. sp (the registry's SSG), pp (its
+ptv3 over two stages) and ep (its ptv3_moe on a 1 x 2 mesh) train an epoch
+too, and ``infer_cli`` serves their checkpoints."""
 
 import torch_cpu  # noqa: F401  (first: torch's threads a worker)
 
@@ -49,9 +51,9 @@ def engine(tmp_path_factory):
     ("tp_dispatch", "ValueError", "steps_per_dispatch is not supported with parallel.mode=tp"),
     ("fsdp_dispatch", "ValueError",
      "steps_per_dispatch is not supported with parallel.mode=fsdp"),
-    ("sp", "NotImplementedError", "Parallel layer, part 2"),
-    ("pp", "NotImplementedError", "Parallel layer, part 2"),
-    ("ep", "NotImplementedError", "Parallel layer, part 2"),
+    ("sp", "ValueError", "accum_steps is not supported with parallel.mode=sp"),
+    ("pp", "ValueError", "steps_per_dispatch is not supported with parallel.mode=pp"),
+    ("ep", "ValueError", "parallel.mode=ep requires a mixture-of-experts model"),
 ])
 def test_mesh_refusals(engine, case, kind, pattern):
     for r in engine[1:]:
@@ -59,7 +61,10 @@ def test_mesh_refusals(engine, case, kind, pattern):
         assert msg is not None and msg.startswith(kind) and pattern in msg, msg
 
 
-@pytest.mark.parametrize("mode", ["dp", "tp", "fsdp"])
+MODELS = {"sp": "pointnet2_ssg", "pp": "ptv3", "ep": "ptv3_moe"}
+
+
+@pytest.mark.parametrize("mode", ["dp", "tp", "fsdp", "sp", "pp", "ep"])
 def test_rank_0_writes_a_single_device_checkpoint(engine, mode):
     root, r0, r1 = engine
     exp = r0[mode]["exp_dir"]
@@ -70,15 +75,15 @@ def test_rank_0_writes_a_single_device_checkpoint(engine, mode):
         assert np.isfinite(row["train_loss"]) and 0.0 <= row["val_acc"] <= 1.0
     # the ranks agree on every number of the epoch but its wall time
     assert _rows(r0[mode]["history"]) == _rows(r1[mode]["history"])
-    extra = {} if mode == "dp" else {"sa_npoints": SA_NPOINTS}
-    model = get_model("pointnet2_ssg", 5, **extra)
+    extra = {} if mode in ("dp", "sp", "pp", "ep") else {"sa_npoints": SA_NPOINTS}
+    model = get_model(MODELS.get(mode, "pointnet2_ssg"), 5, **extra)
     ckpt = restore_checkpoint(os.path.join(exp, "latest_checkpoint"), map_location="cpu")
     model.load_state_dict(ckpt["model"], strict=True)
     opt = torch.optim.Adam(model.parameters())
     opt.load_state_dict(ckpt["optimizer"])  # the moments in the model's layout
     for k, v in ckpt["model"].items():
         assert torch.equal(v, r1[mode]["state"][k]), k
-    if mode != "dp":  # the EMA weights, gathered, beside them
+    if mode not in ("dp", "sp"):  # the EMA weights, gathered, beside them
         ema = restore_checkpoint(os.path.join(exp, "latest_ema"), map_location="cpu")["model"]
         assert {k: v.shape for k, v in ema.items()} == {
             k: p.shape for k, p in model.named_parameters()}
@@ -92,6 +97,21 @@ def test_infer_cli_serves_the_dp_checkpoint(engine, capsys):
         "blocks", "--checkpoint", r0["dp"]["exp_dir"], "--data-dir", str(root / "scenes"),
         "--out-dir", str(root / "served"), "--num-points", "128", "--batch-size", "8",
         "--device", "cpu",
+    ])
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GLOBAL")][-1]
+    m = re.fullmatch(r"GLOBAL mIoU=([\d.]+) OA=([\d.]+) mAcc=([\d.]+) F1=([\d.]+)", line)
+    assert m and all(0.0 <= float(v) <= 1.0 for v in m.groups()), line
+
+
+@pytest.mark.parametrize("mode", ["sp", "pp", "ep"])
+def test_infer_cli_serves_the_sp_pp_and_ep_checkpoints(engine, capsys, mode):
+    from pointcloud_bridge_tpu_torch import infer_cli
+
+    root, r0, _ = engine
+    infer_cli.main([
+        "blocks", "--checkpoint", r0[mode]["exp_dir"], "--model", MODELS[mode],
+        "--data-dir", str(root / "scenes"), "--out-dir", str(root / f"served_{mode}"),
+        "--num-points", "128", "--batch-size", "8", "--device", "cpu",
     ])
     line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GLOBAL")][-1]
     m = re.fullmatch(r"GLOBAL mIoU=([\d.]+) OA=([\d.]+) mAcc=([\d.]+) F1=([\d.]+)", line)

@@ -1,0 +1,32 @@
+"""The port's sequence parallelism (parallel/sp.py) over BriStruNet
+against the JAX package's ``make_sp_train_step``, on the CPU: four
+gloo ranks (tests/torch_ranks.py's ``sp_bristrunet`` job, spawned once)
+against the JAX step on four of the conftest's virtual devices under
+``shard_map``.
+
+BriStruNet in the whole-input contract: the queries sliced, FPS and its
+k-NN encoder whole on every rank, the logits gathered. The tests, their seeded
+weights, skewed batch and bands are tests/test_torch_parallel_sp.py's,
+run here over this file's CASES.
+"""
+
+import torch_cpu  # noqa: F401  (first: torch's threads a worker)
+
+import pytest
+
+from test_torch_parallel_sp import (  # noqa: F401  (the tests, collected here too)
+    pytest_generate_tests,
+    run_cases,
+    test_sp_forward_and_eval_match_the_single_process_model,
+    test_sp_loss_is_the_global_weighted_loss,
+    test_sp_ranks_hold_the_same_step,
+    test_sp_step_matches_jax,
+)
+MODELS = ["bristrunet"]
+CASES = MODELS
+JOB = "sp_bristrunet"
+
+
+@pytest.fixture(scope="module")
+def sp(request, tmp_path_factory):
+    return run_cases(request.module, tmp_path_factory)

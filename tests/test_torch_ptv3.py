@@ -369,16 +369,20 @@ def test_registry_rules_cover_the_registry_default_model(name):
     (PointTransformerV3Pooled, {"sp_axis": "sp"}),
 ], ids=lambda v: v.__name__ if isinstance(v, type) else "-".join(v))
 def test_unported_arguments_raise(cls, kwargs):
-    """sp_axis raises (ROADMAP.md, "Parallel layer, part 2"); axis_name,
-    refused until the parallel layer was ported, syncs the head's
-    BatchNorm."""
+    """axis_name syncs the head's BatchNorm; sp_axis runs the model
+    sequence-parallel over that mesh axis (global attention as ring
+    attention, the pooled model's levels sliced or whole), and a forward
+    raises where no mesh bound the axis, as the JAX model raises on an
+    unbound axis name."""
     from test_torch_cls_models import all_bns_synced
 
     if "axis_name" in kwargs:
         assert all_bns_synced(cls(**kwargs), kwargs["axis_name"])
         return
-    with pytest.raises(NotImplementedError, match="Parallel layer, part 2"):
-        cls(**kwargs)
+    model = cls(**kwargs).eval()
+    assert model.sp_axis == kwargs["sp_axis"]
+    with torch.no_grad(), pytest.raises(RuntimeError, match="bound to no process group"):
+        model(torch.rand(1, 64, 3), torch.rand(1, 64, 3))
 
 
 def _shapes(module):

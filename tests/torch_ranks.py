@@ -437,7 +437,8 @@ def engine(rank, world, path):
         "fsdp_accum": dict(mode="fsdp", accum_steps=2), "dp_accum": dict(accum_steps=2),
         "tp_dispatch": dict(mode="tp", steps_per_dispatch=2),
         "fsdp_dispatch": dict(mode="fsdp", steps_per_dispatch=2),
-        "sp": dict(mode="sp"), "pp": dict(mode="pp"), "ep": dict(mode="ep"),
+        "sp": dict(mode="sp", accum_steps=2), "pp": dict(mode="pp", steps_per_dispatch=2),
+        "ep": dict(mode="ep"),
     }
     for name, kw in cases.items():
         cfg = engine_config(path, **kw)
@@ -456,6 +457,17 @@ def engine(rank, world, path):
         res = train(cfg, tr, va, exp_dir=os.path.join(path, f"exp_{mode}"))
         out[mode] = {"history": res["history"], "exp_dir": res["exp_dir"],
                      "state": res["state"]["model"]}
+    # sp at the registry's SSG (queries sliced over the ranks), pp of the
+    # registry's ptv3 over two stages and ep of its ptv3_moe on a 1 x 2
+    # mesh, the last two with the EMA
+    for mode, name in (("sp", "pointnet2_ssg"), ("pp", "ptv3"), ("ep", "ptv3_moe")):
+        cfg = engine_config(path, mode=mode, ep_axis_size=2)
+        cfg.model.name = name
+        if mode != "sp":
+            cfg.train.ema_decay = 0.9
+        res = train(cfg, tr, va, exp_dir=os.path.join(path, f"exp_{mode}"))
+        out[mode] = {"history": res["history"], "exp_dir": res["exp_dir"],
+                     "state": res["state"]["model"]}
     # dp at two steps a dispatch (eager on the CPU) against one, at the
     # tests' SSG; then one more epoch of the latter, resumed from its
     # checkpoint
@@ -470,6 +482,330 @@ def engine(rank, world, path):
     res = train(cfg, tr, va, exp_dir=os.path.join(path, "exp_spd1"), resume=True)
     out["resumed"] = {"history": res["history"], "state": res["state"]["model"]}
     return out
+
+
+# ------------------------------------------------------------ part 2: sp, pp, ep
+
+
+RING_SHAPE = (2, 64, 2, 32)  # B, N, H, D
+
+
+def ring_inputs():
+    """q, k, v and an output cotangent of RING_SHAPE, float32, from a seed."""
+    rng = np.random.default_rng(21)
+    return [rng.normal(size=RING_SHAPE).astype(np.float32) * s for s in (2.0, 2.0, 1.0, 1.0)]
+
+
+@job
+def ring(rank, world, path):
+    """ring_attention and ring_attention_plain on this rank's slice of N,
+    with the gradients of <out, cotangent>; then ring_attention on bf16
+    inputs."""
+    from pointcloud_bridge_tpu_torch.parallel import make_mesh, ring_attention
+    from pointcloud_bridge_tpu_torch.parallel.ring import ring_attention_plain
+
+    make_mesh(world, "sp")
+    n = RING_SHAPE[1] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    q, k, v, g = (torch.from_numpy(a[:, rows].copy()) for a in ring_inputs())
+    out = {}
+    for name, fn in (("ring", ring_attention), ("plain", ring_attention_plain)):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*qkv, "sp")
+        (o * g).sum().backward()
+        out[name] = {"out": o.detach(), "grads": [t.grad for t in qkv]}
+    bf = ring_attention(*(t.bfloat16() for t in (q, k, v)), "sp")
+    out["bf16"] = bf.float() if bf.dtype == torch.bfloat16 else None
+    return out
+
+
+# name -> (registry name, model kwargs, shard_inputs, B, N)
+SP_CASES = {
+    "ptv3": ("ptv3", dict(embed_dim=64, depth=2, num_heads=2), True, 4, 64),
+    "windowed_ptv3": ("ptv3", dict(embed_dim=64, depth=2, num_heads=2, window_size=16), False,
+                      4, 64),
+    "ptv3_pooled": ("ptv3_pooled", dict(dims=(32, 32, 32), enc_depths=(1, 1, 1),
+                                        dec_depths=(1, 1), strides=(4, 4), window_size=8),
+                    False, 2, 128),
+    "pointnet2_ssg": ("pointnet2_ssg", dict(sa_npoints=SA_NPOINTS), False, 4, 64),
+    "pointnet2_msg": ("pointnet2_msg", dict(), False, 1, 1280),
+    "bristrunet": ("bristrunet", dict(sa_npoints=SA_NPOINTS), False, 2, 64),
+}
+SP_PTV3 = ("ptv3", "windowed_ptv3", "ptv3_pooled")
+SP_POINTNET = ("pointnet2_ssg", "pointnet2_msg")
+
+
+def sp_model(case: str, **axes):
+    """SP_CASES[case]'s model drawn from a seed, its BatchNorms moved, its
+    Dropouts off, in train mode."""
+    from pointcloud_bridge_tpu_torch.models import Dropout, get_model
+
+    name, kw, *_ = SP_CASES[case]
+    model = get_model(name, 5, generator=torch.Generator().manual_seed(7), **kw, **axes)
+    randomize_bn(model, torch.Generator().manual_seed(8))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model.train()
+
+
+def n_skewed_batch(b: int, n: int, seed: int = 0):
+    """A batch whose first half of every cloud's points draws its labels
+    from classes 0-1 and whose second half from 2-4: shards of the N axis
+    see different label mixes."""
+    rng = np.random.default_rng(seed)
+    labels = np.concatenate([rng.integers(0, 2, (b, n // 2)), rng.integers(2, 5, (b, n - n // 2))],
+                            axis=1)
+    return {"points": rng.uniform(size=(b, n, 3)).astype(np.float32),
+            "colors": rng.uniform(size=(b, n, 3)).astype(np.float32),
+            "labels": labels.astype(np.int32), "mask": np.ones(b, bool)}
+
+
+def _sp_run(case, mesh, dp_axis=None):
+    from pointcloud_bridge_tpu_torch.parallel import (
+        make_sp_eval_step, make_sp_forward, make_sp_train_step, shard_sp_batch)
+
+    loss_cfg, cw = _setup()
+    _, _, shard, b, n = SP_CASES[case]
+    axis_name = ("data", "sp") if dp_axis else "sp"
+    model = sp_model(case, sp_axis="sp", axis_name=axis_name)
+    local = shard_sp_batch(n_skewed_batch(b, n), mesh, "sp", dp_axis, shard, device="cpu")
+    out = {}
+    if not dp_axis:
+        out["forward"] = make_sp_forward(model)(local["points"], local["colors"])
+        cm, loss = make_sp_eval_step(model, 5, "sp", shard)(local, cw)
+        out["eval"] = (cm.clone(), float(loss))
+    step = make_sp_train_step(model, loss_cfg, torch.optim.SGD(model.parameters(), SGD_LR),
+                              "sp", dp_axis)
+    m = step(local, SGD_LR, cw)
+    out.update(loss=float(m["loss"]), acc=float(m["acc"]), grads=grads_of(model),
+               stats=bn_buffers(model))
+    return out
+
+
+@job
+def sp(rank, world, path):
+    """One sp train step (plain SGD) of each PTv3 model of SP_CASES over a
+    mesh of the world, with its eval step and forward, the multi-step, then
+    ptv3 on a 2 x (world / 2) ("data", "sp") mesh."""
+    from pointcloud_bridge_tpu_torch.parallel import make_mesh, make_named_mesh
+
+    mesh = make_mesh(world, "sp")
+    out = {case: _sp_run(case, mesh) for case in SP_PTV3}
+    out["multi"] = _sp_multi(mesh)
+    out["dp_x_sp"] = _sp_run("ptv3", make_named_mesh((2, world // 2), ("data", "sp")), "data")
+    return out
+
+
+def _sp_cases(world, cases) -> dict:
+    from pointcloud_bridge_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(world, "sp")
+    return {case: _sp_run(case, mesh) for case in cases}
+
+
+@job
+def sp_pointnet(rank, world, path):
+    """The sp job's step, eval step and forward for SSG and MSG (queries
+    sliced, inputs whole)."""
+    return _sp_cases(world, SP_POINTNET)
+
+
+@job
+def sp_bristrunet(rank, world, path):
+    """The same for BriStruNet."""
+    return _sp_cases(world, ("bristrunet",))
+
+
+def _sp_multi(mesh) -> dict:
+    """K = 2 sp steps of global ptv3 a dispatch with the EMA, and the same
+    two batches as single sp steps."""
+    from pointcloud_bridge_tpu_torch.parallel import (
+        make_sp_multi_train_step, make_sp_train_step, shard_sp_batch)
+    from pointcloud_bridge_tpu_torch.train.loop import ema_update
+
+    loss_cfg, cw = _setup()
+    _, _, shard, b, n = SP_CASES["ptv3"]
+    both = stacked(n_skewed_batch(b, n, seed=1), n_skewed_batch(b, n, seed=2))
+    local = shard_sp_batch(both, mesh, "sp", None, shard, dim=1, device="cpu")
+    model = sp_model("ptv3", sp_axis="sp", axis_name="sp")
+    ema = {k: p.detach().clone() for k, p in model.named_parameters()}
+    m = make_sp_multi_train_step(model, loss_cfg, torch.optim.SGD(model.parameters(), SGD_LR),
+                                 2, "sp", ema=ema, ema_decay=EMA_DECAY)(local, SGD_LR, cw)
+    out = {"loss": m["loss"].clone(), "state": state_of(model), "ema": ema}
+    model = sp_model("ptv3", sp_axis="sp", axis_name="sp")
+    params = dict(model.named_parameters())
+    ema = {k: p.detach().clone() for k, p in params.items()}
+    step = make_sp_train_step(model, loss_cfg, torch.optim.SGD(model.parameters(), SGD_LR), "sp")
+    losses = []
+    for i in range(2):
+        losses.append(step({k: v[i] for k, v in local.items()}, SGD_LR, cw)["loss"].clone())
+        ema_update(ema, params, EMA_DECAY)
+    out["single"] = {"loss": torch.stack(losses), "state": state_of(model), "ema": ema}
+    return out
+
+
+PP_KW = dict(embed_dim=64, depth=4, num_heads=2)
+
+
+def pp_model(window: int = 0, **axes):
+    """ptv3 of PP_KW (four blocks), drawn from a seed, dropout off."""
+    from pointcloud_bridge_tpu_torch.models import Dropout, get_model
+
+    model = get_model("ptv3", 5, generator=torch.Generator().manual_seed(11), window_size=window,
+                      **PP_KW, **axes)
+    randomize_bn(model, torch.Generator().manual_seed(12))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model.train()
+
+
+def _pp_run(mesh, window=0, dp_axis=None, adam=False):
+    from pointcloud_bridge_tpu_torch.parallel import (
+        make_pp_forward, make_pp_state, make_pp_train_step, pp_place_state)
+    from pointcloud_bridge_tpu_torch.parallel.mesh import shard_batch
+    from pointcloud_bridge_tpu_torch.train import make_optimizer
+    from pointcloud_bridge_tpu_torch.train.loop import batch_to_device
+
+    loss_cfg, cw = _setup()
+    batch = skewed_batch(4, 64)
+    local = shard_batch(batch, mesh, dp_axis) if dp_axis else batch_to_device(batch, "cpu")
+    model = pp_model(window, **({"axis_name": dp_axis} if dp_axis else {}))
+    out = {}
+    if not (dp_axis or adam):
+        out["forward"] = make_pp_forward(model, mesh, "pp", 2)(local["points"], local["colors"])
+    opt = make_optimizer(model.parameters(), 1e-4) if adam else torch.optim.SGD(
+        model.parameters(), SGD_LR)
+    step, stages = make_pp_train_step(model, loss_cfg, opt, mesh, "pp", 2, dp_axis)
+    m = step(local, ADAM_LR if adam else SGD_LR, cw)
+    out.update(loss=float(m["loss"]), acc=float(m["acc"]),
+               local=sorted(k for k, _ in model.named_parameters()),
+               grads=stages.full_tensors(grads_of(model)), state=stages.full_state())
+    if adam:
+        out["optimizer"] = stages.full_optimizer_state(opt)
+        whole = pp_model()
+        whole.load_state_dict(out["state"])
+        whole_opt = torch.optim.Adam(whole.parameters())
+        whole_opt.load_state_dict(out["optimizer"])
+        out["stacked"] = {"stage": stages.stacked_state(optimizer=opt),
+                          "placed": pp_place_state(make_pp_state(whole, whole_opt), mesh)}
+    return out
+
+
+@job
+def pp(rank, world, path):
+    """pp train steps of ptv3 over a pipeline of the world's ranks (M = 2):
+    global attention (with its eval forward), windowed (Morton-sorted),
+    and an Adam step gathered back with its moments; then a 2 x (world /
+    2) ("data", "pp") mesh."""
+    from pointcloud_bridge_tpu_torch.parallel import make_mesh, make_named_mesh
+
+    mesh = make_mesh(world, "pp")
+    out = {"global": _pp_run(mesh), "morton": _pp_run(mesh, window=16),
+           "adam": _pp_run(mesh, adam=True)}
+    out["dp_x_pp"] = _pp_run(make_named_mesh((2, world // 2), ("data", "pp")), dp_axis="data")
+    out["refusals"] = _pp_refusals(make_mesh(world, "pp"))
+    return out
+
+
+def _pp_refusals(mesh) -> dict:
+    """The JAX step's refusals (pp.py:64-69, 153-156, 158-162, 221-224):
+    each message, raised before any collective."""
+    from pointcloud_bridge_tpu_torch.models import get_model
+    from pointcloud_bridge_tpu_torch.parallel import make_pp_train_step
+    from pointcloud_bridge_tpu_torch.train.loop import batch_to_device
+
+    loss_cfg, cw = _setup()
+    cases = {
+        "depth": lambda: get_model("ptv3", 5, embed_dim=32, depth=3, num_heads=2),
+        "sp_axis": lambda: get_model("ptv3", 5, embed_dim=32, depth=4, num_heads=2, sp_axis="pp"),
+        "moe": lambda: get_model("ptv3_moe", 5, embed_dim=32, depth=4, num_heads=2,
+                                 num_experts=2),
+        "batch": lambda: pp_model(),
+    }
+    out = {}
+    for name, build in cases.items():
+        model = build()
+        try:
+            step, _ = make_pp_train_step(model, loss_cfg, torch.optim.SGD(model.parameters(), 0.0),
+                                         mesh, "pp", 2)
+            step(batch_to_device(skewed_batch(3, 64), "cpu"), 0.0, cw)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+EP_KW = dict(embed_dim=64, depth=2, num_heads=2, num_experts=4)
+EP_AUX = 1e-2
+
+
+def ep_model(**axes):
+    """ptv3_moe of EP_KW (block 1 routes to 4 experts, top 2, capacity
+    1.25: some choices drop), drawn from a seed, dropout off."""
+    from pointcloud_bridge_tpu_torch.models import Dropout, get_model
+
+    model = get_model("ptv3_moe", 5, generator=torch.Generator().manual_seed(13), **EP_KW,
+                      **axes)
+    randomize_bn(model, torch.Generator().manual_seed(14))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model.train()
+
+
+def _ep_run(dp: int, ep: int, n: int = 256) -> dict:
+    from pointcloud_bridge_tpu_torch.parallel import make_ep_mesh, make_ep_train_step
+    from pointcloud_bridge_tpu_torch.parallel.ep import full_tensors
+
+    loss_cfg, cw = _setup()
+    mesh = make_ep_mesh(dp, ep)
+    model = ep_model(axis_name="data")
+    step, place = make_ep_train_step(model, loss_cfg, torch.optim.SGD(model.parameters(), SGD_LR),
+                                     mesh, EP_AUX)
+    try:
+        m = step(place(skewed_batch(4, n)), SGD_LR, cw)
+    except ValueError as e:
+        return {"refused": str(e)}
+    return {"loss": float(m["loss"]), "aux_loss": float(m["aux_loss"]), "acc": float(m["acc"]),
+            "local": {k: tuple(p.shape) for k, p in model.named_parameters()},
+            "grads": full_tensors(model, mesh, grads_of(model)),
+            "state": full_tensors(model, mesh, state_of(model))}
+
+
+@job
+def ep(rank, world, path):
+    """One ep train step (plain SGD) of ptv3_moe on a 1 x 2 and a 2 x 1
+    ("data", "expert") mesh, a 2 x 1 step whose ranks would split a token
+    group, and the whole-scene vote over a "data" mesh of the world
+    beside the single-rank vote."""
+    from pointcloud_bridge_tpu_torch.data.blocks import scene_labelweights
+    from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
+    from pointcloud_bridge_tpu_torch.infer.vote import whole_scene_vote_predict
+    from pointcloud_bridge_tpu_torch.parallel import make_mesh
+
+    out = {"1x2": _ep_run(1, 2), "2x1": _ep_run(2, 1), "split_group": _ep_run(2, 1, 64)}
+    xyz, rgb, labels = toy_bridge_scene(3000, seed=0)
+    pts6 = np.concatenate([xyz, rgb], axis=1).astype(np.float32)
+    grid = dict(num_classes=5, block_points=128, block_size=6.0, stride=3.0, num_votes=2,
+                batch_size=3, seed=3)
+    lw = scene_labelweights([labels], 5)
+    model = ssg(0)
+    single = whole_scene_vote_predict(model, pts6, labels, lw, **grid)
+    meshed = whole_scene_vote_predict(model, pts6, labels, lw, mesh=make_mesh(world), **grid)
+    out["vote"] = {"single": single["pred"], "mesh": meshed["pred"],
+                   "pools": (single["vote_pool"], meshed["vote_pool"])}
+    return out
+
+
+@job
+def dryrun(rank, world, path):
+    """tools/dryrun_multichip.py's stages over the world, on the CPU."""
+    from pointcloud_bridge_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    sys.modules["torch.utils.tensorboard"] = None  # the engine stage's scalar writer
+    return dryrun_multichip("cpu")
 
 
 if __name__ == "__main__":
