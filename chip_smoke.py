@@ -116,6 +116,22 @@ any failure raises and exits non-zero:
    each error within eps * rms(plain), lse 1e-5 relative, each backward
    kernel the same bits from call to call; times beside the bound over the dense bf16 tensor rate
    (989 TFLOP/s) and F.scaled_dot_product_attention in bf16;
+3f. K7, the neighbour reduction of DGCNN's restructured EdgeConv, against
+   edge_reduce_plain on the card at the shapes the DGCNN forwards and train
+   steps give it (B=4 and 16, N = S = 4096, k = 20 with F = 64 and 128, k =
+   64 with F = 64 and 128; the train steps' with the moments) on a K5 graph
+   of a uniform cloud: the max and the min bit for bit, the moments within
+   1e-6 * max(1, max|plain|) (their bit-identity printed: the plain version
+   folds in the kernel's order); then K7b (its per-edge gradients folded by
+   K3b) at the train steps' shapes, bit for bit against the plain per-edge
+   gradients folded in K3b's order, within 1e-5 of max|plain| of
+   scatter_add_'s fold and of torch's autograd of the reductions, the same
+   bits on a second call; both on an integer grid (ties: the cotangent of
+   a max held by several slots splits evenly), in eval mode (no moments),
+   at F = 24, 3, 66 and 256 (a float a lane, two chunks of channels), k =
+   1, S != N, indices past N and a y 4 bytes off 16-byte alignment. Times
+   (event, device, host) beside the bound (idx, y once and the outputs over
+   3.35 TB/s) and, for K7, index_points + amax + amin in PyTorch;
 4. the SSG forward at B=4 x 4096 on the card against the same model on the
    CPU (plain versions), logits within 2e-4; every forward kernel must have
    been launched; forward time and points/s;
@@ -191,27 +207,31 @@ any failure raises and exits non-zero:
    the batch-16 step timed and profiled by kernel family, then
    ``infer_cli blocks`` serving the checkpoint that run wrote;
 18. the DGCNN (k = 20) and DGCNNGlobal (k = 64) forwards at full width,
-   B=4 x 4096, random weights and BatchNorm statistics, on the card against
-   the CPU: exactly 1 K5 and 3 K5c launches; each of the four graphs the
-   card built (recorded by wrapping the port's knn where models/dgcnn.py
-   calls it, ``GraphTap``) bit for bit against knn_plain on the card on
-   that stage's own input; the CPU forward with the card's graphs replayed,
+   B=4 x 4096, random weights and BatchNorm statistics, on the card (in its
+   default EdgeConv form, the restructured one) against the CPU in the same
+   form (PCB_EDGECONV_FAST=1): exactly 1 K5, 3 K5c and 4 K7 launches; each
+   of the four graphs the card built (recorded by wrapping the port's knn
+   and knn_set where models/dgcnn.py calls them, ``GraphTap``) bit for bit
+   against knn_plain on the card on that stage's own input; the CPU forward
+   with the card's graphs replayed,
    logits within 2e-4 (conv2-conv4 build their graphs on features from
    GEMMs, which the card and the CPU round differently, and a near tie at
    the k-th neighbour may swap); then without the replay, the picks that
    differ stage by stage with their gaps to the k-th distance; forward
    time, points/s and device time by kernel family;
 19. one DGCNN train step at full width, B=4 x 4096, on the card against
-   the CPU, checked as in 6, the CPU taking the card's graphs of the same
-   mode: exactly 1 K5, 3 K5c and 3 group-backward launches (index_points'
-   backward, IndexPoints, at conv2-conv4); milliseconds a step;
+   the CPU, both in the restructured form, checked as in 6, the CPU taking
+   the card's graphs of the same mode: exactly 1 K5, 3 K5c, 4 K7, 4 K7b and
+   4 group-backward launches (K7b's fold of its per-edge gradients);
+   milliseconds a step;
 20. two epochs of DGCNN at batch 16 through train_cli.main with
    ``--config configs/train_dgcnn.yaml``, checked as in 7, the batch-16
    step timed (ms, points/s, peak memory) and profiled, then ``infer_cli
    blocks`` serving the checkpoint that run wrote, and once more with
    ``--from-snapshot``: the run's code snapshot builds its own kernels under
-   <exp>/code_snapshot/build/, K5 and K5c launch from it (its own
-   counters), and its CSVs equal the first serve's;
+   <exp>/code_snapshot/build/, K5, K5c and K7 launch from it (its own
+   counters), and its CSVs equal the first serve's; all in the card's
+   default EdgeConv form, the restructured one;
 21. the pointnet2_msg forward at full width, B=4 x 4096, with 9 feature
    channels in the Partsize column order (bench.py's shape), random weights
    and BatchNorm statistics, on the card against the CPU: logits within
@@ -349,12 +369,14 @@ any failure raises and exits non-zero:
    confusion matrix and the imported model's predictions equal to the
    seeded model's on the card; (b) six programs exported by
    utils/export.py at B=1 x 4096 (pointnet2_ssg, pointnet2_msg,
-   bristrunet, dgcnn, the benched ptv3_pooled in float32 and with a bf16
-   stream), each saved, loaded and run on the card: the graph names the
-   pcb:: ops it must, the output equals the eager forward (torch.equal),
+   bristrunet, dgcnn, dgcnn_global, the benched ptv3_pooled in float32 and
+   with a bf16 stream), each saved, loaded and run on the card: the graph
+   names the pcb:: ops it must (dgcnn and dgcnn_global pcb::edge_reduce,
+   K7), the output equals the eager forward (torch.equal; for the two
+   DGCNNs a condition, for the others reported),
    every kernel's counter rises by exactly what one eager forward adds,
    and the loaded program and the eager forward are timed (CUDA events);
-   the six together launch K1-K5, K5c and both attention forwards; (c)
+   the seven together launch K1-K5, K5c, K7 and both attention forwards; (c)
    tools/debug_module.py's smoke_test of pointnet2_ssg at B = 1, 2, 4, 8 x
    4096 (points/s from CUDA events, peak MiB allocated), failing on any
    batch size's error; (d) the superpoint pipeline's host modules
@@ -371,6 +393,16 @@ any failure raises and exits non-zero:
    ptv3, M = 2; (d) ep, ptv3_moe on a 1 x 2 mesh; (e) the whole-scene vote
    over a mesh of two, its predictions the single-rank vote's. Phases
    3c/3d hold K6/K6b at the ring's N/2 shapes first.
+45. dgcnn (its recipe's loss) and dgcnn_global in both EdgeConv forms on
+   the card (PCB_EDGECONV_FAST=0 and 1), run after phase 20: the B=4 x 4096
+   forward in turns (literal, restructured, restructured, literal; ms,
+   device-busy ms, K5c's and K7's ms) with each form's launches exact; the
+   batch-16 train step eager and as a steps_per_dispatch: 4 graph replay
+   (phase 38's checks and numbers: the replay's bits against 4 eager steps,
+   ms, idle share, peak MiB); then one train-mode EdgeConv forward at B =
+   16, N = 4096, k = 64, C = F = 64 in each form, the restructured one
+   raising the allocator's peak by less than one [16, 4096, 64, 64] float32
+   tensor (1.07 GB).
 Phase 3 also holds K5 at the measurement chain's shapes (B = 1, N = S =
 63,885 and 103,718 at k = 31, 51 and 5, and k = 1 from a tenth of the
 points to the rest), each launch's rows of 2,048 random queries bit for bit
@@ -388,8 +420,7 @@ runs its card step twice from the same state (weights, BatchNorm buffers,
 batch, generators) and fails if the loss or any gradient leaf differs
 (torch.equal). Phase 3b holds K3b bit for bit to
 ops/grouping.py::group_backward_order, the kernel's order of adds in plain
-PyTorch, at every case, and phase 20 times the DGCNN batch-16 step with
-index_points' backward as IndexPoints and as torch.gather's own, in turns.
+PyTorch, at every case.
 
 ``python3 chip_smoke.py --grouping`` runs phases 1 and 2 and the K3 and
 K3b cases of phases 3 and 3b alone, then K3b's variants
@@ -418,7 +449,7 @@ quick-trained 4 epochs on 300k points, 3 votes: end-to-end points/s,
 coverage, OA, mIoU and the vote's phase split);
 ``--attention-bf16`` phase 3e; ``--k5c-exit`` K5c's early exit on the
 features DGCNN's graphs are built over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
-K5c cases of phase 3 and phases 18-20; ``--msg`` the MSG family's cases of
+K5c cases of phase 3, phase 3f and phases 18-20 and 45; ``--msg`` the MSG family's cases of
 phases 3 and 3b and phases 21-24; ``--zoo`` the cases of RandLA-Net and the
 superpoint models in phases 3 and 3b and phases 34-37; ``--graphs`` phase
 38 for every other model with a step phase or a recipe (the DGCNN,
@@ -431,7 +462,8 @@ for want of a deterministic CUDA form listed), and prints no result line.
 The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
 B=4 (phase 8; of one SSG train step, phase 6, for its backward kernels; of
-one DGCNN forward, phase 18, for K5c; of one ptv3_pooled forward, phase 10,
+one DGCNN forward, phase 18, for K5c and K7; of one DGCNN train step,
+phase 19, for K7b, beside the moments flavour of K7 there; of one ptv3_pooled forward, phase 10,
 for the flash-attention kernel; of one
 ptv3_pooled train step, phase 13, for the attention-backward kernels) beside
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
@@ -457,6 +489,7 @@ import gc
 import importlib.util
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -487,6 +520,7 @@ from pointcloud_bridge_tpu_torch.models import (
     get_model,
 )
 from pointcloud_bridge_tpu_torch.ops import core as core_ops
+from pointcloud_bridge_tpu_torch.ops import edge as edge_ops
 from pointcloud_bridge_tpu_torch.ops import (
     _kernels,
     attention,
@@ -524,7 +558,7 @@ ATTN_TOL = 2e-5  # of max(1, max|plain|): the online softmax re-associates the s
 FORWARD_KERNELS = ("fps", "ball_query", "group", "interpolate")
 SSG_BACKWARD_KERNELS = ("group_bwd", "interp_bwd")
 ATTN_BACKWARD_KERNELS = ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")
-BACKWARD_KERNELS = SSG_BACKWARD_KERNELS + ATTN_BACKWARD_KERNELS
+BACKWARD_KERNELS = SSG_BACKWARD_KERNELS + ATTN_BACKWARD_KERNELS + ("edge_reduce_bwd",)
 
 
 def only(**launches) -> dict:
@@ -552,13 +586,18 @@ MSG_STEP_LAUNCHES = MSG_LAUNCHES | {"group_bwd": 6, "interp_bwd": 4}
 SEM_SEG_LAUNCHES = only(fps=4, ball_query=4, group=4, interpolate=4)
 CLS_SSG_LAUNCHES = only(fps=2, ball_query=2, group=2)
 CLS_MSG_LAUNCHES = only(fps=2, ball_query=2, group=6)
-# launches of one DGCNN or DGCNNGlobal forward (and train step: the gather's
-# backward is PyTorch's): K5 over xyz in conv1, K5c over 64 channels in
-# conv2-conv4
-DGCNN_LAUNCHES = only(knn=1, knn_c=3)
-# a train step adds index_points' backward (IndexPoints) at the three
-# EdgeConvs whose input carries a gradient
-DGCNN_STEP_LAUNCHES = DGCNN_LAUNCHES | {"group_bwd": 3}
+# launches of one DGCNN or DGCNNGlobal forward in the restructured EdgeConv
+# form, the card's default: K5 over xyz in conv1, K5c over 64 channels in
+# conv2-conv4, K7 (the neighbour reduction) in each EdgeConv
+DGCNN_LAUNCHES = only(knn=1, knn_c=3, edge_reduce=4)
+# a train step adds K7b in each EdgeConv (y = x W_a carries a gradient in
+# conv1 too), which folds its per-edge gradients with K3b
+DGCNN_STEP_LAUNCHES = DGCNN_LAUNCHES | {"edge_reduce_bwd": 4, "group_bwd": 4}
+# the literal form (PCB_EDGECONV_FAST=0): the k-NN kernels alone, and in a
+# step index_points' backward (IndexPoints, K3b) at the three EdgeConvs
+# whose input carries a gradient
+DGCNN_LITERAL_LAUNCHES = only(knn=1, knn_c=3)
+DGCNN_LITERAL_STEP_LAUNCHES = DGCNN_LITERAL_LAUNCHES | {"group_bwd": 3}
 # the PointNet family runs no kernel of the port
 POINTNET_NAMES = ("pointnet", "pointnet_seg", "pointnet_global", "pointnet_sem_seg",
                   "pointnet_cls")
@@ -679,6 +718,7 @@ BRISTRUNET_TRAIN = "bristrunet_train_step"
 PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
 PTV3_POOLED_TRAIN, PTV3_TRAIN = "ptv3_pooled_train_step", "ptv3_train_step"
 DGCNN, DGCNN_GLOBAL = "dgcnn_forward", "dgcnn_global_forward"
+DGCNN_TRAIN = "dgcnn_train_step"
 MSG, MSG_TRAIN = "pointnet2_msg_forward", "pointnet2_msg_train_step"
 # flat ptv3's sequence-parallel step over two ranks (phase 44b): its ring
 # blocks' forward, and the train step of one rank
@@ -687,11 +727,19 @@ SEM_SEG, CLS_SSG, CLS_MSG = ("pointnet2_sem_seg_forward", "pointnet2_cls_ssg_for
                              "pointnet2_cls_msg_forward")
 # the path whose numbers stand in a kernel's own row of the summary
 # (BriStruNet's forward for the kernels not named here)
-ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "knn_c": DGCNN, "flash_attn": PTV3_POOLED,
+ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "knn_c": DGCNN, "edge_reduce": DGCNN,
+            "edge_reduce_bwd": DGCNN_TRAIN, "flash_attn": PTV3_POOLED,
             "flash_attn_bwd_dq": PTV3_POOLED_TRAIN, "flash_attn_bwd_dkv": PTV3_POOLED_TRAIN,
             "flash_attn_bf16": "ptv3_big_prod_train_step",
             "flash_attn_bwd_dq_bf16": "ptv3_big_prod_train_step",
             "flash_attn_bwd_dkv_bf16": "ptv3_big_prod_train_step"}
+# the kernels that a train step's path holds rows of: its backward kernels
+# (its forward kernels' shapes stand under the forward's path), and for
+# DGCNN's K7 in its train-mode flavour (the moments) beside K7b, whose time
+# includes the K3b fold it calls
+TRAIN_PATH_KERNELS = {path: SSG_BACKWARD_KERNELS
+                      for path in (TRAIN, BRISTRUNET_TRAIN, MSG_TRAIN, "randlanet_train_step")}
+TRAIN_PATH_KERNELS[DGCNN_TRAIN] = ("edge_reduce", "edge_reduce_bwd")
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms", "fma_bound_ms")
 # None unless measured: the library call's event time (cases with a library
 # call), device times from a CUDA graph and host time (cases with ``split``),
@@ -717,7 +765,8 @@ class Results:
 
     def check(self, name, label, kernel_fn, plain_fn, exact, paths=(), scaled=None,
               work=None, library_fn=None, times=1, peak_flops=PEAK_FLOPS, split=False):
-        """exact: bit-identical; else within INTERP_TOL (rtol and atol), or
+        """exact: bit-identical (a tuple: one flag an output); else within
+        INTERP_TOL (rtol and atol), or
         with scaled=(tol, floor) within tol * max(floor, max|plain|). The
         functions return a tensor or a tuple of tensors. ``paths`` names the
         paths that give the kernel this shape, ``times`` in one pass; such a
@@ -737,14 +786,15 @@ class Results:
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, ok = 0.0, len(got) == len(want)
-        for g, w in zip(got, want):
+        flags = exact if isinstance(exact, tuple) else (exact,) * len(want)
+        for g, w, bits in zip(got, want, flags):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(
                     f"{name} {label}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}"
                 )
             e = max_abs_err(g, w)
             err = max(err, e)
-            if exact:
+            if bits:
                 ok &= torch.equal(g, w)
             elif scaled:
                 ok &= e <= scaled[0] * max(scaled[1], w.abs().max().item())
@@ -869,6 +919,7 @@ BRISTRUNET_BALLS = tuple((n, s, tuple((r, k) for n2, s2, k, r, _ in BRISTRUNET_L
 # side paths: timed and summed on lines of their own, no pass of this script
 SSG_B16, TRAIN_B16 = "ssg_forward_b16", "ssg_train_step_b16"
 DGCNN_B16, DGCNN_GLOBAL_B16 = "dgcnn_forward_b16", "dgcnn_global_forward_b16"
+DGCNN_TRAIN_B16, DGCNN_GLOBAL_TRAIN_B16 = "dgcnn_train_step_b16", "dgcnn_global_train_step_b16"
 BRISTRUNET_TRAIN_B16 = "bristrunet_train_step_b16"
 
 
@@ -1932,6 +1983,156 @@ def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
           "the same bits call to call", flush=True)
 
 
+# ------------------------------------------------------------------ phase 3f
+# (B, k, F, launches a pass, path, moments) of K7's calls: the four
+# EdgeConvs (F = 64, 64, 64, 128) of a dgcnn (k = 20) and a dgcnn_global
+# (k = 64) forward at B = 4, and of the dgcnn train step (with the moments);
+# at B = 16 the recipes' train steps
+EDGE_CASES = (
+    (B, 20, 64, 3, DGCNN, False), (B, 20, 128, 1, DGCNN, False),
+    (B, 64, 64, 3, DGCNN_GLOBAL, False), (B, 64, 128, 1, DGCNN_GLOBAL, False),
+    (B, 20, 64, 3, DGCNN_TRAIN, True), (B, 20, 128, 1, DGCNN_TRAIN, True),
+    (16, 20, 64, 3, DGCNN_TRAIN_B16, True), (16, 20, 128, 1, DGCNN_TRAIN_B16, True),
+    (16, 64, 64, 3, DGCNN_GLOBAL_TRAIN_B16, True),
+)
+# K7b against its plain version (scatter_add_'s order) within this share of
+# max|plain|, as K3b; against the plain version in K3b's order bit for bit
+EDGE_BWD_TOL = BWD_TOL
+
+
+def edge_inputs(dev, rng, b: int, k: int, f: int, n: int = N, s: int = N, grid: int = 0):
+    """y [b, n, f] (normal, or integers in [0, grid): ties) and the k-NN
+    graph [b, s, k] of a uniform cloud's first s points over its n (K5, as
+    conv1 builds it: neighbours near in memory as in the model)."""
+    a = rng.integers(0, grid, (b, n, f)) if grid else rng.normal(size=(b, n, f))
+    y = torch.from_numpy(a.astype(np.float32)).to(dev)
+    xyz = torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+    return y, grouping.knn(xyz, xyz[:, :s].contiguous(), k)
+
+
+def edge_work(y, idx, outs: int) -> tuple:
+    """(bytes, operations) of K7: idx, y once and ``outs`` outputs; a
+    compare each for the max and the min, an add and a multiply-add for
+    the moments, a slot and channel."""
+    b, s, k = idx.shape
+    f = y.shape[2]
+    return nbytes(y, idx) + outs * b * s * f * 4, b * s * k * f * (2 if outs == 2 else 5)
+
+
+def check_edge_reduce(res: Results, label, y, idx, moments: bool, path=None, times=1,
+                      split=False) -> None:
+    """K7 against edge_reduce_plain on the same inputs: the max and the min
+    bit for bit, the moments within 1e-6 * max(1, max|plain|) (the plain
+    version folds the slots in the kernel's order: how many came out
+    bit-identical is printed); timed where ``path`` is a pass's, beside the
+    gather and amax and amin of PyTorch (three calls)."""
+    kernel = functools.partial(edge_ops.edge_reduce_cuda, y, idx, moments)
+    plain = functools.partial(edge_ops.edge_reduce_plain, y, idx, moments)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+
+    def library():
+        g = core_ops.index_points(y, idx)
+        return g.amax(dim=2), g.amin(dim=2)
+
+    timed = path is not None
+    res.check("edge_reduce", f"{label}{' moments' if moments else ''}", kernel, plain,
+              (True, True, False, False)[:len(got)], (path,) if timed else (),
+              scaled=(1e-6, 1.0), work=edge_work(y, idx, len(got)) if timed else None,
+              library_fn=library if timed else None, times=times, split=split)
+    if moments:
+        print(f"{'edge_reduce':18s} {label}: s1, s2 bit-identical to the plain fold: "
+              f"{same[2]}, {same[3]}", flush=True)
+
+
+def check_edge_reduce_bwd(res: Results, label, y, idx, moments: bool, rng, path=None, times=1,
+                          split=False, autograd=False) -> None:
+    """K7b (and the K3b fold it calls) against the plain backward: bit for
+    bit against the per-edge gradients folded in K3b's order
+    (group_backward_order), within EDGE_BWD_TOL of max|plain| of scatter_add_'s
+    fold (timed where ``path`` is a pass's), the same bits on a second call;
+    with ``autograd`` within EDGE_BWD_TOL against torch's autograd of
+    index_points, amax, amin and the means."""
+    outs = edge_ops.edge_reduce_cuda(y, idx, moments)
+    cots = tuple(torch.from_numpy(rng.normal(size=tuple(outs[0].shape)).astype(np.float32))
+                 .to(y.device) for _ in outs)
+    args = (y, idx, outs[0], outs[1]) + cots
+    kernel = functools.partial(edge_ops.edge_reduce_backward_cuda, *args)
+    first, second = kernel(), kernel()
+    ordered = grouping.group_backward_order(edge_ops.edge_grads_plain(*args), idx, y.shape[1], 0,
+                                            y.shape[2])
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"edge_reduce_bwd {label}: two calls differ")
+    if not torch.equal(first, ordered):
+        raise AssertionError(f"edge_reduce_bwd {label}: differs from the plain per-edge "
+                             f"gradients in K3b's order by {max_abs_err(first, ordered)}")
+    timed = path is not None
+    b, s, k = idx.shape
+    f = y.shape[2]
+    work = (nbytes(y, idx, *args[2:]) + y.numel() * 4, b * s * k * f * 8)
+    res.check("edge_reduce_bwd", f"{label}{' moments' if moments else ''}", kernel,
+              functools.partial(edge_ops.edge_reduce_backward_plain, *args), False,
+              (path,) if timed else (), scaled=(EDGE_BWD_TOL, 0.0),
+              work=work if timed else None, times=times, split=split)
+    line = "the same bits twice, bit for bit against the plain order"
+    if autograd:
+        ya = y.detach().clone().requires_grad_(True)
+        g = core_ops._gather(ya, idx)
+        ref = (g.amax(dim=2), g.amin(dim=2), g.mean(dim=2), (g * g).mean(dim=2))[:len(outs)]
+        sum((r * c).sum() for r, c in zip(ref, cots)).backward()
+        err = max_abs_err(first, ya.grad)
+        if err > EDGE_BWD_TOL * ya.grad.abs().max().item():
+            raise AssertionError(f"edge_reduce_bwd {label}: {err} from torch's autograd")
+        line += f"; max|err| {err:.3g} against torch's autograd of the reductions"
+    print(f"{'edge_reduce_bwd':18s} {label}: {line}", flush=True)
+
+
+def compare_edge_kernels(dev: torch.device, res: Results, rng) -> None:
+    """Phase 3f: K7 and K7b against their plain versions at the shapes of
+    the DGCNN forwards and train steps (EDGE_CASES), on an integer grid
+    (ties in most rows), and at the edges of their launch (one float a
+    lane, two chunks of channels, k = 1, S != N, indices past N, a view
+    off 16-byte alignment)."""
+    for b, k, f, times, path, moments in EDGE_CASES:
+        y, idx = edge_inputs(dev, rng, b, k, f)
+        label = f"B={b} N=S={N} k={k} F={f}"
+        pass_path = path in (DGCNN, DGCNN_GLOBAL, DGCNN_TRAIN)
+        check_edge_reduce(res, label, y, idx, moments, path, times, split=pass_path)
+        if moments:
+            check_edge_reduce_bwd(res, label, y, idx, True, rng, path, times, split=pass_path,
+                                  autograd=(b, k, f) == (B, 20, 64))
+    y, idx = edge_inputs(dev, rng, 2, 20, 64, grid=4)
+    check_edge_reduce(res, "integer grid (ties) B=2 k=20 F=64", y, idx, True)
+    check_edge_reduce_bwd(res, "integer grid (ties) B=2 k=20 F=64", y, idx, True, rng,
+                          autograd=True)
+    check_edge_reduce_bwd(res, "eval mode B=4 k=20 F=64", *edge_inputs(dev, rng, B, 20, 64),
+                          False, rng, autograd=True)
+    for label, b, k, f, n, s in (("F=24 (a float a lane)", 2, 8, 24, 1000, 1000),
+                                 ("F=3", 2, 8, 3, 1000, 1000),
+                                 ("F=66 (2 chunks of 2 a lane)", 2, 20, 66, 1000, 1000),
+                                 ("F=256 (2 chunks of 4 a lane)", 2, 20, 256, 1000, 1000),
+                                 ("k=1", 2, 1, 64, 1000, 1000),
+                                 ("S=700 of N=1000, k=40", 2, 40, 64, 1000, 700)):
+        y, idx = edge_inputs(dev, rng, b, k, f, n, s)
+        check_edge_reduce(res, label, y, idx, True)
+        check_edge_reduce_bwd(res, label, y, idx, True, rng)
+    y, idx = edge_inputs(dev, rng, 2, 20, 64, 1000, 1000)
+    idx[:, ::7, 3] = 1000  # past N: read as point N - 1, as index_points clamps
+    check_edge_reduce(res, "indices past N", y, idx, True)
+    check_edge_reduce_bwd(res, "indices past N", y, idx, True, rng)
+    view = torch.empty(2 * 1000 * 64 + 1, device=dev)[1:].view(2, 1000, 64)
+    view.copy_(y)
+    if edge_ops.edge_vec(64, view) != 1:
+        raise AssertionError("edge reduce: a view off 16-byte alignment must take a float a lane")
+    check_edge_reduce(res, "y 4 bytes off 16-byte alignment", view, idx, True)
+    check_edge_reduce_bwd(res, "y 4 bytes off 16-byte alignment", view, idx, True, rng)
+    res.print_sums("edge_reduce", (DGCNN, DGCNN_GLOBAL, DGCNN_TRAIN, DGCNN_TRAIN_B16,
+                                   DGCNN_GLOBAL_TRAIN_B16))
+    res.print_sums("edge_reduce_bwd", (DGCNN_TRAIN, DGCNN_TRAIN_B16, DGCNN_GLOBAL_TRAIN_B16))
+
+
 def packed_qkv_maker(dev: torch.device, seed: int, dtype=torch.float32):
     """-> make(n, h, d, fold=1, b=B): q, k and v [b * fold, n / fold, h, d]
     as PointAttention makes them, the strided slices of one packed qkv
@@ -2900,8 +3101,7 @@ def run_train_cli(label: str, data_dir: Path, args: list, epochs: int, launched:
 
 def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Path,
                       dev: torch.device, step_model: torch.nn.Module = None,
-                      profile: bool = False, recipe: Path = None,
-                      gather_turns: bool = False) -> tuple:
+                      profile: bool = False, recipe: Path = None) -> tuple:
     """Phases 7, 14 and 17: two epochs of ``model_name`` (the registry's
     default model) at batch 16 through train_cli.main -> (launch counts of
     exactly that run, the experiment directory, which the caller removes).
@@ -2909,9 +3109,7 @@ def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Pa
     exactly. Then the steady-state train step at batch 16 (Adam, weighted
     CE) on the reloaded model, or on ``step_model`` where the timed
     configuration is another than the default one; with ``profile`` its
-    device time by kernel family; with ``gather_turns`` (phase 20) the step
-    in turns with index_points' backward as torch.gather's own scatter and
-    as IndexPoints'. With ``recipe`` (a config of configs/),
+    device time by kernel family. With ``recipe`` (a config of configs/),
     the run and the timed step take that config's loss, sampling and
     schedule (``--config``), the data directories and the epochs as flags."""
     args = (["--config", str(recipe)] if recipe else
@@ -2949,20 +3147,6 @@ def train_through_cli(label: str, model_name: str, launched: tuple, data_dir: Pa
         torch.cuda.reset_peak_memory_stats()
         step_ms = time_ms(lambda: step(batch, 1e-4, cw), reps=20, warmup=5)
         step_mem = torch.cuda.max_memory_allocated()
-        if gather_turns:
-            # index_points' backward in turns: torch.gather's own (an atomic
-            # scatter), the group-backward kernel (IndexPoints), kernel, gather
-            turns = []
-            for plain in (True, False, False, True):
-                if plain:
-                    grouping.index_points = core_ops._gather
-                try:
-                    turns.append(time_ms(lambda: step(batch, 1e-4, cw), reps=20, warmup=3))
-                finally:
-                    grouping.index_points = core_ops.index_points
-            print(f"{label} step, index_points' backward in turns (torch.gather's scatter, "
-                  f"IndexPoints, IndexPoints, torch.gather's scatter): "
-                  f"{', '.join(f'{t:.3f}' for t in turns)} ms", flush=True)
     except BaseException:
         shutil.rmtree(exp_dir, ignore_errors=True)
         raise
@@ -3190,10 +3374,24 @@ def train_bristrunet_through_cli(data_dir: Path, n_blocks: int, dev: torch.devic
     return by_path
 
 
+@contextlib.contextmanager
+def edgeconv_form(fast: bool):
+    """PCB_EDGECONV_FAST at 1 or 0 inside the block: the EdgeConv form that
+    models/dgcnn.py takes on either device; unset after (the default: the
+    restructured form on the card, the literal one on the CPU)."""
+    os.environ["PCB_EDGECONV_FAST"] = "1" if fast else "0"
+    try:
+        yield
+    finally:
+        del os.environ["PCB_EDGECONV_FAST"]
+
+
 class GraphTap:
     """DGCNN's four k-NN graphs, stage by stage, through a wrapper of the
-    port's ``knn`` where models/dgcnn.py calls it (the model has no hook
-    for this): a forward on the card runs the port's knn (K5, K5c) and
+    port's ``knn`` and ``knn_set`` where models/dgcnn.py calls them (the
+    literal EdgeConv calls the first, the restructured one the second; the
+    model has no hook for this): a forward on the card runs the port's
+    search (K5, K5c) and
     records each stage's input and graph in ``card``, unless ``frozen``; a
     forward on the CPU replays the graphs the card recorded last, in the
     same order, or with ``own`` builds its own with knn_plain and records
@@ -3207,16 +3405,18 @@ class GraphTap:
         self.replayed = 0
 
     def __enter__(self):
-        self.real = dgcnn_models.knn
-        dgcnn_models.knn = self.knn
+        self.real = {name: getattr(dgcnn_models, name) for name in ("knn", "knn_set")}
+        dgcnn_models.knn = functools.partial(self.knn, self.real["knn"])
+        dgcnn_models.knn_set = functools.partial(self.knn, self.real["knn_set"])
         return self
 
     def __exit__(self, *exc):
-        dgcnn_models.knn = self.real
+        for name, fn in self.real.items():
+            setattr(dgcnn_models, name, fn)
 
-    def knn(self, x, k):
+    def knn(self, real, x, k):
         if x.is_cuda:
-            idx = self.real(x, k=k)
+            idx = real(x, k=k)
             if not self.frozen:
                 if len(self.card) == 4:
                     self.card = []
@@ -3286,12 +3486,14 @@ def picks_that_differ(label: str, card: list, cpu: list, plain: list) -> list:
 def check_dgcnn_forward(name: str, ds: BlockDataset, dev: torch.device, seed: int) -> dict:
     """Phase 18: ``name`` (dgcnn or dgcnn_global, full width) at B=4 x 4096,
     random weights and BatchNorm statistics, on the card against the CPU:
-    exactly 1 K5 and 3 K5c launches; each of the card's four graphs bit for
+    the card in its default EdgeConv form, the restructured one (exactly 1
+    K5, 3 K5c and 4 K7 launches), the CPU in the same form
+    (PCB_EDGECONV_FAST=1); each of the card's four graphs bit for
     bit against knn_plain on its own input; the CPU forward with the card's
     graphs replayed, logits within 2e-4; then without the replay, the picks
     that differ stage by stage and their gaps to the k-th distance;
     forward ms and points/s by CUDA events, and device time by kernel
-    family -> the forward's milliseconds and counts."""
+    family -> the forward's launch counts."""
     label = f"{name} forward"
     model = seeded_model(name, seed)
     cpu_model = copy.deepcopy(model)
@@ -3299,6 +3501,8 @@ def check_dgcnn_forward(name: str, ds: BlockDataset, dev: torch.device, seed: in
     xyz_cpu = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
     rgb_cpu = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32))
     xyz, rgb = xyz_cpu.to(dev), rgb_cpu.to(dev)
+    if "PCB_EDGECONV_FAST" in os.environ or not dgcnn_models._edgeconv_fast_default(xyz):
+        raise AssertionError(f"{label}: the card's default is not the restructured EdgeConv")
     with torch.inference_mode(), GraphTap(dev) as tap:
         _kernels.reset_launch_counts()
         out = model(xyz, rgb)
@@ -3315,7 +3519,8 @@ def check_dgcnn_forward(name: str, ds: BlockDataset, dev: torch.device, seed: in
         if not all(torch.equal(a, b.cpu()) for a, b in zip(here, there)):
             raise AssertionError(f"{label}: knn_plain differs between the CPU and the card")
         t0 = time.perf_counter()
-        ref = cpu_model(xyz_cpu, rgb_cpu)
+        with edgeconv_form(True):
+            ref = cpu_model(xyz_cpu, rgb_cpu)
         cpu_s = time.perf_counter() - t0
         if tap.replayed != 4:
             raise AssertionError(f"{label}: the CPU forward took {tap.replayed} graphs, not 4")
@@ -3331,7 +3536,8 @@ def check_dgcnn_forward(name: str, ds: BlockDataset, dev: torch.device, seed: in
         if not torch.allclose(out, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL):
             raise AssertionError(f"{label}: CUDA logits differ from CPU by {err}")
         tap.own = True
-        own = cpu_model(xyz_cpu, rgb_cpu)
+        with edgeconv_form(True):
+            own = cpu_model(xyz_cpu, rgb_cpu)
         differ = picks_that_differ(label, tap.card, tap.cpu, plain)
         print(f"{label}: without the replay, logits max|err| {max_abs_err(out, own):.3g}, "
               f"argmax agreement {(out.argmax(-1) == own.argmax(-1)).double().mean().item():.6f}",
@@ -3349,10 +3555,16 @@ def check_dgcnn_forward(name: str, ds: BlockDataset, dev: torch.device, seed: in
 def check_dgcnn_train_step(ds: BlockDataset, dev: torch.device) -> dict:
     """Phase 19: one DGCNN train step at full width, B=4 x 4096, random
     weights and BatchNorm statistics, weighted CE with the dataset's class
-    weights, on the card against the CPU, checked as phase 6 checks SSG's
-    (frozen BatchNorms first, then train mode; ``pre_bn_biases``), the CPU
-    taking the card's graphs of the same mode (GraphTap), with exactly
-    DGCNN_STEP_LAUNCHES -> those launch counts."""
+    weights, on the card against the CPU, both in the restructured EdgeConv
+    form (PCB_EDGECONV_FAST=1, the card's default), checked as phase 6
+    checks SSG's (frozen BatchNorms first, then train mode;
+    ``pre_bn_biases``), the CPU taking the card's graphs of the same mode
+    (GraphTap), with exactly DGCNN_STEP_LAUNCHES -> those launch counts."""
+    with edgeconv_form(True):
+        return _dgcnn_train_step(ds, dev)
+
+
+def _dgcnn_train_step(ds: BlockDataset, dev: torch.device) -> dict:
     model = seeded_model("dgcnn", SEED + 19)
     cpu_model = copy.deepcopy(model)
     model.to(dev)
@@ -3390,7 +3602,8 @@ def check_dgcnn_train_step(ds: BlockDataset, dev: torch.device) -> dict:
         # 1e-4 of their weight's
         counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None,
                                   DGCNN_STEP_LAUNCHES, "DGCNN train step", zero_below=1e-4,
-                                  needed=("knn", "knn_c", "group_bwd"))
+                                  needed=("knn", "knn_c", "edge_reduce", "edge_reduce_bwd",
+                                          "group_bwd"))
         if tap.replayed != 4:
             raise AssertionError(f"DGCNN train step: the CPU took {tap.replayed} graphs, not 4")
     step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
@@ -3405,13 +3618,15 @@ def train_dgcnn_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) ->
     the plateau scheduler), checked as phase 7, the batch-16 step timed
     (ms, points/s, peak memory) and profiled by kernel family; then
     ``infer_cli blocks`` serves the checkpoint that run wrote, warm, and
-    once more with ``--from-snapshot`` (serve_from_snapshot) -> launch
-    counts by path."""
-    kernels = ("knn", "knn_c")
+    once more with ``--from-snapshot`` (serve_from_snapshot): all of it in
+    the card's default EdgeConv form, the restructured one -> launch counts
+    by path."""
+    kernels = ("knn", "knn_c", "edge_reduce")
     by_path = {}
     by_path["dgcnn_train_cli"], exp_dir = train_through_cli(
-        "train dgcnn (configs/train_dgcnn.yaml)", "dgcnn", kernels + ("group_bwd",), data_dir, dev,
-        profile=True, recipe=ROOT / "configs" / "train_dgcnn.yaml", gather_turns=True)
+        "train dgcnn (configs/train_dgcnn.yaml)", "dgcnn",
+        kernels + ("edge_reduce_bwd", "group_bwd"), data_dir, dev, profile=True,
+        recipe=ROOT / "configs" / "train_dgcnn.yaml")
     label = "serve trained dgcnn blocks"
     try:
         counts = serve_blocks(label, "dgcnn", exp_dir, kernels, data_dir, n_blocks, dev)
@@ -3419,10 +3634,15 @@ def train_dgcnn_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) ->
             label + " from its code snapshot", "dgcnn", exp_dir, label, data_dir, dev)
     finally:
         shutil.rmtree(exp_dir, ignore_errors=True)
-    if counts != only(knn=counts["knn"], knn_c=3 * counts["knn"]):
+    if counts != dgcnn_serve_launches(counts["knn"]):
         raise AssertionError(f"serve trained dgcnn blocks: launches {counts}")
     by_path["dgcnn_serve_trained"] = counts
     return by_path
+
+
+def dgcnn_serve_launches(batches: int) -> dict:
+    """The launches of ``batches`` DGCNN forwards in the restructured form."""
+    return {k: batches * v for k, v in DGCNN_LAUNCHES.items()}
 
 
 def serve_from_snapshot(label: str, model_name: str, exp_dir: Path, plain_label: str,
@@ -3432,8 +3652,8 @@ def serve_from_snapshot(label: str, model_name: str, exp_dir: Path, plain_label:
     snapshot that training wrote, a package of its own with its own launch
     counters, whose library nvcc builds under <exp>/code_snapshot/build/.
     Served twice (the first call builds); the second call's counts are read
-    from the snapshot's counters and must show K5 and K5c (three K5c a K5)
-    and no kernel of this package; its CSVs must equal those of
+    from the snapshot's counters and must show K5, K5c and K7 (three K5c
+    and four K7 a K5) and no kernel of this package; its CSVs must equal those of
     ``plain_label``'s serve (serve_blocks) byte for byte -> the snapshot's
     launch counts."""
     out_dir = data_dir / "infer_out" / label.replace(" ", "_")
@@ -3459,8 +3679,7 @@ def serve_from_snapshot(label: str, model_name: str, exp_dir: Path, plain_label:
     snap_counts = snap.launch_counts()
     if any(counts.values()):
         raise AssertionError(f"{label}: this package's kernels ran ({counts})")
-    if not snap_counts["knn"] or snap_counts != only(knn=snap_counts["knn"],
-                                                     knn_c=3 * snap_counts["knn"]):
+    if not snap_counts["knn"] or snap_counts != dgcnn_serve_launches(snap_counts["knn"]):
         raise AssertionError(f"{label}: the snapshot's launches {snap_counts}")
     for name in ("confusion_matrix.csv", "metrics.csv"):
         if (out_dir / name).read_bytes() != (plain_dir / name).read_bytes():
@@ -3478,6 +3697,7 @@ def kernel_family(name: str) -> str:
         ("group_kernel", "K3 group"), ("group_bwd_", "K3b group backward"),
         ("interp_kernel", "K4 interpolate"), ("interp_bwd_kernel", "K4b interpolation backward"),
         ("knn_c_kernel", "K5c k-NN over C channels"), ("knn_kernel", "K5 k-NN"),
+        ("edge_reduce_bwd", "K7b edge reduce backward"), ("edge_reduce_kernel", "K7 edge reduce"),
         ("flash_attn_bf16_kernel", "K6 flash attention (bf16)"),
         ("flash_attn_bwd_dq_bf16", "K6b flash attention backward (bf16)"),
         ("flash_attn_bwd_dkv_bf16", "K6b flash attention backward (bf16)"),
@@ -3496,10 +3716,12 @@ def kernel_family(name: str) -> str:
     return "elementwise and other"
 
 
-def profile_by_family(label: str, what: str, fn, reps: int = 10, quiet: bool = False) -> tuple:
+def profile_by_family(label: str, what: str, fn, reps: int = 10, quiet: bool = False,
+                      families: dict = None) -> tuple:
     """Print the device time of one fn() by kernel family (with ``quiet``
     nothing), from one torch.profiler run over ``reps`` back-to-back calls
-    -> (device busy ms, wall ms) a call."""
+    -> (device busy ms, wall ms) a call; ``families``, a dict, receives the
+    ms a call by family."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3507,7 +3729,7 @@ def profile_by_family(label: str, what: str, fn, reps: int = 10, quiet: bool = F
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    families: dict = {}
+    families = {} if families is None else families
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(ev, "self_device_time_total", None)
@@ -4722,7 +4944,7 @@ def dispatch_walls(variants: dict, rounds: int = 3) -> dict:
 
 def check_graph_steps(label: str, name: str, extra: dict, loss_cfg, ds: BlockDataset,
                       dev: torch.device, seed: int, sampling: bool = False,
-                      b: int = GRAPH_B) -> dict:
+                      b: int = GRAPH_B, rounds: int = 3) -> dict:
     """Phase 38, one model: K = 4 train steps at batch b (Adam at lr 1e-3,
     the loss of ``loss_cfg`` with the blocks' class weights, EMA 0.999, the
     Dropouts on one generator as the trainer sets them, ``sampling``: a
@@ -4736,7 +4958,8 @@ def check_graph_steps(label: str, name: str, extra: dict, loss_cfg, ds: BlockDat
     eager steps. Then host ms a step in turns (the spd = 1 eager step on its
     own optimizer, the K eager steps on the capturable one, the graph),
     device busy ms a step and the idle share from torch.profiler, and peak
-    device memory of each -> the numbers by key."""
+    device memory of each (``rounds`` dispatches of each in turns) -> the
+    numbers by key."""
     t_start = time.perf_counter()
     model = seeded_model(name, seed, **extra).to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4804,7 +5027,7 @@ def check_graph_steps(label: str, name: str, extra: dict, loss_cfg, ds: BlockDat
 
     variants = {"eager": plain, "eager capturable": eager_k,
                 "graph": lambda: multi(batches, GRAPH_LR, cw)}
-    walls = dispatch_walls(variants)
+    walls = dispatch_walls(variants, rounds)
     replay_ms = time_ms(steps.graph.replay, reps=5, warmup=1) / GRAPH_K
     out = {}
     for key, fn in variants.items():
@@ -4841,6 +5064,111 @@ def run_graph_phases(ds: BlockDataset, dev: torch.device, models=GRAPH_STEPS) ->
                                        sampling, b)
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ phase 45
+# the models of the two-form phase: (label, model, model_extra, loss, seed);
+# dgcnn with its recipe's loss, dgcnn_global at the registry's defaults
+EDGECONV_FORM_MODELS = (
+    ("dgcnn (configs/train_dgcnn.yaml)", *recipe("train_dgcnn.yaml"), SEED + 450),
+    ("dgcnn_global", "dgcnn_global", {}, WEIGHTED_CE, SEED + 451),
+)
+# a [16, 4096, 64, 64] float32 tensor: what one restructured EdgeConv
+# forward at B = 16, k = 64, F = 64 must raise the allocator's peak by less
+EDGE_PEAK_LIMIT = 16 * N * 64 * 64 * 4
+
+
+def edgeconv_peak(dev: torch.device, fast: bool) -> int:
+    """Bytes that one train-mode EdgeConv forward (C = F = 64, k = 64, its
+    autograd graph kept) at B = 16 x 4096 raises the allocator's peak by, in
+    the given form, after a first forward has warmed its plans."""
+    gen = torch.Generator().manual_seed(SEED + 452)
+    conv = dgcnn_models.EdgeConv(64, 64, 64, gen).to(dev)
+    bn = BatchNorm(64).to(dev).train()
+    x = torch.randn(16, N, 64, generator=gen).to(dev)
+    with edgeconv_form(fast):
+        conv(x, bn)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = conv(x, bn)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def form_forward(label: str, name: str, seed: int, ds: BlockDataset, dev: torch.device,
+                 fast: bool) -> dict:
+    """The B=4 x 4096 eval forward of ``name`` in one EdgeConv form: its
+    launches (DGCNN_LAUNCHES or DGCNN_LITERAL_LAUNCHES), ms by CUDA events,
+    device-busy ms and K5c's and K7's ms from one torch.profiler run."""
+    model = seeded_model(name, seed).to(dev)
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32)).to(dev)
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32)).to(dev)
+    want = DGCNN_LAUNCHES if fast else DGCNN_LITERAL_LAUNCHES
+    with edgeconv_form(fast), torch.inference_mode():
+        _kernels.reset_launch_counts()
+        model(xyz, rgb)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        ms = time_ms(lambda: model(xyz, rgb))
+        fams = {}
+        busy, wall = profile_by_family(label, "forward", lambda: model(xyz, rgb), quiet=True,
+                                       families=fams)
+    k5c = fams.get("K5c k-NN over C channels", 0.0)
+    return {"ms": ms, "busy_ms": busy, "idle": max(0.0, 1 - busy / wall) if busy else None,
+            "k5c_ms": k5c, "k5c_share": k5c / busy if busy else None,
+            "k7_ms": fams.get("K7 edge reduce", 0.0), "families": fams}
+
+
+def compare_edgeconv_forms(ds: BlockDataset, dev: torch.device) -> dict:
+    """Phase 45: dgcnn and dgcnn_global in both EdgeConv forms on the card
+    (PCB_EDGECONV_FAST=0 and 1): the B=4 x 4096 forward in turns (literal,
+    restructured, restructured, literal: ms, device-busy ms, K5c's share);
+    the batch-16 train step eager and as a steps_per_dispatch: 4 graph
+    replay (phase 38's check_graph_steps: the replay's bits against 4 eager
+    steps; ms, idle share, peak MiB); then the allocator's peak of one
+    train-mode EdgeConv forward at B = 16, k = 64, F = 64 in each form, the
+    restructured one under EDGE_PEAK_LIMIT -> the numbers by model and form."""
+    t_start = time.perf_counter()
+    out = {}
+    for label, name, extra, loss_cfg, seed in EDGECONV_FORM_MODELS:
+        turns = [form_forward(f"{name} {'restructured' if fast else 'literal'} forward", name,
+                              seed, ds, dev, fast) for fast in (False, True, True, False)]
+        for fast, form in ((False, "literal"), (True, "restructured")):
+            mine = [t for t, f in zip(turns, (False, True, True, False)) if f == fast]
+            fwd = {key: statistics.median(t[key] for t in mine)
+                   for key in ("ms", "busy_ms", "k5c_ms", "k7_ms")}
+            fwd["k5c_share"] = fwd["k5c_ms"] / fwd["busy_ms"] if fwd["busy_ms"] else None
+            times = ", ".join(f"{t['ms']:.3f}" for t in mine)
+            print(f"{name} {form} forward: B={B} N={N} {times} ms (in turns), busy "
+                  f"{fwd['busy_ms']:.3f} ms, K5c {fwd['k5c_ms']:.3f} ms "
+                  f"({fwd['k5c_share'] or 0:.1%} of busy), K7 {fwd['k7_ms']:.3f} ms; by family "
+                  f"{ {k: round(v, 4) for k, v in mine[0]['families'].items()} }", flush=True)
+            with edgeconv_form(fast):
+                step = check_graph_steps(f"{label} {form}", name, extra, loss_cfg, ds, dev, seed,
+                                         rounds=2)
+            out[f"{name} {form}"] = {"forward": fwd, "step": step}
+            gc.collect()
+            torch.cuda.empty_cache()
+    peaks = {form: edgeconv_peak(dev, fast) for form, fast in (("literal", False),
+                                                               ("restructured", True))}
+    print(f"one train-mode EdgeConv forward at B=16 N={N} C=F=64 k=64: peak +"
+          f"{peaks['restructured'] / 2**20:.1f} MiB restructured, +"
+          f"{peaks['literal'] / 2**20:.1f} MiB literal (limit "
+          f"{EDGE_PEAK_LIMIT / 2**20:.1f} MiB, one [16, 4096, 64, 64] float32 tensor)",
+          flush=True)
+    if peaks["restructured"] >= EDGE_PEAK_LIMIT:
+        raise AssertionError(f"the restructured EdgeConv raised the peak by "
+                             f"{peaks['restructured']} bytes")
+    out["edgeconv_peak_bytes"] = peaks
+    print(f"phase 45 in {time.perf_counter() - t_start:.1f} s (host)", flush=True)
     return out
 
 
@@ -5379,6 +5707,7 @@ EXPORTS = (
     ("pointnet2_msg", "pointnet2_msg", {}),
     ("bristrunet", "bristrunet", {}),
     ("dgcnn", "dgcnn", {}),
+    ("dgcnn_global", "dgcnn_global", {}),
     ("ptv3_pooled", "ptv3_pooled", POOLED_BENCHED),
     ("ptv3_pooled bf16 stream", "ptv3_pooled", dict(POOLED_BENCHED, stream_dtype="bfloat16")),
 )
@@ -5387,10 +5716,13 @@ EXPORT_OPS = {
     "pointnet2_ssg": ("fps", "ball_query", "group", "interpolate"),
     "pointnet2_msg": ("fps", "ball_query_radii", "group", "interpolate"),
     "bristrunet": ("fps", "ball_query_radii", "group", "interpolate", "knn"),
-    "dgcnn": ("knn", "knn_c"),
+    "dgcnn": ("knn", "knn_c", "edge_reduce"),
+    "dgcnn_global": ("knn", "knn_c", "edge_reduce"),
     "ptv3_pooled": ("attention",),
     "ptv3_pooled bf16 stream": ("attention",),
 }
+# the programs whose output must equal the eager forward's (torch.equal)
+EXPORT_EQUAL = ("dgcnn", "dgcnn_global")
 # the classifiers read xyz alone by default; exported with the colours
 EXPORT_KWARGS = {name: {"in_features": 3}
                  for name in ("pointnet2_cls_ssg", "pointnet2_cls_msg", "pointnet_cls")}
@@ -5403,12 +5735,13 @@ def graph_ops(program: torch.nn.Module) -> list:
 
 
 def export_and_run(label: str, model: torch.nn.Module, xyz: torch.Tensor, rgb: torch.Tensor,
-                   workdir: Path, need_ops=()) -> tuple:
+                   workdir: Path, need_ops=(), equal: bool = False) -> tuple:
     """Export ``model`` (on the card) at xyz's shape, save, load, run the
     program and the eager forward, each with the counters reset just
     before -> (program launches, eager launches, line of numbers). Fails
     where the graph lacks an op of ``need_ops``, the launches differ or the
-    outputs differ beyond LOGIT_TOL (an exact match is reported as such)."""
+    outputs differ beyond LOGIT_TOL, with ``equal`` at all (an exact match
+    is reported as such)."""
     from pointcloud_bridge_tpu_torch.utils.export import export_program, load_program
 
     path = workdir / (label.replace(" ", "_") + ".pt2")
@@ -5436,8 +5769,8 @@ def export_and_run(label: str, model: torch.nn.Module, xyz: torch.Tensor, rgb: t
                                  f"forward {eager_counts}")
         err = max_abs_err(got.float(), want.float())
         same = torch.equal(got, want)
-        if got.shape != want.shape or not torch.isfinite(got).all() or (
-                not same and err > LOGIT_TOL * max(1.0, want.abs().max().item())):
+        if got.shape != want.shape or not torch.isfinite(got).all() or (not same and (
+                equal or err > LOGIT_TOL * max(1.0, want.abs().max().item()))):
             raise AssertionError(f"export {label}: output {tuple(got.shape)} differs from the "
                                  f"eager forward by {err}")
         prog_ms = time_ms(lambda: program(xyz, rgb), reps=10)
@@ -5452,19 +5785,19 @@ def export_and_run(label: str, model: torch.nn.Module, xyz: torch.Tensor, rgb: t
 
 
 def check_exports(ds: BlockDataset, dev: torch.device, workdir: Path) -> dict:
-    """42b: the six required programs -> their launch counts by label."""
+    """42b: the seven required programs -> their launch counts by label."""
     xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:1], np.float32)).to(dev)
     rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:1], np.float32)).to(dev)
     by_label = {}
     for i, (label, name, kwargs) in enumerate(EXPORTS):
         model = seeded_model(name, SEED + 420 + i, **kwargs).to(dev)
         by_label[f"export_{label.replace(' ', '_')}"], _, line = export_and_run(
-            label, model, xyz, rgb, workdir, EXPORT_OPS[label])
+            label, model, xyz, rgb, workdir, EXPORT_OPS[label], label in EXPORT_EQUAL)
         print(line, flush=True)
         del model
     launched = {k for counts in by_label.values() for k, v in counts.items() if v}
-    need = {"fps", "ball_query", "group", "interpolate", "knn", "knn_c", "flash_attn",
-            "flash_attn_bf16"}
+    need = {"fps", "ball_query", "group", "interpolate", "knn", "knn_c", "edge_reduce",
+            "flash_attn", "flash_attn_bf16"}
     if not need <= launched:
         raise AssertionError(f"exports: no loaded program launched {sorted(need - launched)}")
     return by_label
@@ -6241,6 +6574,9 @@ def main() -> None:
         gloo2_rank_main(int(sys.argv[2]), sys.argv[3])
         return
     dev = torch.device("cuda", 0)
+    # the DGCNN phases set the EdgeConv form themselves (edgeconv_form) and
+    # hold the card's default
+    os.environ.pop("PCB_EDGECONV_FAST", None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
@@ -6316,9 +6652,11 @@ def main() -> None:
         k4b_probe.compare(dev)
         return
     if sys.argv[1:] == ["--dgcnn"]:
-        # model work on DGCNN: phases 1, 2, K5c's cases of 3 and phases
-        # 18-20 alone, no result line
-        compare_neighbour_kernels(dev, Results(), np.random.default_rng(SEED))
+        # model work on DGCNN: phases 1, 2, the K2, K5 and K5c cases of 3,
+        # phase 3f and phases 18-20 and 45 alone, no result line
+        res = Results()
+        compare_neighbour_kernels(dev, res, np.random.default_rng(SEED))
+        compare_edge_kernels(dev, res, np.random.default_rng(SEED + 3))
         data_dir = ROOT / "build" / "chip_smoke_data"
         try:
             ds = make_dataset(data_dir)
@@ -6326,6 +6664,7 @@ def main() -> None:
             check_dgcnn_forward("dgcnn_global", ds, dev, SEED + 28)
             check_dgcnn_train_step(ds, dev)
             train_dgcnn_through_cli(data_dir, len(ds), dev)
+            compare_edgeconv_forms(ds, dev)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         return
@@ -6449,6 +6788,8 @@ def main() -> None:
     compare_attention_backward(dev, res)
     # 3e. the bf16 flash-attention kernels
     compare_attention_bf16(dev, res)
+    # 3f. K7 and K7b, DGCNN's restructured EdgeConv
+    compare_edge_kernels(dev, res, np.random.default_rng(SEED + 3))
 
     # 4. the SSG forward on the card against the CPU
     data_dir = ROOT / "build" / "chip_smoke_data"
@@ -6570,8 +6911,11 @@ def main() -> None:
         # training CLI, served from the checkpoint it wrote
         dgcnn_counts = check_dgcnn_forward("dgcnn", ds, dev, SEED + 18)
         dgcnn_global_counts = check_dgcnn_forward("dgcnn_global", ds, dev, SEED + 28)
-        by_path["dgcnn_train_step"] = check_dgcnn_train_step(ds, dev)
+        dgcnn_step_counts = check_dgcnn_train_step(ds, dev)
+        by_path[DGCNN_TRAIN] = dgcnn_step_counts
         by_path |= train_dgcnn_through_cli(data_dir, len(ds), dev)
+        # 45. both EdgeConv forms of dgcnn and dgcnn_global side by side
+        compare_edgeconv_forms(ds, dev)
 
         # 21. the pointnet2_msg forward with 9 channels; 22. the sem_seg and
         # classifier forwards; 23. one pointnet2_msg train step against the
@@ -6668,7 +7012,8 @@ def main() -> None:
                    BRISTRUNET_TRAIN: bristrunet_step_counts,
                    PTV3_POOLED: pooled_counts, PTV3: flat_counts,
                    PTV3_POOLED_TRAIN: pooled_step_counts, PTV3_TRAIN: flat_step_counts,
-                   DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts, **msg_passes,
+                   DGCNN: dgcnn_counts, DGCNN_GLOBAL: dgcnn_global_counts,
+                   DGCNN_TRAIN: dgcnn_step_counts, **msg_passes,
                    PROD_TRAIN: prod_counts, PTV3_BF16: ptv3_bf16_counts,
                    POOLED_BF16: pooled_bf16_counts, **zoo_passes, **measure_counts,
                    SP_RING_TRAIN: sp_ring_counts}
@@ -6677,9 +7022,7 @@ def main() -> None:
     for k in _kernels.KERNELS:
         paths = {path: res.row(k.name, path, counts[k.name])
                  for path, counts in pass_counts.items()
-                 if counts[k.name] and (path not in (TRAIN, BRISTRUNET_TRAIN, MSG_TRAIN,
-                                                     RANDLA_TRAIN)
-                                        or k.name in SSG_BACKWARD_KERNELS)}
+                 if counts[k.name] and k.name in TRAIN_PATH_KERNELS.get(path, (k.name,))}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "max_abs_err": res.err[k.name],

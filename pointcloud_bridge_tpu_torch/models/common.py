@@ -187,6 +187,33 @@ class BatchNorm(nn.Module):
             self.num_batches_tracked.add_(1)
         return out.to(x2.dtype)
 
+    def affine_from_moments(self, mu: Optional[torch.Tensor],
+                            mean2: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """BatchNorm of an input it never sees, from that input's batch
+        moments (the JAX package's ``_MomentBN``, models/dgcnn.py:34-70, on
+        this module's parameters and buffers) -> (a, c) with BN(h) = a h + c.
+
+        Train mode takes ``mu`` = mean(h) and ``mean2`` = mean(h^2) over
+        the rows (an all-reduce mean of both over ``axis_name``'s group,
+        inside autograd, where it is set), var = mean2 - mu^2 unclamped as
+        ``_MomentBN`` leaves it, and updates the running statistics as
+        ``forward`` does; eval mode takes the running statistics and
+        ignores both."""
+        if self.training:
+            if self.axis_name is not None:
+                stats = all_reduce_mean(torch.stack([mu, mean2]), axis_group(self.axis_name))
+                mu, mean2 = stats[0], stats[1]
+            var = mean2 - mu * mu
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - m).add_(mu, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        else:
+            mu, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + self.eps)
+        return a, self.bias - mu * a
+
 
 def sync_batchnorms(model: nn.Module, axis_name: Optional[str]) -> None:
     """Give every BatchNorm of ``model`` the mesh axis its train-mode

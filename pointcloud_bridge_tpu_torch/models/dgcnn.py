@@ -7,7 +7,8 @@ features (xyz for the first, 64-channel features for the others), then a
 segmentation model of configs/train_dgcnn.yaml, with a per-point head over
 [local 320 | global 1024]; :class:`DGCNNGlobal` (``dgcnn_global``, k = 64)
 pools [max | mean] and repeats its logits per point. Only xyz enters either
-model. The graphs run on the k-NN kernels: K5 over xyz, K5c over features.
+model. The graphs run on the k-NN kernels, K5 over xyz and K5c over
+features; on the card the EdgeConvs' reductions run on K7 (and K7b).
 
 Parameter names are the reference torch models' (utils/torch_import.py of
 the JAX package, ``_rules_dgcnn`` and ``_rules_dgcnn_global``): an EdgeConv's
@@ -17,36 +18,65 @@ Sequential; the port keeps the standalone name), ``conv5.0``, ``bn5``,
 ``local_bn``, ``point_conv.{0,1,3,4,6}``, ``linear{1,2,3}``, ``bn6``,
 ``bn7``.
 
-EdgeConv is the literal form that the JAX package runs off the TPU
-(``_edgeconv_fast_default`` is False there): the [B, N, k, 2C] graph
-feature, Dense, BatchNorm, LeakyReLU(0.2), max over the neighbours. The
-restructured form with ``_MomentBN`` (project before the gather) is queued
-in ROADMAP.md. Not ported: ``graph_recall`` (an ``approx_max_k`` knob; the
-port's k-NN is exact, so the argument is not accepted). ``axis_name``
-syncs every BatchNorm over that mesh axis (``sync_batchnorms``).
+EdgeConv has the JAX package's two forms, which compute the same function
+on the same parameters: the literal one (the [B, N, k, 2C] graph feature,
+Dense, BatchNorm, LeakyReLU(0.2), max over the neighbours) and the
+restructured one, which projects before the gather and recovers the
+BatchNorm from moments (``_MomentBN`` there, ``BatchNorm.
+affine_from_moments`` here). As the JAX package runs the restructured form
+on its accelerator and the literal one on the CPU, the port runs it on the
+card (``_edgeconv_fast_default``: ``PCB_EDGECONV_FAST`` where set, with the
+JAX package's values, else whether the input is a CUDA tensor). Not
+ported: ``graph_recall`` (an ``approx_max_k`` knob; the port's k-NN is
+exact, so the argument is not accepted). ``axis_name`` syncs every
+BatchNorm over that mesh axis (``sync_batchnorms``), in either form.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import edge_conv_graph_feature, knn
-from .common import BatchNorm, Dense, Dropout, PointConv, sync_batchnorms
+from ..ops import edge_conv_graph_feature, edge_reduce, knn, knn_set
+from .common import BatchNorm, Dense, Dropout, PointConv, linear, sync_batchnorms
 
 SLOPE = 0.2  # LeakyReLU's negative slope, the reference's
 
 
+def _edgeconv_fast_default(x: torch.Tensor) -> bool:
+    """Whether EdgeConv takes the restructured form (models/dgcnn.py:23-31
+    of the JAX package): ``PCB_EDGECONV_FAST`` where it is set (off for
+    "0", "false" and ""), else on a CUDA tensor, the counterpart of JAX's
+    ``jax.default_backend() == "tpu"``."""
+    flag = os.environ.get("PCB_EDGECONV_FAST")
+    if flag is not None:
+        return flag not in ("0", "false", "")
+    return x.is_cuda
+
+
 class EdgeConv(nn.Module):
-    """One EdgeConv (models/dgcnn.py:73-140, the literal path): graph
-    ``knn(x, k)`` with k = min(k, N - 1), as the JAX models clamp it ->
-    (x_j - x_i, x_i) [B, N, k, 2C] -> bias-free Conv2d ``0`` [F, 2C, 1, 1]
-    -> BatchNorm -> LeakyReLU(0.2) -> max over the k neighbours -> [B, N, F].
-    The BatchNorm is its model's ``bn{i}``, handed in at the call, since the
-    reference registers it under that name."""
+    """One EdgeConv (models/dgcnn.py:73-140) over the graph of x's k nearest
+    neighbours, k = min(k, N - 1) as the JAX models clamp it -> [B, N, F].
+    The bias-free Conv2d ``0`` [F, 2C, 1, 1] has its columns [0:C] on
+    x_j - x_i and [C:2C] on x_i. The BatchNorm is its model's ``bn{i}``,
+    handed in at the call, since the reference registers it under that
+    name.
+
+    Literal form: ``knn`` -> (x_j - x_i, x_i) [B, N, k, 2C] -> the conv ->
+    BatchNorm -> LeakyReLU(0.2) -> max over the neighbours.
+
+    Restructured form (``_edgeconv_fast_default``): h_j = y_j + z_i with
+    y = x W_a and z = x (W_b - W_a), W_a = W[:, :C], W_b = W[:, C:], so
+    that BatchNorm and LeakyReLU, monotone a channel, commute with the max:
+    LeakyReLU(a * (where(a > 0, max_j y_j, min_j y_j) + z) + c) with (a, c)
+    the BatchNorm's affine (``affine_from_moments``). The graph comes from
+    ``knn_set``; ``edge_reduce`` takes the max and the min (and, in train
+    mode, the neighbour means of y and y^2, from which the batch moments of
+    h follow) without building [B, N, k, F]: K7 on the card."""
 
     def __init__(self, in_ch: int, features: int, k: int,
                  generator: Optional[torch.Generator] = None):
@@ -55,9 +85,25 @@ class EdgeConv(nn.Module):
         self.add_module("0", PointConv(2 * in_ch, features, 2, generator, bias=False))
 
     def forward(self, x: torch.Tensor, bn: BatchNorm) -> torch.Tensor:
-        idx = knn(x, k=min(self.k, x.shape[1] - 1))
-        h = getattr(self, "0")(edge_conv_graph_feature(x, idx=idx))
-        return torch.amax(F.leaky_relu(bn(h), SLOPE), dim=2)
+        k = min(self.k, x.shape[1] - 1)
+        conv = getattr(self, "0")
+        if not _edgeconv_fast_default(x):
+            h = conv(edge_conv_graph_feature(x, idx=knn(x, k=k)))
+            return torch.amax(F.leaky_relu(bn(h), SLOPE), dim=2)
+        idx = knn_set(x, k=k)
+        w, c = conv.weight.flatten(1), x.shape[-1]
+        y = linear(x, w[:, :c], None, conv.column_group).contiguous()
+        z = linear(x, w[:, c:] - w[:, :c], None, conv.column_group)
+        if bn.training:
+            mx, mn, s1, s2 = edge_reduce(y, idx, moments=True)
+            mu = s1.mean(dim=(0, 1)) + z.mean(dim=(0, 1))
+            mean2 = (s2.mean(dim=(0, 1)) + 2.0 * (z * s1).mean(dim=(0, 1))
+                     + (z * z).mean(dim=(0, 1)))
+            a, shift = bn.affine_from_moments(mu, mean2)
+        else:
+            mx, mn = edge_reduce(y, idx)
+            a, shift = bn.affine_from_moments(None, None)
+        return F.leaky_relu(a * (torch.where(a > 0, mx, mn) + z) + shift, SLOPE)
 
 
 class _EdgeConvTrunk(nn.Module):

@@ -6,12 +6,15 @@ module: a CPU tensor takes the plain version, a CUDA tensor the kernel.
 ``ops.attention`` is the attention module (``ops.attention.attention`` the op).
 Each forward kernel is also a custom op ``pcb::<name>`` (ops/_kernels.py),
 which ``torch.export`` records; importing this package registers them all.
-``ops.avs`` is AVS-Net's adaptive voxel sampling, host numpy.
+``ops.edge`` is DGCNN's restructured EdgeConv reduction (``edge_reduce``,
+kernels K7 and K7b). ``ops.avs`` is AVS-Net's adaptive voxel sampling, host
+numpy.
 """
 
 from . import attention
 from .avs import avs_adapt_voxel_size, avs_net_sample_indices, avs_voxel_downsample
 from .core import index_points, pairwise_sq_dist, square_distance
+from .edge import edge_reduce
 from .grouping import (
     edge_conv_graph_feature,
     group_points,
@@ -38,6 +41,7 @@ __all__ = [
     "avs_net_sample_indices",
     "avs_voxel_downsample",
     "edge_conv_graph_feature",
+    "edge_reduce",
     "eigh3x3",
     "eigvals3_from_entries",
     "estimate_normals",

@@ -15,9 +15,9 @@ raw pointers and PyTorch's current stream. The launch path is kept thin,
 because at the models' smaller shapes a call's host time exceeds its device
 time: each entry point is bound once (``Kernel.fn``), the stream is read as
 a raw handle, the C side sets the device only when it changes, and the FPS,
-ball-query, group, interpolation (both ways) and both k-NN kernels take their
-integers as one array laid out once a shape (ops/sampling.py, grouping.py,
-interpolate.py),
+ball-query, group, interpolation (both ways), both k-NN and both edge-reduce
+kernels take their integers as one array laid out once a shape
+(ops/sampling.py, grouping.py, interpolate.py, edge.py),
 since ctypes converts every argument on every call.
 
 Each forward kernel is also a ``torch.library`` custom op in the namespace
@@ -201,9 +201,27 @@ FLASH_ATTN_BWD_DKV_BF16 = Kernel(
     "pointcloud_bridge_tpu_torch/csrc/flash_attn_bwd_bf16.cu",
     "pointcloud_bridge_tpu/models/ptv3.py:154",
 )
+# DGCNN's restructured EdgeConv: no Pallas kernel, the XLA fusion of its
+# gather and reductions (models/dgcnn.py:127-137 of the JAX package) and its VJP
+EDGE_REDUCE = Kernel(
+    "edge_reduce", "pcb_edge_reduce",
+    # y, idx, mx, mn, s1 (or null), s2 (or null), plan (ops/edge.py
+    # EDGE_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/edge_reduce.cu",
+    "pointcloud_bridge_tpu/models/dgcnn.py:127",
+)
+EDGE_REDUCE_BWD = Kernel(
+    "edge_reduce_bwd", "pcb_edge_reduce_backward",
+    # y, idx, mx, mn, g_mx, g_mn, g_s1 (or null), g_s2 (or null), e, plan
+    # (EDGE_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "pointcloud_bridge_tpu_torch/csrc/edge_reduce_bwd.cu",
+    "pointcloud_bridge_tpu/models/dgcnn.py:127",
+)
 KERNELS = (FPS, BALL_QUERY, GROUP, INTERPOLATE, GROUP_BWD, INTERP_BWD, KNN, KNN_C, FLASH_ATTN,
            FLASH_ATTN_BWD_DQ, FLASH_ATTN_BWD_DKV, FLASH_ATTN_BF16, FLASH_ATTN_BWD_DQ_BF16,
-           FLASH_ATTN_BWD_DKV_BF16)
+           FLASH_ATTN_BWD_DKV_BF16, EDGE_REDUCE, EDGE_REDUCE_BWD)
 
 
 def reset_launch_counts() -> None:

@@ -193,8 +193,9 @@ def test_backward_kernel_wrappers_never_run_on_the_cpu(rng):
 def test_kernel_table_lists_the_attention_backward_kernels():
     names = [k.name for k in _kernels.KERNELS]
     assert names[8:11] == ["flash_attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
-    assert names[11:] == ["flash_attn_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16"]
-    assert len(set(names)) == len(names) == 14
+    assert names[11:14] == ["flash_attn_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16"]
+    assert names[14:] == ["edge_reduce", "edge_reduce_bwd"]
+    assert len(set(names)) == len(names) == 16
     for k in (_kernels.FLASH_ATTN_BWD_DQ, _kernels.FLASH_ATTN_BWD_DKV):
         assert (_kernels._REPO / k.source).is_file()
         assert k.source.endswith("csrc/flash_attn_bwd.cu")

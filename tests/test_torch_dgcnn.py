@@ -68,56 +68,66 @@ def jax_variables(name: str, xyz: np.ndarray, seed: int, **kwargs) -> dict:
 
 
 class JaxGraphs:
-    """Wraps the JAX model's ``knn`` (pointcloud_bridge_tpu.models.dgcnn) so
-    that each stage's input features and graph are recorded, in order, also
-    inside jit and under grad (a debug callback on the primal values); or,
-    once recorded, replays them instead of searching (``replay``)."""
+    """Wraps the JAX model's ``knn`` and ``knn_set``
+    (pointcloud_bridge_tpu.models.dgcnn: the literal EdgeConv calls the
+    first, the restructured one the second) so that each stage's input
+    features and graph are recorded, in order, also inside jit and under
+    grad (a debug callback on the primal values); or, once recorded,
+    replays them instead of searching (``replay``)."""
+
+    SEARCHES = ("knn", "knn_set")
 
     def __init__(self, monkeypatch):
         self.monkeypatch = monkeypatch
         self.stages = {}
 
     def record(self):
-        real, calls = jdgcnn.knn, []
+        calls = []
 
-        def recording_knn(x, query=None, k=20, approx=None, recall_target=0.95):
-            idx = real(x, query, k, approx, recall_target)
-            stage = len(calls)
-            calls.append(stage)
-            jax.debug.callback(
-                lambda xv, iv, stage=stage: self.stages.__setitem__(
-                    stage, (np.asarray(xv, np.float32), np.asarray(iv))), x, idx)
-            return idx
+        def recording(real):
+            def search(x, query=None, k=20, *args, **kwargs):
+                idx = real(x, query, k, *args, **kwargs)
+                stage = len(calls)
+                calls.append(stage)
+                jax.debug.callback(
+                    lambda xv, iv, stage=stage: self.stages.__setitem__(
+                        stage, (np.asarray(xv, np.float32), np.asarray(iv))), x, idx)
+                return idx
+            return search
 
         self.stages.clear()
-        self.monkeypatch.setattr(jdgcnn, "knn", recording_knn)
+        for name in self.SEARCHES:
+            self.monkeypatch.setattr(jdgcnn, name, recording(getattr(jdgcnn, name)))
 
     def replay(self):
         graphs, calls = self.graphs(), []
 
-        def replaying_knn(x, query=None, k=20, approx=None, recall_target=0.95):
+        def replaying(x, query=None, k=20, *args, **kwargs):
             calls.append(None)
             idx = graphs[len(calls) - 1]
             assert idx.shape == x.shape[:2] + (k,)
             return jnp.asarray(idx)
 
-        self.monkeypatch.setattr(jdgcnn, "knn", replaying_knn)
+        for name in self.SEARCHES:
+            self.monkeypatch.setattr(jdgcnn, name, replaying)
 
     def graphs(self) -> list:
         assert sorted(self.stages) == [0, 1, 2, 3], sorted(self.stages)
         return [self.stages[i][1] for i in range(4)]
 
     def port_replay(self):
-        """The port's EdgeConvs take the recorded graphs, in order."""
+        """The port's EdgeConvs take the recorded graphs, in order, in
+        either form."""
         graphs, calls = self.graphs(), []
 
-        def replaying_knn(x, query=None, k=20):
+        def replaying(x, query=None, k=20):
             idx = graphs[len(calls)]
             calls.append(None)
             assert idx.shape == tuple(x.shape[:2]) + (k,)
             return torch.from_numpy(idx.copy())
 
-        self.monkeypatch.setattr(tdgcnn, "knn", replaying_knn)
+        for name in self.SEARCHES:
+            self.monkeypatch.setattr(tdgcnn, name, replaying)
         return calls
 
 

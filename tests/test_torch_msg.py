@@ -278,3 +278,41 @@ def test_train_mode_moves_the_batch_statistics_and_drops_out():
     model.eval()
     with torch.no_grad():
         assert torch.equal(model(xyz, rgb), model(xyz, rgb))
+
+
+def test_train_mode_forward_at_64_points_holds_to_the_jax_float64_forward():
+    """At N = 64 (sa1's 1024 centres past N, every level's BatchNorm over few
+    distinct rows) the JAX float32 model in train mode parts from its own
+    float64 forward by ~0.024 in its logits: flax's BatchNorm takes the
+    variance as E[x^2] - E[x]^2 (``use_fast_variance``), which cancels in
+    float32. The port's float32 forward (``F.batch_norm``) is held to the
+    JAX float64 train-mode forward within 1e-3 of max|logit|, and its
+    updated statistics within 1e-5 of max|stat| (B = 2, 6 feature channels,
+    dropout 0)."""
+    rng = np.random.default_rng(64)
+    block = rng.uniform(size=(2, 64, 9)).astype(np.float32)
+    xyz, feats = block[..., :3].copy(), block[..., 3:].copy()
+    jmodel = jax_get_model("pointnet2_msg", 5, dropout_rate=0.0)
+    variables = randomize_bn(jax.jit(lambda a, b: jmodel.init(
+        jax.random.PRNGKey(0), a, b, train=False))(jnp.asarray(xyz), jnp.asarray(feats)))
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+        logits, mut = jax.jit(lambda v, a, b: jmodel.apply(v, a, b, train=True,
+                                                           mutable=["batch_stats"]))(
+            v64, xyz.astype(np.float64), feats.astype(np.float64))
+        want = np.asarray(logits, np.float64)  # the head's last Dense casts to float32
+        want_stats = jax.tree_util.tree_map(np.asarray, mut["batch_stats"])
+    finally:
+        jax.config.update("jax_enable_x64", x64)
+    model = get_model("pointnet2_msg", 5, in_features=6, dropout_rate=0.0)
+    model.load_state_dict(flax_to_state_dict(variables, "pointnet2_msg"), strict=True)
+    got = model.train()(torch.from_numpy(xyz), torch.from_numpy(feats)).detach().double().numpy()
+    assert got.shape == want.shape == (2, 64, 5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.abs(want).max())
+    stats = state_dict_to_flax(model.state_dict(), "pointnet2_msg")["batch_stats"]
+    for path, ref in jax.tree_util.tree_leaves_with_path(want_stats):
+        leaf = np.asarray(dict(jax.tree_util.tree_leaves_with_path(stats))[path], np.float64)
+        np.testing.assert_allclose(leaf, ref, rtol=0, atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=jax.tree_util.keystr(path))

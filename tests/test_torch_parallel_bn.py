@@ -103,6 +103,25 @@ def test_sync_bn_gives_the_global_batchs_statistics(bn, name):
             assert err <= tol, f"{k}: |port - alone| {err:.3g} > {tol:.3g}"
 
 
+def test_sync_bn_of_the_restructured_edgeconv(bn):
+    """The restructured EdgeConv (its BatchNorm from moments,
+    ``affine_from_moments``) with axis_name on two ranks: the outputs of
+    the two halves and both ranks' running statistics against the whole
+    batch through the same module in a world of one, in the file's bands."""
+    r0, r1 = bn[0]["fast_edgeconv"], bn[1]["fast_edgeconv"]
+    assert r0["fast"] and r1["fast"]
+    got = torch.cat([r0["logits"], r1["logits"]])
+    alone, single = r0["alone"], r1["single"]
+    assert got.shape == alone["logits"].shape == (4, 64, 24) and torch.isfinite(got).all()
+    err, tol = _band(got, alone["logits"], single["logits"], 2e-4)
+    assert err <= tol, f"outputs |port - alone| {err:.3g} > {tol:.3g}"
+    assert alone["stats"].keys() == {"bn.running_mean", "bn.running_var"}
+    for k, v in alone["stats"].items():
+        for r in (r0, r1):
+            err, tol = _band(r["stats"][k], v, single["stats"][k], 1e-5)
+            assert err <= tol, f"{k}: |port - alone| {err:.3g} > {tol:.3g}"
+
+
 @pytest.mark.parametrize("name", sorted(RULES))
 def test_sync_bn_matches_the_jax_model_under_shard_map(bn, name):
     """Logits within 2e-4 and running statistics within 1e-5 * max|stat|

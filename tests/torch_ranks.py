@@ -368,6 +368,39 @@ def small(name: str, axis_name=None):
     return model.train()
 
 
+def fast_edgeconv(axis_name=None):
+    """One EdgeConv (C = 16, F = 24, k = 8) and its BatchNorm drawn from a
+    seed, in train mode, the BatchNorm synced over ``axis_name``."""
+    from pointcloud_bridge_tpu_torch.models import BatchNorm, EdgeConv
+
+    holder = torch.nn.Module()
+    holder.edge = EdgeConv(16, 24, 8, torch.Generator().manual_seed(3))
+    holder.bn = BatchNorm(24)
+    randomize_bn(holder, torch.Generator().manual_seed(4))
+    holder.bn.axis_name = axis_name
+    return holder.train()
+
+
+def _fast_edgeconv_run(rank: int) -> dict:
+    """The restructured EdgeConv (PCB_EDGECONV_FAST=1) synced over "data"
+    on this rank's 2 of 4 clouds; rank 0 also over all 4 synced over a
+    group of itself alone, rank 1 over all 4 unsynced."""
+    from pointcloud_bridge_tpu_torch.models import dgcnn
+
+    x = torch.from_numpy(np.random.default_rng(10).normal(size=(4, 64, 16)).astype(np.float32))
+    os.environ["PCB_EDGECONV_FAST"] = "1"
+    try:
+        h = fast_edgeconv("data")
+        res = {"logits": h.edge(x[2 * rank:2 * rank + 2], h.bn).detach(),
+               "stats": bn_buffers(h), "fast": dgcnn._edgeconv_fast_default(x)}
+        key, axis = ("alone", "alone") if rank == 0 else ("single", None)
+        h = fast_edgeconv(axis)
+        res[key] = {"logits": h.edge(x, h.bn).detach(), "stats": bn_buffers(h)}
+    finally:
+        del os.environ["PCB_EDGECONV_FAST"]
+    return res
+
+
 @job
 def bn(rank, world, path):
     """A train-mode forward of each distinct registry model built with
@@ -375,7 +408,7 @@ def bn(rank, world, path):
     JAX comparison's size. Rank 0 also forwards the whole batch through
     the same model synced over a group of itself alone (the same
     arithmetic in a world of one), rank 1 through the model built without
-    axis_name."""
+    axis_name. Then the restructured EdgeConv alone (_fast_edgeconv_run)."""
     import torch.distributed as dist
 
     from pointcloud_bridge_tpu_torch.parallel import make_mesh, shard_batch
@@ -399,6 +432,7 @@ def bn(rank, world, path):
         res[key] = {"logits": model(whole["points"], whole["colors"]).detach(),
                     "stats": bn_buffers(model)}
         out[name] = res
+    out["fast_edgeconv"] = _fast_edgeconv_run(rank)
     return out
 
 
