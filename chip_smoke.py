@@ -119,19 +119,24 @@ any failure raises and exits non-zero:
 3f. K7, the neighbour reduction of DGCNN's restructured EdgeConv, against
    edge_reduce_plain on the card at the shapes the DGCNN forwards and train
    steps give it (B=4 and 16, N = S = 4096, k = 20 with F = 64 and 128, k =
-   64 with F = 64 and 128; the train steps' with the moments) on a K5 graph
-   of a uniform cloud: the max and the min bit for bit, the moments within
-   1e-6 * max(1, max|plain|) (their bit-identity printed: the plain version
-   folds in the kernel's order); then K7b (its per-edge gradients folded by
-   K3b) at the train steps' shapes, bit for bit against the plain per-edge
-   gradients folded in K3b's order, within 1e-5 of max|plain| of
-   scatter_add_'s fold and of torch's autograd of the reductions, the same
-   bits on a second call; both on an integer grid (ties: the cotangent of
-   a max held by several slots splits evenly), in eval mode (no moments),
-   at F = 24, 3, 66 and 256 (a float a lane, two chunks of channels), k =
-   1, S != N, indices past N and a y 4 bytes off 16-byte alignment. Times
-   (event, device, host) beside the bound (idx, y once and the outputs over
-   3.35 TB/s) and, for K7, index_points + amax + amin in PyTorch;
+   64 with F = 64 and 128; the train steps' with the moments and the ties)
+   on a K5 graph of a uniform cloud: the max, the min and the ties bit for
+   bit (the ties also against tie_counts_plain, and counting them changes
+   no other output), the moments within 1e-6 * max(1, max|plain|) (their
+   bit-identity printed: the plain version folds in the kernel's order);
+   then K7b (sort, rank and fold with no per-edge tensor) at the train
+   steps' shapes, bit for bit against the plain per-edge gradients folded
+   in K3b's order (group_backward_order), within 1e-5 of max|plain| of
+   scatter_add_'s fold and of torch's
+   autograd of the reductions, the same bits on a second call; both on an
+   integer grid (ties: the cotangent of a max held by several slots splits
+   evenly), in eval mode (no moments), at F = 24, 3, 66 and 256, k = 1,
+   S != N, S = 12000 (K7b's fold from device memory), indices past N and a
+   y 4 bytes off 16-byte alignment. Times (event, device, host) at every
+   shape beside the bound (idx, y once and the outputs over 3.35 TB/s)
+   and, for K7, index_points + amax + amin in PyTorch; with --dgcnn or
+   --edge the first design of both (probes/k7_probe.py) timed before and
+   after each in braces;
 4. the SSG forward at B=4 x 4096 on the card against the same model on the
    CPU (plain versions), logits within 2e-4; every forward kernel must have
    been launched; forward time and points/s;
@@ -221,8 +226,8 @@ any failure raises and exits non-zero:
    time, points/s and device time by kernel family;
 19. one DGCNN train step at full width, B=4 x 4096, on the card against
    the CPU, both in the restructured form, checked as in 6, the CPU taking
-   the card's graphs of the same mode: exactly 1 K5, 3 K5c, 4 K7, 4 K7b and
-   4 group-backward launches (K7b's fold of its per-edge gradients);
+   the card's graphs of the same mode: exactly 1 K5, 3 K5c, 4 K7 and 4 K7b
+   launches (K7b sorts and folds on its own: no K3b);
    milliseconds a step;
 20. two epochs of DGCNN at batch 16 through train_cli.main with
    ``--config configs/train_dgcnn.yaml``, checked as in 7, the batch-16
@@ -394,15 +399,20 @@ any failure raises and exits non-zero:
    over a mesh of two, its predictions the single-rank vote's. Phases
    3c/3d hold K6/K6b at the ring's N/2 shapes first.
 45. dgcnn (its recipe's loss) and dgcnn_global in both EdgeConv forms on
-   the card (PCB_EDGECONV_FAST=0 and 1), run after phase 20: the B=4 x 4096
-   forward in turns (literal, restructured, restructured, literal; ms,
-   device-busy ms, K5c's and K7's ms) with each form's launches exact; the
-   batch-16 train step eager and as a steps_per_dispatch: 4 graph replay
-   (phase 38's checks and numbers: the replay's bits against 4 eager steps,
-   ms, idle share, peak MiB); then one train-mode EdgeConv forward at B =
-   16, N = 4096, k = 64, C = F = 64 in each form, the restructured one
-   raising the allocator's peak by less than one [16, 4096, 64, 64] float32
-   tensor (1.07 GB).
+   the card (PCB_EDGECONV_FAST=0 and 1), with --dgcnn the restructured one
+   also on PR 23's K7 and K7b (probes/k7_probe.py), run after phase 20: the
+   B=4 x 4096 forward in turns (literal, restructured, restructured,
+   literal; with --dgcnn literal, PR 23's, restructured, restructured, PR
+   23's, literal; ms, device-busy ms, K5c's and K7's ms) with each form's
+   launches exact; the batch-16 train step eager and as a
+   steps_per_dispatch: 4 graph replay (phase 38's checks and numbers: the
+   replay's bits against 4 eager steps, ms, idle share, peak MiB); then one
+   train-mode EdgeConv forward at B = 16, N = 4096, k = 64, C = F = 64 in
+   each form, the restructured one raising the allocator's peak by less
+   than one [16, 4096, 64, 64] float32 tensor (1.07 GB); and one forward
+   and backward at dgcnn_global's conv4 (B = 16, C = 64, F = 128, k = 64),
+   K7b's raising the peak by less than a quarter of PR 23's per-edge
+   scratch (537 MB; with --dgcnn also on PR 23's design).
 Phase 3 also holds K5 at the measurement chain's shapes (B = 1, N = S =
 63,885 and 103,718 at k = 31, 51 and 5, and k = 1 from a tenth of the
 points to the rest), each launch's rows of 2,048 random queries bit for bit
@@ -449,7 +459,15 @@ quick-trained 4 epochs on 300k points, 3 votes: end-to-end points/s,
 coverage, OA, mIoU and the vote's phase split);
 ``--attention-bf16`` phase 3e; ``--k5c-exit`` K5c's early exit on the
 features DGCNN's graphs are built over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
-K5c cases of phase 3, phase 3f and phases 18-20 and 45; ``--msg`` the MSG family's cases of
+K5c cases of phase 3, phase 3f and phases 18-20 and 45; ``--edge`` phase 3f
+alone, then K7b's parts (sort, rank, fold) and sort splits, the staged K7
+(probes/k7_staged.cu) and both kernels with a part taken out
+(probes/k7_probe.py; ``--edge probes`` the probes alone); ``--edge ties``
+the two ways to give K7b its ties, K7 counting them online against a row
+pass of K7b's own (probes/k7b_rows.cu), beside K7b and PR 23's design at
+the train shapes of phase 3f; ``--edge-split``
+the first K7b split into its per-edge pass, K3b's sort and K3b's fold, and
+the longest buckets of the graphs of seeded DGCNN forwards; ``--msg`` the MSG family's cases of
 phases 3 and 3b and phases 21-24; ``--zoo`` the cases of RandLA-Net and the
 superpoint models in phases 3 and 3b and phases 34-37; ``--graphs`` phase
 38 for every other model with a step phase or a recipe (the DGCNN,
@@ -463,7 +481,8 @@ The line before the last is the per-kernel JSON summary. A kernel's row
 holds one path's numbers together: ``launches`` of one BriStruNet forward at
 B=4 (phase 8; of one SSG train step, phase 6, for its backward kernels; of
 one DGCNN forward, phase 18, for K5c and K7; of one DGCNN train step,
-phase 19, for K7b, beside the moments flavour of K7 there; of one ptv3_pooled forward, phase 10,
+phase 19, for K7b, beside the train flavour of K7 there (moments, ties); of
+one ptv3_pooled forward, phase 10,
 for the flash-attention kernel; of one
 ptv3_pooled train step, phase 13, for the attention-backward kernels) beside
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over exactly
@@ -509,6 +528,7 @@ from pointcloud_bridge_tpu_torch.infer import run_block_inference, whole_scene_v
 from pointcloud_bridge_tpu_torch.measure import wl_iden
 from pointcloud_bridge_tpu_torch.config import Config, LossConfig
 from pointcloud_bridge_tpu_torch.models import dgcnn as dgcnn_models
+from pointcloud_bridge_tpu_torch.probes import k7_probe
 from pointcloud_bridge_tpu_torch.models import randlanet as randla_models
 from pointcloud_bridge_tpu_torch.models import spg as spg_models
 from pointcloud_bridge_tpu_torch.models import spt as spt_models
@@ -591,8 +611,9 @@ CLS_MSG_LAUNCHES = only(fps=2, ball_query=2, group=6)
 # conv2-conv4, K7 (the neighbour reduction) in each EdgeConv
 DGCNN_LAUNCHES = only(knn=1, knn_c=3, edge_reduce=4)
 # a train step adds K7b in each EdgeConv (y = x W_a carries a gradient in
-# conv1 too), which folds its per-edge gradients with K3b
-DGCNN_STEP_LAUNCHES = DGCNN_LAUNCHES | {"edge_reduce_bwd": 4, "group_bwd": 4}
+# conv1 too), which sorts and folds on its own (the first design folded
+# its per-edge gradients with K3b)
+DGCNN_STEP_LAUNCHES = DGCNN_LAUNCHES | {"edge_reduce_bwd": 4}
 # the literal form (PCB_EDGECONV_FAST=0): the k-NN kernels alone, and in a
 # step index_points' backward (IndexPoints, K3b) at the three EdgeConvs
 # whose input carries a gradient
@@ -735,8 +756,8 @@ ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "knn_c": DGCNN, "edge_reduc
             "flash_attn_bwd_dkv_bf16": "ptv3_big_prod_train_step"}
 # the kernels that a train step's path holds rows of: its backward kernels
 # (its forward kernels' shapes stand under the forward's path), and for
-# DGCNN's K7 in its train-mode flavour (the moments) beside K7b, whose time
-# includes the K3b fold it calls
+# DGCNN's K7 in its train-mode flavour (the moments and the ties) beside
+# K7b, whose time includes its sort, rank and fold
 TRAIN_PATH_KERNELS = {path: SSG_BACKWARD_KERNELS
                       for path in (TRAIN, BRISTRUNET_TRAIN, MSG_TRAIN, "randlanet_train_step")}
 TRAIN_PATH_KERNELS[DGCNN_TRAIN] = ("edge_reduce", "edge_reduce_bwd")
@@ -1995,6 +2016,8 @@ EDGE_CASES = (
     (16, 20, 64, 3, DGCNN_TRAIN_B16, True), (16, 20, 128, 1, DGCNN_TRAIN_B16, True),
     (16, 64, 64, 3, DGCNN_GLOBAL_TRAIN_B16, True),
 )
+# (B, k, F) of the train shapes that --edge-split splits the first K7b at
+EDGE_SPLIT_CASES = tuple((b, k, f) for b in (B, 16) for k in (20, 64) for f in (64, 128))
 # K7b against its plain version (scatter_add_'s order) within this share of
 # max|plain|, as K3b; against the plain version in K3b's order bit for bit
 EDGE_BWD_TOL = BWD_TOL
@@ -2011,39 +2034,81 @@ def edge_inputs(dev, rng, b: int, k: int, f: int, n: int = N, s: int = N, grid: 
 
 
 def edge_work(y, idx, outs: int) -> tuple:
-    """(bytes, operations) of K7: idx, y once and ``outs`` outputs; a
-    compare each for the max and the min, an add and a multiply-add for
-    the moments, a slot and channel."""
+    """(bytes, operations) of K7: idx, y once and ``outs`` float outputs of
+    4 bytes an element (the ties are not counted: they pass from K7 to K7b
+    and the function needs neither their write nor their read); a compare
+    each for the max and the min, an add and a multiply-add for the
+    moments, a slot and channel."""
     b, s, k = idx.shape
     f = y.shape[2]
     return nbytes(y, idx) + outs * b * s * f * 4, b * s * k * f * (2 if outs == 2 else 5)
 
 
+# The first design of K7 and K7b (probes/k7_probe.py), timed before and after
+# the kernel at each timed case where FIRST_DESIGN_TURNS (--dgcnn, --edge):
+# path -> kernel -> its sums, printed in braces
+FIRST_DESIGN = {}
+FIRST_DESIGN_TURNS = False
+
+
+def first_design_times(fn, split: bool) -> dict:
+    """Event ms and, with ``split``, device ms of the first design."""
+    return {"ms": time_ms(fn)} | ({"device_ms": device_ms(fn)} if split else {})
+
+
+def record_first_design(name: str, path: str, times: int, before: dict, after: dict) -> None:
+    """Add the first design's turns before and after a timed case to its path's sums."""
+    total = FIRST_DESIGN.setdefault(path, {}).setdefault(
+        name, {"cases": 0, "ms": [0.0, 0.0], "device_ms": [0.0, 0.0]})
+    total["cases"] += times
+    for turn, got in enumerate((before, after)):
+        for key, value in got.items():
+            total[key][turn] += times * value
+    line = f"event {before['ms']:.4f}, {after['ms']:.4f} ms"
+    if "device_ms" in before:
+        line += f", device {before['device_ms']:.4f}, {after['device_ms']:.4f} ms"
+    print(f"{name:18s}   {{the first design, before and after: {line}}}", flush=True)
+
+
 def check_edge_reduce(res: Results, label, y, idx, moments: bool, path=None, times=1,
                       split=False) -> None:
-    """K7 against edge_reduce_plain on the same inputs: the max and the min
-    bit for bit, the moments within 1e-6 * max(1, max|plain|) (the plain
-    version folds the slots in the kernel's order: how many came out
-    bit-identical is printed); timed where ``path`` is a pass's, beside the
-    gather and amax and amin of PyTorch (three calls)."""
-    kernel = functools.partial(edge_ops.edge_reduce_cuda, y, idx, moments)
-    plain = functools.partial(edge_ops.edge_reduce_plain, y, idx, moments)
+    """K7 against edge_reduce_plain on the same inputs: the max, the min and
+    the ties bit for bit, the moments within 1e-6 * max(1, max|plain|) (the
+    plain version folds the slots in the kernel's order: how many came out
+    bit-identical is printed), with and without the ties (a train step's
+    K7, with the moments, counts them); timed where ``path`` is a pass's,
+    beside the gather and amax and amin of PyTorch (three calls) and, in
+    braces, the first design (probes/k7_probe.py) where FIRST_DESIGN_TURNS."""
+    kernel = functools.partial(edge_ops.edge_reduce_cuda, y, idx, moments, moments)
+    plain = functools.partial(edge_ops.edge_reduce_plain, y, idx, moments, moments)
     got, want = kernel(), plain()
+    other = edge_ops.edge_reduce_cuda(y, idx, moments, not moments)
     torch.cuda.synchronize()
     same = [torch.equal(g, w) for g, w in zip(got, want)]
+    counted = got if moments else other
+    if not all(torch.equal(a, b) for a, b in zip(got, other)):
+        raise AssertionError(f"edge_reduce {label}: counting the ties changed an output")
+    if not torch.equal(counted[-1], edge_ops.tie_counts_plain(y, idx, got[0], got[1])):
+        raise AssertionError(f"edge_reduce {label}: ties differ from tie_counts_plain")
 
     def library():
         g = core_ops.index_points(y, idx)
         return g.amax(dim=2), g.amin(dim=2)
 
     timed = path is not None
-    res.check("edge_reduce", f"{label}{' moments' if moments else ''}", kernel, plain,
-              (True, True, False, False)[:len(got)], (path,) if timed else (),
-              scaled=(1e-6, 1.0), work=edge_work(y, idx, len(got)) if timed else None,
+    turns = timed and FIRST_DESIGN_TURNS
+    first = functools.partial(k7_probe.edge_reduce_first, y, idx, moments)
+    before = first_design_times(first, split) if turns else None
+    res.check("edge_reduce", f"{label}{' moments, ties' if moments else ''}", kernel,
+              plain, (True, True, False, False, True)[:len(got)], (path,)
+              if timed else (), scaled=(1e-6, 1.0),
+              work=edge_work(y, idx, 4 if moments else 2) if timed else None,
               library_fn=library if timed else None, times=times, split=split)
-    if moments:
-        print(f"{'edge_reduce':18s} {label}: s1, s2 bit-identical to the plain fold: "
-              f"{same[2]}, {same[3]}", flush=True)
+    if turns:
+        record_first_design("edge_reduce", path, times, before, first_design_times(first, split))
+    sums = f"; s1, s2 bit-identical to the plain fold: {same[2]}, {same[3]}" if moments else ""
+    print(f"{'edge_reduce':18s} {label}: ties bit for bit against tie_counts_plain{sums}",
+          flush=True)
 
 
 def check_edge_reduce_bwd(res: Results, label, y, idx, moments: bool, rng, path=None, times=1,
@@ -2054,11 +2119,11 @@ def check_edge_reduce_bwd(res: Results, label, y, idx, moments: bool, rng, path=
     fold (timed where ``path`` is a pass's), the same bits on a second call;
     with ``autograd`` within EDGE_BWD_TOL against torch's autograd of
     index_points, amax, amin and the means."""
-    outs = edge_ops.edge_reduce_cuda(y, idx, moments)
+    *outs, ties = edge_ops.edge_reduce_cuda(y, idx, moments, True)
     cots = tuple(torch.from_numpy(rng.normal(size=tuple(outs[0].shape)).astype(np.float32))
                  .to(y.device) for _ in outs)
     args = (y, idx, outs[0], outs[1]) + cots
-    kernel = functools.partial(edge_ops.edge_reduce_backward_cuda, *args)
+    kernel = functools.partial(edge_ops.edge_reduce_backward_cuda, *args, ties=ties)
     first, second = kernel(), kernel()
     ordered = grouping.group_backward_order(edge_ops.edge_grads_plain(*args), idx, y.shape[1], 0,
                                             y.shape[2])
@@ -2071,11 +2136,19 @@ def check_edge_reduce_bwd(res: Results, label, y, idx, moments: bool, rng, path=
     timed = path is not None
     b, s, k = idx.shape
     f = y.shape[2]
+    # bytes: y, idx, mx, mn and the cotangents read once, the gradient
+    # written once (not the ties, which pass from K7 to K7b)
     work = (nbytes(y, idx, *args[2:]) + y.numel() * 4, b * s * k * f * 8)
-    res.check("edge_reduce_bwd", f"{label}{' moments' if moments else ''}", kernel,
+    turns = timed and FIRST_DESIGN_TURNS
+    slow = functools.partial(k7_probe.edge_reduce_backward_first, *args)
+    before = first_design_times(slow, split) if turns else None
+    route = "staged" if edge_ops.edge_fold_staged(s) else "from device memory"
+    res.check("edge_reduce_bwd", f"{label}{' moments' if moments else ''} ({route})", kernel,
               functools.partial(edge_ops.edge_reduce_backward_plain, *args), False,
               (path,) if timed else (), scaled=(EDGE_BWD_TOL, 0.0),
               work=work if timed else None, times=times, split=split)
+    if turns:
+        record_first_design("edge_reduce_bwd", path, times, before, first_design_times(slow, split))
     line = "the same bits twice, bit for bit against the plain order"
     if autograd:
         ya = y.detach().clone().requires_grad_(True)
@@ -2098,10 +2171,9 @@ def compare_edge_kernels(dev: torch.device, res: Results, rng) -> None:
     for b, k, f, times, path, moments in EDGE_CASES:
         y, idx = edge_inputs(dev, rng, b, k, f)
         label = f"B={b} N=S={N} k={k} F={f}"
-        pass_path = path in (DGCNN, DGCNN_GLOBAL, DGCNN_TRAIN)
-        check_edge_reduce(res, label, y, idx, moments, path, times, split=pass_path)
+        check_edge_reduce(res, label, y, idx, moments, path, times, split=True)
         if moments:
-            check_edge_reduce_bwd(res, label, y, idx, True, rng, path, times, split=pass_path,
+            check_edge_reduce_bwd(res, label, y, idx, True, rng, path, times, split=True,
                                   autograd=(b, k, f) == (B, 20, 64))
     y, idx = edge_inputs(dev, rng, 2, 20, 64, grid=4)
     check_edge_reduce(res, "integer grid (ties) B=2 k=20 F=64", y, idx, True)
@@ -2114,7 +2186,10 @@ def compare_edge_kernels(dev: torch.device, res: Results, rng) -> None:
                                  ("F=66 (2 chunks of 2 a lane)", 2, 20, 66, 1000, 1000),
                                  ("F=256 (2 chunks of 4 a lane)", 2, 20, 256, 1000, 1000),
                                  ("k=1", 2, 1, 64, 1000, 1000),
-                                 ("S=700 of N=1000, k=40", 2, 40, 64, 1000, 700)):
+                                 ("S=700 of N=1000, k=40", 2, 40, 64, 1000, 700),
+                                 # K7b's fold from device memory (S rows of
+                                 # records past a block's shared memory)
+                                 ("N=S=12000 (K7b unstaged)", 1, 20, 66, 12000, 12000)):
         y, idx = edge_inputs(dev, rng, b, k, f, n, s)
         check_edge_reduce(res, label, y, idx, True)
         check_edge_reduce_bwd(res, label, y, idx, True, rng)
@@ -2131,6 +2206,11 @@ def compare_edge_kernels(dev: torch.device, res: Results, rng) -> None:
     res.print_sums("edge_reduce", (DGCNN, DGCNN_GLOBAL, DGCNN_TRAIN, DGCNN_TRAIN_B16,
                                    DGCNN_GLOBAL_TRAIN_B16))
     res.print_sums("edge_reduce_bwd", (DGCNN_TRAIN, DGCNN_TRAIN_B16, DGCNN_GLOBAL_TRAIN_B16))
+    for path, kernels in FIRST_DESIGN.items():
+        for name, t in kernels.items():
+            print(f"{name:18s} sum over {path} ({t['cases']} launches), the first design before "
+                  f"and after the kernel: {{event {t['ms'][0]:.4f}, {t['ms'][1]:.4f} ms, device "
+                  f"{t['device_ms'][0]:.4f}, {t['device_ms'][1]:.4f} ms}}", flush=True)
 
 
 def packed_qkv_maker(dev: torch.device, seed: int, dtype=torch.float32):
@@ -3602,8 +3682,7 @@ def _dgcnn_train_step(ds: BlockDataset, dev: torch.device) -> dict:
         # 1e-4 of their weight's
         counts = check_train_step(model, cpu_model, xyz, rgb, labels, cw, None,
                                   DGCNN_STEP_LAUNCHES, "DGCNN train step", zero_below=1e-4,
-                                  needed=("knn", "knn_c", "edge_reduce", "edge_reduce_bwd",
-                                          "group_bwd"))
+                                  needed=("knn", "knn_c", "edge_reduce", "edge_reduce_bwd"))
         if tap.replayed != 4:
             raise AssertionError(f"DGCNN train step: the CPU took {tap.replayed} graphs, not 4")
     step_ms = time_ms(lambda: loss_and_grads(model, xyz, rgb, labels, cw), reps=10)
@@ -3625,7 +3704,7 @@ def train_dgcnn_through_cli(data_dir: Path, n_blocks: int, dev: torch.device) ->
     by_path = {}
     by_path["dgcnn_train_cli"], exp_dir = train_through_cli(
         "train dgcnn (configs/train_dgcnn.yaml)", "dgcnn",
-        kernels + ("edge_reduce_bwd", "group_bwd"), data_dir, dev, profile=True,
+        kernels + ("edge_reduce_bwd",), data_dir, dev, profile=True,
         recipe=ROOT / "configs" / "train_dgcnn.yaml")
     label = "serve trained dgcnn blocks"
     try:
@@ -3694,10 +3773,12 @@ def kernel_family(name: str) -> str:
     """The row of PERF.md's breakdown that a device kernel's name goes to."""
     for key, family in (
         ("fps_kernel", "K1 FPS"), ("ballq_", "K2 ball query"),
+        ("k7b_sort", "K7b edge reduce backward"), ("edge_bwd_", "K7b edge reduce backward"),
         ("group_kernel", "K3 group"), ("group_bwd_", "K3b group backward"),
         ("interp_kernel", "K4 interpolate"), ("interp_bwd_kernel", "K4b interpolation backward"),
         ("knn_c_kernel", "K5c k-NN over C channels"), ("knn_kernel", "K5 k-NN"),
         ("edge_reduce_bwd", "K7b edge reduce backward"), ("edge_reduce_kernel", "K7 edge reduce"),
+        ("edge_reduce_staged", "K7 edge reduce"),
         ("flash_attn_bf16_kernel", "K6 flash attention (bf16)"),
         ("flash_attn_bwd_dq_bf16", "K6b flash attention backward (bf16)"),
         ("flash_attn_bwd_dkv_bf16", "K6b flash attention backward (bf16)"),
@@ -5077,24 +5158,59 @@ EDGECONV_FORM_MODELS = (
 # a [16, 4096, 64, 64] float32 tensor: what one restructured EdgeConv
 # forward at B = 16, k = 64, F = 64 must raise the allocator's peak by less
 EDGE_PEAK_LIMIT = 16 * N * 64 * 64 * 4
+# dgcnn_global's conv4 at the batch-16 step (B = 16, C = 64, F = 128, k =
+# 64): one train-mode EdgeConv forward and backward on K7 and K7b must raise
+# the peak by less than a quarter of the first design's per-edge scratch [B, N, k, F]
+EDGE_BWD_SHAPE = (16, 64, 128, 64)
+EDGE_BWD_PEAK_LIMIT = 16 * N * 64 * 128 * 4 // 4
+# phase 45's EdgeConv forms: (label, restructured, the first K7 and K7b)
+EDGECONV_FORMS = (("literal", False, False), ("restructured", True, False),
+                  ("restructured on the first K7, K7b", True, True))
 
 
-def edgeconv_peak(dev: torch.device, fast: bool) -> int:
-    """Bytes that one train-mode EdgeConv forward (C = F = 64, k = 64, its
-    autograd graph kept) at B = 16 x 4096 raises the allocator's peak by, in
-    the given form, after a first forward has warmed its plans."""
+@contextlib.contextmanager
+def edgeconv_design(first: bool):
+    """ops/edge.py's K7 and K7b wrappers inside the block: the port's, or
+    with ``first`` the first design's (probes/k7_probe.py), whose launches no counter
+    of the package sees."""
+    saved = k7_probe.use_first_design(edge_ops) if first else None
+    try:
+        yield
+    finally:
+        if saved:
+            k7_probe.restore(edge_ops, saved)
+
+
+def edgeconv_peak(dev: torch.device, fast: bool, shape=(16, 64, 64, 64), backward=False,
+                  first=False) -> int:
+    """Bytes that one train-mode EdgeConv (B, C, F, k = ``shape``, N = 4096,
+    its autograd graph kept) raises the allocator's peak by, in the given
+    form (and, with ``first``, on the first K7 and K7b), after a first call
+    has warmed its plans: the forward, and with ``backward`` the backward
+    of sum(out * cot) too."""
+    b, c, f, k = shape
     gen = torch.Generator().manual_seed(SEED + 452)
-    conv = dgcnn_models.EdgeConv(64, 64, 64, gen).to(dev)
-    bn = BatchNorm(64).to(dev).train()
-    x = torch.randn(16, N, 64, generator=gen).to(dev)
-    with edgeconv_form(fast):
-        conv(x, bn)
+    conv = dgcnn_models.EdgeConv(c, f, k, gen).to(dev)
+    bn = BatchNorm(f).to(dev).train()
+    x = torch.randn(b, N, c, generator=gen).to(dev).requires_grad_(backward)
+    cot = torch.randn(b, N, f, generator=gen).to(dev) if backward else None
+
+    def run():
+        out = conv(x, bn)
+        if backward:
+            out.backward(cot)
+        return out
+
+    with edgeconv_form(fast), edgeconv_design(first):
+        run()
         torch.cuda.synchronize()
+        conv.zero_grad(set_to_none=True)
+        x.grad = None
         gc.collect()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        out = conv(x, bn)
+        out = run()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
     del out
@@ -5102,15 +5218,16 @@ def edgeconv_peak(dev: torch.device, fast: bool) -> int:
 
 
 def form_forward(label: str, name: str, seed: int, ds: BlockDataset, dev: torch.device,
-                 fast: bool) -> dict:
-    """The B=4 x 4096 eval forward of ``name`` in one EdgeConv form: its
-    launches (DGCNN_LAUNCHES or DGCNN_LITERAL_LAUNCHES), ms by CUDA events,
-    device-busy ms and K5c's and K7's ms from one torch.profiler run."""
+                 fast: bool, first: bool = False) -> dict:
+    """The B=4 x 4096 eval forward of ``name`` in one EdgeConv form (with
+    ``first`` on the first K7): its launches (DGCNN_LAUNCHES, or
+    DGCNN_LITERAL_LAUNCHES where no K7 of the package runs), ms by CUDA
+    events, device-busy ms and K5c's and K7's ms from one torch.profiler run."""
     model = seeded_model(name, seed).to(dev)
     xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32)).to(dev)
     rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32)).to(dev)
-    want = DGCNN_LAUNCHES if fast else DGCNN_LITERAL_LAUNCHES
-    with edgeconv_form(fast), torch.inference_mode():
+    want = DGCNN_LAUNCHES if fast and not first else DGCNN_LITERAL_LAUNCHES
+    with edgeconv_form(fast), edgeconv_design(first), torch.inference_mode():
         _kernels.reset_launch_counts()
         model(xyz, rgb)
         torch.cuda.synchronize()
@@ -5129,20 +5246,27 @@ def form_forward(label: str, name: str, seed: int, ds: BlockDataset, dev: torch.
 
 def compare_edgeconv_forms(ds: BlockDataset, dev: torch.device) -> dict:
     """Phase 45: dgcnn and dgcnn_global in both EdgeConv forms on the card
-    (PCB_EDGECONV_FAST=0 and 1): the B=4 x 4096 forward in turns (literal,
-    restructured, restructured, literal: ms, device-busy ms, K5c's share);
-    the batch-16 train step eager and as a steps_per_dispatch: 4 graph
-    replay (phase 38's check_graph_steps: the replay's bits against 4 eager
-    steps; ms, idle share, peak MiB); then the allocator's peak of one
-    train-mode EdgeConv forward at B = 16, k = 64, F = 64 in each form, the
-    restructured one under EDGE_PEAK_LIMIT -> the numbers by model and form."""
+    (PCB_EDGECONV_FAST=0 and 1), where FIRST_DESIGN_TURNS the restructured
+    one also on the first K7 and K7b (probes/k7_probe.py): the B=4 x 4096
+    forward in turns (literal, restructured, restructured, literal, or
+    literal, the first, restructured, restructured, the first, literal: ms,
+    device-busy ms, K5c's share); the batch-16 train step eager and as a
+    steps_per_dispatch: 4 graph replay (phase 38's check_graph_steps: the
+    replay's bits against 4 eager steps; ms, idle share, peak MiB); then the
+    allocator's peak of one train-mode EdgeConv forward at B = 16, k = 64,
+    F = 64 in each form, the restructured one under EDGE_PEAK_LIMIT, and of
+    one forward and backward at dgcnn_global's conv4 (EDGE_BWD_SHAPE),
+    under EDGE_BWD_PEAK_LIMIT (and on the first design where
+    FIRST_DESIGN_TURNS) -> the numbers by model and form."""
     t_start = time.perf_counter()
     out = {}
+    forms = EDGECONV_FORMS if FIRST_DESIGN_TURNS else EDGECONV_FORMS[:2]
+    order = (0, 2, 1, 1, 2, 0) if FIRST_DESIGN_TURNS else (0, 1, 1, 0)
     for label, name, extra, loss_cfg, seed in EDGECONV_FORM_MODELS:
-        turns = [form_forward(f"{name} {'restructured' if fast else 'literal'} forward", name,
-                              seed, ds, dev, fast) for fast in (False, True, True, False)]
-        for fast, form in ((False, "literal"), (True, "restructured")):
-            mine = [t for t, f in zip(turns, (False, True, True, False)) if f == fast]
+        turns = [form_forward(f"{name} {forms[i][0]} forward", name, seed, ds, dev,
+                              *forms[i][1:]) for i in order]
+        for i, (form, fast, first) in enumerate(forms):
+            mine = [t for t, j in zip(turns, order) if j == i]
             fwd = {key: statistics.median(t[key] for t in mine)
                    for key in ("ms", "busy_ms", "k5c_ms", "k7_ms")}
             fwd["k5c_share"] = fwd["k5c_ms"] / fwd["busy_ms"] if fwd["busy_ms"] else None
@@ -5151,7 +5275,7 @@ def compare_edgeconv_forms(ds: BlockDataset, dev: torch.device) -> dict:
                   f"{fwd['busy_ms']:.3f} ms, K5c {fwd['k5c_ms']:.3f} ms "
                   f"({fwd['k5c_share'] or 0:.1%} of busy), K7 {fwd['k7_ms']:.3f} ms; by family "
                   f"{ {k: round(v, 4) for k, v in mine[0]['families'].items()} }", flush=True)
-            with edgeconv_form(fast):
+            with edgeconv_form(fast), edgeconv_design(first):
                 step = check_graph_steps(f"{label} {form}", name, extra, loss_cfg, ds, dev, seed,
                                          rounds=2)
             out[f"{name} {form}"] = {"forward": fwd, "step": step}
@@ -5167,7 +5291,19 @@ def compare_edgeconv_forms(ds: BlockDataset, dev: torch.device) -> dict:
     if peaks["restructured"] >= EDGE_PEAK_LIMIT:
         raise AssertionError(f"the restructured EdgeConv raised the peak by "
                              f"{peaks['restructured']} bytes")
+    mine = edgeconv_peak(dev, True, EDGE_BWD_SHAPE, True)
+    first = edgeconv_peak(dev, True, EDGE_BWD_SHAPE, True, True) if FIRST_DESIGN_TURNS else None
+    b, c, f, k = EDGE_BWD_SHAPE
+    beside = f" {{the first design: +{first / 2**20:.1f} MiB}}" if first is not None else ""
+    print(f"one train-mode EdgeConv forward and backward at B={b} N={N} C={c} F={f} k={k} "
+          f"(dgcnn_global's conv4), restructured: peak +{mine / 2**20:.1f} MiB{beside} (limit "
+          f"{EDGE_BWD_PEAK_LIMIT / 2**20:.1f} MiB, a quarter of the first design's per-edge "
+          f"scratch)", flush=True)
+    if mine >= EDGE_BWD_PEAK_LIMIT:
+        raise AssertionError(f"K7b's EdgeConv forward and backward raised the peak by {mine} "
+                             f"bytes")
     out["edgeconv_peak_bytes"] = peaks
+    out["edgeconv_backward_peak_bytes"] = {"K7, K7b": mine, "the first K7, K7b": first}
     print(f"phase 45 in {time.perf_counter() - t_start:.1f} s (host)", flush=True)
     return out
 
@@ -6585,7 +6721,12 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
-    # 2. build
+    # 2. build; where a flag times them, the first K7 and K7b and K3b's sort
+    # alone (probes/k7_probe.py) build beside the package, one nvcc each
+    global FIRST_DESIGN_TURNS
+    FIRST_DESIGN_TURNS = sys.argv[1:2] in (["--dgcnn"], ["--edge"], ["--edge-split"])
+    if FIRST_DESIGN_TURNS:
+        k7_probe.start_build()
     t0 = time.perf_counter()
     so = _kernels.build()
     _kernels.library()
@@ -6667,6 +6808,35 @@ def main() -> None:
             compare_edgeconv_forms(ds, dev)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
+        return
+    if sys.argv[1:] == ["--edge", "ties"]:
+        # K7 counting the ties online against K7 and a row pass of K7b's own
+        # (probes/k7b_rows.cu), beside K7b and the first design, at phase
+        # 3f's train shapes, no result line
+        rng = np.random.default_rng(SEED + 5)
+        k7_probe.compare_tie_designs(
+            dev, [(b, k, f, times, path) for b, k, f, times, path, moments in EDGE_CASES
+                  if moments], lambda b, k, f: edge_inputs(dev, rng, b, k, f))
+        return
+    if sys.argv[1:2] == ["--edge"]:
+        # kernel work on K7 and K7b: phases 1, 2 and 3f alone (not with
+        # --edge probes), then K7b's parts and sort splits and both kernels
+        # with a part taken out (probes/k7_probe.py), no result line
+        if sys.argv[2:] != ["probes"]:
+            compare_edge_kernels(dev, Results(), np.random.default_rng(SEED + 3))
+        rng = np.random.default_rng(SEED + 4)
+        inputs = lambda b, k, f: edge_inputs(dev, rng, b, k, f)  # noqa: E731
+        k7_probe.split_backward(dev, EDGE_SPLIT_CASES, inputs)
+        k7_probe.compare_variants(dev, EDGE_SPLIT_CASES, inputs)
+        return
+    if sys.argv[1:] == ["--edge-split"]:
+        # The first K7b split into its per-edge pass, K3b's sort and K3b's fold
+        # at phase 3f's train shapes, and the buckets of the graphs of real
+        # DGCNN forwards (probes/k7_probe.py), no result line
+        rng = np.random.default_rng(SEED + 3)
+        k7_probe.split_first_backward(dev, EDGE_SPLIT_CASES,
+                                      lambda b, k, f: edge_inputs(dev, rng, b, k, f))
+        k7_probe.longest_buckets(dgcnn_features(dev))
         return
     if sys.argv[1:] == ["--msg"]:
         # model work on the PointNet++ MSG family: phases 1, 2, the family's

@@ -44,7 +44,9 @@
 //    row's bucket: ball queries over a wide radius send most slots to the
 //    few lowest indices (buckets of 100 and more ids), so a row's chunks go
 //    to separate warps and each keeps kAhead loads in flight.
-// Steps 1-3 are a counting sort split over blocks, which fill the card
+// Steps 1-3 are the counting sort of group_sort.cuh (K7b, edge_reduce_bwd.cu,
+// sorts its slots with it too), and step 4 ranks with its rank_bucket.
+// The sort is split over blocks, which fill the card
 // where one block a batch element would leave most SMs idle; no memset
 // and no atomic on device memory. Where the slots of a batch element make
 // one slice (split = 1, S * K <= GROUP_BWD_SLICE), one block a batch
@@ -57,157 +59,13 @@
 // step's sa2 at B=4); the sort moves idx twice, the histograms three times
 // and the id arrays once.
 #include "common.cuh"
-
-#include <climits>
+#define PCB_SORT_NAMESPACE k3b_sort
+#include "group_sort.cuh"
 
 namespace {
 
-constexpr int kSortThreads = 256;  // count and place
-constexpr int kScanThreads = 1024;  // scan, and the sort in one block
-constexpr int kUnroll = 4;  // slots a thread loads before their atomics
 constexpr int kFoldThreads = 128;  // 4 warps a block, a point a warp
 constexpr int kFoldWarps = kFoldThreads / 32;
-
-// cnt[j] += the slots in [lo, hi) of ib on point j (shared atomics)
-template <int kThreads>
-__device__ __forceinline__ void count_slots(const int* __restrict__ ib, int* cnt, int lo, int hi,
-                                            int n) {
-  for (int p0 = lo; p0 < hi; p0 += kThreads * kUnroll) {
-    int j[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = p0 + u * kThreads + (int)threadIdx.x;
-      j[u] = p < hi ? clamp_index(__ldg(ib + p), n) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (j[u] >= 0) atomicAdd(&cnt[j[u]], 1);
-  }
-}
-
-// each slot id p in [lo, hi) into bucket position cur[j]++ of its point j
-template <int kThreads>
-__device__ __forceinline__ void place_slots(const int* __restrict__ ib, int* cur,
-                                            int* __restrict__ bk, int lo, int hi, int n) {
-  for (int p0 = lo; p0 < hi; p0 += kThreads * kUnroll) {
-    int j[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = p0 + u * kThreads + (int)threadIdx.x;
-      j[u] = p < hi ? clamp_index(__ldg(ib + p), n) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (j[u] >= 0) bk[atomicAdd(&cur[j[u]], 1)] = p0 + u * kThreads + (int)threadIdx.x;
-  }
-}
-
-// a[0..n) in shared memory -> its exclusive prefix sums, in place, by a
-// block of kScanThreads; a thread owns `per` consecutive entries. Ends
-// with the block synchronised.
-__device__ __forceinline__ void exclusive_scan(int* a, int n) {
-  __shared__ int warp_sum[kScanThreads / 32];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int per = (n + kScanThreads - 1) / kScanThreads;
-  const int lo = min(tid * per, n);
-  const int hi = min(lo + per, n);
-  int sum = 0;
-  for (int j = lo; j < hi; ++j) sum += a[j];
-  int incl = sum;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_sum[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += v;
-    }
-    warp_sum[lane] = w;  // inclusive over the warps
-  }
-  __syncthreads();
-  int run = incl - sum + (warp > 0 ? warp_sum[warp - 1] : 0);
-  for (int j = lo; j < hi; ++j) {
-    const int c = a[j];
-    a[j] = run;
-    run += c;
-  }
-  __syncthreads();
-}
-
-// block g of batch element b takes slots [g * per, (g + 1) * per)
-__device__ __forceinline__ int slice_lo(int t, int per) { return min((int)blockIdx.x * per, t); }
-
-__global__ void __launch_bounds__(kSortThreads)
-    group_bwd_count(const int* __restrict__ idx, int* __restrict__ hist, int n, int t, int per) {
-  extern __shared__ int cnt[];
-  for (int j = threadIdx.x; j < n; j += kSortThreads) cnt[j] = 0;
-  __syncthreads();
-  const int lo = slice_lo(t, per);
-  count_slots<kSortThreads>(idx + (size_t)blockIdx.y * t, cnt, lo, min(lo + per, t), n);
-  __syncthreads();
-  int* h = hist + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * n;
-  for (int j = threadIdx.x; j < n; j += kSortThreads) h[j] = cnt[j];
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-    group_bwd_scan(int* __restrict__ hist, int* __restrict__ ends, int n, int split) {
-  extern __shared__ int tot[];  // bucket sizes, then their starts
-  int* hb = hist + (size_t)blockIdx.x * split * n;
-  for (int j = threadIdx.x; j < n; j += kScanThreads) {
-    int c = 0;
-    for (int g = 0; g < split; ++g) c += hb[(size_t)g * n + j];
-    tot[j] = c;
-  }
-  __syncthreads();
-  exclusive_scan(tot, n);
-  // each block's offsets into bucket j, in block order; then its end
-  for (int j = threadIdx.x; j < n; j += kScanThreads) {
-    int at = tot[j];
-    for (int g = 0; g < split; ++g) {
-      const int c = hb[(size_t)g * n + j];
-      hb[(size_t)g * n + j] = at;
-      at += c;
-    }
-    ends[(size_t)blockIdx.x * n + j] = at;
-  }
-}
-
-__global__ void __launch_bounds__(kSortThreads)
-    group_bwd_place(const int* __restrict__ idx, const int* __restrict__ hist,
-                    int* __restrict__ bucket, int n, int t, int per) {
-  extern __shared__ int cur[];
-  const int* h = hist + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * n;
-  for (int j = threadIdx.x; j < n; j += kSortThreads) cur[j] = h[j];
-  __syncthreads();
-  const int lo = slice_lo(t, per);
-  place_slots<kSortThreads>(idx + (size_t)blockIdx.y * t, cur, bucket + (size_t)blockIdx.y * t,
-                            lo, min(lo + per, t), n);
-}
-
-// count, scan and place in one block a batch element, where one slice
-// holds them all (split = 1): one launch in place of three
-__global__ void __launch_bounds__(kScanThreads)
-    group_bwd_sort(const int* __restrict__ idx, int* __restrict__ ends, int* __restrict__ bucket,
-                   int n, int t) {
-  extern __shared__ int cnt[];  // counts, then the cursors
-  const int* ib = idx + (size_t)blockIdx.x * t;
-  for (int j = threadIdx.x; j < n; j += kScanThreads) cnt[j] = 0;
-  __syncthreads();
-  count_slots<kScanThreads>(ib, cnt, 0, t, n);
-  __syncthreads();
-  exclusive_scan(cnt, n);
-  place_slots<kScanThreads>(ib, cnt, bucket + (size_t)blockIdx.x * t, 0, t, n);
-  __syncthreads();
-  for (int j = threadIdx.x; j < n; j += kScanThreads) ends[(size_t)blockIdx.x * n + j] = cnt[j];
-}
 
 // The V channels of one slot row that a lane adds (V = 1 or 4).
 template <int V>
@@ -265,18 +123,8 @@ __global__ void __launch_bounds__(kFoldThreads)
   // this chunk's own copy of the sorted bucket
   int* so = sorted + ((size_t)b * gridDim.y + blockIdx.y) * t + start;
 
-  // the bucket's ids in ascending order: an id's rank is the number of ids
-  // below it (the ids are distinct)
-  for (int base = 0; base < len; base += 32) {
-    const int e = base + lane < len ? bk[base + lane] : INT_MAX;
-    int rank = 0;
-    for (int ob = 0; ob < len; ob += 32) {
-      const int o = ob + lane < len ? bk[ob + lane] : INT_MAX;
-#pragma unroll
-      for (int r = 0; r < 32; ++r) rank += __shfl_sync(0xffffffffu, o, r) < e;
-    }
-    if (base + lane < len) so[rank] = e;
-  }
+  // the bucket's ids in ascending order
+  rank_bucket(bk, len, so, lane, FastDiv{0u, 0u});
   __syncwarp();
 
   const float* gb = g + (size_t)b * t * width + c0;
@@ -302,15 +150,6 @@ __global__ void __launch_bounds__(kFoldThreads)
 }
 
 }  // namespace
-
-// Raise a kernel's dynamic shared memory limit to `bytes` where it is past
-// the 48 KB that needs no opt-in.
-template <typename F>
-static cudaError_t allow_smem(F kernel, size_t bytes) {
-  return bytes > 48 * 1024
-             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)
-             : cudaSuccess;
-}
 
 // g [B, S, K, width], idx [B, S, K] -> out [B, N, c1 - c0]. `work` is
 // B * (N + split * N + (1 + chunks) * S * K) ints of scratch (bucket ends,
@@ -338,27 +177,12 @@ PCB_API int pcb_group_backward(const float* g, const int* idx, float* out, int* 
   cudaStream_t st = (cudaStream_t)stream;
   const int wout = c1 - c0;
   const int t = s * k;
-  const int per = (t + split - 1) / split;
   const int chunks = (wout + 32 * vec - 1) / (32 * vec);
   int* ends = work;
   int* hist = ends + (size_t)b * n;
   int* bucket = hist + (size_t)b * split * n;
   int* sorted = bucket + (size_t)b * t;
-  const size_t smem = (size_t)n * sizeof(int);
-  if (split == 1) {
-    if ((err = allow_smem(group_bwd_sort, smem)) != cudaSuccess) return (int)err;
-    group_bwd_sort<<<b, kScanThreads, smem, st>>>(idx, ends, bucket, n, t);
-  } else {
-    if ((err = allow_smem(group_bwd_count, smem)) != cudaSuccess ||
-        (err = allow_smem(group_bwd_scan, smem)) != cudaSuccess ||
-        (err = allow_smem(group_bwd_place, smem)) != cudaSuccess)
-      return (int)err;
-    const dim3 sort_grid((unsigned)split, (unsigned)b);
-    group_bwd_count<<<sort_grid, kSortThreads, smem, st>>>(idx, hist, n, t, per);
-    group_bwd_scan<<<b, kScanThreads, smem, st>>>(hist, ends, n, split);
-    group_bwd_place<<<sort_grid, kSortThreads, smem, st>>>(idx, hist, bucket, n, t, per);
-  }
-  err = cudaGetLastError();
+  err = sort_slots(idx, ends, hist, bucket, b, n, t, split, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + kFoldWarps - 1) / kFoldWarps), (unsigned)chunks, (unsigned)b);
   if (vec == 4)

@@ -205,17 +205,17 @@ FLASH_ATTN_BWD_DKV_BF16 = Kernel(
 # gather and reductions (models/dgcnn.py:127-137 of the JAX package) and its VJP
 EDGE_REDUCE = Kernel(
     "edge_reduce", "pcb_edge_reduce",
-    # y, idx, mx, mn, s1 (or null), s2 (or null), plan (ops/edge.py
-    # EDGE_PLAN), device, stream
-    (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # y, idx, mx, mn, s1 (or null), s2 (or null), ties (or null), plan
+    # (ops/edge.py EDGE_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/edge_reduce.cu",
     "pointcloud_bridge_tpu/models/dgcnn.py:127",
 )
 EDGE_REDUCE_BWD = Kernel(
     "edge_reduce_bwd", "pcb_edge_reduce_backward",
-    # y, idx, mx, mn, g_mx, g_mn, g_s1 (or null), g_s2 (or null), e, plan
-    # (EDGE_PLAN), device, stream
-    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # y, idx, mx, mn, ties, g_mx, g_mn, g_s1 (or null), g_s2 (or null), out,
+    # work (ops/edge.py edge_bwd_work), plan (EDGE_BWD_PLAN), device, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "pointcloud_bridge_tpu_torch/csrc/edge_reduce_bwd.cu",
     "pointcloud_bridge_tpu/models/dgcnn.py:127",
 )

@@ -57,8 +57,8 @@ PATHS = (
                                (64, 16, 16, 0.4, 512), (64, 16, 32, 0.8, 512))),
     ("DGCNN index_points", 4, ((4096, 4096, 20, None, 64),)),
 )
-# (name, exact, [(old, new), ...]) of csrc/group_bwd.cu; every old string
-# must occur
+# (name, exact, [(old, new), ...]) of csrc/group_bwd.cu with its counting
+# sort written in place (source_text); every old string must occur
 VARIANTS = (
     ("kernel", True, []),
     ("fold alone (timing only)", False,
@@ -76,10 +76,19 @@ VARIANTS = (
 )
 
 
+def source_text() -> str:
+    """csrc/group_bwd.cu with the counting sort it includes
+    (csrc/group_sort.cuh) written in place, so that one text holds every
+    line VARIANTS edits, and common.cuh included by its path."""
+    common = f'#include "{_kernels.CSRC / "common.cuh"}"'
+    sort = (_kernels.CSRC / "group_sort.cuh").read_text().replace('#include "common.cuh"', common)
+    return (_kernels.CSRC / "group_bwd.cu").read_text().replace(
+        '#include "common.cuh"', common).replace('#include "group_sort.cuh"', sort)
+
+
 def variants() -> dict:
     """name -> (exact, the library of that variant of csrc/group_bwd.cu)."""
-    text = (_kernels.CSRC / "group_bwd.cu").read_text().replace(
-        '#include "common.cuh"', f'#include "{_kernels.CSRC / "common.cuh"}"')
+    text = source_text()
     OUT.mkdir(parents=True, exist_ok=True)
     sources = []
     for i, (name, _, edits) in enumerate(VARIANTS):

@@ -8,8 +8,10 @@ CPU both default to the literal form, tests/test_torch_dgcnn.py).
   and max y^2: K7's fold adds in slot order), on normal values and on an
   integer grid full of ties, against the JAX gather and reductions too;
   its gradient against ``jax.vjp`` of those and against torch's autograd
-  of them, a tie splitting the cotangent evenly; the kernels' plans,
-  lanes and refusals; the custom op's fake shapes.
+  of them, a tie splitting the cotangent evenly; the ties K7 counts
+  against the counts the plain gradient divides by and a numpy emulation
+  of K7's online count; the kernels' plans, lanes, routes, refusals and
+  K7b's scratch; the custom op's fake shapes.
 - One EdgeConv (B = 2, N = 64, C = 16, F = 24, k = 8; the BatchNorm's
   scales of both signs and one exactly 0, which takes the min as
   ``where(a > 0, mx, mn)`` does) against the JAX module on the JAX graph,
@@ -26,6 +28,8 @@ The train steps are in tests/test_torch_edgeconv_fast_train.py.
 
 import torch_cpu  # noqa: F401  (first: torch's threads a worker)
 
+import functools
+import inspect
 import re
 import types
 
@@ -148,21 +152,94 @@ def test_per_edge_gradients_follow_the_formula():
     np.testing.assert_allclose(e, want, rtol=1e-6, atol=1e-6)
 
 
+def online_ties(yg: np.ndarray):
+    """K7's fold of [B, S, k, F] slot by slot in numpy: the max and the min
+    (NaN sticks), and their ties counted as the slots go by (a new max
+    restarts at 1, an equal value adds 1) -> (mx, mn, ties packed)."""
+    shape = yg.shape[:2] + yg.shape[3:]
+    hi, lo = np.full(shape, -np.inf, np.float32), np.full(shape, np.inf, np.float32)
+    nx, nn = np.zeros(shape, np.int64), np.zeros(shape, np.int64)
+    for j in range(yg.shape[2]):
+        a = yg[:, :, j]
+        with np.errstate(invalid="ignore"):
+            up, down = (a > hi) | np.isnan(a), (a < lo) | np.isnan(a)
+            nx = np.where(up, 1, nx + (a == hi))
+            nn = np.where(down, 1, nn + (a == lo))
+        hi, lo = np.where(up, a, hi), np.where(down, a, lo)
+    return hi, lo, (nx | nn << 16).astype(np.int32)
+
+
+def special_case():
+    """y [2, 50, 6] of -0.0, +0.0, -inf, 1 and a few NaN, idx as
+    reduction_case's: rows whose max or min is a signed zero, -inf or NaN."""
+    y, idx = reduction_case(9, True)
+    rng = np.random.default_rng(10)
+    y = np.array([-0.0, 0.0, -np.inf, 1.0], np.float32)[rng.integers(0, 4, y.shape)]
+    y[1, 7, 2] = y[0, 11, 4] = np.nan
+    return y, idx
+
+
+@pytest.mark.parametrize("case", ["normal", "grid", "special"])
+def test_tie_counts_match_what_the_plain_gradient_divides_by(case):
+    """tie_counts_plain (the ties K7 writes and K7b divides by) against the
+    counts edge_grads_plain takes (its hits' sums) and against K7's online
+    count emulated in numpy, wherever the max (the min) is not NaN; the
+    emulation's max and min against edge_reduce_plain's, NaN included; and
+    the ties edge_reduce_plain appends are the same."""
+    y, idx = special_case() if case == "special" else reduction_case(11, case == "grid")
+    yt, it = _t(y), _t(idx)
+    mx, mn, s1, s2, ties = edge.edge_reduce_plain(yt, it, True, True)
+    assert ties.dtype == torch.int32 and ties.shape == mx.shape
+    assert torch.equal(ties, edge.tie_counts_plain(yt, it, mx, mn))
+    yg = index_points(yt, it)
+    implied = ((yg == mx.unsqueeze(2)).sum(2), (yg == mn.unsqueeze(2)).sum(2))
+    got = (ties & 0xFFFF, (ties >> 16) & 0xFFFF)
+    hi, lo, online = online_ties(yg.numpy())
+    np.testing.assert_array_equal(hi, mx.numpy())
+    np.testing.assert_array_equal(lo, mn.numpy())
+    for half, (g, want, ref) in enumerate(zip(got, implied, (mx, mn))):
+        valid = ~torch.isnan(ref)
+        assert torch.equal(g[valid].long(), want[valid])
+        own = torch.from_numpy((online >> 16 * half) & 0xFFFF)
+        assert torch.equal(own[valid], g[valid])
+    if case == "grid":
+        assert int(got[0].max()) > 2  # ties were there to count
+    if case == "special":
+        assert torch.isnan(mx).any() and (mx == 0).any() and torch.isinf(mn).any()
+
+
 # ------------------------------------------------------- the launch path
 
 
-@pytest.mark.parametrize("source,symbol", [("edge_reduce.cu", "pcb_edge_reduce"),
-                                           ("edge_reduce_bwd.cu", "pcb_edge_reduce_backward")])
-def test_plan_fields_in_the_order_c_reads_them(source, symbol):
-    """K7 and K7b read EDGE_PLAN's slots into the variables it names; inv_k
-    as the float32 bits of slot 7."""
+@pytest.mark.parametrize("source,symbol,fields", [
+    ("edge_reduce.cu", "pcb_edge_reduce", edge.EDGE_PLAN),
+    ("edge_reduce_bwd.cu", "pcb_edge_reduce_backward", edge.EDGE_BWD_PLAN),
+])
+def test_plan_fields_in_the_order_c_reads_them(source, symbol, fields):
+    """K7 reads EDGE_PLAN's slots and K7b EDGE_BWD_PLAN's into the variables
+    they name; inv_k as the float32 bits of the last slot."""
     text = (_kernels.CSRC / source).read_text()
     body = text[text.index(f"PCB_API int {symbol}("):]
     read = {int(m.group(2)): m.group(1)
             for m in re.finditer(r"const int (\w+) = plan\[(\d+)\];", body)}
     m = re.search(r"memcpy\(&inv_k, plan \+ (\d+), sizeof\(float\)\)", body)
     read[int(m.group(1))] = "inv_k_bits"
-    assert read == dict(enumerate(edge.EDGE_PLAN))
+    assert read == dict(enumerate(fields))
+
+
+def test_row_pass_probe_reads_k7s_plan():
+    """probes/k7b_rows.cu (the row pass measured against K7's online ties)
+    takes K7's plan: it reads EDGE_PLAN's first six slots into the variables
+    they name, and its wrapper builds it with edge._edge_plan."""
+    from pointcloud_bridge_tpu_torch.probes import k7_probe
+
+    text = (k7_probe.HERE / "k7b_rows.cu").read_text()
+    body = text[text.index("PCB_API int pcb_edge_tie_rows("):]
+    read = {int(m.group(2)): m.group(1)
+            for m in re.finditer(r"const int (\w+) = plan\[(\d+)\];", body)}
+    assert read == dict(enumerate(edge.EDGE_PLAN[:6]))
+    assert "k7b_rows.cu" in inspect.getsource(k7_probe.start_build)
+    assert "edge._edge_plan(" in inspect.getsource(k7_probe.edge_tie_rows)
 
 
 def test_plans_hold_the_launch():
@@ -174,6 +251,65 @@ def test_plans_hold_the_launch():
                 (4, 4096, 4096, 20, 64, 3, False), (4, 0, 4096, 20, 64, 1, False)):
         with pytest.raises(ValueError, match="edge reduce kernel"):
             edge._edge_plan(*bad)
+    bwd = edge._edge_bwd_plan(16, 4096, 4096, 20, 64, True, 9)
+    want = dict(b=16, n=4096, s=4096, k=20, f=64, moments=1, split=9, staged=1)
+    assert dict(zip(edge.EDGE_BWD_PLAN, bwd)) | want == dict(zip(edge.EDGE_BWD_PLAN, bwd))
+    mul, shift = bwd[8] % 2**32, bwd[9]  # k's FastDiv, read as unsigned
+    assert (mul, shift) == edge.fast_divisor(20)
+    assert all((i * mul >> 32) >> shift == i // 20 for i in (0, 19, 20, 81919, 2**31 - 1))
+    assert np.int32(bwd[10]).view(np.float32) == np.float32(1) / np.float32(20)
+    assert edge._edge_bwd_plan(1, 8192, 8192, 20, 64, False, 1)[7] == 0
+    with pytest.raises(ValueError, match="split"):
+        edge._edge_bwd_plan(16, 4096, 4096, 20, 64, True, 0)
+
+
+@pytest.mark.parametrize("s,staged", [(4096, True), (4842, True), (4843, False), (1, True)])
+def test_k7b_fold_route_by_rows(s, staged):
+    """K7b's fold stages a 48-byte record a row of its channel pair: staged
+    up to S = 4,842, then it reads device memory at each slot."""
+    assert edge.edge_fold_staged(s) is staged
+
+
+@pytest.mark.parametrize("b,s,k,split", [(4, 4096, 20, 16), (16, 4096, 20, 16), (4, 4096, 64, 52),
+                                         (16, 4096, 64, 17), (2, 1000, 8, 2), (1, 4096, 64, 52)])
+def test_k7b_sort_split_by_slots_and_sms(b, s, k, split):
+    assert edge.edge_sort_split(b, s, k, 132) == split
+
+
+def test_k7b_scratch_holds_no_per_edge_tensor(monkeypatch):
+    """At dgcnn_global's conv4 in the batch-16 step ([16, 4096, 64, 128]),
+    what K7b's wrapper allocates (seen through torch.empty on the meta
+    device) is its output and the sort's ints, under a quarter of the
+    B * S * k * F float32 elements the first design's per-edge scratch held, and no
+    tensor of B * S * k * F elements at all."""
+    b, n, k, f = 16, 4096, 64, 128
+    per_edge = b * n * k * f * 4
+    scratch = 4 * edge.edge_bwd_work(b, n, n, k, edge.edge_sort_split(b, n, k, 132))
+    assert scratch < per_edge / 4
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(_kernels, "sm_count", lambda device: 132)
+    monkeypatch.setattr(_kernels, "stream_args", lambda t: (0, None))
+    launched = []
+    monkeypatch.setattr(_kernels.EDGE_REDUCE_BWD, "launch", lambda *a: launched.append(a))
+    made = []
+    empty = torch.empty
+
+    def recording(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording)
+    y = empty(b, n, f, device="meta")
+    idx = empty(b, n, k, dtype=torch.int32, device="meta")
+    rows = [empty(b, n, f, device="meta") for _ in range(6)]
+    ties = empty(b, n, f, dtype=torch.int32, device="meta")
+    out = edge.edge_reduce_backward_cuda(y, idx, *rows, ties=ties)
+    assert out.shape == (b, n, f) and len(launched) == 1
+    sizes = [t.numel() * t.element_size() for t in made]
+    assert max(t.numel() for t in made) < b * n * k * f
+    assert sum(sizes) - out.numel() * 4 == scratch
+    assert sum(sizes) < per_edge / 4
 
 
 @pytest.mark.parametrize("f,vec", [(64, 2), (128, 4), (256, 4), (24, 1), (3, 1), (66, 2),
@@ -192,13 +328,33 @@ def test_lanes_follow_alignment():
     assert edge.edge_vec(64, base[2:130]) == 2
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take():
+def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
+    """CPU tensors; then, with ``is_cuda`` patched (meta tensors): K7's ties
+    past 16 bits (k > 65535), K7b past N = GROUP_BWD_MAX_N (the sort's
+    shared counts), without K7's ties or with ties of another shape or type. (K7b's fold past a
+    block's shared memory takes its other route: test_k7b_fold_route_by_rows.)"""
     y, idx = reduction_case(6, False)
     with pytest.raises(ValueError, match="CUDA tensor"):
         edge.edge_reduce_cuda(_t(y), _t(idx))
     mx = torch.zeros(2, 40, 6)
     with pytest.raises(ValueError, match="CUDA tensor"):
         edge.edge_reduce_backward_cuda(_t(y), _t(idx), mx, mx, mx, mx)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    meta = functools.partial(torch.zeros, device="meta")
+    with pytest.raises(ValueError, match="16 bits"):
+        edge.edge_reduce_cuda(meta(1, 8, 4), meta(1, 2, 65536, dtype=torch.int32), True, True)
+    big = edge.GROUP_BWD_MAX_N + 1
+    rows = meta(1, 8, 4)
+    with pytest.raises(ValueError, match="edge reduce backward kernel"):
+        edge.edge_reduce_backward_cuda(meta(1, big, 4), meta(1, 8, 20, dtype=torch.int32),
+                                       rows, rows, rows, rows, ties=meta(1, 8, 4,
+                                                                         dtype=torch.int32))
+    monkeypatch.setattr(_kernels, "sm_count", lambda device: 132)
+    for ties in (None, meta(1, 8, 5, dtype=torch.int32), meta(1, 8, 4)):
+        with pytest.raises((TypeError, ValueError), match="ties"):
+            edge.edge_reduce_backward_cuda(meta(1, 64, 4), meta(1, 8, 20, dtype=torch.int32),
+                                           rows, rows, rows, rows, ties=ties)
+
 
 def test_wrappers_check_types_and_shapes(monkeypatch):
     """With ``is_cuda`` patched (meta tensors): a float64 y, an int64 idx, a
@@ -218,6 +374,21 @@ def test_wrappers_check_types_and_shapes(monkeypatch):
     rows = torch.zeros(2, 40, 6, device="meta")
     with pytest.raises(ValueError, match="g_mn"):
         edge.edge_reduce_backward_cuda(y, idx, rows, rows, rows, rows[:, :3])
+
+
+def test_probe_edits_find_their_text():
+    """probes/k7_probe.py times textual variants of csrc/edge_reduce_bwd.cu,
+    csrc/group_bwd.cu and probes/k7_staged.cu on the card: every text it
+    edits is in the source as it stands."""
+    from pointcloud_bridge_tpu_torch.probes import k7_probe
+
+    k7b = (_kernels.CSRC / "edge_reduce_bwd.cu").read_text()
+    staged = (k7_probe.HERE / "k7_staged.cu").read_text()
+    for table, text in ((k7_probe.K7B_VARIANTS, k7b), (k7_probe.K7_VARIANTS, staged)):
+        for name, edits in table:
+            assert all(old in text for old, _ in edits), name
+    assert all(line in k7b for _, line, _ in k7_probe.K7B_PARTS)
+    assert k7_probe.SORT_ONLY[0] in (_kernels.CSRC / "group_bwd.cu").read_text()
 
 
 @pytest.mark.parametrize("moments", [False, True])

@@ -156,11 +156,13 @@ def test_index_points_routes_by_device_and_grad(monkeypatch, rng):
 
 def test_probe_variants_edit_the_kernel_source():
     """probes/k3b_probe.py times textual variants of csrc/group_bwd.cu on
-    the card: every text it edits is in the source as it stands."""
-    from pointcloud_bridge_tpu_torch.ops import _kernels
+    the card: every text it edits is in the source as it stands (with the
+    counting sort it includes from csrc/group_sort.cuh written in place),
+    and the source it builds includes nothing by a relative path."""
     from pointcloud_bridge_tpu_torch.probes import k3b_probe
 
-    text = (_kernels.CSRC / "group_bwd.cu").read_text()
+    text = k3b_probe.source_text()
+    assert '#include "group_sort.cuh"' not in text and '#include "common.cuh"' not in text
     for name, _, edits in k3b_probe.VARIANTS:
         for old, _new in edits:
             assert old in text, name
