@@ -176,9 +176,11 @@ any failure raises and exits non-zero:
    B=4 x 4096, on the card against the CPU: logits within 2e-4; exactly 12
    flash-attention launches and no other kernel; forward time, points/s and
    device time by kernel family;
-11. the flat ptv3 forward at its default width (384 wide, 8 blocks, 2 heads
-   of 192, global attention over 4096 points), B=4, against the CPU: logits
-   within 2e-4, exactly 8 flash-attention launches; forward time;
+11. the flat ptv3 forward at its default width (384 wide, 2 heads of 192,
+   global attention over 4096 points; 4 of its 8 blocks), B=4,
+   against the CPU: logits within 2e-4, exactly 4 flash-attention
+   launches; the forward time of the 4 blocks and, on the card alone, of
+   the registry's 8;
 12. serve ptv3_pooled (the registry's default model) through infer_cli.main
    from a checkpoint the script writes: ``blocks`` over the 48 blocks and
    ``scene`` with 2 votes, counters reset just before and read just after:
@@ -197,8 +199,9 @@ any failure raises and exits non-zero:
    device time by kernel family); one epoch each from
    configs/train_ptv3_pooled.yaml and configs/train_ptv3.yaml through
    ``--config``;
-15. one flat ptv3 train step at its default width, B=4 x 4096, against the
-   CPU at the same batch, checked as in 13: exactly 8 launches a kernel;
+15. one flat ptv3 train step at its default width (4 blocks), B=4 x 4096,
+   against the CPU at the same batch, checked as in 13: exactly 4 launches
+   a kernel;
 16. one BriStruNet train step at full width, B=4 x 4096, dropout 0, with the
    loss of configs/train_bristrunet.yaml (bridge_structure, alpha 80,
    rel_margin 0.3), on the card against the CPU, checked as in 6 (frozen
@@ -257,14 +260,15 @@ any failure raises and exits non-zero:
    the batch-16 step timed (ms, points/s, peak memory) and profiled, then
    ``infer_cli blocks --model pointnet2_msg`` serving the checkpoint that
    run wrote, warm, with exactly the forward's launches a batch;
-25. ptv3_moe at the registry's width (8 blocks of 384, 8 experts, top 2,
-   blocks 1, 3, 5, 7 MoE), B=4 x 4096: the eval forward on the card
-   against the CPU with the card's expert picks replayed there
-   (RoutingTap), logits within 2e-4, exactly 8 flash-attention launches, a
-   pick that differs without the replay a tie within 1e-4; one train step
-   against the CPU checked as 15; two epochs through train_cli at the
-   defaults, the batch-16 step timed (peak memory) and profiled, then
-   ``infer_cli blocks --model ptv3_moe`` on that checkpoint;
+25. ptv3_moe at the registry's width (384, 8 experts, top 2, every other
+   block MoE; 4 of its 8 blocks, MoE in blocks 1 and 3), B=4 x
+   4096: the eval forward on the card against the CPU with the card's
+   expert picks replayed there (RoutingTap), logits within 2e-4, exactly 4
+   flash-attention launches, a pick that differs without the replay a tie
+   within 1e-4; one train step against the CPU checked as 15; two epochs
+   through train_cli at the defaults (8 blocks), the batch-16 step timed
+   (peak memory) and profiled, then ``infer_cli blocks --model ptv3_moe``
+   on that checkpoint;
 26. the options of ptv3 and ptv3_pooled: stream_dtype and compute_dtype
    bfloat16 forwards (ptv3 at its default width, ptv3_pooled at the benched
    depths), B=4, against the same weights in float32 on the card and
@@ -413,6 +417,25 @@ any failure raises and exits non-zero:
    and backward at dgcnn_global's conv4 (B = 16, C = 64, F = 128, k = 64),
    K7b's raising the peak by less than a quarter of PR 23's per-edge
    scratch (537 MB; with --dgcnn also on PR 23's design).
+46. bench/ on the card, after phase 41: (a) convergence_parity's run_port at
+   the JAX module's configuration (SSG, B = 4 x 512, SA 128/64/16, 25 steps
+   x 6 epochs of Adam, seeds 0-2, every curve printed): the launches of one
+   train step and of one eval forward counted alone; seed 0 twice, the same
+   curve, losses and final parameters bit for bit, its launches exactly 150
+   train steps' and 24 eval forwards' (K1-K4, K3b, K4b); then seed 0's
+   first 8 steps at dropout 0 on the card and on the CPU in this process
+   from the same init, the losses within FLOAT32_LOSS_BANDS relative (1e-5
+   at step 1, 2e-4 at step 2, then four times the largest gap measured
+   between float32 runs), the CPU at 1 thread printed beside; (b) eva_model's
+   evaluate_model over pointnet2_ssg, dgcnn_k32 and ptv3_win_bf16 at full
+   width, B = 4 x 4096, and its save_results_csv: no row with an error,
+   device_peak_mb > 0, params equal to the CPU build's, each row's
+   launches exactly its forwards' and train steps' as counted around one
+   of each alone; the rows and the CSV printed under the card's name and
+   power limit. Phases 3 (K5 and K5c at k = 32), 3e (the bf16 kernels at
+   [32,512,2,192], forward and train), 3f (K7 and K7b at k = 32, F = 64 and
+   128) and 3g (K1-K4, K3b and K4b at the convergence run's shapes) hold
+   every kernel at these shapes first.
 Phase 3 also holds K5 at the measurement chain's shapes (B = 1, N = S =
 63,885 and 103,718 at k = 31, 51 and 5, and k = 1 from a tenth of the
 points to the rest), each launch's rows of 2,048 random queries bit for bit
@@ -457,6 +480,8 @@ host (run it from another tree's root to compare two trees);
 ``--large-scene`` examples/large_scene_stream.py at 5M points (pointnet2_ssg
 quick-trained 4 epochs on 300k points, 3 votes: end-to-end points/s,
 coverage, OA, mIoU and the vote's phase split);
+``--eva`` eva_model's whole DEFAULT_ZOO (14 rows) on the card, checked as
+phase 46b, the CSV in results_torch/;
 ``--attention-bf16`` phase 3e; ``--k5c-exit`` K5c's early exit on the
 features DGCNN's graphs are built over, ``probe_knn_c_exit`` of the same probe; ``--dgcnn`` the K2, K5 and
 K5c cases of phase 3, phase 3f and phases 18-20 and 45; ``--edge`` phase 3f
@@ -496,7 +521,9 @@ pointnet2_msg train step, phase 23; for the bf16 attention kernels the
 configs/train_ptv3_big_prod.yaml step at batch 16, phase 27, beside the
 bf16 forwards of ptv3 and ptv3_pooled, phase 26), and
 ``launches_by_path`` the counts of the serves and the training runs through
-the CLIs. The last line is {"ok": true, "device": {...}}.
+the CLIs (and of phase 46: ``convergence_seed0``, ``eva_<row>``). A
+``[wall]`` line after each group of phases gives the seconds since the
+build began. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -521,6 +548,8 @@ import numpy as np
 import torch
 
 from pointcloud_bridge_tpu_torch import infer_cli, losses, train_cli
+from pointcloud_bridge_tpu_torch.bench import convergence_parity as conv_bench
+from pointcloud_bridge_tpu_torch.bench import eva_model as eva_bench
 from pointcloud_bridge_tpu_torch.data import BlockDataset, scene_labelweights, write_las
 from pointcloud_bridge_tpu_torch.data.dataset import _load_scene
 from pointcloud_bridge_tpu_torch.data.synthetic import toy_bridge_scene
@@ -633,6 +662,14 @@ ENHANCED_STEP_LAUNCHES = ENHANCED_LAUNCHES | {"group_bwd": 3, "interp_bwd": 3}
 ENHANCED_ATTN_STEP_LAUNCHES = ENHANCED_ATTN_LAUNCHES | {"group_bwd": 4, "interp_bwd": 3}
 # sa1's features: the colours and the positional encoding's 6 channels
 ENHANCED_SA1_FEATURES = 3 + 6
+# flat ptv3 in phases 11 and 15 (its forward and train step against the CPU,
+# whose global attention over 4096 points costs the host seconds a block): 4
+# of its 8 blocks, the registry's width; a block repeats the same shapes
+FLAT_DEPTH = 4
+# a plain version that takes this long a call or longer (FPS's loop, the
+# deck-sized k-NN) is timed over SLOW_PLAIN_REPS calls after the check's own
+# first call, not REPS after 3 of warm-up
+SLOW_PLAIN_S, SLOW_PLAIN_REPS = 0.05, 5
 # the benched ptv3_pooled (configs/train_ptv3_pooled.yaml): an attention a block
 POOLED_BENCHED = dict(dims=(64, 128, 256), enc_depths=(2, 2, 6), dec_depths=(1, 1),
                       strides=(4, 4), window_size=1024)
@@ -740,6 +777,12 @@ PTV3_POOLED, PTV3 = "ptv3_pooled_forward", "ptv3_forward"
 PTV3_POOLED_TRAIN, PTV3_TRAIN = "ptv3_pooled_train_step", "ptv3_train_step"
 DGCNN, DGCNN_GLOBAL = "dgcnn_forward", "dgcnn_global_forward"
 DGCNN_TRAIN = "dgcnn_train_step"
+# the sweep's rows that no other phase runs (phase 46b): dgcnn_global at
+# k = 32, ptv3 in bf16 on Morton windows of 512
+DGCNN_K32, DGCNN_K32_TRAIN = "dgcnn_k32_forward", "dgcnn_k32_train_step"
+PTV3_WIN_BF16, PTV3_WIN_BF16_TRAIN = "ptv3_win_bf16_forward", "ptv3_win_bf16_train_step"
+# SSG at the convergence run's size (phase 46a): B = 4, N = 512
+CONV, CONV_TRAIN = "convergence_forward", "convergence_train_step"
 MSG, MSG_TRAIN = "pointnet2_msg_forward", "pointnet2_msg_train_step"
 # flat ptv3's sequence-parallel step over two ranks (phase 44b): its ring
 # blocks' forward, and the train step of one rank
@@ -761,6 +804,8 @@ ROW_PATH = {"group_bwd": TRAIN, "interp_bwd": TRAIN, "knn_c": DGCNN, "edge_reduc
 TRAIN_PATH_KERNELS = {path: SSG_BACKWARD_KERNELS
                       for path in (TRAIN, BRISTRUNET_TRAIN, MSG_TRAIN, "randlanet_train_step")}
 TRAIN_PATH_KERNELS[DGCNN_TRAIN] = ("edge_reduce", "edge_reduce_bwd")
+TRAIN_PATH_KERNELS[DGCNN_K32_TRAIN] = ("edge_reduce", "edge_reduce_bwd")
+TRAIN_PATH_KERNELS[CONV_TRAIN] = SSG_BACKWARD_KERNELS
 SUMS = ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms", "fma_bound_ms")
 # None unless measured: the library call's event time (cases with a library
 # call), device times from a CUDA graph and host time (cases with ``split``),
@@ -802,8 +847,11 @@ class Results:
         library call (``device_ms``) and the kernel wrapper's host time
         (``host_us``) beside the event times."""
         got = kernel_fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = plain_fn()
         torch.cuda.synchronize()
+        plain_first_s = time.perf_counter() - t0
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, ok = 0.0, len(got) == len(want)
@@ -828,7 +876,9 @@ class Results:
         if work:
             bytes_ms = work[0] / PEAK_BYTES_S * 1e3
             ops_ms = work[1] / peak_flops * 1e3
-            case = {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+            plain_ms = (time_ms(plain_fn, reps=SLOW_PLAIN_REPS, warmup=0)
+                        if plain_first_s >= SLOW_PLAIN_S else time_ms(plain_fn))
+            case = {"ms": time_ms(kernel_fn), "plain_ms": plain_ms,
                     "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
                     "fma_bound_ms": max(bytes_ms, work[1] / PEAK_FLOPS * 1e3)}
             line += (f"  kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f} ms  bound "
@@ -1264,10 +1314,11 @@ def compare_sampling_designs(dev: torch.device) -> None:
 BRISTRUNET_KNN = ((4096, 32), (512, 16), (128, 16))
 KNN_B16 = "knn_b16"
 # (B, k, path) of the k-NN calls of a DGCNN forward (k = 20) and a
-# DGCNNGlobal one (k = 64), N = S = 4096: one K5 over xyz and three K5c over
-# conv2-conv4's 64 channels; at B = 16, the serve's and the recipe's batch
+# DGCNNGlobal one (k = 64; k = 32 in the sweep's dgcnn_k32 row), N = S =
+# 4096: one K5 over xyz and three K5c over conv2-conv4's 64 channels; at
+# B = 16, the serve's and the recipe's batch
 DGCNN_KNN = ((B, 20, (DGCNN,)), (B, 64, (DGCNN_GLOBAL,)), (16, 20, (DGCNN_B16,)),
-             (16, 64, (DGCNN_GLOBAL_B16,)))
+             (16, 64, (DGCNN_GLOBAL_B16,)), (B, 32, (DGCNN_K32,)))
 # instructions a pair that K2 and K5 cannot go below: a distance (8 rounded
 # operations, no contraction) and its compare
 NEIGHBOUR_INSTRUCTIONS = 9
@@ -1410,8 +1461,9 @@ def compare_neighbour_kernels(dev: torch.device, res: Results, rng) -> None:
         xyz = cloud(b, n)
         knn_case(f"enhanced B={b} N=S={n} k=16", xyz, xyz, 16, timed=True)
     res.print_sums("ball_query", (SSG, BRISTRUNET, SSG_B16))
-    res.print_sums("knn", (BRISTRUNET, KNN_B16, DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16))
-    res.print_sums("knn_c", (DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16))
+    res.print_sums("knn", (BRISTRUNET, KNN_B16, DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16,
+                           DGCNN_K32))
+    res.print_sums("knn_c", (DGCNN, DGCNN_GLOBAL, DGCNN_B16, DGCNN_GLOBAL_B16, DGCNN_K32))
 
     xyz = cloud(B, 4096)
     check_ball(res, "empty balls", ((0.1, 32),), xyz, torch.full((B, 64, 3), 10.0, device=dev))
@@ -2008,13 +2060,16 @@ def compare_group_backward(dev: torch.device, res: Results, rng) -> None:
 # (B, k, F, launches a pass, path, moments) of K7's calls: the four
 # EdgeConvs (F = 64, 64, 64, 128) of a dgcnn (k = 20) and a dgcnn_global
 # (k = 64) forward at B = 4, and of the dgcnn train step (with the moments);
-# at B = 16 the recipes' train steps
+# at B = 16 the recipes' train steps; the sweep's dgcnn_k32 row (dgcnn_global
+# at k = 32, B = 4), its forward and train step
 EDGE_CASES = (
     (B, 20, 64, 3, DGCNN, False), (B, 20, 128, 1, DGCNN, False),
     (B, 64, 64, 3, DGCNN_GLOBAL, False), (B, 64, 128, 1, DGCNN_GLOBAL, False),
     (B, 20, 64, 3, DGCNN_TRAIN, True), (B, 20, 128, 1, DGCNN_TRAIN, True),
     (16, 20, 64, 3, DGCNN_TRAIN_B16, True), (16, 20, 128, 1, DGCNN_TRAIN_B16, True),
     (16, 64, 64, 3, DGCNN_GLOBAL_TRAIN_B16, True),
+    (B, 32, 64, 3, DGCNN_K32, False), (B, 32, 128, 1, DGCNN_K32, False),
+    (B, 32, 64, 3, DGCNN_K32_TRAIN, True), (B, 32, 128, 1, DGCNN_K32_TRAIN, True),
 )
 # (B, k, F) of the train shapes that --edge-split splits the first K7b at
 EDGE_SPLIT_CASES = tuple((b, k, f) for b in (B, 16) for k in (20, 64) for f in (64, 128))
@@ -2204,8 +2259,9 @@ def compare_edge_kernels(dev: torch.device, res: Results, rng) -> None:
     check_edge_reduce(res, "y 4 bytes off 16-byte alignment", view, idx, True)
     check_edge_reduce_bwd(res, "y 4 bytes off 16-byte alignment", view, idx, True, rng)
     res.print_sums("edge_reduce", (DGCNN, DGCNN_GLOBAL, DGCNN_TRAIN, DGCNN_TRAIN_B16,
-                                   DGCNN_GLOBAL_TRAIN_B16))
-    res.print_sums("edge_reduce_bwd", (DGCNN_TRAIN, DGCNN_TRAIN_B16, DGCNN_GLOBAL_TRAIN_B16))
+                                   DGCNN_GLOBAL_TRAIN_B16, DGCNN_K32, DGCNN_K32_TRAIN))
+    res.print_sums("edge_reduce_bwd", (DGCNN_TRAIN, DGCNN_TRAIN_B16, DGCNN_GLOBAL_TRAIN_B16,
+                                       DGCNN_K32_TRAIN))
     for path, kernels in FIRST_DESIGN.items():
         for name, t in kernels.items():
             print(f"{name:18s} sum over {path} ({t['cases']} launches), the first design before "
@@ -2253,14 +2309,14 @@ def large_scores(q, k, v):
 # points: level 0 in four windows of 1024 (2 heads), level 1 (1024 points, 4
 # heads) and level 2 (256 points, 8 heads) global; the benched depths run
 # them 3, 3 and 6 times a pass. Flat ptv3: global attention over 4096 points,
-# its default 2 heads of 192 (8 blocks a pass) and the 6 heads of 64 of the
-# wider config. Then ragged lengths (no multiple of the 64-row tile), one
+# its default 2 heads of 192 (FLAT_DEPTH blocks a pass in phases 11 and 15)
+# and the 6 heads of 64 of the wider config. Then ragged lengths (no multiple of the 64-row tile), one
 # row, the serve's batch 16, the other head widths.
 ATTENTION_CASES = (
     ("[16,1024,2,32] level 0 windows", 4096, 2, 32, 4, B, PTV3_POOLED, 3, True),
     ("[4,1024,4,32] level 1", 1024, 4, 32, 1, B, PTV3_POOLED, 3, True),
     ("[4,256,8,32] level 2", 256, 8, 32, 1, B, PTV3_POOLED, 6, True),
-    ("[4,4096,2,192] flat ptv3", 4096, 2, 192, 1, B, PTV3, 8, True),
+    ("[4,4096,2,192] flat ptv3", 4096, 2, 192, 1, B, PTV3, FLAT_DEPTH, True),
     ("[4,4096,6,64] flat ptv3, 6 heads", 4096, 6, 64, 1, B, None, 1, True),
     # a ring block of flat ptv3's sequence parallelism over two ranks
     # (phase 44): each of the 8 blocks' attention is P = 2 calls at N/2
@@ -2464,6 +2520,11 @@ ATTENTION_BF16_CASES = (
     ("[4,4096,6,64] prod microbatch", 4096, 6, 64, 1, B,
      [(PROD_TRAIN, 2 * PROD_DEPTH * PROD_ACCUM, PROD_DEPTH * PROD_ACCUM)], True),
     ("[4,4096,2,192] ptv3, ptv3_moe", 4096, 2, 192, 1, B, [(PTV3_BF16, 8, 0)], True),
+    # the sweep's ptv3_win_bf16 row: 8 blocks of 2 heads of 192 on Morton
+    # windows of 512 (8 a cloud, folded into the batch); its forward and
+    # train step
+    ("[32,512,2,192] ptv3_win_bf16 windows", 4096, 2, 192, 8, B,
+     [(PTV3_WIN_BF16, 8, 0), (PTV3_WIN_BF16_TRAIN, 8, 8)], True),
     ("[16,1024,2,32] pooled level 0 windows", 4096, 2, 32, 4, B, [(POOLED_BF16, 3, 0)], True),
     ("[4,1024,4,32] pooled level 1", 1024, 4, 32, 1, B, [(POOLED_BF16, 3, 0)], True),
     ("[4,256,8,32] pooled level 2", 256, 8, 32, 1, B, [(POOLED_BF16, 6, 0)], True),
@@ -3876,6 +3937,19 @@ def forward_against_cpu(label: str, model: torch.nn.Module, ds: BlockDataset,
     return model, fwd_ms
 
 
+def time_flat_forward(ds: BlockDataset, dev: torch.device) -> float:
+    """Phase 11's timed forward: flat ptv3 at the registry's 8 blocks on the
+    card alone, B=4 x 4096 -> milliseconds."""
+    model = seeded_model("ptv3", SEED + 11).to(dev)
+    xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32)).to(dev)
+    rgb = torch.from_numpy(np.ascontiguousarray(ds.colors[:B], np.float32)).to(dev)
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(xyz, rgb))
+    print(f"ptv3 forward (the registry's 8 blocks, on the card alone): B={B} N={N} "
+          f"{ms:.3f} ms, {B * N / ms * 1e3:.0f} points/s", flush=True)
+    return ms
+
+
 def partsize_features(ds: BlockDataset, b: int) -> torch.Tensor:
     """The first b blocks' 9 feature channels in the Partsize column order
     [x, y, z, r, g, b, x_norm, y_norm, z_norm]: the block's coordinates,
@@ -4172,9 +4246,12 @@ def dgcnn_features(dev: torch.device) -> list:
 
 
 # ------------------------------------------------------------ phases 25-27
-# ptv3_moe at the registry's width: 8 blocks of 384 (2 heads of 192), 8
-# experts, top 2, in blocks 1, 3, 5 and 7
-MOE_BLOCKS = (1, 3, 5, 7)
+# ptv3_moe at the registry's width, 384 (2 heads of 192), 8 experts, top 2,
+# in every other block: 4 of its 8 blocks in phase 25's checks against the
+# CPU (MoE in blocks 1 and 3); its train_cli run, timed step and serve take
+# the registry's 8
+MOE_DEPTH = 4
+MOE_BLOCKS = tuple(range(1, MOE_DEPTH, 2))
 PROD_CONFIG = ROOT / "configs" / "train_ptv3_big_prod.yaml"
 BF16_KERNELS = ("flash_attn_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16")
 # the JAX package's own contract for a bf16 model against its float32 self
@@ -4229,12 +4306,12 @@ class RoutingTap:
 
 
 def check_moe_forward(ds: BlockDataset, dev: torch.device) -> dict:
-    """Phase 25a: the ptv3_moe eval forward at B=4 x 4096 on the card
-    against the CPU, the CPU taking the card's expert picks (RoutingTap):
-    logits within 2e-4, exactly 8 flash-attention launches; a pick that
-    differs without the replay must be a near tie (probabilities within
-    1e-4). -> launch counts."""
-    model = seeded_model("ptv3_moe", SEED + 25)
+    """Phase 25a: the ptv3_moe eval forward (MOE_DEPTH blocks) at B=4 x 4096
+    on the card against the CPU, the CPU taking the card's expert picks
+    (RoutingTap): logits within 2e-4, a flash-attention launch a block; a
+    pick that differs without the replay must be a near tie (probabilities
+    within 1e-4). -> launch counts."""
+    model = seeded_model("ptv3_moe", SEED + 25, depth=MOE_DEPTH)
     cpu_model = copy.deepcopy(model)
     tap = RoutingTap(model.to(dev))
     xyz = torch.from_numpy(np.ascontiguousarray(ds.points[:B], np.float32))
@@ -4247,7 +4324,7 @@ def check_moe_forward(ds: BlockDataset, dev: torch.device) -> dict:
         own = copy.deepcopy(cpu_model)(xyz, rgb)
         differ = tap.replay(cpu_model)
         ref = cpu_model(xyz, rgb)
-    if counts != only(flash_attn=8):
+    if counts != only(flash_attn=MOE_DEPTH):
         raise AssertionError(f"ptv3_moe forward: launches {counts}")
     if sorted(tap.picks) != [f"block{i}.moe_mlp" for i in MOE_BLOCKS]:
         raise AssertionError(f"ptv3_moe forward: MoE blocks {sorted(tap.picks)}")
@@ -4271,11 +4348,13 @@ def check_moe_forward(ds: BlockDataset, dev: torch.device) -> dict:
 
 
 def check_moe_train_step(ds: BlockDataset, dev: torch.device) -> dict:
-    """Phase 25b: one ptv3_moe train step (dropout 0) at B=4 x 4096 on the
-    card against the CPU with the card's picks replayed, checked as phase
-    15: exactly 8 launches of each float32 attention kernel."""
-    model = seeded_model("ptv3_moe", SEED + 26, drop_rate=0.0, head_drop_rate=0.0)
-    launches = attention_launches(8)
+    """Phase 25b: one ptv3_moe train step (MOE_DEPTH blocks, dropout 0) at
+    B=4 x 4096 on the card against the CPU with the card's picks replayed,
+    checked as phase 15: a launch of each float32 attention kernel a
+    block."""
+    model = seeded_model("ptv3_moe", SEED + 26, depth=MOE_DEPTH, drop_rate=0.0,
+                         head_drop_rate=0.0)
+    launches = attention_launches(MOE_DEPTH)
     check_attention_train_step("ptv3_moe train step", model, ds, dev, launches, tap=RoutingTap)
     return launches
 
@@ -6700,6 +6779,218 @@ def run_parallel2_phases(ds: BlockDataset, dev: torch.device, card: str) -> tupl
     return by_path, sp_counts
 
 
+
+# ------------------------------------------------------------------ phase 46
+# SSG at the convergence run's size (bench/convergence_parity.py: B = 4,
+# N = 512, SA levels 128, 64, 16): (n, s, K, radius, C) of its SA levels and
+# (n, s, D) of its FP levels, as SSG_LEVELS and SSG_INTERP
+CONV_LEVELS = ((512, 128, 32, 0.1, 3), (128, 64, 32, 0.2, 128), (64, 16, 32, 0.4, 256))
+CONV_INTERP = ((64, 16, 512), (128, 64, 256), (512, 128, 128))
+# phase 46a's check of the card's training: SSG at dropout 0 from seed 0's
+# init, the loss of each of its first steps on the card against an
+# in-process CPU run of the same steps, within the bands that bound two
+# float32 runs apart (bench/convergence_parity.py's FLOAT32_LOSS_BANDS)
+CONV_LOSS_BANDS = conv_bench.FLOAT32_LOSS_BANDS
+CONV_STEPS = len(CONV_LOSS_BANDS)
+# phase 46b: the sweep's rows at full width, B = 4 x 4096
+EVA_ROWS = ("pointnet2_ssg", "dgcnn_k32", "ptv3_win_bf16")
+EVA_ITERS, EVA_TRAIN_ITERS = 10, 5
+
+
+def compare_convergence_kernels(dev: torch.device, res: Results, rng) -> None:
+    """K1-K4 at the convergence run's SA and FP levels (B = 4, N = 512) and
+    K3b and K4b at its train step's, each against its plain version as at
+    SSG's shapes, timed, before phase 46a runs them."""
+
+    def cloud(b, n):
+        return torch.from_numpy(rng.uniform(size=(b, n, 3)).astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    for n, s, k, r, c in CONV_LEVELS:
+        xyz = cloud(B, n)
+        centers = xyz[:, :s].contiguous()
+        check_fps(res, f"B={B} {n}->{s}", xyz, s, start, (CONV,), timed=True)
+        check_ball(res, f"B={B} N={n} S={s} K={k} r={r}", ((r, k),), xyz, centers, (CONV,),
+                   timed=True)
+        idx = grouping.ball_query_cuda(r, k, xyz, centers)
+        check_group(res, f"B={B} N={n} S={s} K={k} C={c}", xyz, centers, idx,
+                    normal(B, n, c), (CONV,), timed=True)
+        if c > 3:  # the levels whose input features need a gradient
+            check_group_bwd(res, f"g [{B},{s},{k},{3 + c}] -> [{B},{n},{c}]",
+                            normal(B, s, k, 3 + c), idx, n, 3, 3 + c, (CONV_TRAIN,), timed=True)
+    for n, s, d in CONV_INTERP:
+        dst = cloud(B, n)
+        src = dst[:, :s].contiguous()
+        check_interp(res, f"B={B} N={n} S={s} D={d} k=3", dst, src, normal(B, s, d), 3, (CONV,),
+                     timed=True)
+        idx, w = kept_selection(dst, src, 3)
+        check_interp_bwd(res, f"g [{B},{n},{d}] -> [{B},{s},{d}] k=3", normal(B, n, d), idx, w,
+                         s, (CONV_TRAIN,), timed=True)
+    for name in FORWARD_KERNELS:
+        res.print_sums(name, (CONV,))
+    for name in SSG_BACKWARD_KERNELS:
+        res.print_sums(name, (CONV_TRAIN,))
+
+
+def check_convergence(dev: torch.device) -> tuple:
+    """Phase 46a: bench/convergence_parity.py on the card at the JAX
+    module's configuration (25 steps x 6 epochs of SSG at B = 4 x 512,
+    seeds 0-2). The launches of one train step and of one eval forward are
+    counted alone; seed 0 runs twice and must give the same curve, losses
+    and final parameters bit for bit, its launches exactly 150 steps' and 24
+    eval forwards'. Then seed 0 at dropout 0 on the card and on the CPU:
+    the losses of their first CONV_STEPS steps within CONV_LOSS_BANDS ->
+    (one forward's launches, one step's, a run's)."""
+    train, val = conv_bench.make_data(0)
+    model, step = conv_bench.make_port(0, "cuda")
+    _kernels.reset_launch_counts()
+    step(*train[0])
+    torch.cuda.synchronize()
+    step_counts = _kernels.launch_counts()
+    _kernels.reset_launch_counts()
+    conv_bench.evaluate(model, val[:1])
+    fwd_counts = _kernels.launch_counts()
+    del model, step
+    steps = conv_bench.EPOCHS * conv_bench.STEPS_PER_EPOCH
+    forwards = conv_bench.EPOCHS * len(val)
+    want = {k: steps * step_counts[k] + forwards * fwd_counts[k] for k in step_counts}
+    runs, walls = [], []
+    for _ in range(2):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs.append(conv_bench.train_port(train, val, 0, device="cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = _kernels.launch_counts()
+        if counts != want:
+            raise AssertionError(f"convergence: launches {counts}, want {want} (a step "
+                                 f"{step_counts}, a forward {fwd_counts})")
+    first, second = runs
+    a, b = first["model"].state_dict(), second["model"].state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if first["curve"] != second["curve"] or first["losses"] != second["losses"] or differ:
+        raise AssertionError(f"convergence: seed 0 twice differs (curves {first['curve']}, "
+                             f"{second['curve']}; {len(differ)} tensors differ)")
+    curves = {0: first["curve"]}
+    for seed in conv_bench.SEEDS[1:]:
+        t0 = time.perf_counter()
+        curves[seed] = conv_bench.run_port(*conv_bench.make_data(seed), seed, device="cuda")
+        walls.append(time.perf_counter() - t0)
+    for seed, curve in curves.items():
+        if not all(0.0 <= x <= 1.0 for x in curve) or not np.isfinite(first["losses"]).all():
+            raise AssertionError(f"convergence seed {seed}: curve {curve}")
+        print(f"convergence seed {seed}: card mIoU curve {curve}", flush=True)
+    final = [c[-1] for c in curves.values()]
+    print(f"convergence: seed 0 twice the same bits (curve, {steps} losses, "
+          f"{len(a)} tensors); card walls {', '.join(f'{w:.2f}' for w in walls)} s (seed 0 "
+          f"twice, seeds 1, 2; {steps} steps and {forwards} eval forwards each); final mIoU "
+          f"{np.mean(final):.4f} +- {np.std(final):.4f} over seeds {list(curves)}; launches "
+          f"a step {step_counts}, a forward {fwd_counts}", flush=True)
+    # the card's steps against the CPU's from the same init, dropout 0; the
+    # CPU at its default threads and at 1, whose gap is the CPU's own
+    def steps(device):
+        t0 = time.perf_counter()
+        losses = conv_bench.train_port(train, val[:1], 0, device=device, epochs=1,
+                                       steps_per_epoch=CONV_STEPS, dropout_rate=0.0)["losses"]
+        return losses, time.perf_counter() - t0
+
+    card, card_s = steps("cuda")
+    threads = torch.get_num_threads()
+    cpu, cpu_s = steps("cpu")
+    torch.set_num_threads(1)
+    try:
+        cpu1, _ = steps("cpu")
+    finally:
+        torch.set_num_threads(threads)
+
+    def rel(xs, ys):
+        return [abs(x - y) / abs(y) for x, y in zip(xs, ys)]
+
+    gaps = rel(card, cpu)
+    print(f"convergence: seed 0 at dropout 0, the losses of {CONV_STEPS} steps on the card "
+          f"{card} and on the CPU ({threads} threads) {cpu}: relative gaps "
+          f"{' '.join(f'{g:.2e}' for g in gaps)} (bands "
+          f"{' '.join(f'{x:.0e}' for x in CONV_LOSS_BANDS)}); the CPU at 1 thread against "
+          f"{threads}: {' '.join(f'{g:.2e}' for g in rel(cpu1, cpu))}; card {card_s:.2f} s, "
+          f"CPU {cpu_s:.2f} s", flush=True)
+    over = [(t + 1, g) for t, (g, band) in enumerate(zip(gaps, CONV_LOSS_BANDS)) if g > band]
+    if over:
+        raise AssertionError(f"convergence: card and CPU losses part at (step, gap) {over}")
+    return fwd_counts, step_counts, counts
+
+
+def run_sweep(dev: torch.device, rows, out_dir: Path, card: str) -> dict:
+    """Phase 46b and ``--eva``: bench/eva_model.py's evaluate_model over
+    ``rows`` of DEFAULT_ZOO on the card at full width, B = 4 x 4096, then
+    its save_results_csv. Each row's launches are counted around one
+    forward and one train step alone and around its evaluate_model, whose
+    launches must be exactly its forwards' and train steps'. Prints the
+    rows and the CSV under the card's name and power limit; then no row
+    may carry an error, device_peak_mb must be > 0 and params must equal
+    the same model built on the CPU -> {row: (a forward's launches, a
+    step's, the row's)}."""
+    counts, got = {}, []
+    t0 = time.perf_counter()
+    for name in rows:
+        kwargs = eva_bench.DEFAULT_ZOO[name]
+        try:
+            model, batch, step, _ = eva_bench.build_row(name, model_kwargs=kwargs,
+                                                        device="cuda")
+            with torch.inference_mode():
+                _kernels.reset_launch_counts()
+                model(batch["points"], batch["colors"])
+                torch.cuda.synchronize()
+                fwd = _kernels.launch_counts()
+            _kernels.reset_launch_counts()
+            step()
+            torch.cuda.synchronize()
+            one_step = _kernels.launch_counts()
+            del model, batch, step
+            torch.cuda.empty_cache()
+            _kernels.reset_launch_counts()
+            row = eva_bench.evaluate_model(name, model_kwargs=kwargs, device="cuda",
+                                           iters=EVA_ITERS, train_iters=EVA_TRAIN_ITERS)
+            torch.cuda.synchronize()
+            counts[name] = fwd, one_step, _kernels.launch_counts()
+        except Exception as e:  # the sweep goes on, as run_benchmark's
+            row = {"model": name, "error": str(e)[:200]}
+        got.append(row)
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    eva_bench.save_results_csv(got, str(out_dir / "model_performance_comparison.csv"))
+    print(card)
+    for row in got:
+        launches = counts.get(row["model"], ({},) * 3)[2]
+        print(f"eva {json.dumps(row)} launches { {k: n for k, n in launches.items() if n} }",
+              flush=True)
+    print((out_dir / "model_performance_comparison.csv").read_text(), end="", flush=True)
+    print(f"eva: {len(got)} rows in {wall:.1f} s", flush=True)
+    bad = [row for row in got if "error" in row]
+    if bad:
+        raise AssertionError(f"eva: rows failed: {bad}")
+    calls = eva_bench.WARMUP + EVA_ITERS + 1, eva_bench.WARMUP + EVA_TRAIN_ITERS
+    for row in got:
+        kwargs = dict(eva_bench.DEFAULT_ZOO[row["model"]])
+        name = kwargs.pop("_model", row["model"])
+        kwargs.pop("_note", None)
+        if "_feature_dim" in kwargs:
+            kwargs["in_features"] = kwargs.pop("_feature_dim")
+        cpu_params = sum(p.numel() for p in get_model(name, NUM_CLASSES, **kwargs).parameters())
+        if row["params"] != cpu_params or not row.get("device_peak_mb", 0) > 0:
+            raise AssertionError(f"eva {row['model']}: params {row['params']} (CPU build "
+                                 f"{cpu_params}), device_peak_mb {row.get('device_peak_mb')}")
+        fwd, one_step, total = counts[row["model"]]
+        want = {k: calls[0] * fwd[k] + calls[1] * one_step[k] for k in fwd}
+        if total != want:
+            raise AssertionError(f"eva {row['model']}: launches {total}, want {want} (a "
+                                 f"forward {fwd}, a step {one_step})")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -6717,6 +7008,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
     print(card)
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f"[wall] {what}: {time.perf_counter() - t_start:.1f} s since the build began",
+              flush=True)
+
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
@@ -6950,6 +7247,11 @@ def main() -> None:
         # phases 1, 2 and the entry points' host time, no result line
         entry_point_host_us(dev)
         return
+    if sys.argv[1:] == ["--eva"]:
+        # phases 1, 2 and bench/eva_model.py's whole DEFAULT_ZOO on the card,
+        # the CSV in results_torch/, no result line
+        run_sweep(dev, tuple(eva_bench.DEFAULT_ZOO), ROOT / "results_torch", card)
+        return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     res = compare_kernels(dev)
@@ -6960,6 +7262,9 @@ def main() -> None:
     compare_attention_bf16(dev, res)
     # 3f. K7 and K7b, DGCNN's restructured EdgeConv
     compare_edge_kernels(dev, res, np.random.default_rng(SEED + 3))
+    # 3g. K1-K4, K3b and K4b at the convergence run's shapes (phase 46a)
+    compare_convergence_kernels(dev, res, np.random.default_rng(SEED + 46))
+    mark("phases 3-3g")
 
     # 4. the SSG forward on the card against the CPU
     data_dir = ROOT / "build" / "chip_smoke_data"
@@ -7029,6 +7334,7 @@ def main() -> None:
 
         # 6. one train step on the card against the CPU
         step_counts = check_ssg_train_step(ds, dev)
+        mark("phases 4-6")
 
         # 7. train through the CLI
         train_counts, exp_dir = train_through_cli(
@@ -7043,6 +7349,7 @@ def main() -> None:
         finally:
             shutil.rmtree(exp_dir, ignore_errors=True)
         del bristrunet
+        mark("phases 7-9")
 
         # 10. ptv3_pooled at the benched configuration; 11. flat ptv3 at its
         # default width; 12. ptv3_pooled served through the inference CLI
@@ -7050,10 +7357,13 @@ def main() -> None:
         forward_against_cpu("ptv3_pooled forward",
                             seeded_model("ptv3_pooled", SEED + 10, **POOLED_BENCHED), ds, dev,
                             pooled_counts)
-        flat_counts = only(flash_attn=8)
-        forward_against_cpu("ptv3 forward", seeded_model("ptv3", SEED + 11), ds, dev,
+        flat_counts = only(flash_attn=FLAT_DEPTH)
+        forward_against_cpu(f"ptv3 forward ({FLAT_DEPTH} of 8 blocks)",
+                            seeded_model("ptv3", SEED + 11, depth=FLAT_DEPTH), ds, dev,
                             flat_counts, profile=False)
+        time_flat_forward(ds, dev)
         by_path |= serve_ptv3_pooled_through_cli(data_dir, len(ds), dev)
+        mark("phases 10-12")
 
         # 13. one ptv3_pooled train step at the benched configuration against
         # the CPU; 14. ptv3_pooled trained through the training CLI and served
@@ -7065,16 +7375,18 @@ def main() -> None:
             seeded_model("ptv3_pooled", SEED + 13, **no_dropout, **POOLED_BENCHED), ds, dev,
             pooled_step_counts)
         by_path |= train_ptv3_through_cli(data_dir, len(ds), dev)
-        flat_step_counts = attention_launches(8)
+        flat_step_counts = attention_launches(FLAT_DEPTH)
         check_attention_train_step(
-            "ptv3 train step", seeded_model("ptv3", SEED + 15, **no_dropout), ds, dev,
-            flat_step_counts)
+            "ptv3 train step", seeded_model("ptv3", SEED + 15, depth=FLAT_DEPTH, **no_dropout),
+            ds, dev, flat_step_counts)
+        mark("phases 13-15")
 
         # 16. one BriStruNet train step against the CPU; 17. BriStruNet
         # trained through the training CLI with its recipe and served from
         # the checkpoint it wrote
         bristrunet_step_counts = check_bristrunet_train_step(ds, dev)
         by_path |= train_bristrunet_through_cli(data_dir, len(ds), dev, bristrunet_step_counts)
+        mark("phases 16-17")
 
         # 18. the DGCNN and DGCNNGlobal forwards against the CPU; 19. one DGCNN
         # train step against the CPU; 20. configs/train_dgcnn.yaml through the
@@ -7084,8 +7396,10 @@ def main() -> None:
         dgcnn_step_counts = check_dgcnn_train_step(ds, dev)
         by_path[DGCNN_TRAIN] = dgcnn_step_counts
         by_path |= train_dgcnn_through_cli(data_dir, len(ds), dev)
+        mark("phases 18-20")
         # 45. both EdgeConv forms of dgcnn and dgcnn_global side by side
         compare_edgeconv_forms(ds, dev)
+        mark("phase 45")
 
         # 21. the pointnet2_msg forward with 9 channels; 22. the sem_seg and
         # classifier forwards; 23. one pointnet2_msg train step against the
@@ -7093,6 +7407,7 @@ def main() -> None:
         # served from the checkpoint it wrote
         msg_passes, msg_by_path = run_msg_family_phases(ds, data_dir, dev)
         by_path |= msg_by_path
+        mark("phases 21-24")
 
         # 25. ptv3_moe: the forward and a train step against the CPU, then
         # trained at its defaults through the training CLI and served
@@ -7107,6 +7422,7 @@ def main() -> None:
                 data_dir, len(ds), dev)
         finally:
             shutil.rmtree(moe_exp, ignore_errors=True)
+        mark("phase 25")
 
         # 26. the options of ptv3 and ptv3_pooled: bf16 forwards, remat, a
         # bf16-stream train step
@@ -7122,26 +7438,31 @@ def main() -> None:
             dict(POOLED_BENCHED, compute_dtype="bfloat16"), ds, dev, 12, SEED + 32)
         by_path["ptv3_pooled_remat_train_step"] = check_remat_exact(ds, dev)
         by_path["ptv3_bf16_train_step"] = check_bf16_train_step(ds, dev)
+        mark("phase 26")
 
         # 27. configs/train_ptv3_big_prod.yaml through the training CLI
         prod_by_path = train_prod_through_cli(data_dir, dev)
         prod_counts = prod_by_path.pop(PROD_TRAIN)
         by_path |= prod_by_path
+        mark("phase 27")
 
         # 28. the PointNet family's forwards; 29. a pointnet train step;
         # 30. configs/train_pointnet.yaml through the training CLI, served
         by_path |= check_pointnet_phases(ds, data_dir, dev)
+        mark("phases 28-30")
 
         # 31. the enhanced_pointnet2_ssg forwards; 32. its train steps; 33.
         # served through the inference CLI
         enhanced_passes, enhanced_by_path = check_enhanced_phases(ds, data_dir, dev)
         by_path |= enhanced_passes | enhanced_by_path
+        mark("phases 31-33")
 
         # 34. the forwards of randlanet, randlanet_ss, spg and spt; 35. a
         # train step of each; 36. configs/train_randlanet.yaml through the
         # training CLI, served; 37. spg and spt timed at batch 16 and served
         zoo_passes, zoo_by_path = run_zoo_phases(ds, data_dir, dev)
         by_path |= zoo_by_path
+        mark("phases 34-37")
 
         # 38. K = 4 train steps at batch 16 as one CUDA graph replay against
         # 4 eager steps: SSG, the pointnet2_msg and BriStruNet recipes and the
@@ -7149,20 +7470,24 @@ def main() -> None:
         # steps_per_dispatch 4 through the training CLI
         run_graph_phases(ds, dev)
         by_path["msg_multistep_train_cli"] = train_multistep_through_cli(data_dir, len(ds), dev)
+        mark("phases 38-39")
 
         # 42. reference checkpoints imported and served, six programs
         # exported and run, debug_module, the superpoint host modules
         by_path |= run_tool_phases(ds, data_dir, dev)
+        mark("phase 42")
 
         # 43. the parallel layer: dp at a world of one over NCCL (and as a
         # CUDA-graph replay), FSDP2 and tp at one rank, two gloo ranks on
         # this card
         by_path |= run_parallel_phases(ds, dev, card)
+        mark("phase 43")
 
         # 44. the parallel layer, part 2: ring attention, sp, pp, ep and the
         # vote over a mesh, two gloo ranks on this card
         par2_by_path, sp_ring_counts = run_parallel2_phases(ds, dev, card)
         by_path |= par2_by_path
+        mark("phase 44")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -7170,6 +7495,20 @@ def main() -> None:
     # path; 41. examples/full_pipeline.py: train, vote, export, measure
     measure_counts = check_measurement_chain(dev, res)
     by_path["full_pipeline"] = run_full_pipeline(dev)
+    mark("phases 40-41")
+
+    # 46a. bench/convergence_parity.py on the card, seeds 0-2, seed 0 twice,
+    # its first steps at dropout 0 against the CPU's; 46b.
+    # bench/eva_model.py's sweep over three rows at full width
+    conv_fwd, conv_step, by_path["convergence_seed0"] = check_convergence(dev)
+    mark("phase 46a")
+    eva_dir = ROOT / "build" / "chip_smoke_eva"
+    try:
+        eva_counts = run_sweep(dev, EVA_ROWS, eva_dir, card)
+    finally:
+        shutil.rmtree(eva_dir, ignore_errors=True)
+    by_path |= {f"eva_{name}": counts[2] for name, counts in eva_counts.items()}
+    mark("phase 46b")
     # Per kernel and path: the launches of one pass at B=4 (phases 4, 6, 8,
     # 10, 11, 13, 15, 16 and 18) beside the times and bound summed over
     # exactly those launches' shapes (phases 3, 3b, 3c and 3d). The row's own
@@ -7186,7 +7525,11 @@ def main() -> None:
                    DGCNN_TRAIN: dgcnn_step_counts, **msg_passes,
                    PROD_TRAIN: prod_counts, PTV3_BF16: ptv3_bf16_counts,
                    POOLED_BF16: pooled_bf16_counts, **zoo_passes, **measure_counts,
-                   SP_RING_TRAIN: sp_ring_counts}
+                   SP_RING_TRAIN: sp_ring_counts, CONV: conv_fwd, CONV_TRAIN: conv_step,
+                   DGCNN_K32: eva_counts["dgcnn_k32"][0],
+                   DGCNN_K32_TRAIN: eva_counts["dgcnn_k32"][1],
+                   PTV3_WIN_BF16: eva_counts["ptv3_win_bf16"][0],
+                   PTV3_WIN_BF16_TRAIN: eva_counts["ptv3_win_bf16"][1]}
     serves = {"ssg_serve_blocks": serve_counts, "ssg_train_cli": train_counts, **by_path}
     kernels = []
     for k in _kernels.KERNELS:

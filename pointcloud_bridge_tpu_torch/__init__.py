@@ -28,6 +28,8 @@ Layout:
                checkpoints, experiment logging
     infer/     block inference, whole-scene vote inference, metric CSVs,
                figures, predicted-LAS export
+    bench/     the cross-model speed and size sweep (eva_model.py) and the
+               from-scratch convergence run of SSG (convergence_parity.py)
     train_cli.py, infer_cli.py  the entry points
 """
 

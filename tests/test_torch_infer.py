@@ -478,7 +478,8 @@ def test_port_imports_no_jax():
         "for want in ('utils.torch_import', 'utils.export', 'tools.import_ckpt',\n"
         "             'tools.debug_module', 'data.superpoints', 'data.completion', 'ops.avs',\n"
         "             'parallel.mesh', 'parallel.train_step', 'parallel.sharding',\n"
-        "             'parallel.fsdp', 'parallel.engine', 'utils.collectives'):\n"
+        "             'parallel.fsdp', 'parallel.engine', 'utils.collectives',\n"
+        "             'bench.eva_model', 'bench.convergence_parity'):\n"
         "    assert pkg.__name__ + '.' + want in names, want\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
